@@ -9,20 +9,33 @@ which raises on failure:
 
 1. build every CUDA kernel from ``xnode_wan_tpu_torch/csrc`` (one ``nvcc``
    per source, in parallel) and print the build time and ptxas usage;
-2. the slice's main path at the d=5 width of ``configs/cube_pde.yaml``
-   with the reference trainer's checkpoint: serve 65,536 points with
-   ``evaluate_points`` and score the solution on 4,000 fresh interior
-   paths with ``u_forward_fused``; every kernel launch counter is zeroed
-   just before and read just after, and each kernel must have launched;
-   the rel-L2 error against the exact solution must stay under 0.0125
-   for the served points, the kernel path forward and the plain scan;
+2. the main paths at the d=5 width of ``configs/cube_pde.yaml``, each
+   with every kernel launch counter zeroed just before and read just
+   after:
+
+   a. serving and scoring the reference trainer's checkpoint: 65,536
+      points through ``evaluate_points`` and 4,000 fresh interior paths
+      through ``u_forward_fused``; each kernel must have launched, and the
+      rel-L2 error must stay under 0.0125 for the served points, the
+      kernel path forward and the plain scan;
+   b. training: ``NODEWANSolver.train_until(0.01, iterations)`` from
+      ``seed`` 0 on ``Ex4_1_funcs``, full width and depth; it must reach
+      rel-L2 < 1%, with kernels #2 and #3 launched once per outer
+      iteration and #4 and #5 ``n1`` times;
+
 3. each kernel against its plain PyTorch version on the same card
-   inputs, all four RK methods, within ``rtol=2e-4, atol=2e-5``;
+   inputs: #1 and #2 within ``rtol=2e-4, atol=2e-5``; #3 / #4 (u, du, hs,
+   hts) and #5 (the packed weight gradient, against the plain
+   hand-derived adjoint) on all four RK methods, a random 70% mask, rk4
+   with n_sub 2 and Fourier features, and the autograd function's weight
+   gradients against ``torch.autograd.grad`` through the plain forward;
 4. CUDA-event times (median of 20 after warm-up) of each kernel and its
    plain version at the main path's shapes, beside the bound the card's
    published peaks put on the same work;
-5. CUDA-event times (median of 10) of the two entry points as a user
-   calls them, and the share of each that its kernel takes.
+5. CUDA-event times (median of 10) of the two serving entry points and
+   the share of each that its kernel takes, and of one training outer
+   step with the share of each kernel, of the plain boundary scan's
+   forward and backward, and of the adversary side.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -44,7 +57,13 @@ CKPT = os.path.join(ROOT, "benchmarks", "ref_run_nr4000",
                     "best_model_weights_NODE.pth")
 CONFIG = os.path.join(ROOT, "configs", "cube_pde.yaml")
 RTOL, ATOL = 2e-4, 2e-5       # kernel against plain; tests/test_pallas.py:33
+# Tangents, stored tangent states and weight gradients are sums of many
+# terms of both signs (the gradient: over 20,000 path-directions and 20
+# intervals), taken in another order by the kernels; their error is held
+# against the largest magnitude of each tensor instead of elementwise.
+SCALED_RTOL = 2e-4
 REL_L2_LIMIT = 0.0125         # JAX on the CPU gives 0.0102-0.0104 here
+TRAIN_TOL = 0.01              # the paper's stop (configs/Ex4_1_funcs.py)
 SERVE_POINTS = 65536
 SEED = 0
 # NVIDIA H100 SXM data sheet: FP32 without tensor cores, HBM3 rate.
@@ -93,18 +112,74 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return err
 
 
+def compare_scaled(name: str, got, want, sizes=None) -> float:
+    """``max |got - want| <= SCALED_RTOL * max |want|`` for each segment
+    (``sizes`` splits a packed vector into its weight tensors)."""
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)} or non-finite output")
+    pairs = (zip(torch.split(got, sizes), torch.split(want, sizes))
+             if sizes else [(got, want)])
+    worst, err = 0.0, 0.0
+    for g, w in pairs:
+        e = float((g - w).abs().max())
+        scale = float(w.abs().max())
+        rel = e / scale if scale > 0 else e
+        err, worst = max(err, e), max(worst, rel)
+        if not rel <= SCALED_RTOL:
+            raise AssertionError(f"{name}: max |kernel - plain| {e:.3e} is "
+                                 f"{rel:.3e} of max |plain| {scale:.3e} "
+                                 f"(limit {SCALED_RTOL})")
+    print(f"  {name}: max |kernel - plain| = {err:.3e}, at most "
+          f"{worst:.3e} of the tensor's largest value")
+    return err
+
+
+def path_work(net, steppers, N, L, d, n_sub, method):
+    """FLOPs and bytes of kernels #2-#5 at these shapes: each input read
+    once, each output written once; the multiply-adds of the joint
+    primal + d-tangent network (the tangent of field layer 0 skips the
+    time column, which has no tangent)."""
+    evals = steppers.EVALS_PER_STEP[method]
+    once, per_eval = steppers.field_macs(net)
+    lift_read = steppers.lift_readout_macs(net)
+    tan_eval = per_eval - net.Hh
+    steps = L * n_sub * evals
+    primal = N * 2.0 * (lift_read + once + steps * per_eval)
+    joint = N * 2.0 * ((1 + d) * (lift_read + once)
+                       + steps * (per_eval + d * tan_eval))
+    n_w = 4.0 * sum(a.numel() for a in net.flat)
+    F = net.F
+    inputs = 4.0 * N * (2 * L + F + d * F + 1 + d) + n_w
+    outputs = 4.0 * N * L * (1 + d)
+    states = 4.0 * L * N * net.H * (1 + d)
+    return {
+        "xnode_train": (primal, 4.0 * N * (2 * L + F + 1) + n_w
+                        + 4.0 * N * L),
+        "xnode_udu_fwd": (joint, inputs + outputs),
+        "xnode_udu_fwd_store": (joint, inputs + outputs + states),
+        # recompute of each interval plus its reverse walk: the reverse of
+        # a linear layer is two products (input cotangent, weight
+        # gradient), so about 3x the forward's operations
+        "xnode_udu_bwd": (3.0 * joint, inputs + states + outputs + n_w),
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from xnode_wan_tpu_torch import (Hypercube, apply_xnode, evaluate_points,
-                                     init_xnode, load_params, load_problem,
-                                     load_reference_state_dict, rel_err,
-                                     u_forward_fused)
+    from xnode_wan_tpu_torch import (Hypercube, NODEWANSolver, apply_xnode,
+                                     evaluate_points, init_xnode, load_params,
+                                     load_problem, load_reference_state_dict,
+                                     rel_err, u_forward_fused)
+    from xnode_wan_tpu_torch.models.xnode import spatial_features
+    from xnode_wan_tpu_torch.ops import weak_form
     from xnode_wan_tpu_torch.ops.kernels import _build, steppers
     from xnode_wan_tpu_torch.ops.kernels import xnode_eval, xnode_train
+    from xnode_wan_tpu_torch.ops.kernels.steppers import FlatNet
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -134,9 +209,12 @@ def main() -> int:
     pts[:, 1:] = cube.bot + pts[:, 1:] * (cube.top - cube.bot)
     pts[:, 0] = cfg.T0 + pts[:, 0] * (cfg.T - cfg.T0)
     batch = cube.interior(gen, cfg.N_r)
-    kernels = {"xnode_eval": xnode_eval.KERNEL, "xnode_train": xnode_train.KERNEL}
+    kernels = {"xnode_eval": xnode_eval.KERNEL, "xnode_train": xnode_train.KERNEL,
+               "xnode_udu_fwd": xnode_train.FWD_KERNEL,
+               "xnode_udu_fwd_store": xnode_train.FWD_STORE_KERNEL,
+               "xnode_udu_bwd": xnode_train.BWD_KERNEL}
 
-    # 2. the slice's main path -------------------------------------------
+    # 2a. serving and scoring ---------------------------------------------
     for k in kernels.values():
         k.launches = 0
     with torch.no_grad():
@@ -149,9 +227,9 @@ def main() -> int:
         torch.cuda.synchronize()
         t_metric = time.perf_counter() - t
     launches = {n: k.launches for n, k in kernels.items()}
-    print(f"main path launches: {launches}")
-    for n, c in launches.items():
-        if c < 1:
+    print(f"serving and scoring launches: {launches}")
+    for n in ("xnode_eval", "xnode_train"):
+        if launches[n] < 1:
             raise AssertionError(f"kernel {n} was not launched on the main path")
     ones = torch.ones((SERVE_POINTS,), dtype=torch.bool, device=dev)
     with torch.no_grad():
@@ -177,6 +255,32 @@ def main() -> int:
     scan_gap = float((u_paths - u_scan).abs().max())
     print(f"  kernel path forward vs plain scan: max abs diff {scan_gap:.3e}")
     torch.testing.assert_close(u_paths, u_scan, rtol=RTOL, atol=ATOL)
+    serve_launches = launches
+
+    # 2b. training ------------------------------------------------------
+    solver = NODEWANSolver(cfg, problem)
+    for k in kernels.values():
+        k.launches = 0
+    hist = solver.train_until(TRAIN_TOL, cfg.iterations)
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in kernels.items()}
+    iters = hist["iterations_run"]
+    print(f"training: {iters} outer iterations to rel-L2 "
+          f"{hist['rel_err_final']:.6f} in {hist['wall_train_s']:.3f} s "
+          f"(train_until wall clock, {card}); launches {launches}")
+    want = {"xnode_eval": 0, "xnode_train": iters, "xnode_udu_fwd": iters,
+            "xnode_udu_fwd_store": cfg.n1 * iters,
+            "xnode_udu_bwd": cfg.n1 * iters}
+    if launches != want:
+        raise AssertionError(f"training launches {launches}, expected {want}")
+    if not hist["rel_err_final"] < TRAIN_TOL:
+        raise AssertionError(f"training stopped at rel-L2 "
+                             f"{hist['rel_err_final']} >= {TRAIN_TOL} after "
+                             f"{iters} iterations")
+    if not all(map(lambda v: v == v, hist["loss_u"])):
+        raise AssertionError("training produced a non-finite loss_u")
+    launches["xnode_eval"] = serve_launches["xnode_eval"]
+    trained = solver.state.u_params
 
     # 3. each kernel against its plain version on the card -----------------
     net = xnode_train.flat_net(model)
@@ -187,7 +291,7 @@ def main() -> int:
     seed = (problem.h(torch.cat([ts[:, None], x_pts], dim=-1))
             / cfg.u_scale_eff).contiguous()
     eval_args = (x_pts, t_pts, ts, seed)
-    errs = {"xnode_eval": 0.0, "xnode_train": 0.0}
+    errs = {n: 0.0 for n in kernels}
     print("kernel vs plain, f32:")
     with torch.no_grad():
         for method in steppers.FUSED_KERNEL_METHODS:
@@ -198,7 +302,6 @@ def main() -> int:
         cfg_ff = cfg.replace(fourier_features=1)
         model_ff = init_xnode(cfg_ff, torch.Generator(device=dev).manual_seed(1))
         net_ff = xnode_train.flat_net(model_ff)
-        from xnode_wan_tpu_torch.models.xnode import spatial_features
         ff_args = (spatial_features(x_pts, 1).contiguous(), t_pts, ts, seed)
         errs["xnode_eval"] = max(errs["xnode_eval"], compare(
             "xnode_eval midpoint fourier_features=1 (random weights)",
@@ -221,10 +324,81 @@ def main() -> int:
                 xnode_train.path_forward_cuda(net, *args, n_sub, method),
                 xnode_train.path_forward_plain(net, *args, n_sub, method)))
 
+        # kernels #3, #4, #5 with the trained weights, and Fourier features
+        # with random ones; seeded random readout cotangents
+        tan_inputs = [a.contiguous() for a in xnode_train.path_tangent_inputs(
+            batch, problem, cfg)]
+        tan_inputs_ff = [a.contiguous() for a in xnode_train.path_tangent_inputs(
+            batch, problem, cfg_ff)]
+        net_tr = xnode_train.flat_net(trained)
+        gcases = [(m, net_tr, tan_inputs, batch.mask, cfg.n_sub)
+                  for m in steppers.FUSED_KERNEL_METHODS]
+        gcases += [("midpoint", net_tr, tan_inputs, mask, cfg.n_sub),
+                   ("rk4", net_tr, tan_inputs, mask, 2),
+                   ("midpoint", net_ff, tan_inputs_ff, batch.mask, cfg.n_sub)]
+        d, N, L = cfg.dim, cfg.N_r, cfg.N_t
+        for method, gnet, inputs, msk, n_sub in gcases:
+            t0, dt = [a.contiguous() for a in xnode_train._prep_intervals(
+                batch.times, msk, batch.t_start, n_sub)]
+            args = (t0, dt, *inputs)
+            label = (f"{method} n_sub={n_sub} "
+                     f"{'interior' if msk is batch.mask else 'random mask'}"
+                     f"{' fourier_features=1' if gnet is net_ff else ''}")
+            gpacked = gnet.packed()
+            want = xnode_train.u_du_fwd_plain(gnet, *args, n_sub, method,
+                                              store=True)
+            got = xnode_train.u_du_fwd_cuda(gnet, gpacked, *args, n_sub,
+                                            method)
+            errs["xnode_udu_fwd"] = max(
+                errs["xnode_udu_fwd"],
+                compare(f"xnode_udu_fwd u {label}", got[0], want[0]),
+                compare_scaled(f"xnode_udu_fwd du {label}", got[1], want[1]))
+            got = xnode_train.u_du_fwd_cuda(gnet, gpacked, *args, n_sub,
+                                            method, store=True)
+            errs["xnode_udu_fwd_store"] = max(
+                errs["xnode_udu_fwd_store"],
+                compare(f"xnode_udu_fwd_store u {label}", got[0], want[0]),
+                *(compare_scaled(f"xnode_udu_fwd_store {n} {label}", g, w)
+                  for n, g, w in zip(("du", "hs", "hts"), got[1:], want[1:])))
+            cg = torch.Generator(device=dev).manual_seed(7)
+            ub = torch.randn((N, L), generator=cg, device=dev)
+            dub = torch.randn((N, L, d), generator=cg, device=dev)
+            sizes = [a.numel() for a in gnet.flat]
+            errs["xnode_udu_bwd"] = max(errs["xnode_udu_bwd"], compare_scaled(
+                f"xnode_udu_bwd {label}",
+                xnode_train.u_du_bwd_cuda(gnet, gpacked, *args, *want[2:], ub,
+                                          dub, n_sub, method),
+                xnode_train.u_du_bwd_plain(gnet, *args, *want[2:], ub, dub,
+                                           n_sub, method), sizes))
+
+    # the autograd function's weight gradients against autograd through
+    # the plain forward, on the main path's batch with the trained weights
+    cu = torch.randn((N, L), generator=gen, device=dev)
+    cd = torch.randn((N, L, d), generator=gen, device=dev)
+
+    def contraction(u, du):
+        return (u * cu).sum() + (du * cd).sum() + (torch.tanh(u) * du[..., 0]).sum()
+
+    params = list(trained.parameters())
+    g_fn = torch.autograd.grad(contraction(*xnode_train.fused_from_batch(
+        trained, batch, problem, cfg)), params)
+    leaves = [a.clone().requires_grad_(True) for a in net_tr.flat]
+    t0, dt = xnode_train._prep_intervals(batch.times, batch.mask,
+                                         batch.t_start, cfg.n_sub)
+    u_p, du_p = xnode_train.u_du_fwd_plain(
+        FlatNet(leaves, net_tr.n_lift, net_tr.n_field), t0, dt, *tan_inputs,
+        cfg.n_sub, cfg.solver)
+    g_ad = torch.autograd.grad(contraction(u_p, du_p), leaves)
+    compare_scaled("UDuFused.backward vs autograd through the plain forward",
+                   torch.cat([g.reshape(-1) for g in g_fn]),
+                   torch.cat([g.reshape(-1) for g in g_ad]),
+                   [g.numel() for g in g_ad])
+
     # 4. times at the main path's shapes ------------------------------------
     t0, dt = xnode_train._prep_intervals(batch.times, batch.mask,
                                          batch.t_start, cfg.n_sub)
-    path_args = (t0.contiguous(), dt.contiguous(), xs, path_seed)
+    t0, dt = t0.contiguous(), dt.contiguous()
+    path_args = (t0, dt, xs, path_seed)
     method = cfg.solver
     evals = steppers.EVALS_PER_STEP[method]
     once, per_eval = steppers.field_macs(net)
@@ -234,37 +408,64 @@ def main() -> int:
     def flops_per_path(steps):
         return 2.0 * (lift_read + once + steps * evals * per_eval)
 
-    M, N, L = SERVE_POINTS, cfg.N_r, cfg.N_t
-    work = {
-        "xnode_eval": (M * flops_per_path(k_steps),
-                       4.0 * (M * (net.F + 3) + n_w + M)),
-        "xnode_train": (N * flops_per_path(L * cfg.n_sub),
-                        4.0 * (N * (2 * L + net.F + 1) + n_w + N * L)),
-    }
+    M = SERVE_POINTS
+    work = {"xnode_eval": (M * flops_per_path(k_steps),
+                           4.0 * (M * (net.F + 3) + n_w + M))}
+    work.update(path_work(net_tr, steppers, N, L, d, cfg.n_sub, method))
+    tr_packed = net_tr.packed()
+    gargs = (t0, dt, *tan_inputs)
+    with torch.no_grad():
+        states = xnode_train.u_du_fwd_cuda(net_tr, tr_packed, *gargs,
+                                           cfg.n_sub, method, store=True)[2:]
+    cg = torch.Generator(device=dev).manual_seed(8)
+    ub = torch.randn((N, L), generator=cg, device=dev)
+    dub = torch.randn((N, L, d), generator=cg, device=dev)
     with torch.no_grad():
         timed = {
             "xnode_eval": (
                 lambda: xnode_eval.evaluate_cuda(net, *eval_args, k_steps,
                                                  method, packed=packed),
                 lambda: xnode_eval.evaluate_plain(net, *eval_args, k_steps,
-                                                  method), M, "points"),
+                                                  method)),
             "xnode_train": (
                 lambda: xnode_train.path_forward_cuda(net, *path_args,
                                                       cfg.n_sub, method,
                                                       packed=packed),
                 lambda: xnode_train.path_forward_plain(net, *path_args,
-                                                       cfg.n_sub, method), N,
-                "paths"),
+                                                       cfg.n_sub, method)),
+            "xnode_udu_fwd": (
+                lambda: xnode_train.u_du_fwd_cuda(net_tr, tr_packed, *gargs,
+                                                  cfg.n_sub, method),
+                lambda: xnode_train.u_du_fwd_plain(net_tr, *gargs, cfg.n_sub,
+                                                   method)),
+            "xnode_udu_fwd_store": (
+                lambda: xnode_train.u_du_fwd_cuda(net_tr, tr_packed, *gargs,
+                                                  cfg.n_sub, method, True),
+                lambda: xnode_train.u_du_fwd_plain(net_tr, *gargs, cfg.n_sub,
+                                                   method, True)),
+            "xnode_udu_bwd": (
+                lambda: xnode_train.u_du_bwd_cuda(net_tr, tr_packed, *gargs,
+                                                  *states, ub, dub,
+                                                  cfg.n_sub, method),
+                lambda: xnode_train.u_du_bwd_plain(net_tr, *gargs, *states,
+                                                   ub, dub, cfg.n_sub,
+                                                   method)),
         }
-        rows = []
         meta = {
             "xnode_eval": ("xnode_wan_tpu_torch/csrc/xnode_eval.cu",
                            "xnode_wan_tpu/ops/pallas/xnode_eval.py:60"),
             "xnode_train": ("xnode_wan_tpu_torch/csrc/xnode_train.cu",
                             "xnode_wan_tpu/ops/pallas/xnode_train.py:325"),
+            "xnode_udu_fwd": ("xnode_wan_tpu_torch/csrc/xnode_grad.cu",
+                              "xnode_wan_tpu/ops/pallas/xnode_train.py:241"),
+            "xnode_udu_fwd_store": ("xnode_wan_tpu_torch/csrc/xnode_grad.cu",
+                                    "xnode_wan_tpu/ops/pallas/xnode_train.py:264"),
+            "xnode_udu_bwd": ("xnode_wan_tpu_torch/csrc/xnode_grad.cu",
+                              "xnode_wan_tpu/ops/pallas/xnode_train.py:432"),
         }
+        rows = []
         print(f"times ({card}), median of 20 CUDA-event runs, {method}:")
-        for name, (kern, plain, count, unit) in timed.items():
+        for name, (kern, plain) in timed.items():
             ms = time_ms(kern)
             plain_ms = time_ms(plain)
             bound_ms, bound_by = bound(*work[name])
@@ -272,7 +473,6 @@ def main() -> int:
                   f"bound {1e3 * bound_ms:.2f} us ({bound_by}; "
                   f"{work[name][0] / 1e9:.3f} GFLOP, "
                   f"{work[name][1] / 1e6:.3f} MB), "
-                  f"{count / (ms * 1e-3):.4g} {unit}/s, "
                   f"{work[name][0] / (ms * 1e-3) / 1e12:.3f} TFLOP/s")
             rows.append({
                 "name": name, "route": "cuda", "source": meta[name][0],
@@ -281,10 +481,9 @@ def main() -> int:
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": None,
             })
-
-    # 5. the entry points, steady state ------------------------------------
     kernel_ms = {row["name"]: row["ms"] for row in rows}
 
+    # 5. the entry points, steady state ------------------------------------
     def score():
         return rel_err(u_forward_fused(model, batch, problem, cfg),
                        problem.u_sol(batch.x), batch.mask, cube.V(), cfg.p)
@@ -299,6 +498,44 @@ def main() -> int:
           f"{kernel_ms['xnode_eval'] / serve_ms:.1%} of it); "
           f"u_forward_fused + rel_err {N} paths {score_ms:.4f} ms (kernel "
           f"{kernel_ms['xnode_train'] / score_ms:.1%} of it)")
+
+    # one training outer step and what takes its time (the trained state
+    # takes these extra steps; the launch counts were read above)
+    step_ms = time_ms(lambda: solver._outer_step(), reps=10, warmup=2)
+    sbatch, bbatch = solver._sample(solver.state.generator)
+    state = solver.state
+
+    def bdry_fwd():
+        return weak_form.bdry_loss(apply_xnode, state.u_params, bbatch,
+                                   problem, solver.cfg)
+
+    def bdry_fwd_bwd():
+        torch.autograd.grad(bdry_fwd(), list(state.u_params.parameters()))
+
+    fwd_ms = time_ms(bdry_fwd, reps=10)
+    bdry_bwd_ms = time_ms(bdry_fwd_bwd, reps=10) - fwd_ms
+    vside_ms = time_ms(lambda: solver._losses.v_side(state.v_params, sbatch),
+                       reps=10)
+    per_step = {"xnode_train (#2)": kernel_ms["xnode_train"],
+                "xnode_udu_fwd (#3)": kernel_ms["xnode_udu_fwd"],
+                "xnode_udu_fwd_store (#4)":
+                    cfg.n1 * kernel_ms["xnode_udu_fwd_store"],
+                "xnode_udu_bwd (#5)": cfg.n1 * kernel_ms["xnode_udu_bwd"],
+                "boundary scan forward": cfg.n1 * fwd_ms,
+                "boundary scan backward": cfg.n1 * bdry_bwd_ms,
+                "v_side": (1 + cfg.n2) * vside_ms}
+    print(f"training outer step ({card}), median of 10 CUDA-event runs: "
+          f"{step_ms:.4f} ms; shares, from each part timed alone times its "
+          "calls per step:")
+    for name, ms in per_step.items():
+        print(f"  {name}: {ms:.4f} ms, {ms / step_ms:.1%}")
+    print(f"  rest (sampling, losses, Adam, host): "
+          f"{step_ms - sum(per_step.values()):.4f} ms")
+    print(json.dumps({"training": {
+        "iterations": iters, "rel_err_final": hist["rel_err_final"],
+        "wall_train_s": hist["wall_train_s"], "step_ms": step_ms,
+        "parts_ms": per_step}}))
+
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

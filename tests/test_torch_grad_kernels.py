@@ -1,0 +1,358 @@
+"""The training kernels of the port (#3, #4, #5 in ``csrc/xnode_grad.cu``)
+through their plain versions: the forward with spatial tangents and the
+hand-derived backward, against the JAX package's Pallas kernels in
+interpret mode and against autograd; and the host side of the CUDA
+wrappers that the CPU can check.
+
+Values are held to ``rtol=2e-4, atol=2e-5`` (f32, the tolerance of
+``tests/test_pallas.py``). Weight gradients are sums over every path,
+direction and interval, taken in another order by each side, so each
+gradient tensor is held to ``rtol=1e-3`` with an absolute floor of
+``1e-4`` of its largest value.
+"""
+
+import ctypes
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from xnode_wan_tpu.config import SolverConfig as JConfig
+from xnode_wan_tpu.models.xnode import init_xnode as jinit_xnode
+from xnode_wan_tpu.ops.pallas import xnode_train as jtrain
+from xnode_wan_tpu.ops.sampling import PathBatch as JPathBatch
+from xnode_wan_tpu.problems import load_problem as jload_problem
+from xnode_wan_tpu_torch import SolverConfig, load_problem, params_from_jax
+from xnode_wan_tpu_torch.ops.kernels import _build, steppers, xnode_train
+from xnode_wan_tpu_torch.ops.kernels.steppers import FlatNet
+from xnode_wan_tpu_torch.ops.sampling import PathBatch
+
+BASE = dict(dim=3, N_t=5, N_r=13, N_b=8, u_hidden_dim=6,
+            u_hidden_hidden_dim=7, u_layers=2, min_steps=3,
+            shape_param=(-1.0, 1.0))
+TOL = dict(rtol=2e-4, atol=2e-5)
+METHODS = ["euler", "midpoint", "heun", "rk4"]
+# (method, n_sub, fourier_features, masked): every method, masked paths,
+# rk4 with two substeps, the Fourier bank
+CASES = [("euler", 1, 0, False), ("midpoint", 1, 0, True),
+         ("heun", 1, 0, False), ("rk4", 2, 1, True)]
+
+
+def assert_grad_close(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_allclose(got, want, rtol=1e-3,
+                               atol=1e-4 * float(np.abs(want).max()))
+
+
+def shared_params(seed, **kw):
+    """One set of weights for both packages, biases made non-zero so the
+    relu masks split."""
+    jcfg = JConfig(**{**BASE, **kw})
+    tree = jax.tree.map(np.asarray, jinit_xnode(jax.random.PRNGKey(seed),
+                                                jcfg))
+    rng = np.random.default_rng(seed)
+    for layer in [*tree["lift"], *tree["field"], tree["readout"]]:
+        layer["b"] = (0.2 * rng.normal(size=layer["b"].shape)).astype(
+            np.float32)
+    return (jcfg, SolverConfig(**{**BASE, **kw}),
+            jax.tree.map(jnp.asarray, tree), params_from_jax(tree, "cpu"))
+
+
+def kernel_inputs(n, L, d, F, masked, n_sub, seed=0):
+    """``(t0, dt, feats, dfeats, seed, dseed)`` as f32 numpy arrays."""
+    rng = np.random.default_rng(seed)
+    times = np.sort(rng.uniform(0, 1, (n, L)), axis=1).astype(np.float32)
+    mask = rng.uniform(size=(n, L)) < (0.6 if masked else 2.0)
+    t0, dt = xnode_train._prep_intervals(
+        torch.as_tensor(times), torch.as_tensor(mask), torch.zeros(n), n_sub)
+    return [t0.numpy(), dt.numpy(),
+            rng.normal(size=(n, F)).astype(np.float32),
+            rng.normal(size=(n, d, F)).astype(np.float32),
+            rng.normal(size=n).astype(np.float32),
+            rng.normal(size=(n, d)).astype(np.float32)]
+
+
+class JaxLanes:
+    """The Pallas kernels' feature-major, tangent-grouped layout for one
+    block of ``n_pad`` lanes, and back."""
+
+    def __init__(self, n, d, n_pad=128):
+        self.n, self.d, self.n_pad = n, d, n_pad
+
+    def cols(self, a):                      # [N, rows] -> [rows, n_pad]
+        out = np.zeros((a.shape[1], self.n_pad), np.float32)
+        out[:, :self.n] = a.T
+        return jnp.asarray(out)
+
+    def tan(self, a):                       # [N, d, F] -> [F, d * n_pad]
+        return jtrain._tangent_lanes(jnp.asarray(a), self.n_pad, self.n_pad)
+
+    def args(self, t0, dt, feats, dfeats, seed, dseed):
+        return (self.cols(t0), self.cols(dt), self.cols(feats),
+                self.tan(dfeats), self.cols(seed[:, None]),
+                self.tan(dseed[:, :, None]))
+
+    def u(self, a):                         # [L, n_pad] -> [N, L]
+        return np.asarray(a)[:, :self.n].T
+
+    def du(self, a):                        # [L, d * n_pad] -> [N, L, d]
+        return np.asarray(jtrain._tangent_unlanes(a, self.n_pad, self.d))[
+            :, :, :self.n].transpose(2, 0, 1)
+
+    def hs(self, a):                        # [L, H, n_pad] -> [L, N, H]
+        return np.asarray(a)[:, :, :self.n].transpose(0, 2, 1)
+
+    def hts(self, a):                       # [L, H, d*n_pad] -> [L, N, d, H]
+        L, H = a.shape[:2]
+        return np.asarray(a).reshape(L, H, self.d, self.n_pad)[
+            ..., :self.n].transpose(0, 3, 2, 1)
+
+    def dub(self, a):                       # [N, L, d] -> [L, d * n_pad]
+        out = np.zeros((a.shape[1], self.d, self.n_pad), np.float32)
+        out[:, :, :self.n] = a.transpose(1, 2, 0)
+        return jnp.asarray(out.reshape(a.shape[1], -1))
+
+
+def case_setup(method, n_sub, ff, masked, seed):
+    jcfg, _, jparams, tparams = shared_params(seed, solver=method,
+                                              fourier_features=ff)
+    net = xnode_train.flat_net(tparams)
+    n, L, d = BASE["N_r"], BASE["N_t"], BASE["dim"]
+    arrays = kernel_inputs(n, L, d, net.F, masked, n_sub, seed)
+    lanes = JaxLanes(n, d)
+    build = jtrain._build(net.n_lift, net.n_field, L, d, n_sub, method,
+                          net.F, net.H, lanes.n_pad, lanes.n_pad, True)
+    return net, jparams, arrays, lanes, build
+
+
+@pytest.mark.parametrize("method,n_sub,ff,masked", CASES)
+def test_u_du_fwd_plain_matches_pallas(method, n_sub, ff, masked):
+    net, jparams, arrays, lanes, (fwd, fwd_store, _) = case_setup(
+        method, n_sub, ff, masked, seed=1)
+    flat = tuple(jtrain._flatten_params_t(jparams))
+    jargs = lanes.args(*arrays)
+    got = xnode_train.u_du_fwd_plain(net, *map(torch.as_tensor, arrays),
+                                     n_sub, method, store=True)
+    u, du = fwd(*jargs, flat)
+    np.testing.assert_allclose(got[0].numpy(), lanes.u(u), **TOL)
+    np.testing.assert_allclose(got[1].numpy(), lanes.du(du), **TOL)
+    u, du, hs, hts = fwd_store(*jargs, flat)
+    np.testing.assert_allclose(got[0].numpy(), lanes.u(u), **TOL)
+    np.testing.assert_allclose(got[1].numpy(), lanes.du(du), **TOL)
+    np.testing.assert_allclose(got[2].numpy(), lanes.hs(hs), **TOL)
+    np.testing.assert_allclose(got[3].numpy(), lanes.hts(hts), **TOL)
+    plain = xnode_train.u_du_fwd_plain(net, *map(torch.as_tensor, arrays),
+                                       n_sub, method)
+    for a, b in zip(plain, got):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("method,n_sub,ff,masked", CASES)
+def test_u_du_bwd_plain_matches_pallas(method, n_sub, ff, masked):
+    net, jparams, arrays, lanes, (_, fwd_store, bwd) = case_setup(
+        method, n_sub, ff, masked, seed=2)
+    flat = tuple(jtrain._flatten_params_t(jparams))
+    jargs = lanes.args(*arrays)
+    n, L, d = BASE["N_r"], BASE["N_t"], BASE["dim"]
+    rng = np.random.default_rng(3)
+    ub = rng.normal(size=(n, L)).astype(np.float32)
+    dub = rng.normal(size=(n, L, d)).astype(np.float32)
+    _, _, hs, hts = fwd_store(*jargs, flat)
+    want = bwd(*jargs, flat, hs, hts, lanes.cols(ub), lanes.dub(dub))
+    targs = list(map(torch.as_tensor, arrays))
+    states = xnode_train.u_du_fwd_plain(net, *targs, n_sub, method,
+                                        store=True)[2:]
+    got = xnode_train.u_du_bwd_plain(net, *targs, *states,
+                                     torch.as_tensor(ub),
+                                     torch.as_tensor(dub), n_sub, method)
+    sizes = [a.numel() for a in net.flat]
+    assert got.shape == (sum(sizes),)
+    for g, w in zip(torch.split(got, sizes), want):
+        assert_grad_close(g.numpy(), np.asarray(w).reshape(-1))
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_u_du_bwd_plain_matches_autograd(method):
+    # the hand-derived adjoint against reverse mode through the plain
+    # forward, in f64 where the two orders of summation agree to 1e-10
+    _, _, _, tparams = shared_params(4, solver=method)
+    net = xnode_train.flat_net(tparams)
+    net = FlatNet([a.double() for a in net.flat], net.n_lift, net.n_field)
+    n_sub = 2 if method == "rk4" else 1
+    n, L, d = BASE["N_r"], BASE["N_t"], BASE["dim"]
+    args = [torch.as_tensor(a).double()
+            for a in kernel_inputs(n, L, d, net.F, True, n_sub, seed=5)]
+    rng = np.random.default_rng(6)
+    ub = torch.as_tensor(rng.normal(size=(n, L)))
+    dub = torch.as_tensor(rng.normal(size=(n, L, d)))
+    states = xnode_train.u_du_fwd_plain(net, *args, n_sub, method,
+                                        store=True)[2:]
+    got = xnode_train.u_du_bwd_plain(net, *args, *states, ub, dub, n_sub,
+                                     method)
+    leaves = [a.clone().requires_grad_(True) for a in net.flat]
+    u, du = xnode_train.u_du_fwd_plain(
+        FlatNet(leaves, net.n_lift, net.n_field), *args, n_sub, method)
+    want = torch.autograd.grad((u * ub).sum() + (du * dub).sum(), leaves)
+    torch.testing.assert_close(got, torch.cat([w.reshape(-1) for w in want]),
+                               rtol=1e-10, atol=1e-10)
+
+
+def batch_pair(n, L, d, seed):
+    rng = np.random.default_rng(seed)
+    times = np.sort(rng.uniform(0, 1, (n, L)), axis=1)
+    xs = rng.uniform(-1, 1, (n, d))
+    x = np.concatenate([times[:, :, None],
+                        np.broadcast_to(xs[:, None], (n, L, d))], axis=-1)
+    arrays = [x.astype(np.float32), rng.uniform(size=(n, L)) < 0.7,
+              np.zeros(n, np.float32), np.ones(n, bool)]
+    return (JPathBatch(*map(jnp.asarray, arrays)),
+            PathBatch(*map(torch.as_tensor, arrays)))
+
+
+@pytest.mark.parametrize("extra", [dict(solver="midpoint"),
+                                   dict(solver="rk4", min_steps=6,
+                                        fourier_features=1, u_scale=2.5)],
+                         ids=["midpoint", "rk4_nsub2_fourier_uscale"])
+def test_u_du_fused_values_and_grads_match_pallas(extra):
+    jcfg, tcfg, jparams, tparams = shared_params(7, **extra)
+    jb, tb = batch_pair(BASE["N_r"], BASE["N_t"], BASE["dim"], seed=8)
+    jp, tp = jload_problem("Ex4_1_funcs"), load_problem("Ex4_1_funcs")
+    rng = np.random.default_rng(9)
+    cu = rng.normal(size=(BASE["N_r"], BASE["N_t"])).astype(np.float32)
+    cd = rng.normal(size=(BASE["N_r"], BASE["N_t"], BASE["dim"])).astype(
+        np.float32)
+
+    def contraction(u, du, lib):
+        c_u, c_d = lib.asarray(cu), lib.asarray(cd)
+        return ((u * c_u).sum() + (du * c_d).sum()
+                + (lib.tanh(u) * du[..., 0]).sum())
+
+    with jax.default_matmul_precision("highest"):
+        ju, jdu = jtrain.fused_from_batch(jparams, jb, jp, jcfg,
+                                          interpret=True)
+        jgrad = jax.grad(lambda p: contraction(
+            *jtrain.fused_from_batch(p, jb, jp, jcfg, interpret=True),
+            jnp))(jparams)
+    tu, tdu = xnode_train.fused_from_batch(tparams, tb, tp, tcfg)
+    np.testing.assert_allclose(tu.detach().numpy(), np.asarray(ju), **TOL)
+    np.testing.assert_allclose(tdu.detach().numpy(), np.asarray(jdu), **TOL)
+    contraction(tu, tdu, torch).backward()
+    for tl, jl in zip([*tparams.lift, *tparams.field, tparams.readout],
+                      [*jgrad["lift"], *jgrad["field"], jgrad["readout"]]):
+        assert_grad_close(tl.weight.grad.numpy(), np.asarray(jl["w"]).T)
+        assert_grad_close(tl.bias.grad.numpy(), np.asarray(jl["b"]))
+
+
+def test_u_du_fused_without_grad_stores_nothing():
+    _, tcfg, _, tparams = shared_params(10)
+    _, tb = batch_pair(BASE["N_r"], BASE["N_t"], BASE["dim"], seed=11)
+    tp = load_problem("cube_pde")
+    with torch.no_grad():
+        u, du = xnode_train.fused_from_batch(tparams, tb, tp, tcfg)
+    assert not u.requires_grad and du.shape == (*u.shape, BASE["dim"])
+    u2, du2 = xnode_train.fused_from_batch(tparams, tb, tp, tcfg)
+    assert u2.requires_grad and du2.grad_fn is not None
+    torch.testing.assert_close(u, u2.detach(), rtol=0, atol=0)
+
+
+def test_live_packed_matches_flat_net_and_carries_grad():
+    _, _, _, tparams = shared_params(12, fourier_features=1)
+    live = xnode_train.live_packed(tparams)
+    torch.testing.assert_close(live.detach(),
+                               xnode_train.flat_net(tparams).packed())
+    live.sum().backward()
+    assert all(bool((p.grad == 1).all()) for p in tparams.parameters())
+
+
+@pytest.mark.parametrize("method,table", list(steppers.RK_TABLES.items()))
+def test_rk_tables_reproduce_rk_step(method, table):
+    # the RK tables the backward walks give the same step as rk_step
+    C, A, B = table
+    rng = np.random.default_rng(13)
+    W = torch.as_tensor(rng.normal(size=(4, 4)))
+    h = torch.as_tensor(rng.normal(size=(3, 4)))
+    t = torch.as_tensor(rng.uniform(size=(3, 1)))
+    dt = torch.as_tensor(rng.uniform(size=(3, 1)) * 0.2)
+
+    def field(s, y):
+        return torch.tanh(y @ W) * (1 + s)
+
+    ks = [field(t, h)]
+    for s in range(1, len(C)):
+        ks.append(field(t + C[s] * dt, h + A[s] * dt * ks[-1]))
+    got = h + dt * sum(b * k for b, k in zip(B, ks))
+    torch.testing.assert_close(got, steppers.rk_step(method, field, t, dt, h),
+                               rtol=1e-12, atol=1e-12)
+
+
+def cuda_signature(symbol):
+    text = (_build.CSRC / "xnode_grad.cu").read_text()
+    m = re.search(r'extern "C" int ' + symbol + r"\((.*?)\)", text, re.S)
+    assert m, f"{symbol} not found in xnode_grad.cu"
+    return [p.strip() for p in m.group(1).split(",")]
+
+
+@pytest.mark.parametrize("kernel", [xnode_train.FWD_KERNEL,
+                                    xnode_train.FWD_STORE_KERNEL,
+                                    xnode_train.BWD_KERNEL],
+                         ids=lambda k: k.symbol)
+def test_grad_ctypes_argtypes_match_c_signature(kernel):
+    assert kernel.source == "xnode_grad"
+    params = cuda_signature(kernel.symbol)
+    declared = [ctypes.c_int, ctypes.c_void_p] + kernel.argtypes
+    assert len(params) == len(declared)
+    for p, ct in zip(params, declared):
+        assert ct is (ctypes.c_void_p if "*" in p else ctypes.c_int), p
+
+
+def test_grad_cuda_wrappers_reject_cpu_tensors():
+    _, _, _, tparams = shared_params(14)
+    net = xnode_train.flat_net(tparams)
+    n, L, d = 5, 4, BASE["dim"]
+    args = [torch.as_tensor(a) for a in kernel_inputs(n, L, d, net.F, False,
+                                                      1)]
+    packed = net.packed()
+    counts = [k.launches for k in (xnode_train.FWD_KERNEL,
+                                   xnode_train.FWD_STORE_KERNEL,
+                                   xnode_train.BWD_KERNEL)]
+    with pytest.raises(ValueError, match="CUDA device"):
+        xnode_train.u_du_fwd_cuda(net, packed, *args, 1, "midpoint")
+    with pytest.raises(ValueError, match="CUDA device"):
+        xnode_train.u_du_fwd_cuda(net, packed, *args, 1, "midpoint", True)
+    hs, hts = torch.zeros(L, n, net.H), torch.zeros(L, n, d, net.H)
+    with pytest.raises(ValueError, match="CUDA device"):
+        xnode_train.u_du_bwd_cuda(net, packed, *args, hs, hts,
+                                  torch.zeros(n, L), torch.zeros(n, L, d), 1,
+                                  "midpoint")
+    with pytest.raises(ValueError, match="fixed_adams"):
+        xnode_train.u_du_fwd_cuda(net, packed, *args, 1, "fixed_adams")
+    with pytest.raises(ValueError, match="no u_du kernel"):
+        xnode_train.UDuFused.apply(packed.to("meta"), net,
+                                   *(a.to("meta") for a in args), 1,
+                                   "midpoint", False)
+    assert counts == [k.launches for k in (xnode_train.FWD_KERNEL,
+                                           xnode_train.FWD_STORE_KERNEL,
+                                           xnode_train.BWD_KERNEL)]
+
+
+def test_bwd_block_fits_shared_memory():
+    # four warps at the d=5 width; fewer where the accumulators would not
+    # fit (the d=20 config), and a clear error where not even one does
+    assert xnode_train.bwd_block_threads(2161) == 128
+    assert xnode_train.bwd_block_threads(12209) == 96
+    with pytest.raises(ValueError, match="shared memory"):
+        xnode_train.bwd_block_threads(40000)
+
+
+def test_grad_kernel_caps_cover_shipped_configs():
+    import os
+    from xnode_wan_tpu_torch import init_xnode, load_params
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for name in ("cube_pde", "highdim_d20", "ex4_1_d10"):
+        cfg = load_params(os.path.join(repo, "configs", f"{name}.yaml"))
+        net = xnode_train.flat_net(init_xnode(cfg, device="cpu"))
+        assert max(net.n_lift, net.n_field) <= xnode_train.MAX_FIELD_LAYERS
+        xnode_train.bwd_block_threads(net.packed().numel())

@@ -37,6 +37,12 @@ REL_L2_LIMIT = 0.0125   # JAX on the CPU gives 0.0102-0.0104 on this checkpoint
 def test_import_leaves_jax_out():
     code = ("import sys, xnode_wan_tpu_torch, xnode_wan_tpu_torch.ops.kernels."
             "xnode_eval, xnode_wan_tpu_torch.ops.kernels._build\n"
+            "import xnode_wan_tpu_torch.training, xnode_wan_tpu_torch.ops."
+            "weak_form, xnode_wan_tpu_torch.ops.coefficients\n"
+            "import xnode_wan_tpu_torch.models.discriminator, "
+            "xnode_wan_tpu_torch.utils.torch_compat\n"
+            "from xnode_wan_tpu_torch.ops.kernels.xnode_train import ("
+            "UDuFused, u_du_fused, fused_from_batch, u_du_bwd_cuda)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'xnode_wan_tpu'))\n"
             "print(bad)\n")

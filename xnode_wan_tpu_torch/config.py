@@ -3,8 +3,9 @@
 Same YAML key set, defaults, coercions and validation as the JAX
 package's ``xnode_wan_tpu/config.py``: a flat reference-style params dict
 is parsed by name into a frozen dataclass, and unknown keys are rejected.
-Fields that only the trainer reads are carried so that every shipped
-config loads, but nothing in this package acts on them yet.
+Every shipped config loads; the trainer (``training.py``) acts on the
+training fields and :func:`check_trainable` rejects the options this port
+does not implement yet.
 """
 
 from __future__ import annotations
@@ -181,3 +182,18 @@ def load_params(path: str) -> SolverConfig:
     with open(path, "r") as fh:
         raw = yaml.safe_load(fh)
     return SolverConfig.from_dict(raw)
+
+
+def check_trainable(cfg: SolverConfig) -> None:
+    """Raise ``NotImplementedError`` for training options the port does
+    not implement yet (ROADMAP.md lists where each comes)."""
+    missing = [(cfg.ensemble > 1, "ensemble > 1"),
+               (cfg.adjoint, "adjoint: true"),
+               (cfg.independent_uv, "independent_uv: true"),
+               (cfg.fused_v, "fused_v: true (kernels #6 and #7)"),
+               (cfg.primal != "xnode", f"primal: {cfg.primal}"),
+               (cfg.tangent_shards > 1, "tangent_shards > 1")]
+    names = [name for bad, name in missing if bad]
+    if names:
+        raise NotImplementedError(
+            f"not ported to PyTorch yet: {', '.join(names)}")

@@ -134,6 +134,91 @@ def lift_readout_macs(net: FlatNet) -> int:
 
 EVALS_PER_STEP = {"euler": 1, "midpoint": 2, "heun": 2, "rk4": 4}
 
+# The four schemes as explicit Runge-Kutta tables: stage s > 0 starts from
+# ``h + A[s] * dt * k[s - 1]`` at ``t + C[s] * dt`` (every scheme here has
+# one sub-diagonal entry), and the step is ``h + dt * sum_s B[s] k[s]``.
+# The hand-written backward (``xnode_grad.py``, ``csrc/xnode_grad.cu``)
+# walks these tables in reverse.
+RK_TABLES = {
+    "euler": ((0.0,), (0.0,), (1.0,)),
+    "midpoint": ((0.0, 0.5), (0.0, 0.5), (0.0, 1.0)),
+    "heun": ((0.0, 1.0), (0.0, 1.0), (0.5, 0.5)),
+    "rk4": ((0.0, 0.5, 0.5, 1.0), (0.0, 0.5, 0.5, 1.0),
+            (1.0 / 6, 2.0 / 6, 2.0 / 6, 1.0 / 6)),
+}
+
+
+# ---------------------------------------------------------------------------
+# The joint primal + spatial-tangent network (kernels #3-#5). Natural
+# layouts: primal ``[B, width]``, tangents ``[B, d, width]``; weights are
+# ``(W [out, in], b [out])`` pairs as in :class:`FlatNet`. Sample times
+# carry no tangent. Port of ``xnode_wan_tpu/ops/pallas/xnode_train.py``
+# ``_mlp_relu_fwd_tan``, ``_field_fwd_tan`` and ``_interval``.
+# ---------------------------------------------------------------------------
+
+
+def mlp_relu_fwd_tan(ws, z: torch.Tensor, zt: torch.Tensor):
+    """``linear -> [relu, linear]*`` (the lift) on ``z [B, in]`` and its
+    tangents ``zt [B, d, in]``."""
+    w, b = ws[0]
+    a, at = z @ w.T + b, zt @ w.T
+    for w, b in ws[1:]:
+        at = torch.where(a[:, None, :] > 0, at, torch.zeros_like(at))
+        a = torch.relu(a) @ w.T + b
+        at = at @ w.T
+    return a, at
+
+
+def field_fwd_tan(ws, xp, xt, t, h, ht):
+    """The ODE field and its tangents: ``xp [B, F]`` features, ``xt
+    [B, d, F]`` their x-tangents, ``t [B, 1]``, ``h [B, H]``, ``ht
+    [B, d, H]``. Returns ``(dh/dt [B, H], its tangents [B, d, H])``."""
+    z = torch.cat([xp, t, h], dim=-1)
+    zt = torch.cat([xt, torch.zeros_like(ht[..., :1]), ht], dim=-1)
+    w, b = ws[0]
+    a, at = z @ w.T + b, zt @ w.T
+    for w, b in ws[1:-1]:
+        at = torch.where(a[:, None, :] > 0, at, torch.zeros_like(at))
+        a = torch.relu(a) @ w.T + b
+        at = at @ w.T
+    y = torch.tanh(a)
+    yt = (1.0 - y * y)[:, None, :] * at
+    w, b = ws[-1]
+    return y @ w.T + b, yt @ w.T
+
+
+def interval_tan(ws_field, xp, xt, h, ht, t0, dt, n_sub: int, method: str):
+    """One sample interval: ``n_sub`` joint primal + tangent substeps of
+    ``dt [B, 1]`` from ``t0 [B, 1]``; ``dt = 0`` is the identity."""
+    dtd = dt[:, :, None]
+
+    def f(t, hh, hht):
+        return field_fwd_tan(ws_field, xp, xt, t, hh, hht)
+
+    for k in range(n_sub):
+        t = t0 + k * dt
+        if method == "euler":
+            k1, k1t = f(t, h, ht)
+            h, ht = h + dt * k1, ht + dtd * k1t
+        elif method == "midpoint":
+            k1, k1t = f(t, h, ht)
+            k2, k2t = f(t + 0.5 * dt, h + 0.5 * dt * k1, ht + 0.5 * dtd * k1t)
+            h, ht = h + dt * k2, ht + dtd * k2t
+        elif method == "heun":
+            k1, k1t = f(t, h, ht)
+            k2, k2t = f(t + dt, h + dt * k1, ht + dtd * k1t)
+            h, ht = h + 0.5 * dt * (k1 + k2), ht + 0.5 * dtd * (k1t + k2t)
+        elif method == "rk4":
+            k1, k1t = f(t, h, ht)
+            k2, k2t = f(t + 0.5 * dt, h + 0.5 * dt * k1, ht + 0.5 * dtd * k1t)
+            k3, k3t = f(t + 0.5 * dt, h + 0.5 * dt * k2, ht + 0.5 * dtd * k2t)
+            k4, k4t = f(t + dt, h + dt * k3, ht + dtd * k3t)
+            h = h + dt * (k1 + 2 * k2 + 2 * k3 + k4) / 6.0
+            ht = ht + dtd * (k1t + 2 * k2t + 2 * k3t + k4t) / 6.0
+        else:
+            rk_step(method, None, None, None, None)  # raises the shared error
+    return h, ht
+
 
 def require_cuda_f32(tensors: List[torch.Tensor]) -> torch.device:
     """Check the kernels' input contract: one CUDA device, f32, contiguous."""

@@ -1,12 +1,22 @@
-"""Tangentless path forward ``u [N, L]``: the fresh-sample metric forward.
+"""The training hot path: XNODE path forwards with and without spatial
+tangents, and the hand-derived backward. Port of
+``xnode_wan_tpu/ops/pallas/xnode_train.py``.
 
-Replaces ``xnode_wan_tpu/ops/pallas/xnode_train.py::_fwd_only_kernel``
-(reached through ``_build_fwd_only`` and ``u_forward_fused``), which
-the JAX trainer runs every outer step to score the current solution
-(``training.py:230-240, 519``). The gradient kernels of that module come
-with the training port.
+**Tangentless path forward** ``u [N, L]``, the fresh-sample metric
+forward. Replaces ``_fwd_only_kernel`` (reached through
+``_build_fwd_only`` and ``u_forward_fused``), which the JAX trainer runs
+every outer step to score the current solution (``training.py:230-240,
+519``).
 
-Kernel: ``csrc/xnode_train.cu::xnode_path_fwd_kernel``, one thread per
+**Forward with spatial tangents and its backward** (:func:`u_du_fused`,
+the :class:`UDuFused` autograd function): ``u [N, L]`` and ``grad_x u
+[N, L, d]`` for the weak-form loss, with a weight gradient that runs a
+hand-derived adjoint. Replaces ``_fwd_kernel`` (#3), ``_fwd_store_kernel``
+(#4) and ``_bwd_kernel`` (#5) through ``_fused_core``. Kernels in
+``csrc/xnode_grad.cu`` (design and bounds in its header); plain versions
+:func:`u_du_fwd_plain` and :func:`u_du_bwd_plain`.
+
+Kernel #2: ``csrc/xnode_train.cu::xnode_path_fwd_kernel``, one thread per
 path. A block stages the packed weights (2,161 floats at the d=5 width)
 in shared memory; the thread lifts its seed, applies the feature columns
 of field layer 0 once, then walks the L intervals with n_sub RK substeps
@@ -27,12 +37,17 @@ hidden unit).
 from __future__ import annotations
 
 import ctypes
-from typing import List
+from typing import List, Tuple
 
 import torch
 
 from xnode_wan_tpu_torch.ops.kernels._build import CudaKernel
-from xnode_wan_tpu_torch.ops.kernels.steppers import (METHOD_IDS, FlatNet,
+from xnode_wan_tpu_torch.ops.kernels.steppers import (MAX_SMEM_BYTES,
+                                                      METHOD_IDS, RK_TABLES,
+                                                      FlatNet,
+                                                      field_fwd_tan,
+                                                      interval_tan,
+                                                      mlp_relu_fwd_tan,
                                                       require_cuda_f32,
                                                       rk_step)
 
@@ -42,15 +57,30 @@ KERNEL = CudaKernel(
     [_P, _I,                  # packed weights, count
      _P, _P, _P, _P, _P,      # t0, dt, feats, seed, u
      _I, _I, _I, _I, _I, _I, _I, _I, _I])  # N L H Hh F n_lift n_field n_sub method
+_GEOM = [_I] * 10             # N L d H Hh F n_lift n_field n_sub method
+_PATH = [_P, _I, _P, _P, _P, _P, _P, _P]  # weights, count, t0 dt feats dfeats seed dseed
+# kernel #3: u, du
+FWD_KERNEL = CudaKernel("xnode_grad", "xnode_udu_fwd_launch",
+                        _PATH + [_P, _P] + _GEOM)
+# kernel #4: u, du, hs, hts
+FWD_STORE_KERNEL = CudaKernel("xnode_grad", "xnode_udu_fwd_store_launch",
+                              _PATH + [_P, _P, _P, _P] + _GEOM)
+# kernel #5: hs, hts, ub, dub, partial, grad; block size last
+BWD_KERNEL = CudaKernel("xnode_grad", "xnode_udu_bwd_launch",
+                        _PATH + [_P] * 6 + _GEOM + [_I])
+MAX_FIELD_LAYERS = 16         # XN_MAX_FIELD_LAYERS in csrc/xnode_grad.cu
+
+
+def _live_params(params) -> List[torch.Tensor]:
+    """Weights ``[out, in]`` and biases ``[out]`` in the kernels' order:
+    lift, field, readout."""
+    return [a for layer in [*params.lift, *params.field, params.readout]
+            for a in (layer.weight, layer.bias)]
 
 
 def _flatten_params_t(params) -> List[torch.Tensor]:
-    """Weights ``[out, in]`` and biases ``[out]`` in f32, in the order
-    lift, field, readout."""
-    flat = []
-    for layer in [*params.lift, *params.field, params.readout]:
-        flat += [layer.weight.detach().float(), layer.bias.detach().float()]
-    return flat
+    """:func:`_live_params` detached, in f32."""
+    return [a.detach().float() for a in _live_params(params)]
 
 
 def flat_net(params) -> FlatNet:
@@ -139,3 +169,351 @@ def u_forward_fused(params, batch, problem, cfg) -> torch.Tensor:
                          feats.contiguous(), seed.contiguous(), cfg.n_sub,
                          cfg.solver)
     return u * float(cfg.u_scale_eff)
+
+
+# ---------------------------------------------------------------------------
+# Forward with spatial tangents (#3, #4) and the backward (#5)
+# ---------------------------------------------------------------------------
+
+
+def live_packed(params) -> torch.Tensor:
+    """The packed f32 weight buffer built from the LIVE parameters, so that
+    a gradient for the buffer flows back to every ``nn.Linear``."""
+    return torch.cat([a.float().reshape(-1) for a in _live_params(params)])
+
+
+def u_du_fwd_plain(net: FlatNet, t0, dt, feats, dfeats, seed, dseed,
+                   n_sub: int, method: str, store: bool = False):
+    """Plain version of kernels #3 / #4: ``u [N, L]`` and ``du [N, L, d]``
+    before scaling; with ``store`` also the interval start states ``hs
+    [L, N, H]`` and ``hts [L, N, d, H]``."""
+    h, ht = mlp_relu_fwd_tan(net.lift, seed[:, None], dseed[:, :, None])
+    wr, br = net.readout_layer
+    us, dus, hs, hts = [], [], [], []
+    for l in range(t0.shape[1]):
+        if store:
+            hs.append(h)
+            hts.append(ht)
+        h, ht = interval_tan(net.field_layers, feats, dfeats, h, ht,
+                             t0[:, l:l + 1], dt[:, l:l + 1], n_sub, method)
+        us.append((h @ wr.T + br)[:, 0])
+        dus.append((ht @ wr.T)[..., 0])
+    u, du = torch.stack(us, dim=1), torch.stack(dus, dim=1)
+    if store:
+        return u, du, torch.stack(hs), torch.stack(hts)
+    return u, du
+
+
+def _field_vjp(ws, g, xp, xt, t, h, ht, obar, otbar):
+    """VJP of :func:`steppers.field_fwd_tan` at ``(t, h, ht)`` for the
+    cotangents ``(obar [B, H], otbar [B, d, H])`` of its two outputs.
+    Adds the weight gradients, summed over paths and directions, into
+    ``g`` (pairs like ``ws``) and returns ``(hbar, htbar)``.
+
+    Linear layer ``a = W z + b``, ``at = W zt``: ``Wbar += abar z^T +
+    atbar zt^T``, ``bbar += abar``, ``zbar = W^T abar``. relu: both
+    cotangents masked by ``a > 0``. tanh, ``yt = (1 - y^2) at``: ``atbar =
+    (1 - y^2) ytbar`` and ``abar = (1 - y^2) ybar - 2 y (1 - y^2) sum_k
+    at_k ytbar_k`` (the second-order term).
+    """
+    z = torch.cat([xp, t, h], dim=-1)
+    zt = torch.cat([xt, torch.zeros_like(ht[..., :1]), ht], dim=-1)
+    w, b = ws[0]
+    acts = [(z @ w.T + b, zt @ w.T)]
+    for w, b in ws[1:-1]:
+        a, at = acts[-1]
+        at = torch.where(a[:, None, :] > 0, at, torch.zeros_like(at))
+        acts.append((torch.relu(a) @ w.T + b, at @ w.T))
+    a, at = acts[-1]
+    y = torch.tanh(a)
+    s = 1.0 - y * y
+    yt = s[:, None, :] * at
+    wo = ws[-1][0]
+    g[-1][0].add_(obar.T @ y + torch.einsum("bdj,bdi->ji", otbar, yt))
+    g[-1][1].add_(obar.sum(0))
+    ybar, ytbar = obar @ wo, otbar @ wo
+    atbar = s[:, None, :] * ytbar
+    abar = s * ybar - 2.0 * y * s * (at * ytbar).sum(1)
+    for l in range(len(ws) - 2, 0, -1):
+        a_in, at_in = acts[l - 1]
+        on = a_in > 0
+        r = torch.relu(a_in)
+        rt = torch.where(on[:, None, :], at_in, torch.zeros_like(at_in))
+        w = ws[l][0]
+        g[l][0].add_(abar.T @ r + torch.einsum("bdj,bdi->ji", atbar, rt))
+        g[l][1].add_(abar.sum(0))
+        rbar, rtbar = abar @ w, atbar @ w
+        abar = torch.where(on, rbar, torch.zeros_like(rbar))
+        atbar = torch.where(on[:, None, :], rtbar, torch.zeros_like(rtbar))
+    w0 = ws[0][0]
+    g[0][0].add_(abar.T @ z + torch.einsum("bdj,bdi->ji", atbar, zt))
+    g[0][1].add_(abar.sum(0))
+    w0h = w0[:, xp.shape[-1] + 1:]
+    return abar @ w0h, atbar @ w0h
+
+
+def _step_vjp(ws, g, xp, xt, t, dt, h, ht, hbar, htbar, method: str):
+    """VJP of one joint substep from ``(h, ht)`` at ``t`` through the RK
+    table of ``method``: stage inputs are recomputed, then the stages are
+    walked back. Returns the cotangents of ``(h, ht)``."""
+    C, A, B = RK_TABLES[method]
+    dtd = dt[:, :, None]
+    ys, yts = [h], [ht]
+    for s in range(1, len(C)):
+        k, kt = field_fwd_tan(ws, xp, xt, t + C[s - 1] * dt, ys[-1], yts[-1])
+        ys.append(h + (A[s] * dt) * k)
+        yts.append(ht + (A[s] * dtd) * kt)
+    hb_in, htb_in = hbar, htbar
+    kb, ktb = dt * B[-1] * hbar, dtd * B[-1] * htbar
+    for s in range(len(C) - 1, -1, -1):
+        yb, ytb = _field_vjp(ws, g, xp, xt, t + C[s] * dt, ys[s], yts[s],
+                             kb, ktb)
+        hb_in, htb_in = hb_in + yb, htb_in + ytb
+        if s > 0:
+            kb = dt * B[s - 1] * hbar + (A[s] * dt) * yb
+            ktb = dtd * B[s - 1] * htbar + (A[s] * dtd) * ytb
+    return hb_in, htb_in
+
+
+def _lift_vjp(ws, g, z, zt, hbar, htbar):
+    """Weight gradients of :func:`steppers.mlp_relu_fwd_tan` (the lift)."""
+    w, b = ws[0]
+    acts = [(z @ w.T + b, zt @ w.T)]
+    for w, b in ws[1:]:
+        a, at = acts[-1]
+        at = torch.where(a[:, None, :] > 0, at, torch.zeros_like(at))
+        acts.append((torch.relu(a) @ w.T + b, at @ w.T))
+    abar, atbar = hbar, htbar
+    for l in range(len(ws) - 1, 0, -1):
+        a_in, at_in = acts[l - 1]
+        on = a_in > 0
+        rt = torch.where(on[:, None, :], at_in, torch.zeros_like(at_in))
+        g[l][0].add_(abar.T @ torch.relu(a_in)
+                     + torch.einsum("bdj,bdi->ji", atbar, rt))
+        g[l][1].add_(abar.sum(0))
+        rbar, rtbar = abar @ ws[l][0], atbar @ ws[l][0]
+        abar = torch.where(on, rbar, torch.zeros_like(rbar))
+        atbar = torch.where(on[:, None, :], rtbar, torch.zeros_like(rtbar))
+    g[0][0].add_(abar.T @ z + torch.einsum("bdj,bdi->ji", atbar, zt))
+    g[0][1].add_(abar.sum(0))
+
+
+def u_du_bwd_plain(net: FlatNet, t0, dt, feats, dfeats, seed, dseed, hs,
+                   hts, ub, dub, n_sub: int, method: str) -> torch.Tensor:
+    """Plain version of kernel #5: the packed weight gradient of
+    ``sum(u * ub) + sum(du * dub)`` for the unscaled outputs of
+    :func:`u_du_fwd_plain`, by the hand-derived adjoint and no autograd.
+
+    Intervals are walked from ``l = L-1`` down to 0. Each one is re-run
+    from its stored start state for the end state, the readout cotangents
+    are injected there (``wr_bar += ub h_end^T + dub ht_end^T``,
+    ``hbar += wr^T ub``, ``htbar += wr^T dub``), and its substeps are
+    walked back (:func:`_step_vjp`), each recomputed from the interval
+    start. The lift VJP on the seed and its tangents comes last.
+    """
+    g = [torch.zeros_like(a) for a in net.flat]
+    pairs = [(g[2 * i], g[2 * i + 1]) for i in range(len(g) // 2)]
+    g_lift = pairs[:net.n_lift]
+    g_field = pairs[net.n_lift:net.n_lift + net.n_field]
+    wr = net.readout_layer[0]
+    hbar = torch.zeros_like(hs[0])
+    htbar = torch.zeros_like(hts[0])
+    for l in range(t0.shape[1] - 1, -1, -1):
+        t0l, dtl = t0[:, l:l + 1], dt[:, l:l + 1]
+        h_end, ht_end = interval_tan(net.field_layers, feats, dfeats, hs[l],
+                                     hts[l], t0l, dtl, n_sub, method)
+        ubl, dubl = ub[:, l:l + 1], dub[:, l]
+        g[-2].add_(ubl.T @ h_end + torch.einsum("bd,bdh->h", dubl,
+                                                 ht_end)[None])
+        g[-1].add_(ubl.sum(0))
+        hbar = hbar + ubl * wr
+        htbar = htbar + dubl[:, :, None] * wr
+        starts = [(hs[l], hts[l])]
+        for k in range(n_sub - 1):
+            starts.append(interval_tan(net.field_layers, feats, dfeats,
+                                       *starts[-1], t0l + k * dtl, dtl, 1,
+                                       method))
+        for k in range(n_sub - 1, -1, -1):
+            hbar, htbar = _step_vjp(net.field_layers, g_field, feats, dfeats,
+                                    t0l + k * dtl, dtl, *starts[k], hbar,
+                                    htbar, method)
+    _lift_vjp(net.lift, g_lift, seed[:, None], dseed[:, :, None], hbar,
+              htbar)
+    return torch.cat([a.reshape(-1) for a in g])
+
+
+def _grad_checks(net: FlatNet, method: str, args) -> torch.device:
+    if method not in METHOD_IDS:
+        rk_step(method, None, None, None, None)  # raises the shared error
+    net.check_caps()
+    if max(net.n_lift, net.n_field) > MAX_FIELD_LAYERS:
+        raise ValueError(f"{net.n_lift} lift / {net.n_field} field layers "
+                         f"exceed the CUDA kernels' cap of {MAX_FIELD_LAYERS}")
+    dev = require_cuda_f32(list(args))
+    t0, dt, feats, dfeats, seed, dseed = args[1:7]
+    N, L = t0.shape
+    d = dseed.shape[1] if dseed.dim() == 2 else -1
+    if (dt.shape != (N, L) or feats.shape != (N, net.F) or seed.shape != (N,)
+            or dfeats.shape != (N, d, net.F) or dseed.shape != (N, d)):
+        raise ValueError("shape mismatch: t0/dt [N, L], feats [N, F], "
+                         "dfeats [N, d, F], seed [N], dseed [N, d]")
+    return dev
+
+
+def u_du_fwd_cuda(net: FlatNet, packed, t0, dt, feats, dfeats, seed, dseed,
+                  n_sub: int, method: str, store: bool = False):
+    """Launch kernel #3, or #4 with ``store``, on PyTorch's current
+    stream. Same outputs as :func:`u_du_fwd_plain`."""
+    args = (packed, t0, dt, feats, dfeats, seed, dseed)
+    dev = _grad_checks(net, method, args)
+    N, L = t0.shape
+    d = dseed.shape[1]
+    H, Hh, F, n_lift, n_field = net.dims()
+    f32 = dict(dtype=torch.float32, device=dev)
+    u = torch.empty((N, L), **f32)
+    du = torch.empty((N, L, d), **f32)
+    ptrs = [a.data_ptr() for a in args]
+    ptrs.insert(1, packed.numel())
+    geom = (N, L, d, H, Hh, F, n_lift, n_field, n_sub, METHOD_IDS[method])
+    if not store:
+        FWD_KERNEL(dev, *ptrs, u.data_ptr(), du.data_ptr(), *geom)
+        return u, du
+    hs = torch.empty((L, N, H), **f32)
+    hts = torch.empty((L, N, d, H), **f32)
+    FWD_STORE_KERNEL(dev, *ptrs, u.data_ptr(), du.data_ptr(), hs.data_ptr(),
+                     hts.data_ptr(), *geom)
+    return u, du, hs, hts
+
+
+def bwd_block_threads(n_params: int) -> int:
+    """Block size of kernel #5: up to four warps, as many as leave room in
+    shared memory for the weights and one gradient accumulator each."""
+    warps = min(4, MAX_SMEM_BYTES // (4 * n_params) - 1)
+    if warps < 1:
+        raise ValueError(f"{n_params} weights do not fit the backward "
+                         "kernel's shared memory (weights + 1 accumulator)")
+    return 32 * warps
+
+
+def u_du_bwd_cuda(net: FlatNet, packed, t0, dt, feats, dfeats, seed, dseed,
+                  hs, hts, ub, dub, n_sub: int, method: str) -> torch.Tensor:
+    """Launch kernel #5 on PyTorch's current stream; same result as
+    :func:`u_du_bwd_plain`."""
+    args = (packed, t0, dt, feats, dfeats, seed, dseed)
+    dev = _grad_checks(net, method, args)
+    require_cuda_f32([hs, hts, ub, dub])
+    N, L = t0.shape
+    d = dseed.shape[1]
+    H, Hh, F, n_lift, n_field = net.dims()
+    if (hs.shape != (L, N, H) or hts.shape != (L, N, d, H)
+            or ub.shape != (N, L) or dub.shape != (N, L, d)):
+        raise ValueError("shape mismatch: hs [L, N, H], hts [L, N, d, H], "
+                         "ub [N, L], dub [N, L, d]")
+    n_params = packed.numel()
+    threads = bwd_block_threads(n_params)
+    n_blocks = -(-N * d // threads)
+    partial = torch.empty((max(n_blocks, 1), n_params), dtype=torch.float32,
+                          device=dev)
+    grad = torch.empty((n_params,), dtype=torch.float32, device=dev)
+    ptrs = [a.data_ptr() for a in args]
+    ptrs.insert(1, n_params)
+    BWD_KERNEL(dev, *ptrs, hs.data_ptr(), hts.data_ptr(), ub.data_ptr(),
+               dub.data_ptr(), partial.data_ptr(), grad.data_ptr(), N, L, d,
+               H, Hh, F, n_lift, n_field, n_sub, METHOD_IDS[method], threads)
+    return grad
+
+
+class UDuFused(torch.autograd.Function):
+    """``(u_raw [N, L], du_raw [N, L, d])`` with the hand-written backward.
+
+    Forward: kernel #4 when a gradient is needed (it stores the start
+    states the backward walks from), kernel #3 when not, as the JAX
+    package's ``_fused_core_fwd`` / ``_fused_core`` do. Backward: kernel
+    #5, the gradient of the packed weights only (the sample points,
+    seeds and features are data). CPU tensors take the plain versions.
+    """
+
+    @staticmethod
+    def forward(ctx, packed, net, t0, dt, feats, dfeats, seed, dseed,
+                n_sub, method, store):
+        data = (t0, dt, feats, dfeats, seed, dseed)
+        if packed.is_cuda:
+            out = u_du_fwd_cuda(net, packed, *data, n_sub, method, store)
+        elif packed.device.type == "cpu":
+            out = u_du_fwd_plain(net, *data, n_sub, method, store)
+        else:
+            raise ValueError(f"no u_du kernel for device {packed.device}")
+        if store:
+            ctx.save_for_backward(packed, *data, *out[2:])
+            ctx.meta = (net, n_sub, method)
+        return out[0], out[1]
+
+    @staticmethod
+    def backward(ctx, ub, dub):
+        if not hasattr(ctx, "meta"):
+            raise RuntimeError("u_du_fused ran without stored states; call "
+                               "it with gradients enabled to differentiate")
+        packed, *data, hs, hts = ctx.saved_tensors
+        net, n_sub, method = ctx.meta
+        ub, dub = ub.contiguous(), dub.contiguous()
+        if packed.is_cuda:
+            grad = u_du_bwd_cuda(net, packed, *data, hs, hts, ub, dub, n_sub,
+                                 method)
+        else:
+            grad = u_du_bwd_plain(net, *data, hs, hts, ub, dub, n_sub, method)
+        return (grad,) + (None,) * 10
+
+
+def u_du_fused(params, feats, dfeats, seed, dseed, times, mask, t_start, *,
+               n_sub: int, method: str, scale: float
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused ``(u [N, L], grad_x u [N, L, d])`` with a weight gradient.
+
+    ``feats [N, F]``: per-path field spatial input; ``dfeats [N, d, F]``:
+    its Jacobian in the d raw coordinates. ``seed [N]``, ``dseed [N, d]``:
+    the seed and its spatial gradient, already divided by ``scale``. The
+    outputs are multiplied by ``scale``. Same contract as the JAX
+    package's ``u_du_fused`` (``:713-801``).
+    """
+    net = flat_net(params)
+    packed = live_packed(params)
+    store = torch.is_grad_enabled() and packed.requires_grad
+    if not store:
+        packed = packed.detach()
+    t0, dt = _prep_intervals(times.float(), mask, t_start.float(), n_sub)
+    data = [a.detach().float().contiguous()
+            for a in (t0, dt, feats, dfeats, seed, dseed)]
+    u, du = UDuFused.apply(packed, net, *data, n_sub, method, store)
+    return u * scale, du * scale
+
+
+def path_tangent_inputs(batch, problem, cfg):
+    """``(feats [N, F], dfeats [N, d, F], seed [N], dseed [N, d])`` of a
+    path batch, in f32: the seed through :func:`models.xnode.path_seed_fn`
+    and the Fourier features, with their spatial tangents by forward mode
+    (``torch.func.jvp``) in each of the d coordinate directions."""
+    from xnode_wan_tpu_torch.models.xnode import path_seed_fn, spatial_features
+
+    with torch.no_grad():
+        xs = batch.space[:, 0, :].float()
+        seed_of = path_seed_fn(batch, problem, cfg)
+
+        def feats_of(x):
+            return spatial_features(x, cfg.fourier_features)
+
+        dseed, dfeats = [], []
+        for e in torch.eye(xs.shape[-1], dtype=xs.dtype, device=xs.device):
+            tan = e.expand_as(xs)
+            dseed.append(torch.func.jvp(seed_of, (xs,), (tan,))[1])
+            dfeats.append(torch.func.jvp(feats_of, (xs,), (tan,))[1])
+        return (feats_of(xs), torch.stack(dfeats, dim=1), seed_of(xs),
+                torch.stack(dseed, dim=1))
+
+
+def fused_from_batch(params, batch, problem, cfg):
+    """:func:`u_du_fused` on a path batch (:func:`path_tangent_inputs`); a
+    drop-in for ``ops/weak_form.py::u_with_spatial_grad``."""
+    return u_du_fused(params, *path_tangent_inputs(batch, problem, cfg),
+                      batch.times, batch.mask, batch.t_start,
+                      n_sub=cfg.n_sub, method=cfg.solver,
+                      scale=float(cfg.u_scale_eff))

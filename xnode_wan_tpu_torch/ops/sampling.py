@@ -70,6 +70,10 @@ class Hypercube:
     N_t: int
     x64: bool = False
     qmc: str = "none"
+    # Every interior path spans the full grid, so the per-exit-group
+    # objective has one occupied group: the weak form takes the pooled
+    # estimator (ops/weak_form.py::make_losses).
+    single_exit_group: bool = True
 
     def __post_init__(self):
         bot, top = self.shape_param

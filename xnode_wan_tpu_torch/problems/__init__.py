@@ -11,6 +11,9 @@ import dataclasses
 import importlib
 from typing import Any, Callable, Optional
 
+from xnode_wan_tpu_torch.ops.coefficients import (b_from_entries,
+                                                  full_a_from_entries)
+
 
 @dataclasses.dataclass(frozen=True)
 class Problem:
@@ -37,6 +40,22 @@ class Problem:
             raise ValueError(f"unknown a_kind {self.a_kind!r}")
         if self.a_kind != "zero" and self.a is None:
             object.__setattr__(self, "a", lambda X: 1.0)
+
+
+def from_reference_callables(func_a, func_b, func_c, func_h, func_f, func_g,
+                             dim: int, func_u_sol=None,
+                             stop_rel_err: Optional[float] = None,
+                             name: str = "reference") -> Problem:
+    """Adapt reference-style entrywise coefficients (``func_a(X, i, j)``,
+    ``func_b(X, i)``; reference ``src/training.py:32-41``) into a
+    :class:`Problem` with a dense diffusion matrix."""
+    return Problem(
+        name=name,
+        h=func_h, f=func_f, g=func_g, c=func_c,
+        a_kind="full", a=full_a_from_entries(func_a, dim),
+        b=b_from_entries(func_b, dim),
+        u_sol=func_u_sol, stop_rel_err=stop_rel_err, dim=dim,
+    )
 
 
 _PKG = "xnode_wan_tpu_torch.problems"

@@ -1,8 +1,12 @@
-"""Weight carry-over into the port's :class:`~xnode_wan_tpu_torch.models.xnode.XNODE`.
+"""Weight carry-over into the port's networks.
 
-* :func:`params_from_jax`: the JAX package's pytree
+* :func:`params_from_jax`: the JAX package's XNODE pytree
   ``{"lift": [...], "field": [...], "readout": {...}}`` of ``{"w", "b"}``
   layers as numpy arrays (``w [in, out]``, transposed here to ``[out, in]``).
+* :func:`disc_params_from_jax`: the JAX discriminator pytree
+  ``{"inp", "hidden", "out"}`` (``hidden`` one layer when tied, else a
+  list);
+* :func:`state_from_jax`: both into a solver, with fresh Adam moments;
 * :func:`load_reference_state_dict`: the reference's
   ``best_model_weights_NODE.pth`` (``torch.save`` of a
   ``DataParallel(NeuralODE)`` state dict), mapped as
@@ -21,6 +25,7 @@ import torch
 from torch import nn
 
 from xnode_wan_tpu_torch.device import default_device
+from xnode_wan_tpu_torch.models.discriminator import Discriminator
 from xnode_wan_tpu_torch.models.xnode import XNODE
 
 
@@ -51,6 +56,32 @@ def params_from_jax(tree: Mapping[str, Any], device=None,
     return _xnode([wb(l) for l in tree["lift"]],
                   [wb(l) for l in tree["field"]],
                   wb(tree["readout"]), device, dtype)
+
+
+def disc_params_from_jax(tree: Mapping[str, Any], device=None,
+                         dtype=torch.float32) -> Discriminator:
+    """Discriminator from a JAX ``init_discriminator``-shaped pytree."""
+    dev = default_device(device)
+
+    def lin(layer):
+        return _linear(np.asarray(layer["w"]).T, np.asarray(layer["b"]), dev,
+                       dtype)
+    hidden = tree["hidden"]
+    hidden = (lin(hidden) if isinstance(hidden, Mapping)
+              else nn.ModuleList(lin(l) for l in hidden))
+    return Discriminator(lin(tree["inp"]), hidden, lin(tree["out"]))
+
+
+def state_from_jax(solver, u_tree: Mapping[str, Any],
+                   v_tree: Mapping[str, Any]) -> None:
+    """Give ``solver`` (a ``training.NODEWANSolver``) the JAX package's
+    primal and discriminator weights, with fresh Adam moments and its own
+    generator, at step 0."""
+    dtype = torch.float64 if solver.cfg.x64 else torch.float32
+    solver.state = solver._fresh_state(
+        params_from_jax(u_tree, solver.device, dtype),
+        disc_params_from_jax(v_tree, solver.device, dtype),
+        solver.state.generator)
 
 
 def load_reference_state_dict(path: str, device=None,
