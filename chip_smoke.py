@@ -21,7 +21,16 @@ which raises on failure:
    b. training: ``NODEWANSolver.train_until(0.01, iterations)`` from
       ``seed`` 0 on ``Ex4_1_funcs``, full width and depth; it must reach
       rel-L2 < 1%, with kernels #2 and #3 launched once per outer
-      iteration and #4 and #5 ``n1`` times;
+      iteration, #4 and #5 ``n1`` times, #6 and #7 never;
+   c. the command line (``xnode_wan_tpu_torch.main``) on the same config
+      with ``fused_v: true``: it must print ``Stopping Criterion
+      Reached`` within the config's iterations, launch #6 twice, #7
+      once, #4 and #5 ``n1`` times and #2 and #3 once per iteration, and
+      write one metrics record per iteration, the three JSON lists, the
+      checkpoint and the best weights; ``--resume --iterations 3`` must
+      continue the step count and the loss; the resumed primal is served
+      through ``evaluate_points`` (kernel #1) under the rel-L2 limit of
+      2a, and the best weights load with ``load_reference_state_dict``;
 
 3. each kernel against its plain PyTorch version on the same card
    inputs: #1 and #2 within ``rtol=2e-4, atol=2e-5``; #3 / #4 (u, du, hs,
@@ -29,13 +38,20 @@ which raises on failure:
    hand-derived adjoint) on all four RK methods, a random 70% mask, rk4
    with n_sub 2 and Fourier features, and the autograd function's weight
    gradients against ``torch.autograd.grad`` through the plain forward;
+   #6 (v within ``rtol=2e-4, atol=2e-5``, the input gradient) and #7
+   (each weight-gradient tensor) at 80,000 points for the trained tied
+   adversary, an untied one and the d=20 geometry with its Fourier bank,
+   and the fused adversary side's weight gradients against autograd
+   through the plain ``create_graph`` path;
 4. CUDA-event times (median of 20 after warm-up) of each kernel and its
    plain version at the main path's shapes, beside the bound the card's
    published peaks put on the same work;
 5. CUDA-event times (median of 10) of the two serving entry points and
-   the share of each that its kernel takes, and of one training outer
-   step with the share of each kernel, of the plain boundary scan's
-   forward and backward, and of the adversary side.
+   the share of each that its kernel takes, of one training outer step
+   with the share of each kernel, of the plain boundary scan's forward
+   and backward, and of the adversary side, and of one ``fused_v`` outer
+   step (timed in turns with the plain one) with the share of #6 and #7,
+   and of the adversary step alone, plain and fused in turns.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -43,11 +59,14 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -165,6 +184,36 @@ def path_work(net, steppers, N, L, d, n_sub, method):
     }
 
 
+def disc_work(geom, M):
+    """FLOPs and bytes of kernels #6 and #7 on M points: the forward and
+    the sweep (#6), plus both reverses with their weight gradients (#7:
+    the sweep's reverse is one product and one outer product per layer,
+    as is the forward's); features, cotangents and weights read once,
+    outputs written once."""
+    F, H, L = geom.F, geom.H, geom.L
+    fwd = F * H + L * H * H + H
+    sweep = L * H * H + F * H
+    bwd = fwd + sweep + 3 * F * H + 4 * L * H * H + 2 * H
+    n_w = 4.0 * geom.n_params
+    return {"disc_fwd": (2.0 * M * (fwd + sweep), 4.0 * M * (2 * F + 1) + n_w),
+            "disc_bwd": (2.0 * M * bwd, 4.0 * M * (2 * F + 1) + 2 * n_w)}
+
+
+def run_cli(cli_main, argv):
+    """``cli_main(argv)`` with its standard output captured and echoed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        solver = cli_main(argv)
+    text = buf.getvalue()
+    print(text, end="")
+    return text, solver
+
+
+def read_jsonl(path):
+    with open(path) as fh:
+        return [json.loads(line) for line in fh]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -172,12 +221,14 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from xnode_wan_tpu_torch import (Hypercube, NODEWANSolver, apply_xnode,
-                                     evaluate_points, init_xnode, load_params,
-                                     load_problem, load_reference_state_dict,
-                                     rel_err, u_forward_fused)
+                                     evaluate_points, init_discriminator,
+                                     init_xnode, load_params, load_problem,
+                                     load_reference_state_dict, rel_err,
+                                     u_forward_fused)
+    from xnode_wan_tpu_torch.main import main as cli_main
     from xnode_wan_tpu_torch.models.xnode import spatial_features
     from xnode_wan_tpu_torch.ops import weak_form
-    from xnode_wan_tpu_torch.ops.kernels import _build, steppers
+    from xnode_wan_tpu_torch.ops.kernels import _build, disc_train, steppers
     from xnode_wan_tpu_torch.ops.kernels import xnode_eval, xnode_train
     from xnode_wan_tpu_torch.ops.kernels.steppers import FlatNet
 
@@ -212,7 +263,9 @@ def main() -> int:
     kernels = {"xnode_eval": xnode_eval.KERNEL, "xnode_train": xnode_train.KERNEL,
                "xnode_udu_fwd": xnode_train.FWD_KERNEL,
                "xnode_udu_fwd_store": xnode_train.FWD_STORE_KERNEL,
-               "xnode_udu_bwd": xnode_train.BWD_KERNEL}
+               "xnode_udu_bwd": xnode_train.BWD_KERNEL,
+               "disc_fwd": disc_train.FWD_KERNEL,
+               "disc_bwd": disc_train.BWD_KERNEL}
 
     # 2a. serving and scoring ---------------------------------------------
     for k in kernels.values():
@@ -270,7 +323,7 @@ def main() -> int:
           f"(train_until wall clock, {card}); launches {launches}")
     want = {"xnode_eval": 0, "xnode_train": iters, "xnode_udu_fwd": iters,
             "xnode_udu_fwd_store": cfg.n1 * iters,
-            "xnode_udu_bwd": cfg.n1 * iters}
+            "xnode_udu_bwd": cfg.n1 * iters, "disc_fwd": 0, "disc_bwd": 0}
     if launches != want:
         raise AssertionError(f"training launches {launches}, expected {want}")
     if not hist["rel_err_final"] < TRAIN_TOL:
@@ -281,6 +334,106 @@ def main() -> int:
         raise AssertionError("training produced a non-finite loss_u")
     launches["xnode_eval"] = serve_launches["xnode_eval"]
     trained = solver.state.u_params
+
+    # 2c. the command line with fused_v ------------------------------------
+    def cli_launches_want(n):
+        return {"xnode_eval": 0, "xnode_train": n, "xnode_udu_fwd": n,
+                "xnode_udu_fwd_store": cfg.n1 * n,
+                "xnode_udu_bwd": cfg.n1 * n, "disc_fwd": (1 + cfg.n2) * n,
+                "disc_bwd": cfg.n2 * n}
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as work:
+        yaml_path = os.path.join(work, "cube_pde_fused_v.yaml")
+        with open(CONFIG) as fh:
+            text = fh.read()
+        with open(yaml_path, "w") as fh:
+            fh.write(text.rstrip("\n") + "\nfused_v: true\n")
+        argv = ["--params", yaml_path, "--funcs", "Ex4_1_funcs", "-w", work,
+                "--report_it", "25"]
+        for k in kernels.values():
+            k.launches = 0
+        t = time.perf_counter()
+        out, fv_solver = run_cli(cli_main, argv)
+        torch.cuda.synchronize()
+        t_cli = time.perf_counter() - t
+        cli_launches = {n: k.launches for n, k in kernels.items()}
+        fv_iters = fv_solver.state.step
+        records = read_jsonl(os.path.join(work, f"metrics_NODE_{cfg.dim}.jsonl"))
+        print(f"command line, fused_v: {fv_iters} outer iterations to rel-L2 "
+              f"{records[-1]['rel_err']:.6f} in {t_cli:.3f} s (wall clock, "
+              f"{card}); launches {cli_launches}")
+        if "Stopping Criterion Reached" not in out:
+            raise AssertionError("the fused_v command-line run did not reach "
+                                 f"rel-L2 < {TRAIN_TOL} in {fv_iters} "
+                                 "iterations")
+        if cli_launches != cli_launches_want(fv_iters):
+            raise AssertionError(f"command-line launches {cli_launches}, "
+                                 f"expected {cli_launches_want(fv_iters)}")
+        if len(records) != fv_iters or [r["step"] for r in records] != \
+                list(range(fv_iters)):
+            raise AssertionError(f"{len(records)} metrics records for "
+                                 f"{fv_iters} iterations")
+        for name in (f"losses_NODE_{cfg.dim}.json", f"L2_NODE_{cfg.dim}.json",
+                     f"Time_NODE_{cfg.dim}.json", "checkpoint_NODE.pt",
+                     "best_model_weights_NODE.pth"):
+            if not os.path.exists(os.path.join(work, name)):
+                raise AssertionError(f"the command line wrote no {name}")
+        with open(os.path.join(work, f"losses_NODE_{cfg.dim}.json")) as fh:
+            if len(json.load(fh)) != fv_iters:
+                raise AssertionError("losses list length != iterations")
+
+        for k in kernels.values():
+            k.launches = 0
+        _, resumed = run_cli(cli_main, argv + ["--resume", "--iterations", "3"])
+        torch.cuda.synchronize()
+        resumed_launches = {n: k.launches for n, k in kernels.items()}
+        records2 = read_jsonl(os.path.join(work,
+                                           f"metrics_NODE_{cfg.dim}.jsonl"))
+        n_res = len(records2)
+        fresh, stop_l, first = (records[0]["loss_u"], records[-1]["loss_u"],
+                                records2[0]["loss_u"])
+        print(f"resumed: step {fv_iters} -> {resumed.state.step} in {n_res} "
+              f"iterations; loss_u first fresh {fresh:.6g}, at the stop "
+              f"{stop_l:.6g}, first resumed {first:.6g}; launches "
+              f"{resumed_launches}")
+        if not 1 <= n_res <= 3 or resumed.state.step != fv_iters + n_res:
+            raise AssertionError("the resumed run did not continue the step "
+                                 f"count ({fv_iters} + {n_res} != "
+                                 f"{resumed.state.step})")
+        if not abs(first - stop_l) < 0.2 * abs(stop_l):
+            raise AssertionError("the resumed loss_u is not near the stop's: "
+                                 "the checkpoint was not restored")
+        if resumed_launches != cli_launches_want(n_res):
+            raise AssertionError(f"resumed launches {resumed_launches}, "
+                                 f"expected {cli_launches_want(n_res)}")
+
+        xnode_eval.KERNEL.launches = 0
+        u_resumed = resumed.predict(pts)
+        torch.cuda.synchronize()
+        rel_resumed = float(rel_err(u_resumed, problem.u_sol(pts), ones,
+                                    cube.V(), cfg.p))
+        best = load_reference_state_dict(
+            os.path.join(work, "best_model_weights_NODE.pth"), device=dev,
+            dtype=torch.float32)
+        with torch.no_grad():
+            u_best = evaluate_points(best, pts, problem, cfg)
+        rel_best = float(rel_err(u_best, problem.u_sol(pts), ones, cube.V(),
+                                 cfg.p))
+        print(f"served the resumed primal on {SERVE_POINTS} points: rel-L2 "
+              f"{rel_resumed:.6f} ({xnode_eval.KERNEL.launches} launches of "
+              f"#1); best weights through load_reference_state_dict: rel-L2 "
+              f"{rel_best:.6f}")
+        if xnode_eval.KERNEL.launches != 2:
+            raise AssertionError("serving the resumed primal and the best "
+                                 "weights did not launch kernel #1")
+        if not rel_resumed < REL_L2_LIMIT:
+            raise AssertionError(f"resumed primal serves at rel-L2 "
+                                 f"{rel_resumed} >= {REL_L2_LIMIT}")
+        if u_best.shape != (SERVE_POINTS,) or not bool(
+                torch.isfinite(u_best).all()):
+            raise AssertionError("the best weights serve non-finite values")
+    for name in ("disc_fwd", "disc_bwd"):
+        launches[name] = cli_launches[name]
 
     # 3. each kernel against its plain version on the card -----------------
     net = xnode_train.flat_net(model)
@@ -394,6 +547,72 @@ def main() -> int:
                    torch.cat([g.reshape(-1) for g in g_ad]),
                    [g.numel() for g in g_ad])
 
+    # kernels #6 and #7 at the main path's 80,000 points: the trained tied
+    # adversary of 2c, an untied one and the d=20 geometry with its
+    # Fourier bank (random weights, seeded random cotangents)
+    vpts = batch.x.reshape(-1, cfg.dim + 1).contiguous()
+    M_v = vpts.shape[0]
+    vg = torch.Generator(device=dev).manual_seed(3)
+    cfg20 = load_params(os.path.join(ROOT, "configs", "highdim_d20.yaml"))
+    pts20 = torch.rand((M_v, cfg20.dim + 1), generator=vg, device=dev)
+    pts20[:, 1:] = 2.0 * pts20[:, 1:] - 1.0
+    dcases = [
+        ("tied d=5, trained", fv_solver.state.v_params, vpts, cfg.v_layers,
+         True, 0),
+        ("untied d=5, random", init_discriminator(
+            cfg.dim, cfg.v_hidden_dim, cfg.v_layers, False, 0, generator=vg,
+            device=dev), vpts, cfg.v_layers, False, 0),
+        ("tied d=20 v_fourier_features=1, random", init_discriminator(
+            cfg20.dim, cfg20.v_hidden_dim, cfg20.v_layers, True,
+            cfg20.v_fourier_features, generator=vg, device=dev), pts20,
+         cfg20.v_layers, True, cfg20.v_fourier_features)]
+    with torch.no_grad():
+        for label, vp, dpts, n_layers, tied, n_freq in dcases:
+            geom = disc_train.geom_of(vp, n_layers, tied)
+            dpacked = disc_train.live_packed_disc(vp, n_layers,
+                                                  tied).detach()
+            dfeats = disc_train.disc_features(dpts, n_freq).contiguous()
+            v_k, g_k = disc_train.v_dv_fwd_cuda(dpacked, dfeats, geom)
+            v_p, g_p = disc_train.v_dv_fwd_plain(dpacked, dfeats, geom)
+            label = f"{label} M={M_v} {geom}"
+            errs["disc_fwd"] = max(errs["disc_fwd"],
+                                   compare(f"disc_fwd v {label}", v_k, v_p),
+                                   compare_scaled(f"disc_fwd gin {label}",
+                                                  g_k, g_p))
+            vb = torch.randn((M_v,), generator=vg, device=dev)
+            gb = torch.randn((M_v, geom.F), generator=vg, device=dev)
+            sizes = [a.numel() for a in disc_train.flat_disc(vp, n_layers,
+                                                             tied)]
+            errs["disc_bwd"] = max(errs["disc_bwd"], compare_scaled(
+                f"disc_bwd {label}",
+                disc_train.v_dv_bwd_cuda(dpacked, dfeats, vb, gb, geom),
+                disc_train.v_dv_bwd_plain(dpacked, dfeats, vb, gb, geom),
+                sizes))
+
+    # the fused adversary side's weight gradients (#6 forward, #7
+    # backward) against autograd through the plain create_graph path, in
+    # a contraction shaped like loss_v
+    cv = torch.randn((N, L), generator=gen, device=dev)
+    cp = torch.randn((N, L), generator=gen, device=dev)
+    cdp = torch.randn((N, L, d + 1), generator=gen, device=dev)
+
+    def v_contraction(v, phi, dphi):
+        return ((v * v * cv).sum() + (phi * cp).sum() + (dphi * cdp).sum()
+                + (torch.tanh(phi) * dphi[..., 0]).sum())
+
+    vparams = fv_solver.state.v_params
+    vleaves = list(vparams.parameters())
+    g_fused = torch.autograd.grad(v_contraction(*weak_form.v_phi_grads_fused(
+        vparams, batch.x, fv_solver.domain.func_w, fv_solver.cfg)), vleaves)
+    g_plain = torch.autograd.grad(v_contraction(*weak_form.v_phi_and_grads(
+        fv_solver._v_apply, vparams, batch.x, fv_solver.domain.func_w)),
+        vleaves)
+    compare_scaled("VDvFused.backward vs autograd through the plain "
+                   "create_graph path",
+                   torch.cat([g.reshape(-1) for g in g_fused]),
+                   torch.cat([g.reshape(-1) for g in g_plain]),
+                   [g.numel() for g in g_plain])
+
     # 4. times at the main path's shapes ------------------------------------
     t0, dt = xnode_train._prep_intervals(batch.times, batch.mask,
                                          batch.t_start, cfg.n_sub)
@@ -420,6 +639,13 @@ def main() -> int:
     cg = torch.Generator(device=dev).manual_seed(8)
     ub = torch.randn((N, L), generator=cg, device=dev)
     dub = torch.randn((N, L, d), generator=cg, device=dev)
+    # #6 and #7: the trained adversary of 2c on the interior batch's points
+    vgeom = disc_train.geom_of(vparams, cfg.v_layers, cfg.tied_v)
+    vpacked = disc_train.live_packed_disc(vparams, cfg.v_layers,
+                                          cfg.tied_v).detach()
+    vb = torch.randn((M_v,), generator=cg, device=dev)
+    gb = torch.randn((M_v, vgeom.F), generator=cg, device=dev)
+    work.update(disc_work(vgeom, M_v))
     with torch.no_grad():
         timed = {
             "xnode_eval": (
@@ -450,6 +676,14 @@ def main() -> int:
                 lambda: xnode_train.u_du_bwd_plain(net_tr, *gargs, *states,
                                                    ub, dub, cfg.n_sub,
                                                    method)),
+            "disc_fwd": (
+                lambda: disc_train.v_dv_fwd_cuda(vpacked, vpts, vgeom),
+                lambda: disc_train.v_dv_fwd_plain(vpacked, vpts, vgeom)),
+            "disc_bwd": (
+                lambda: disc_train.v_dv_bwd_cuda(vpacked, vpts, vb, gb,
+                                                 vgeom),
+                lambda: disc_train.v_dv_bwd_plain(vpacked, vpts, vb, gb,
+                                                  vgeom)),
         }
         meta = {
             "xnode_eval": ("xnode_wan_tpu_torch/csrc/xnode_eval.cu",
@@ -462,9 +696,14 @@ def main() -> int:
                                     "xnode_wan_tpu/ops/pallas/xnode_train.py:264"),
             "xnode_udu_bwd": ("xnode_wan_tpu_torch/csrc/xnode_grad.cu",
                               "xnode_wan_tpu/ops/pallas/xnode_train.py:432"),
+            "disc_fwd": ("xnode_wan_tpu_torch/csrc/disc_train.cu",
+                         "xnode_wan_tpu/ops/pallas/disc_train.py:95"),
+            "disc_bwd": ("xnode_wan_tpu_torch/csrc/disc_train.cu",
+                         "xnode_wan_tpu/ops/pallas/disc_train.py:103"),
         }
         rows = []
-        print(f"times ({card}), median of 20 CUDA-event runs, {method}:")
+        print(f"times ({card}), median of 20 CUDA-event runs, {method}; "
+              f"#6 and #7 on {M_v} points, {vgeom}:")
         for name, (kern, plain) in timed.items():
             ms = time_ms(kern)
             plain_ms = time_ms(plain)
@@ -499,9 +738,16 @@ def main() -> int:
           f"u_forward_fused + rel_err {N} paths {score_ms:.4f} ms (kernel "
           f"{kernel_ms['xnode_train'] / score_ms:.1%} of it)")
 
-    # one training outer step and what takes its time (the trained state
-    # takes these extra steps; the launch counts were read above)
-    step_ms = time_ms(lambda: solver._outer_step(), reps=10, warmup=2)
+    # one training outer step and what takes its time (the trained states
+    # take these extra steps; the launch counts were read above). The
+    # plain and the fused_v step (the first command-line run's solver) are
+    # timed in turns, plain, fused, fused, plain, since the host-bound
+    # parts drift within a call
+    step_runs = [time_ms(lambda: solver._outer_step(), reps=10, warmup=2)]
+    fv_runs = [time_ms(lambda: fv_solver._outer_step(), reps=10, warmup=2)]
+    fv_runs.append(time_ms(lambda: fv_solver._outer_step(), reps=10))
+    step_runs.append(time_ms(lambda: solver._outer_step(), reps=10))
+    step_ms, fv_step_ms = statistics.mean(step_runs), statistics.mean(fv_runs)
     sbatch, bbatch = solver._sample(solver.state.generator)
     state = solver.state
 
@@ -524,9 +770,9 @@ def main() -> int:
                 "boundary scan forward": cfg.n1 * fwd_ms,
                 "boundary scan backward": cfg.n1 * bdry_bwd_ms,
                 "v_side": (1 + cfg.n2) * vside_ms}
-    print(f"training outer step ({card}), median of 10 CUDA-event runs: "
-          f"{step_ms:.4f} ms; shares, from each part timed alone times its "
-          "calls per step:")
+    print(f"training outer step ({card}), mean of two medians of 10 "
+          f"CUDA-event runs {step_runs}: {step_ms:.4f} ms; shares, from each "
+          "part timed alone times its calls per step:")
     for name, ms in per_step.items():
         print(f"  {name}: {ms:.4f} ms, {ms / step_ms:.1%}")
     print(f"  rest (sampling, losses, Adam, host): "
@@ -535,6 +781,54 @@ def main() -> int:
         "iterations": iters, "rel_err_final": hist["rel_err_final"],
         "wall_train_s": hist["wall_train_s"], "step_ms": step_ms,
         "parts_ms": per_step}}))
+
+    # the fused_v outer step: the adversary side through #6 twice and #7
+    # once, beside the plain one
+    fv_batch, _ = fv_solver._sample(fv_solver.state.generator)
+    with torch.no_grad():
+        fv_vside_ms = time_ms(lambda: fv_solver._losses.v_side(
+            fv_solver.state.v_params, fv_batch), reps=10)
+    fv_parts = {"disc_fwd (#6), 2 launches": 2 * kernel_ms["disc_fwd"],
+                "disc_bwd (#7), 1 launch": kernel_ms["disc_bwd"]}
+
+    # the adversary step alone (the n2 part of _step_on): loss_v on a
+    # fixed u side, forward and weight gradient, in turns
+    def adversary_step(s):
+        b, _ = s._sample(s.state.generator)
+        with torch.no_grad():
+            uside = s._losses.u_side(s.state.u_params, b)
+        leaves = list(s.state.v_params.parameters())
+
+        def run():
+            loss, _ = s._losses.loss_v_uside(s.state.v_params, uside, b)
+            torch.autograd.grad(loss, leaves)
+        return run
+
+    adv_plain, adv_fused = adversary_step(solver), adversary_step(fv_solver)
+    adv_runs = [time_ms(adv_plain, reps=10), time_ms(adv_fused, reps=10),
+                time_ms(adv_fused, reps=10), time_ms(adv_plain, reps=10)]
+    adv_plain_ms = statistics.mean(adv_runs[::3])
+    adv_fused_ms = statistics.mean(adv_runs[1:3])
+    print(f"fused_v outer step ({card}), mean of two medians of 10 "
+          f"CUDA-event runs {fv_runs}: {fv_step_ms:.4f} ms (plain step in "
+          f"turns with it: {step_ms:.4f} ms)")
+    for name, ms in fv_parts.items():
+        print(f"  {name}: {ms:.4f} ms, {ms / fv_step_ms:.1%}")
+    print(f"  fused v_side without gradient (#6 and the cutoff), timed "
+          f"alone: {fv_vside_ms:.4f} ms a call; plain v_side with its "
+          f"create_graph graph: {vside_ms:.4f} ms a call, "
+          f"{per_step['v_side']:.4f} ms a step, "
+          f"{per_step['v_side'] / step_ms:.1%} of the plain step")
+    print(f"  adversary step alone (loss_v and its weight gradient on a "
+          f"fixed u side), plain, fused, fused, plain {adv_runs}: plain "
+          f"{adv_plain_ms:.4f} ms, fused {adv_fused_ms:.4f} ms")
+    print(json.dumps({"training_fused_v": {
+        "adversary_step_ms": adv_fused_ms,
+        "plain_adversary_step_ms": adv_plain_ms,
+        "iterations": fv_iters, "wall_cli_s": t_cli, "step_ms": fv_step_ms,
+        "step_runs_ms": fv_runs, "plain_step_runs_ms": step_runs,
+        "parts_ms": fv_parts, "fused_v_side_ms": fv_vside_ms,
+        "plain_v_side_ms": vside_ms}}))
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,306 @@
+"""The adversary's kernels of the port (#6 and #7 in ``csrc/disc_train.cu``)
+through their plain versions: against the JAX package's Pallas kernels in
+interpret mode, the hand-derived backward against double-backward
+autograd, the fused adversary side against the JAX one, and the host side
+of the CUDA wrappers that the CPU can check.
+
+Tolerances are those of ``tests/test_fused_disc.py`` (f32): values within
+``atol=5e-6``, space-time gradients within ``atol=5e-5``, weight gradients
+within ``3e-5`` of ``max(1, the tensor's largest value)``. The adjoint
+against autograd in f64: 1e-10.
+"""
+
+import ctypes
+import os
+import re
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from xnode_wan_tpu.config import SolverConfig as JConfig
+from xnode_wan_tpu.models.discriminator import \
+    init_discriminator as jinit_discriminator
+from xnode_wan_tpu.ops.pallas import disc_train as jdisc
+from xnode_wan_tpu.ops.sampling import make_domain
+from xnode_wan_tpu.ops.weak_form import \
+    v_phi_grads_fused as jv_phi_grads_fused
+from xnode_wan_tpu_torch import (Hypercube, SolverConfig, disc_params_from_jax,
+                                 init_discriminator, load_params)
+from xnode_wan_tpu_torch.ops import weak_form
+from xnode_wan_tpu_torch.ops.kernels import _build, disc_train
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DIM, H, L, M = 3, 10, 3, 200
+# (tied, n_freq): tied and untied, and the Fourier bank at one and two
+# frequencies
+CASES = [(True, 0), (False, 0), (True, 1), (True, 2), (False, 1)]
+
+
+def shared_disc(tied, n_freq, seed):
+    """One discriminator for both packages, biases made non-zero so the
+    relu masks split."""
+    tree = jax.tree.map(np.asarray, jinit_discriminator(
+        jax.random.PRNGKey(seed), DIM, H, L, tied, n_freq))
+    rng = np.random.default_rng(seed)
+    hidden = [tree["hidden"]] if tied else tree["hidden"]
+    for layer in [tree["inp"], *hidden, tree["out"]]:
+        layer["b"] = (0.2 * rng.normal(size=layer["b"].shape)).astype(
+            np.float32)
+    return (jax.tree.map(jnp.asarray, tree),
+            disc_params_from_jax(tree, device="cpu"))
+
+
+def sample_points(n, seed):
+    rng = np.random.default_rng(seed)
+    pts = np.concatenate([rng.uniform(0, 1, (n, 1)),
+                          rng.uniform(-1, 1, (n, DIM))], axis=-1)
+    return pts.astype(np.float32)
+
+
+def torch_layers(tparams, tied):
+    hidden = [tparams.hidden] if tied else list(tparams.hidden)
+    return [tparams.inp, *hidden, tparams.out]
+
+
+def jax_layers(tree, tied):
+    hidden = [tree["hidden"]] if tied else list(tree["hidden"])
+    return [tree["inp"], *hidden, tree["out"]]
+
+
+def assert_grads_close(tparams, jgrads, tied, scale_rtol=3e-5):
+    for tl, jl in zip(torch_layers(tparams, tied), jax_layers(jgrads, tied)):
+        for got, want in ((tl.weight.grad, np.asarray(jl["w"]).T),
+                          (tl.bias.grad, np.asarray(jl["b"]))):
+            scale = max(float(np.abs(want).max()), 1.0)
+            np.testing.assert_allclose(got.numpy(), want,
+                                       atol=scale_rtol * scale)
+
+
+@pytest.mark.parametrize("tied,n_freq", CASES)
+def test_plain_versions_match_pallas(tied, n_freq):
+    # v_dv_fused on CPU tensors runs v_dv_fwd_plain forward and
+    # v_dv_bwd_plain backward; the JAX v_dv_fused runs _v_fwd_kernel and
+    # _v_bwd_kernel in interpret mode
+    jparams, tparams = shared_disc(tied, n_freq, seed=1)
+    pts = sample_points(M, seed=2)
+    rng = np.random.default_rng(3)
+    vb = rng.normal(size=M).astype(np.float32)
+    gb = rng.normal(size=(M, DIM + 1)).astype(np.float32)
+    with jax.default_matmul_precision("highest"):
+        (jv, jdv), vjp = jax.vjp(
+            lambda p: jdisc.v_dv_fused(p, jnp.asarray(pts), v_layers=L,
+                                       tied=tied, n_freq=n_freq,
+                                       interpret=True), jparams)
+        (jgrads,) = vjp((jnp.asarray(vb), jnp.asarray(gb)))
+    v, dv = disc_train.v_dv_fused(tparams, torch.as_tensor(pts), v_layers=L,
+                                  tied=tied, n_freq=n_freq)
+    np.testing.assert_allclose(v.detach().numpy(), np.asarray(jv), atol=5e-6)
+    np.testing.assert_allclose(dv.detach().numpy(), np.asarray(jdv),
+                               atol=5e-5)
+    torch.autograd.backward((v, dv), (torch.as_tensor(vb),
+                                      torch.as_tensor(gb)))
+    assert_grads_close(tparams, jgrads, tied)
+
+
+@pytest.mark.parametrize("tied", [True, False])
+def test_bwd_plain_matches_double_backward_f64(tied):
+    # the hand-derived adjoint against reverse-over-reverse: gin by
+    # autograd with create_graph, then the weight gradient of
+    # sum(v vb) + sum(gin gb)
+    _, tparams = shared_disc(tied, 1, seed=4)
+    geom = disc_train.geom_of(tparams, L, tied)
+    packed = torch.cat([a.reshape(-1) for a in disc_train.flat_disc(
+        tparams, L, tied)]).double()
+    feats = disc_train.disc_features(
+        torch.as_tensor(sample_points(60, seed=5)).double(), 1)
+    rng = np.random.default_rng(6)
+    vb = torch.as_tensor(rng.normal(size=60))
+    gb = torch.as_tensor(rng.normal(size=(60, geom.F)))
+    leaf = packed.clone().requires_grad_(True)
+    z = feats.clone().requires_grad_(True)
+    _, _, v = disc_train._forward(geom.unpack(leaf), geom, z)
+    (gin,) = torch.autograd.grad(v.sum(), z, create_graph=True)
+    (want,) = torch.autograd.grad((v * vb).sum() + (gin * gb).sum(), leaf)
+    got = disc_train.v_dv_bwd_plain(packed, feats, vb, gb, geom)
+    torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-10)
+    v_p, gin_p = disc_train.v_dv_fwd_plain(packed, feats, geom)
+    torch.testing.assert_close(v_p, v.detach(), rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(gin_p, gin.detach(), rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("tied,n_freq", [(True, 0), (False, 0), (True, 1)])
+def test_v_phi_grads_fused_matches_jax(tied, n_freq):
+    # the fused adversary side: values and the weight gradients of the
+    # contraction of tests/test_fused_disc.py
+    jparams, tparams = shared_disc(tied, n_freq, seed=7)
+    kw = dict(dim=DIM, v_layers=L, v_hidden_dim=H, tied_v=tied,
+              v_fourier_features=n_freq, N_t=5, fused_v=True)
+    jcfg, tcfg = JConfig(**kw), SolverConfig(**kw)
+    jdom = make_domain("Hypercube", (-1.0, 1.0), DIM, 0.0, 1.0, 5)
+    tdom = Hypercube((-1.0, 1.0), DIM, 0.0, 1.0, 5)
+    x = sample_points(24 * 5, seed=8).reshape(24, 5, DIM + 1)
+    rng = np.random.default_rng(9)
+    cv, cp = (rng.normal(size=(24, 5)).astype(np.float32) for _ in range(2))
+    cd = rng.normal(size=(24, 5, DIM + 1)).astype(np.float32)
+
+    def contraction(v, phi, dphi, lib):
+        return ((v * v * lib.asarray(cv)).sum() + (phi * lib.asarray(cp)).sum()
+                + (dphi * lib.asarray(cd)).sum()
+                + (lib.tanh(phi) * dphi[..., 0]).sum())
+
+    with jax.default_matmul_precision("highest"):
+        jout = jv_phi_grads_fused(jparams, jnp.asarray(x), jdom.func_w, jcfg,
+                                  interpret=True)
+        jgrads = jax.grad(lambda p: contraction(*jv_phi_grads_fused(
+            p, jnp.asarray(x), jdom.func_w, jcfg, interpret=True),
+            jnp))(jparams)
+    tout = weak_form.v_phi_grads_fused(tparams, torch.as_tensor(x),
+                                       tdom.func_w, tcfg)
+    for got, want, atol in zip(tout, jout, (5e-6, 5e-6, 5e-5)):
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   atol=atol)
+    contraction(*tout, torch).backward()
+    assert_grads_close(tparams, jgrads, tied)
+
+
+def test_fused_v_side_matches_plain_side():
+    # make_losses dispatches v_side by the gate: the fused side and the
+    # plain create_graph side agree on the same discriminator
+    _, tparams = shared_disc(True, 0, seed=10)
+    cfg = SolverConfig(dim=DIM, v_layers=L, v_hidden_dim=H, N_t=5)
+    dom = Hypercube((-1.0, 1.0), DIM, 0.0, 1.0, 5)
+    x = torch.as_tensor(sample_points(40, seed=11).reshape(8, 5, DIM + 1))
+
+    def v_apply(p, pts):
+        from xnode_wan_tpu_torch.models.discriminator import \
+            apply_discriminator
+        return apply_discriminator(p, pts, L, True, 0)
+
+    fused = weak_form.v_phi_grads_fused(tparams, x, dom.func_w, cfg)
+    plain = weak_form.v_phi_and_grads(v_apply, tparams, x, dom.func_w)
+    for a, b in zip(fused, plain):
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=5e-6)
+    with torch.no_grad():
+        bare = weak_form.v_phi_and_grads(v_apply, tparams, x, dom.func_w)
+    assert all(a.grad_fn is None for a in bare)
+    for a, b in zip(bare, plain):
+        torch.testing.assert_close(a, b.detach(), rtol=0, atol=0)
+
+
+def test_over_cap_v_side_plain_on_cpu_raises_elsewhere():
+    # fused_v with a discriminator wider than the kernels' caps: CPU
+    # tensors take the plain side, any other device is refused by name
+    cfg = SolverConfig(dim=DIM, v_layers=2, v_hidden_dim=65, N_t=5,
+                       fused_v=True)
+    dom = Hypercube((-1.0, 1.0), DIM, 0.0, 1.0, 5)
+    tparams = init_discriminator(DIM, 65, 2, True, 0, device="cpu")
+    assert not disc_train.v_fused_fits(tparams, 2, True)
+
+    def v_apply(p, pts):
+        from xnode_wan_tpu_torch.models.discriminator import \
+            apply_discriminator
+        return apply_discriminator(p, pts, 2, True, 0)
+
+    v_side = weak_form.make_losses(None, dom, cfg, None, v_apply).v_side
+    x = torch.as_tensor(sample_points(40, seed=15).reshape(8, 5, DIM + 1))
+    counts = [disc_train.FWD_KERNEL.launches, disc_train.BWD_KERNEL.launches]
+    got = v_side(tparams, SimpleNamespace(x=x))
+    want = weak_form.v_phi_and_grads(v_apply, tparams, x, dom.func_w)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="caps.*v_hidden_dim <= 64"):
+        v_side(tparams, SimpleNamespace(x=x.to("meta")))
+    assert counts == [disc_train.FWD_KERNEL.launches,
+                      disc_train.BWD_KERNEL.launches]
+
+
+def test_fused_v_gate():
+    base = dict(dim=2, fused_v=True)
+    assert weak_form.fused_v_gate(SolverConfig(**base))
+    assert not weak_form.fused_v_gate(SolverConfig(dim=2))
+    assert not weak_form.fused_v_gate(SolverConfig(**base, x64=True))
+    assert not weak_form.fused_v_gate(SolverConfig(**base, fused_grad=False))
+
+
+def test_live_packed_carries_grad_and_ties_once():
+    for tied in (True, False):
+        _, tparams = shared_disc(tied, 0, seed=12)
+        geom = disc_train.geom_of(tparams, L, tied)
+        live = disc_train.live_packed_disc(tparams, L, tied)
+        assert live.shape == (geom.n_params,)
+        flat = disc_train.flat_disc(tparams, L, tied)
+        assert len(flat) == 2 * (2 + geom.n_hidden)
+        torch.testing.assert_close(live.detach(),
+                                   torch.cat([a.reshape(-1) for a in flat]))
+        pairs = geom.unpack(live.detach())
+        assert pairs[1][0].data_ptr() != pairs[-1][0].data_ptr()
+        torch.testing.assert_close(pairs[1][0], flat[2].reshape(H, H))
+        live.sum().backward()
+        assert all(bool((p.grad == 1).all()) for p in tparams.parameters())
+
+
+def cuda_signature(symbol):
+    text = (_build.CSRC / "disc_train.cu").read_text()
+    m = re.search(r'extern "C" int ' + symbol + r"\((.*?)\)", text, re.S)
+    assert m, f"{symbol} not found in disc_train.cu"
+    return [p.strip() for p in m.group(1).split(",")]
+
+
+@pytest.mark.parametrize("kernel", [disc_train.FWD_KERNEL,
+                                    disc_train.BWD_KERNEL],
+                         ids=lambda k: k.symbol)
+def test_disc_ctypes_argtypes_match_c_signature(kernel):
+    assert kernel.source == "disc_train"
+    assert "disc_train" in _build.KERNEL_SOURCES
+    params = cuda_signature(kernel.symbol)
+    declared = [ctypes.c_int, ctypes.c_void_p] + kernel.argtypes
+    assert len(params) == len(declared)
+    for p, ct in zip(params, declared):
+        assert ct is (ctypes.c_void_p if "*" in p else ctypes.c_int), p
+
+
+def test_disc_cuda_wrappers_reject_cpu_tensors():
+    _, tparams = shared_disc(True, 0, seed=13)
+    geom = disc_train.geom_of(tparams, L, True)
+    packed = torch.cat([a.reshape(-1) for a in disc_train.flat_disc(
+        tparams, L, True)])
+    feats = torch.as_tensor(sample_points(9, seed=14))
+    counts = [disc_train.FWD_KERNEL.launches, disc_train.BWD_KERNEL.launches]
+    with pytest.raises(ValueError, match="CUDA device"):
+        disc_train.v_dv_fwd_cuda(packed, feats, geom)
+    with pytest.raises(ValueError, match="CUDA device"):
+        disc_train.v_dv_bwd_cuda(packed, feats, torch.zeros(9),
+                                 torch.zeros(9, geom.F), geom)
+    with pytest.raises(ValueError, match="caps"):
+        disc_train.v_dv_fwd_cuda(packed, feats, geom._replace(H=65))
+    with pytest.raises(ValueError, match="no disc kernel"):
+        disc_train.VDvFused.apply(packed.to("meta"), geom, feats.to("meta"))
+    assert counts == [disc_train.FWD_KERNEL.launches,
+                      disc_train.BWD_KERNEL.launches]
+
+
+def test_fits_gate_and_tiles():
+    # the shipped d=5 and d=20 adversaries fit, tied or not (16-point tiles
+    # for #7, 8 for the untied d=20 one); test_fused_disc.py::
+    # test_fits_gate's absurd geometry does not
+    for name, tiles in (("cube_pde", (16, 16)), ("highdim_d20", (16, 8))):
+        cfg = load_params(os.path.join(REPO, "configs", f"{name}.yaml"))
+        for tied, tile in zip((True, False), tiles):
+            p = init_discriminator(cfg.dim, cfg.v_hidden_dim, cfg.v_layers,
+                                   tied, cfg.v_fourier_features,
+                                   device="cpu")
+            assert disc_train.v_fused_fits(p, cfg.v_layers, tied), name
+            geom = disc_train.geom_of(p, cfg.v_layers, tied)
+            assert disc_train.bwd_tile(geom) == tile
+    geom = disc_train.DiscGeom(F=6, H=50, L=9, tied=True)
+    assert geom.n_params == 2951
+    assert disc_train.bwd_smem_bytes(geom, 16) == 4 * (2951 + 17 * 1113)
+    big = init_discriminator(50, 400, 40, False, 4, device="cpu")
+    assert not disc_train.v_fused_fits(big, 40, False)
+    with pytest.raises(ValueError, match="shared memory"):
+        disc_train.bwd_tile(disc_train.DiscGeom(F=128, H=64, L=32,
+                                                tied=False))

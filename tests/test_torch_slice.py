@@ -43,6 +43,9 @@ def test_import_leaves_jax_out():
             "xnode_wan_tpu_torch.utils.torch_compat\n"
             "from xnode_wan_tpu_torch.ops.kernels.xnode_train import ("
             "UDuFused, u_du_fused, fused_from_batch, u_du_bwd_cuda)\n"
+            "import xnode_wan_tpu_torch.main, xnode_wan_tpu_torch.ops.kernels."
+            "disc_train, xnode_wan_tpu_torch.utils.checkpoint, "
+            "xnode_wan_tpu_torch.utils.logging\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'xnode_wan_tpu'))\n"
             "print(bad)\n")

@@ -8,7 +8,10 @@ parameters and 1e-6 on the metrics, whose log-ratio loss magnifies the
 difference (optax evaluates ``exponential_decay`` in float32 even under
 x64, 3e-8 off the exact rate); in f32 (the port's fused plain path against the JAX
 package's XLA route on the CPU) 1e-4 on the parameters and Adam moments
-after two Adam steps, 1e-5 on the metrics.
+after two Adam steps, 1e-5 on the metrics. The same holds with
+``fused_v``: the port's adversary side through the plain versions of
+kernels #6 and #7, the JAX package's through its XLA route (its gate takes
+the kernels on a TPU only).
 """
 
 import dataclasses
@@ -95,7 +98,8 @@ def check_adam(opt, pairs_of, jopt, rtol):
     (np.float64, dict(grad_clip=0.5, lr_decay=0.9, ema_decay=0.9), 1e-7,
      1e-6),
     (np.float32, {}, 1e-4, 1e-5),
-], ids=["f64", "f64_clip_decay_ema", "f32_fused_plain"])
+    (np.float32, dict(fused_v=True), 1e-4, 1e-5),
+], ids=["f64", "f64_clip_decay_ema", "f32_fused_plain", "f32_fused_v_plain"])
 def test_one_outer_step_matches_jax(restore_x64, tmp_path, dtype, extra,
                                     rtol, rtol_metrics):
     cfg = dict(STEP, x64=dtype == np.float64, **extra)
@@ -174,11 +178,13 @@ def test_train_until_stops_at_tolerance():
     assert len(hist["rel_err"]) == iters == solver.state.step
 
 
-def test_train_stop_criteria():
+def test_train_stop_criteria(tmp_path):
+    # train writes its logs and checkpoints into work_dir
     problem = dataclasses.replace(load_problem("cube_pde", 2),
                                   stop_rel_err=0.9)
     solver = NODEWANSolver(SolverConfig(**dict(SMALL, iterations=30)),
-                           problem, device="cpu")
+                           problem, device="cpu",
+                           work_dir=str(tmp_path / "a"))
     m = solver.train()
     assert solver.state.step < 30 and m["rel_err"] < 0.9
     calls = []
@@ -189,7 +195,7 @@ def test_train_stop_criteria():
 
     solver = NODEWANSolver(SolverConfig(**dict(SMALL, iterations=30)),
                            load_problem("cube_pde", 2), device="cpu",
-                           stop=stop)
+                           stop=stop, work_dir=str(tmp_path / "b"))
     solver.train()
     assert len(calls) == 3 == solver.state.step
     assert solver.best_u_params is not None
@@ -205,8 +211,7 @@ def test_same_seed_same_run():
 
 
 @pytest.mark.parametrize("kw", [dict(ensemble=2), dict(adjoint=True),
-                                dict(independent_uv=True),
-                                dict(fused_v=True), dict(primal="wan"),
+                                dict(independent_uv=True), dict(primal="wan"),
                                 dict(tangent_shards=2),
                                 dict(domain="NSphere_TCone", shape_param=1.0)])
 def test_unported_options_raise(kw):

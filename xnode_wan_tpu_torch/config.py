@@ -190,7 +190,6 @@ def check_trainable(cfg: SolverConfig) -> None:
     missing = [(cfg.ensemble > 1, "ensemble > 1"),
                (cfg.adjoint, "adjoint: true"),
                (cfg.independent_uv, "independent_uv: true"),
-               (cfg.fused_v, "fused_v: true (kernels #6 and #7)"),
                (cfg.primal != "xnode", f"primal: {cfg.primal}"),
                (cfg.tangent_shards > 1, "tangent_shards > 1")]
     names = [name for bad, name in missing if bad]

@@ -43,17 +43,23 @@ def init_discriminator(dim: int, v_hidden: int, v_layers: int,
     return Discriminator(inp, hidden, out)
 
 
+def disc_features(pts: torch.Tensor, n_freq: int) -> torch.Tensor:
+    """The discriminator's input at ``pts [..., d+1]``: time, then the
+    spatial coordinates with, for ``n_freq > 0``, their ``sin/cos(k pi/2
+    x)`` banks (``models.xnode.spatial_features``)."""
+    if n_freq == 0:
+        return pts
+    from xnode_wan_tpu_torch.models.xnode import spatial_features
+    return torch.cat([pts[..., :1], spatial_features(pts[..., 1:], n_freq)],
+                     dim=-1)
+
+
 def apply_discriminator(params: Discriminator, pts: torch.Tensor,
                         v_layers: int, tied: bool = True,
                         n_freq: int = 0) -> torch.Tensor:
-    """``v`` at points ``pts [..., d+1]`` (time at channel 0) -> ``[...]``.
-    ``n_freq > 0`` appends the ``sin/cos(k pi/2 x)`` banks to the spatial
-    coordinates."""
-    if n_freq > 0:
-        from xnode_wan_tpu_torch.models.xnode import spatial_features
-        pts = torch.cat([pts[..., :1], spatial_features(pts[..., 1:], n_freq)],
-                        dim=-1)
-    z = params.inp(pts)
+    """``v`` at points ``pts [..., d+1]`` (time at channel 0) -> ``[...]``,
+    on :func:`disc_features`."""
+    z = params.inp(disc_features(pts, n_freq))
     for i in range(v_layers):
         layer = params.hidden if tied else params.hidden[i]
         z = layer(torch.relu(z))

@@ -30,7 +30,7 @@ CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNEL_SOURCES = ("xnode_eval", "xnode_train", "xnode_grad")
+KERNEL_SOURCES = ("xnode_eval", "xnode_train", "xnode_grad", "disc_train")
 
 
 def _nvcc() -> str:

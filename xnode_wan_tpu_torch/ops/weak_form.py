@@ -25,6 +25,9 @@ import torch
 
 from xnode_wan_tpu_torch.config import SolverConfig
 from xnode_wan_tpu_torch.ops.coefficients import diffusion_term, drift_term
+from xnode_wan_tpu_torch.ops.kernels.disc_train import (check_fits, geom_of,
+                                                        v_dv_fused,
+                                                        v_fused_fits)
 from xnode_wan_tpu_torch.ops.kernels.steppers import FUSED_KERNEL_METHODS
 from xnode_wan_tpu_torch.ops.sampling import PathBatch, _assemble
 
@@ -41,6 +44,16 @@ def fused_gate(cfg: SolverConfig) -> bool:
     their plain versions."""
     return (cfg.primal == "xnode" and cfg.fused_grad and not cfg.x64
             and cfg.solver in FUSED_KERNEL_METHODS and cfg.ensemble == 1)
+
+
+def fused_v_gate(cfg: SolverConfig) -> bool:
+    """Whether the adversary side may run through kernels #6 and #7
+    (``ops/kernels/disc_train.py``): the opt-in ``fused_v``, as in the JAX
+    package (``weak_form.py:401-402``) without its mesh and TPU terms.
+    ``make_losses`` also asks ``v_fused_fits`` of the discriminator's
+    shapes: over the kernels' caps CPU tensors take the plain side, and
+    any other device raises."""
+    return cfg.fused_v and cfg.fused_grad and not cfg.x64
 
 
 def u_with_spatial_grad(u_apply: Callable, u_params, batch: PathBatch,
@@ -66,15 +79,42 @@ def v_phi_and_grads(v_apply: Callable, v_params, pts: torch.Tensor,
                     func_w: Callable
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``v [N, L]``, ``phi = v w [N, L]`` and the pointwise ``(d_t,
-    grad_x) phi [N, L, C]`` at ``pts [N, L, C]``. The input gradient keeps
-    its graph (``create_graph``), because ``loss_v`` differentiates
-    through it."""
+    grad_x) phi [N, L, C]`` at ``pts [N, L, C]``. With gradients enabled
+    the input gradient keeps its graph (``create_graph``), because
+    ``loss_v`` differentiates through it; under ``torch.no_grad()`` the
+    outputs carry no graph."""
     n, l, c = pts.shape
+    keep_graph = torch.is_grad_enabled()
     flat = pts.reshape(-1, c).detach().requires_grad_(True)
     with torch.enable_grad():
         v = v_apply(v_params, flat)
         phi = v * func_w(flat)
-        (dphi,) = torch.autograd.grad(phi.sum(), flat, create_graph=True)
+        (dphi,) = torch.autograd.grad(phi.sum(), flat, create_graph=keep_graph)
+    if not keep_graph:
+        v, phi = v.detach(), phi.detach()
+    return v.reshape(n, l), phi.reshape(n, l), dphi.reshape(n, l, c)
+
+
+def v_phi_grads_fused(v_params, pts: torch.Tensor, func_w: Callable,
+                      cfg: SolverConfig
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused-kernel counterpart of :func:`v_phi_and_grads` (JAX
+    ``weak_form.py:152-175``): ``v`` and its space-time gradient from
+    ``disc_train.v_dv_fused`` (kernels #6 and #7), then ``phi = v w`` and
+    ``grad phi = w grad v + v grad w``. The cutoff ``w`` and its gradient
+    are sample data, taken by autograd on the points with no graph kept;
+    the parameter gradient flows through the kernels' backward only."""
+    n, l, c = pts.shape
+    flat = pts.reshape(-1, c).detach()
+    v, dv = v_dv_fused(v_params, flat, v_layers=cfg.v_layers,
+                       tied=cfg.tied_v, n_freq=cfg.v_fourier_features)
+    with torch.enable_grad():
+        p = flat.detach().requires_grad_(True)
+        w = func_w(p)
+        (dw,) = torch.autograd.grad(w.sum(), p)
+    w = w.detach()
+    phi = v * w
+    dphi = dv * w[:, None] + v[:, None] * dw
     return v.reshape(n, l), phi.reshape(n, l), dphi.reshape(n, l, c)
 
 
@@ -179,6 +219,7 @@ def make_losses(problem, domain, cfg: SolverConfig, u_apply: Callable,
             "the per-exit-group objective (grouped_interior_objective) of "
             "moving domains is not ported yet")
     use_fused = fused_gate(cfg)
+    use_fused_v = fused_v_gate(cfg)
     bdry_at_exit = bool(getattr(domain, "boundary_at_exit", False))
 
     def u_side(u_params, batch):
@@ -189,6 +230,13 @@ def make_losses(problem, domain, cfg: SolverConfig, u_apply: Callable,
         return u_with_spatial_grad(u_apply, u_params, batch, problem, cfg)
 
     def v_side(v_params, batch):
+        if use_fused_v:
+            if v_fused_fits(v_params, cfg.v_layers, cfg.tied_v):
+                return v_phi_grads_fused(v_params, batch.x, domain.func_w,
+                                         cfg)
+            # over the caps only CPU tensors take the plain side
+            if batch.x.device.type != "cpu":
+                check_fits(geom_of(v_params, cfg.v_layers, cfg.tied_v))
         return v_phi_and_grads(v_apply, v_params, batch.x, domain.func_w)
 
     def int_from_sides(u, du, vside, batch):

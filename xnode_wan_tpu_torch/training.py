@@ -6,13 +6,20 @@ samples the Hypercube interior and boundary from the state's
 ``torch.Generator``, takes ``n1`` primal Adam steps on ``loss_u`` (the u
 side through the fused kernels #4 and #5), ``n2`` adversary steps on
 ``loss_v`` (the u side once more through kernel #3, undifferentiated), and
-scores the primal on a fresh interior draw (kernel #2). PyTorch runs
-eagerly, so the JAX package's compiled ``lax.scan`` / ``while_loop``
-dispatch becomes a Python loop; the stop criterion is read every
-iteration.
+scores the primal on a fresh interior draw (kernel #2). With ``fused_v``
+the adversary side ``(v, phi, grad phi)`` comes from kernels #6 and #7
+(``ops/kernels/disc_train.py``). PyTorch runs eagerly, so the JAX
+package's compiled ``lax.scan`` / ``while_loop`` dispatch becomes a Python
+loop; the stop criterion is read every iteration.
+
+:meth:`NODEWANSolver.train` is the CLI's loop (``main.py``): it logs every
+iteration (``utils/logging.py``), keeps the best weights by ``loss_u`` in
+``best_model_weights_NODE.pth`` and writes the full state to
+``checkpoint_NODE.pt`` (``utils/checkpoint.py``), which
+:meth:`NODEWANSolver.load_checkpoint` resumes from.
 
 Not ported yet (they raise): ensembles, the stall / milestone learning-rate
-recipes of ``train_until`` (ROADMAP item 11), checkpoint and log files
+recipes of ``train_until`` (ROADMAP item 11), plots and ``train_chunked``
 (item 8), moving domains (item 9).
 """
 
@@ -20,6 +27,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import os
 import time
 from typing import Callable, Dict, Optional
 
@@ -31,11 +39,14 @@ from xnode_wan_tpu_torch.device import default_device
 from xnode_wan_tpu_torch.models.discriminator import (Discriminator,
                                                       apply_discriminator,
                                                       init_discriminator)
-from xnode_wan_tpu_torch.models.xnode import XNODE, apply_xnode, init_xnode
+from xnode_wan_tpu_torch.models.xnode import (XNODE, apply_xnode,
+                                              evaluate_points, init_xnode)
 from xnode_wan_tpu_torch.ops.kernels.xnode_train import u_forward_fused
 from xnode_wan_tpu_torch.ops.sampling import Hypercube, PathBatch
 from xnode_wan_tpu_torch.ops.weak_form import fused_gate, make_losses
 from xnode_wan_tpu_torch.problems import Problem
+from xnode_wan_tpu_torch.utils import checkpoint as ckpt
+from xnode_wan_tpu_torch.utils.logging import RunLogger
 from xnode_wan_tpu_torch.utils.metrics import l_norm, rel_err
 
 
@@ -63,10 +74,12 @@ class NODEWANSolver:
             its plain PyTorch version.
         stop: optional ``stop(solver, metrics) -> bool`` checked by
             :meth:`train` every iteration, beside ``problem.stop_rel_err``.
+        work_dir: where :meth:`train` writes its logs and checkpoints
+            (the reference's ``path``).
     """
 
     def __init__(self, params, problem: Problem, device=None,
-                 stop: Optional[Callable] = None):
+                 stop: Optional[Callable] = None, work_dir: str = "./"):
         cfg = (params if isinstance(params, SolverConfig)
                else SolverConfig.from_dict(dict(params)))
         check_trainable(cfg)
@@ -93,6 +106,8 @@ class NODEWANSolver:
         self._reinit_state(cfg.seed)
         self.best_l = float("inf")
         self.best_u_params: Optional[XNODE] = None
+        self.work_dir = work_dir
+        self.logger = RunLogger(cfg.dim, work_dir)
 
     # ------------------------------------------------------------------
     def _v_apply(self, v_params, pts):
@@ -188,8 +203,11 @@ class NODEWANSolver:
         """:meth:`_outer_step` on given batches (``ebatch``: the fresh
         metric draw, or None)."""
         cfg, losses = self.cfg, self._losses
-        # the adversary side is constant across the n1 primal steps
-        vside = tuple(a.detach() for a in losses.v_side(state.v_params, batch))
+        # the adversary side is constant across the n1 primal steps; taken
+        # without a graph, so kernel #6 arms no backward and the plain path
+        # builds no create_graph graph
+        with torch.no_grad():
+            vside = losses.v_side(state.v_params, batch)
         u_params, v_params = state.u_params, state.v_params
         aux_u = None
         for _ in range(cfg.n1):
@@ -243,21 +261,80 @@ class NODEWANSolver:
         return self.stop is not None and bool(self.stop(self, m))
 
     # ------------------------------------------------------------------
-    def train(self, iterations: Optional[int] = None) -> Dict[str, float]:
-        """Run up to ``iterations`` (default ``cfg.iterations``) outer
-        iterations, stopping early on ``problem.stop_rel_err`` or the
-        ``stop`` callback; keeps the weights of the best ``loss_u`` (the
-        reference's best-checkpoint criterion) in ``best_u_params``.
-        Returns the last iteration's metrics. Writes no files."""
-        iterations = self.cfg.iterations if iterations is None else iterations
+    def predict(self, pts) -> torch.Tensor:
+        """The trained primal at ``[..., (t, x)]`` points through
+        :func:`models.xnode.evaluate_points` (kernel #1 on the GPU), with
+        the serving parameters (the Polyak average under ``ema_decay``).
+        Same contract as the JAX package's ``predict`` (``:942-958``)."""
+        dtype = torch.float64 if self.cfg.x64 else torch.float32
+        pts = torch.as_tensor(pts, dtype=dtype, device=self.device)
+        squeeze = pts.dim() == 1
+        if squeeze:
+            pts = pts[None, :]
+        with torch.no_grad():
+            out = evaluate_points(self._u_params_for_eval(), pts,
+                                  self.problem, self.cfg, domain=self.domain)
+        return out[0] if squeeze else out
+
+    def _save_best(self) -> None:
+        ckpt.save(os.path.join(self.work_dir, "best_model_weights_NODE.pth"),
+                  ckpt.reference_state_dict(self._u_params_for_eval()))
+
+    def save_checkpoint(self, path: Optional[str] = None) -> str:
+        path = path or os.path.join(self.work_dir, "checkpoint_NODE.pt")
+        ckpt.save(path, ckpt.train_state_dict(self.state, self.best_l))
+        return path
+
+    def load_checkpoint(self, path: Optional[str] = None):
+        path = path or os.path.join(self.work_dir, "checkpoint_NODE.pt")
+        self.best_l = ckpt.restore_train_state(self.state, ckpt.load(path))
+        return self
+
+    def train(self, report: bool = False, report_it: int = 10,
+              show_plt: bool = False,
+              iterations: Optional[int] = None) -> Dict[str, float]:
+        """The alternating loop (reference ``train``,
+        ``src/training.py:109-187``; JAX ``training.py:977-1073``), one
+        outer iteration at a time.
+
+        Each iteration is logged under its index in this call (from 0),
+        the weights of a new best ``loss_u`` go to
+        ``best_model_weights_NODE.pth`` (and ``best_u_params``), and every
+        ``report_it`` iterations the reference's report line is printed.
+        On ``problem.stop_rel_err`` or the ``stop`` callback it saves the
+        best weights and the checkpoint, prints ``Stopping Criterion
+        Reached`` and returns; otherwise it runs ``iterations`` (default
+        ``cfg.iterations``) and saves the checkpoint. Returns the last
+        iteration's metrics. Plots are not ported (``show_plt`` raises).
+        """
+        if show_plt:
+            raise NotImplementedError(
+                "plots (utils/viz.py) are not ported yet (ROADMAP item 8)")
+        cfg = self.cfg
+        iterations = cfg.iterations if iterations is None else iterations
         last: Dict[str, float] = {}
-        for _ in range(iterations):
+        for step in range(iterations):
             last = self._to_host(self._outer_step())
+            self.logger.log(step, last)
             if last["loss_u"] < self.best_l:
                 self.best_l = last["loss_u"]
                 self.best_u_params = copy.deepcopy(self._u_params_for_eval())
+                self._save_best()
+            if report and step % report_it == 0:
+                msg = (f"iteration: {step} Loss u: {last['loss_u']:.6g} "
+                       f"Loss v: {last['loss_v']:.6g}")
+                if "L2" in last:
+                    msg += (f" L^{cfg.p:g} error: {last['L2']:.6g}"
+                            f" rel: {last['rel_err']:.4g}")
+                print(msg)
             if self._should_stop(last):
-                break
+                self._save_best()
+                self.save_checkpoint()
+                print("Stopping Criterion Reached")
+                self.logger.flush()
+                return last
+        self.logger.flush()
+        self.save_checkpoint()
         return last
 
     def train_until(self, rel_tol: float, max_iters: int, window: int = 200,
