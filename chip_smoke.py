@@ -9,6 +9,8 @@ which raises on failure:
 
 1. build every CUDA kernel from ``xnode_wan_tpu_torch/csrc`` (one ``nvcc``
    per source, in parallel) and print the build time and ptxas usage;
+   hold the wrapper's shared-memory rule for #3-#5 against the bytes
+   their launchers ask for;
 2. the main paths at the d=5 width of ``configs/cube_pde.yaml``, each
    with every kernel launch counter zeroed just before and read just
    after:
@@ -36,8 +38,12 @@ which raises on failure:
    inputs: #1 and #2 within ``rtol=2e-4, atol=2e-5``; #3 / #4 (u, du, hs,
    hts) and #5 (the packed weight gradient, against the plain
    hand-derived adjoint) on all four RK methods, a random 70% mask, rk4
-   with n_sub 2 and Fourier features, and the autograd function's weight
-   gradients against ``torch.autograd.grad`` through the plain forward;
+   with n_sub 2, Fourier features, ragged path counts (4,001 and 37) and
+   the ``highdim_d20`` geometry (H = 24, Hh = 32, d = 20, its Fourier
+   bank; paths within ``KINK_MARGIN`` of a relu kink left out, then all
+   paths at ``KINK_RTOL``), two launches of #5 compared bitwise, and the
+   autograd function's weight gradients against ``torch.autograd.grad``
+   through the plain forward;
    #6 (v within ``rtol=2e-4, atol=2e-5``, the input gradient) and #7
    (each weight-gradient tensor) at 80,000 points for the trained tied
    adversary, an untied one and the d=20 geometry with its Fourier bank,
@@ -60,6 +66,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import io
 import json
 import os
@@ -84,6 +91,20 @@ SCALED_RTOL = 2e-4
 REL_L2_LIMIT = 0.0125         # JAX on the CPU gives 0.0102-0.0104 here
 TRAIN_TOL = 0.01              # the paper's stop (configs/Ex4_1_funcs.py)
 SERVE_POINTS = 65536
+# The highdim_d20 check of #3-#5 leaves out the paths that come within
+# KINK_MARGIN of a relu kink (the smallest |a| / (|W| |z| + |b|) of a
+# primal pre-activation along the path, in f64): there the tangents jump,
+# and two f32 orders of summation may take either branch. At 4,000 paths
+# one path has a margin of 3.5e-8; the kernels' du and hts leave the
+# plain f32 version there by 3.1e-4 and 1.6e-3 of the largest value (16
+# and 600 elements), while the median path's margin is 3.3e-5
+# (python -m xnode_wan_tpu_torch.tile_sweep --configs highdim_d20 --f64).
+# All the paths, those near a kink too, are then held at KINK_RTOL of the
+# largest value, above the 1.6e-3 seen, with the count of elements beyond
+# SCALED_RTOL printed.
+D20_PATHS = 4000
+KINK_MARGIN = 1e-5
+KINK_RTOL = 2e-3
 SEED = 0
 # NVIDIA H100 SXM data sheet: FP32 without tensor cores, HBM3 rate.
 PEAK_FP32_FLOPS = 67e12
@@ -131,26 +152,32 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return err
 
 
-def compare_scaled(name: str, got, want, sizes=None) -> float:
-    """``max |got - want| <= SCALED_RTOL * max |want|`` for each segment
-    (``sizes`` splits a packed vector into its weight tensors)."""
+def compare_scaled(name: str, got, want, sizes=None,
+                   limit: float = SCALED_RTOL) -> float:
+    """``max |got - want| <= limit * max |want|`` for each segment
+    (``sizes`` splits a packed vector into its weight tensors). Under a
+    looser limit, also prints how many elements are off by more than
+    ``SCALED_RTOL`` of their segment's largest value."""
     if got.shape != want.shape or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{name}: shape {tuple(got.shape)} vs "
                              f"{tuple(want.shape)} or non-finite output")
     pairs = (zip(torch.split(got, sizes), torch.split(want, sizes))
              if sizes else [(got, want)])
-    worst, err = 0.0, 0.0
+    worst, err, n_off = 0.0, 0.0, 0
     for g, w in pairs:
         e = float((g - w).abs().max())
         scale = float(w.abs().max())
         rel = e / scale if scale > 0 else e
         err, worst = max(err, e), max(worst, rel)
-        if not rel <= SCALED_RTOL:
+        n_off += int(((g - w).abs() > SCALED_RTOL * scale).sum())
+        if not rel <= limit:
             raise AssertionError(f"{name}: max |kernel - plain| {e:.3e} is "
                                  f"{rel:.3e} of max |plain| {scale:.3e} "
-                                 f"(limit {SCALED_RTOL})")
+                                 f"(limit {limit})")
+    off = (f"; {n_off} of {got.numel()} elements beyond {SCALED_RTOL}"
+           if limit != SCALED_RTOL else "")
     print(f"  {name}: max |kernel - plain| = {err:.3e}, at most "
-          f"{worst:.3e} of the tensor's largest value")
+          f"{worst:.3e} of the tensor's largest value{off}")
     return err
 
 
@@ -248,8 +275,32 @@ def main() -> int:
         log = _build.build_dir() / f"{name}.log"
         if log.exists():
             for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
+                if ("Compiling entry" in line or "registers" in line
+                        or "spill" in line):
                     print(f"  {name}: {line.strip()}")
+    # the wrapper's shared-memory rule against the bytes the launchers of
+    # #3-#5 ask for, at every shipped config, method and listed tile
+    smem_of = ctypes.CDLL(str(libs["xnode_grad"])).xnode_udu_smem_bytes
+    smem_of.restype = ctypes.c_longlong
+    smem_of.argtypes = [ctypes.c_int] * 9
+    n_geom = 0
+    for shipped in ("cube_pde", "ex4_1_d10", "highdim_d20"):
+        gcfg = load_params(os.path.join(ROOT, "configs", f"{shipped}.yaml"))
+        dims = xnode_train.flat_net(init_xnode(gcfg, device="cpu")).dims()
+        for method, mid in steppers.METHOD_IDS.items():
+            for tile in (1, 2, 4, 8, 16):
+                for backward in (False, True):
+                    want = smem_of(int(backward), tile, gcfg.dim, *dims, mid)
+                    got = xnode_train.tile_smem_bytes(dims, gcfg.dim, method,
+                                                      tile, backward)
+                    if got != want:
+                        raise AssertionError(
+                            f"tile_smem_bytes {shipped} {method} tile={tile} "
+                            f"backward={backward}: {got} bytes, the kernel "
+                            f"asks for {want}")
+                    n_geom += 1
+    print(f"  xnode_grad: tile_smem_bytes equals the launchers' shared "
+          f"bytes at {n_geom} geometries")
 
     cfg = load_params(CONFIG)
     problem = load_problem("Ex4_1_funcs", dim=cfg.dim)
@@ -490,13 +541,11 @@ def main() -> int:
                    ("rk4", net_tr, tan_inputs, mask, 2),
                    ("midpoint", net_ff, tan_inputs_ff, batch.mask, cfg.n_sub)]
         d, N, L = cfg.dim, cfg.N_r, cfg.N_t
-        for method, gnet, inputs, msk, n_sub in gcases:
-            t0, dt = [a.contiguous() for a in xnode_train._prep_intervals(
-                batch.times, msk, batch.t_start, n_sub)]
-            args = (t0, dt, *inputs)
-            label = (f"{method} n_sub={n_sub} "
-                     f"{'interior' if msk is batch.mask else 'random mask'}"
-                     f"{' fourier_features=1' if gnet is net_ff else ''}")
+
+        def check_udu(label, gnet, args, n_sub, method, bitwise=False):
+            """#3, #4 and #5 against their plain versions on ``args``."""
+            n_p, l_p = args[0].shape
+            d_p = args[-1].shape[1]
             gpacked = gnet.packed()
             want = xnode_train.u_du_fwd_plain(gnet, *args, n_sub, method,
                                               store=True)
@@ -514,15 +563,87 @@ def main() -> int:
                 *(compare_scaled(f"xnode_udu_fwd_store {n} {label}", g, w)
                   for n, g, w in zip(("du", "hs", "hts"), got[1:], want[1:])))
             cg = torch.Generator(device=dev).manual_seed(7)
-            ub = torch.randn((N, L), generator=cg, device=dev)
-            dub = torch.randn((N, L, d), generator=cg, device=dev)
+            ub = torch.randn((n_p, l_p), generator=cg, device=dev)
+            dub = torch.randn((n_p, l_p, d_p), generator=cg, device=dev)
             sizes = [a.numel() for a in gnet.flat]
+            grad = xnode_train.u_du_bwd_cuda(gnet, gpacked, *args, *want[2:],
+                                             ub, dub, n_sub, method)
             errs["xnode_udu_bwd"] = max(errs["xnode_udu_bwd"], compare_scaled(
-                f"xnode_udu_bwd {label}",
-                xnode_train.u_du_bwd_cuda(gnet, gpacked, *args, *want[2:], ub,
-                                          dub, n_sub, method),
+                f"xnode_udu_bwd {label}", grad,
                 xnode_train.u_du_bwd_plain(gnet, *args, *want[2:], ub, dub,
                                            n_sub, method), sizes))
+            if bitwise:
+                again = xnode_train.u_du_bwd_cuda(gnet, gpacked, *args,
+                                                  *want[2:], ub, dub, n_sub,
+                                                  method)
+                if not torch.equal(grad, again):
+                    raise AssertionError(f"xnode_udu_bwd {label}: two "
+                                         "launches differ")
+                print(f"  xnode_udu_bwd {label}: two launches bitwise equal")
+
+        for method, gnet, inputs, msk, n_sub in gcases:
+            t0, dt = [a.contiguous() for a in xnode_train._prep_intervals(
+                batch.times, msk, batch.t_start, n_sub)]
+            label = (f"{method} n_sub={n_sub} "
+                     f"{'interior' if msk is batch.mask else 'random mask'}"
+                     f"{' fourier_features=1' if gnet is net_ff else ''}")
+            check_udu(label, gnet, (t0, dt, *inputs), n_sub, method,
+                      bitwise=gnet is net_tr and msk is batch.mask
+                      and method == cfg.solver)
+
+        # ragged path counts (the last tile part full), trained weights
+        rgen = torch.Generator(device=dev).manual_seed(11)
+        for n_rag in (4001, 37):
+            rbatch = cube.interior(rgen, n_rag)
+            t0, dt = [a.contiguous() for a in xnode_train._prep_intervals(
+                rbatch.times, rbatch.mask, rbatch.t_start, cfg.n_sub)]
+            rin = [a.contiguous() for a in xnode_train.path_tangent_inputs(
+                rbatch, problem, cfg)]
+            check_udu(f"{cfg.solver} N={n_rag}", net_tr, (t0, dt, *rin),
+                      cfg.n_sub, cfg.solver)
+
+        # the highdim_d20 geometry: H = 24, Hh = 32, d = 20 with its Fourier
+        # bank (F = 60), random weights, one interior batch
+        cfg20 = load_params(os.path.join(ROOT, "configs", "highdim_d20.yaml"))
+        g20 = torch.Generator(device=dev).manual_seed(5)
+        net20 = xnode_train.flat_net(init_xnode(cfg20, g20))
+        cube20 = Hypercube(cfg20.shape_param, cfg20.dim, cfg20.T0, cfg20.T,
+                           cfg20.N_t)
+        batch20 = cube20.interior(g20, D20_PATHS)
+        t0, dt = [a.contiguous() for a in xnode_train._prep_intervals(
+            batch20.times, batch20.mask, batch20.t_start, cfg20.n_sub)]
+        in20 = [a.contiguous() for a in xnode_train.path_tangent_inputs(
+            batch20, load_problem("Ex4_1_funcs", dim=cfg20.dim), cfg20)]
+        net20_64 = FlatNet([a.double() for a in net20.flat], net20.n_lift,
+                           net20.n_field)
+        keep = xnode_train.relu_margins(net20_64, t0.double(), dt.double(),
+                            in20[0].double(), in20[2].double(), cfg20.n_sub,
+                            cfg20.solver) >= KINK_MARGIN
+        args20 = [a[keep].contiguous() for a in (t0, dt, *in20)]
+        print(f"  highdim_d20: {int((~keep).sum())} of {D20_PATHS} paths "
+              f"come within {KINK_MARGIN} of a relu kink and are left out")
+        check_udu(f"highdim_d20 {cfg20.solver} N={int(keep.sum())} "
+                  f"F={net20.F}", net20, args20, cfg20.n_sub, cfg20.solver)
+        full20 = (t0, dt, *in20)
+        want = xnode_train.u_du_fwd_plain(net20, *full20, cfg20.n_sub,
+                                          cfg20.solver, store=True)
+        got = xnode_train.u_du_fwd_cuda(net20, net20.packed(), *full20,
+                                        cfg20.n_sub, cfg20.solver, store=True)
+        cg = torch.Generator(device=dev).manual_seed(7)
+        ub = torch.randn((D20_PATHS, cfg20.N_t), generator=cg, device=dev)
+        dub = torch.randn((D20_PATHS, cfg20.N_t, cfg20.dim), generator=cg,
+                          device=dev)
+        g_k = xnode_train.u_du_bwd_cuda(net20, net20.packed(), *full20,
+                                        *want[2:], ub, dub, cfg20.n_sub,
+                                        cfg20.solver)
+        g_p = xnode_train.u_du_bwd_plain(net20, *full20, *want[2:], ub, dub,
+                                         cfg20.n_sub, cfg20.solver)
+        sizes = [a.numel() for a in net20.flat]
+        for part, g, w, sz in zip(("u", "du", "hs", "hts", "grad"),
+                                  (*got, g_k), (*want, g_p),
+                                  (None,) * 4 + (sizes,)):
+            compare_scaled(f"highdim_d20 {part}, all {D20_PATHS} paths", g, w,
+                           sz, limit=KINK_RTOL)
 
     # the autograd function's weight gradients against autograd through
     # the plain forward, on the main path's batch with the trained weights
@@ -553,7 +674,6 @@ def main() -> int:
     vpts = batch.x.reshape(-1, cfg.dim + 1).contiguous()
     M_v = vpts.shape[0]
     vg = torch.Generator(device=dev).manual_seed(3)
-    cfg20 = load_params(os.path.join(ROOT, "configs", "highdim_d20.yaml"))
     pts20 = torch.rand((M_v, cfg20.dim + 1), generator=vg, device=dev)
     pts20[:, 1:] = 2.0 * pts20[:, 1:] - 1.0
     dcases = [

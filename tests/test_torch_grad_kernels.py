@@ -338,21 +338,113 @@ def test_grad_cuda_wrappers_reject_cpu_tensors():
                                            xnode_train.BWD_KERNEL)]
 
 
-def test_bwd_block_fits_shared_memory():
-    # four warps at the d=5 width; fewer where the accumulators would not
-    # fit (the d=20 config), and a clear error where not even one does
-    assert xnode_train.bwd_block_threads(2161) == 128
-    assert xnode_train.bwd_block_threads(12209) == 96
-    with pytest.raises(ValueError, match="shared memory"):
-        xnode_train.bwd_block_threads(40000)
+SHIPPED = ("cube_pde", "ex4_1_d10", "highdim_d20")
 
 
-def test_grad_kernel_caps_cover_shipped_configs():
+def shipped_dims(name):
     import os
     from xnode_wan_tpu_torch import init_xnode, load_params
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    for name in ("cube_pde", "highdim_d20", "ex4_1_d10"):
-        cfg = load_params(os.path.join(repo, "configs", f"{name}.yaml"))
-        net = xnode_train.flat_net(init_xnode(cfg, device="cpu"))
-        assert max(net.n_lift, net.n_field) <= xnode_train.MAX_FIELD_LAYERS
-        xnode_train.bwd_block_threads(net.packed().numel())
+    cfg = load_params(os.path.join(repo, "configs", f"{name}.yaml"))
+    return cfg, xnode_train.flat_net(init_xnode(cfg, device="cpu"))
+
+
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("name", SHIPPED)
+def test_grad_tile_rule_fits_shipped_configs(name, method):
+    # the tile of #3/#4 and of #5 fits one block's shared memory, with a
+    # block of whole warps under the kernels' launch bound
+    cfg, net = shipped_dims(name)
+    dims = net.dims()
+    for backward in (False, True):
+        tile, threads = xnode_train.grad_tile(dims, cfg.dim, method,
+                                              backward)
+        smem = xnode_train.tile_smem_bytes(dims, cfg.dim, method, tile,
+                                           backward)
+        assert 0 < smem <= 232448
+        assert threads % 32 == 0 and 32 <= threads <= 1024
+        assert threads <= xnode_train.MAX_THREADS
+        # the largest listed tile that fits
+        tiles = xnode_train.BWD_TILES if backward else xnode_train.FWD_TILES
+        larger = [t for t in tiles if t > tile]
+        assert all(xnode_train.tile_smem_bytes(dims, cfg.dim, method, t,
+                                               backward) > 232448
+                   for t in larger)
+
+
+def bwd_tile_walk(n_paths, tile, blocks):
+    """The paths each block of kernel #5 walks, tile by tile in its order,
+    as its loop does (``xnode_udu_bwd_kernel``): block ``b`` takes tiles
+    ``b, b + blocks, ...``, the last one part full."""
+    n_tiles = -(-n_paths // tile)
+    return [[range(t * tile, min(n_paths, t * tile + tile))
+             for t in range(b, n_tiles, blocks)] for b in range(blocks)]
+
+
+@pytest.mark.parametrize("name, fwd, bwd", [
+    ("cube_pde", (4, 64), (8, 128)),
+    ("ex4_1_d10", (4, 64), (8, 256)),
+    ("highdim_d20", (4, 256), (1, 256))])
+def test_grad_tile_rule_picks_the_swept_shapes(name, fwd, bwd):
+    # the (paths per tile, threads) the rule gives at each shipped config's
+    # own solver, as timed by the tile sweep on the card
+    cfg, net = shipped_dims(name)
+    assert xnode_train.grad_tile(net.dims(), cfg.dim, cfg.solver,
+                                 False) == fwd
+    assert xnode_train.grad_tile(net.dims(), cfg.dim, cfg.solver,
+                                 True) == bwd
+
+
+@pytest.mark.parametrize("n_paths", [1, 7, 4000, 4001])
+def test_bwd_tile_walk_covers_every_path_once(n_paths):
+    cfg, net = shipped_dims("cube_pde")
+    dims = net.dims()
+    tile, threads = xnode_train.grad_tile(dims, cfg.dim, cfg.solver, True)
+    smem = xnode_train.tile_smem_bytes(dims, cfg.dim, cfg.solver, tile, True)
+    blocks = xnode_train.bwd_blocks(n_paths, tile, smem, threads, sms=132)
+    assert 1 <= blocks <= -(-n_paths // tile)
+    walk = bwd_tile_walk(n_paths, tile, blocks)
+    assert len(walk) == blocks and all(walk)
+    seen = [n for tiles in walk for r in tiles for n in r]
+    assert sorted(seen) == list(range(n_paths))
+    # each block walks its tiles in increasing order
+    assert all([r.start for r in tiles] == sorted(r.start for r in tiles)
+               for tiles in walk)
+
+
+def test_grad_tile_rule_raises_where_nothing_fits():
+    # H = Hh = 64, d = 50, rk4: not even one path a tile fits #5's block
+    dims = (64, 64, 50, 3, 16)
+    with pytest.raises(ValueError, match="shared memory"):
+        xnode_train.grad_tile(dims, 50, "rk4", backward=True)
+    assert xnode_train.tile_smem_bytes(dims, 50, "rk4", 1, True) > 232448
+
+
+def test_grad_kernel_caps_cover_shipped_configs():
+    for name in SHIPPED:
+        cfg, net = shipped_dims(name)
+        assert xnode_train.n_params_of(net.dims()) == net.packed().numel()
+        for backward in (False, True):
+            xnode_train.grad_tile(net.dims(), cfg.dim, cfg.solver, backward)
+
+
+def test_relu_margins_find_a_kink():
+    # a seed that puts a lift pre-activation exactly on zero gives its path
+    # margin 0; the other paths stay off the kinks
+    _, _, _, tparams = shared_params(15)
+    net = xnode_train.flat_net(tparams)
+    net = FlatNet([a.double() for a in net.flat], net.n_lift, net.n_field)
+    n, L, d = 4, 3, BASE["dim"]
+    t0, dt, feats, _, seed, _ = [torch.as_tensor(a).double() for a in
+                                 kernel_inputs(n, L, d, net.F, False, 1)]
+    m = xnode_train.relu_margins(net, t0, dt, feats, seed, 1, "midpoint")
+    assert m.shape == (n,) and bool((m > 0).all()) and bool((m <= 1).all())
+    w, b = net.lift[0]
+    w[0, 0], b[0] = 2.0, -1.0
+    seed[0] = 0.5
+    m = xnode_train.relu_margins(net, t0, dt, feats, seed, 1, "midpoint")
+    assert float(m[0]) == 0.0 and bool((m[1:] > 0).all())
+    # a unit whose terms are all zero (0 / 0) is no kink, not a NaN
+    w[1], b[1] = 0.0, 0.0
+    m2 = xnode_train.relu_margins(net, t0, dt, feats, seed, 1, "midpoint")
+    assert not bool(m2.isnan().any()) and float(m2[0]) == 0.0

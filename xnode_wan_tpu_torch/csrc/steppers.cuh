@@ -1,7 +1,8 @@
 // Device-side XNODE network and fixed-step RK stepper, shared by the
 // serving kernel (xnode_eval.cu) and the path-forward kernel
 // (xnode_train.cu). Device twin of ops/kernels/steppers.py and of the
-// JAX package's ops/pallas/steppers.py::rk_step.
+// JAX package's ops/pallas/steppers.py::rk_step. The training kernels
+// (xnode_grad.cu) take only the method ids and the weight packing.
 //
 // One thread integrates one path. The hidden state, the RK stages and the
 // MLP activations live in per-thread arrays sized by the compile-time caps
@@ -174,158 +175,6 @@ __device__ inline void xn_rk_step(const XnNet& n, int method,
       }
       xn_field(n, c0, t + dt, y, k);
       for (int j = 0; j < H; ++j) h[j] = h[j] + dt * (acc[j] + k[j]) / 6.f;
-      break;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Joint primal + ONE spatial-tangent direction (xnode_grad.cu, one thread
-// per (path, direction)). Twin of ops/kernels/steppers.py ::
-// mlp_relu_fwd_tan / field_fwd_tan / interval_tan with d = 1. Time carries
-// no tangent; relu masks use a > 0; tanh: yt = (1 - y^2) at.
-// ---------------------------------------------------------------------------
-
-// y[j] = sum_i W[j, i] x[i] (no bias).
-__device__ inline void xn_dense_nb(const float* W, int out, int in,
-                                   const float* x, float* y) {
-  for (int j = 0; j < out; ++j) {
-    const float* row = W + j * in;
-    float s = 0.f;
-    for (int i = 0; i < in; ++i) s = fmaf(row[i], x[i], s);
-    y[j] = s;
-  }
-}
-
-// Lift on (seed, st) -> (h [H], ht [H]).
-__device__ inline void xn_lift_tan(const XnNet& n, float seed, float st,
-                                   float* h, float* ht) {
-  float a[XN_MAX_WIDTH], at[XN_MAX_WIDTH];
-  const int H = n.H;
-  const float* p = n.w;
-  for (int j = 0; j < H; ++j) {
-    h[j] = p[j] * seed + p[H + j];
-    ht[j] = p[j] * st;
-  }
-  p += 2 * H;
-  for (int l = 1; l < n.n_lift; ++l) {
-    for (int i = 0; i < H; ++i) {
-      const bool on = h[i] > 0.f;
-      a[i] = on ? h[i] : 0.f;
-      at[i] = on ? ht[i] : 0.f;
-    }
-    xn_dense(p, H, H, a, h);
-    xn_dense_nb(p, H, H, at, ht);
-    p += H * H + H;
-  }
-}
-
-// Field with one tangent: c0 / ct0 are the feature columns of field layer
-// 0 applied to the features and to their x-tangent (constant along a path).
-__device__ inline void xn_field_tan(const XnNet& n, const float* c0,
-                                    const float* ct0, float t,
-                                    const float* h, const float* ht,
-                                    float* out, float* outt) {
-  float a[XN_MAX_WIDTH], at[XN_MAX_WIDTH], b[XN_MAX_WIDTH],
-      bt[XN_MAX_WIDTH];
-  const int H = n.H, Hh = n.Hh, fin = n.F + 1 + H;
-  const float* W = n.w + n.field_off;
-  const float* bias = W + Hh * fin;
-  for (int j = 0; j < Hh; ++j) {
-    const float* row = W + j * fin + n.F;
-    float s = fmaf(row[0], t, c0[j]), st = ct0[j];
-    for (int i = 0; i < H; ++i) {
-      s = fmaf(row[1 + i], h[i], s);
-      st = fmaf(row[1 + i], ht[i], st);
-    }
-    a[j] = s + bias[j];
-    at[j] = st;
-  }
-  const float* p = bias + Hh;
-  for (int l = 0; l < n.n_field - 2; ++l) {
-    for (int i = 0; i < Hh; ++i) {
-      const bool on = a[i] > 0.f;
-      b[i] = on ? a[i] : 0.f;
-      bt[i] = on ? at[i] : 0.f;
-    }
-    xn_dense(p, Hh, Hh, b, a);
-    xn_dense_nb(p, Hh, Hh, bt, at);
-    p += Hh * Hh + Hh;
-  }
-  for (int i = 0; i < Hh; ++i) {
-    const float y = tanhf(a[i]);
-    b[i] = y;
-    bt[i] = (1.f - y * y) * at[i];
-  }
-  xn_dense(p, H, Hh, b, out);
-  xn_dense_nb(p, H, Hh, bt, outt);
-}
-
-// One joint substep, in place; same arithmetic order as interval_tan.
-__device__ inline void xn_rk_step_tan(const XnNet& n, int method,
-                                      const float* c0, const float* ct0,
-                                      float t, float dt, float* h,
-                                      float* ht) {
-  float k[XN_MAX_WIDTH], kt[XN_MAX_WIDTH], y[XN_MAX_WIDTH],
-      yt[XN_MAX_WIDTH], acc[XN_MAX_WIDTH], acct[XN_MAX_WIDTH];
-  const int H = n.H;
-  const float hdt = 0.5f * dt;
-  switch (method) {
-    case XN_EULER:
-      xn_field_tan(n, c0, ct0, t, h, ht, k, kt);
-      for (int j = 0; j < H; ++j) {
-        h[j] = h[j] + dt * k[j];
-        ht[j] = ht[j] + dt * kt[j];
-      }
-      break;
-    case XN_MIDPOINT:
-      xn_field_tan(n, c0, ct0, t, h, ht, k, kt);
-      for (int j = 0; j < H; ++j) {
-        y[j] = h[j] + hdt * k[j];
-        yt[j] = ht[j] + hdt * kt[j];
-      }
-      xn_field_tan(n, c0, ct0, t + hdt, y, yt, k, kt);
-      for (int j = 0; j < H; ++j) {
-        h[j] = h[j] + dt * k[j];
-        ht[j] = ht[j] + dt * kt[j];
-      }
-      break;
-    case XN_HEUN:
-      xn_field_tan(n, c0, ct0, t, h, ht, acc, acct);
-      for (int j = 0; j < H; ++j) {
-        y[j] = h[j] + dt * acc[j];
-        yt[j] = ht[j] + dt * acct[j];
-      }
-      xn_field_tan(n, c0, ct0, t + dt, y, yt, k, kt);
-      for (int j = 0; j < H; ++j) {
-        h[j] = h[j] + hdt * (acc[j] + k[j]);
-        ht[j] = ht[j] + hdt * (acct[j] + kt[j]);
-      }
-      break;
-    default:  // XN_RK4
-      xn_field_tan(n, c0, ct0, t, h, ht, acc, acct);
-      for (int j = 0; j < H; ++j) {
-        y[j] = h[j] + hdt * acc[j];
-        yt[j] = ht[j] + hdt * acct[j];
-      }
-      xn_field_tan(n, c0, ct0, t + hdt, y, yt, k, kt);
-      for (int j = 0; j < H; ++j) {
-        acc[j] = acc[j] + 2.f * k[j];
-        acct[j] = acct[j] + 2.f * kt[j];
-        y[j] = h[j] + hdt * k[j];
-        yt[j] = ht[j] + hdt * kt[j];
-      }
-      xn_field_tan(n, c0, ct0, t + hdt, y, yt, k, kt);
-      for (int j = 0; j < H; ++j) {
-        acc[j] = acc[j] + 2.f * k[j];
-        acct[j] = acct[j] + 2.f * kt[j];
-        y[j] = h[j] + dt * k[j];
-        yt[j] = ht[j] + dt * kt[j];
-      }
-      xn_field_tan(n, c0, ct0, t + dt, y, yt, k, kt);
-      for (int j = 0; j < H; ++j) {
-        h[j] = h[j] + dt * (acc[j] + k[j]) / 6.f;
-        ht[j] = ht[j] + dt * (acct[j] + kt[j]) / 6.f;
-      }
       break;
   }
 }

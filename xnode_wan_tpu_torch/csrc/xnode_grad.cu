@@ -6,111 +6,539 @@
 //   #4 _fwd_store_kernel  -> xnode_udu_fwd_store_launch  (u, du, hs, hts)
 //   #5 _bwd_kernel        -> xnode_udu_bwd_launch        (weight cotangents)
 //
-// Layout: ONE THREAD PER (path n, tangent direction k), thread q = n*d + k,
-// so d = 5 and N = 4,000 give 20,000 threads where the tangentless kernel
-// (xnode_train.cu) has 4,000. Each thread recomputes the primal h, which its
-// direction's relu masks and tanh derivative need, and carries one tangent
-// ht_k [H]: 1.67x the multiply-adds of carrying all d tangents in one
-// thread, but a per-thread footprint that does not depend on d (so no
-// counterpart of the JAX package's fused_chunk / d_chunk VMEM gates).
-// Weights sit in shared memory, read as broadcasts; the feature columns of
-// field layer 0 are applied once per path to the features (c0) and to
-// their x-tangent (ct0). Masked samples arrive with dt = 0 (identity).
-//
 // Bounds on an H100 SXM (67 TFLOP/s FP32 without tensor cores, 3.35 TB/s)
-// at the d=5 main path (N = 4,000, L = 20, midpoint, n_sub = 1): #3 does
-// about 2.1 GFLOP (~32 us) and moves ~1 MB; #4 adds ~38 MB of state
-// writes (~12 us), so both are bound by operations. #5 recomputes each
-// interval's stages from the stored states and walks them back, about 3x
-// #3's work plus ~38 MB of reads (~0.1 ms). All three are in practice bound
-// by the latency of each thread's serial chain (L x stages field
-// evaluations) and, for #5, by summing 2,161 weight gradients over 20,000
-// threads: the design reduces each contribution within the warp
-// (__shfl_xor_sync), adds it to the warp's own accumulator in shared
-// memory (no atomics: lane 0 of a warp is its only writer), writes one
-// partial per block and sums the partials in a second kernel in a fixed
-// order, so the result does not depend on block scheduling.
+// at the d=5 main path (N = 4,000, L = 20, midpoint, n_sub = 1, H = 20,
+// Hh = 10, 9 field layers): #3 does about 2.1 GFLOP (~32 us) against ~1 MB;
+// #4 adds ~38 MB of state writes (~12 us); #5 recomputes each interval and
+// walks it back, about 3x #3's operations plus the ~38 MB of states read
+// (~0.1 ms). All three are bound by operations.
 //
-// Backward per thread (derivation in ops/kernels/xnode_train.py ::
-// u_du_bwd_plain, which writes the same adjoint as batched tensor math):
-// the map (h, ht_1..ht_d) -> (h', ht'_1..ht'_d) has a VJP that is linear
-// in the cotangents, and ht'_k depends only on (h, ht_k). So the primal
-// cotangent hbar splits into per-direction shares: thread k carries
-// hbar^(k) and htbar_k, takes the readout's ub into share 0 only, and
-// applies the VJP of the one-direction joint map (h, ht_k) -> (h', ht'_k),
-// second-order tanh term included. Summing the weight gradients over the
-// threads then sums the shares, exactly as the batched adjoint does.
+// What held the first design back (one thread per (path, direction)):
+// every thread walked the whole chain serially (L intervals x stages field
+// evaluations, ~89k dependent FMAs for #3/#4); #5 summed each of its ~2,100
+// weight contributions per field VJP with five dependent __shfl_xor_sync;
+// blocks of 64 (#3/#4) or 128 (#5) threads left about 5 warps on an SM;
+// cap-sized per-thread arrays (24,608 bytes of stack in #5) lived in local
+// memory; and the primal was recomputed by each of the d direction threads
+// (1.67x the multiply-adds at d = 5). #5 took 17.8 ms, #3/#4 2.2 ms.
+//
+// Tile design. A block owns a TILE of P consecutive paths; its R = P (1 + d)
+// ROWS are the P primal rows (row p) and the P d tangent rows (row P + p d +
+// k), so the primal is computed once per path. Every vector of the network
+// lives in shared memory, feature-major [width][S], the row stride S a
+// multiple of 4 whose quarter is odd (float4 reads without bank
+// conflicts). Each layer is a product over the tile's rows, split over the
+// block's threads by (output unit, 4 consecutive rows read as one float4);
+// a thread keeps each weight in a register across its rows. Activations
+// are materialised by a pass of their own: relu masks a tangent row by the
+// sign of its path's primal pre-activation, tanh scales it by the primal's
+// 1 - y^2. The weights stay in device memory, read through the read-only
+// cache (8.6 KB at d=5). No thread holds an array, and the launch bound
+// names one block a minimum, so ptxas reports no stack for these kernels
+// (with the bound alone it held them at 64 and 128 registers and spilled).
+//
+// #3/#4: one tile per block; the lift, then L intervals of n_sub RK
+// substeps through the RK table (stage inputs h + A_s dt k_{s-1}, end h +
+// dt sum_s B_s k_s), u and du from each interval's end state. #4 writes each
+// interval's start state: a tile's rows are contiguous in hs [L, N, H] and
+// hts [L, N, d, H], so the stores coalesce.
+//
+// #5: a persistent grid: block b walks tiles b, b + G, ... in that order,
+// from interval L-1 down to 0. Per interval it recomputes the stage inputs
+// and the end state, keeping every stage's field activations, injects the
+// readout cotangents, and walks each stage's field back: per layer the
+// input cotangent as the transposed product W^T ab over the rows and the
+// weight gradient Σ_rows ab_j z_i, where a tangent row's ab and z are the
+// tangent cotangent and input, so one sum over all rows gives abar z^T +
+// atbar zt^T. Each gradient entry has exactly one owner thread in a layer's
+// phase, which adds the sum into the block's accumulator in shared memory:
+// no shuffles, no atomics. The next interval's states, readout cotangents
+// and times are copied into a staging buffer with cp.async (16-byte copies
+// where H is a multiple of 4, 4-byte ones otherwise) while the tile walks
+// the current one. Each block writes one partial row and
+// xnode_udu_reduce_kernel sums the rows in a fixed order, so two launches
+// give bitwise equal gradients.
+//
+// FP32 FMAs throughout: TF32 tensor cores keep about three digits, which
+// the kernel-against-plain limit (2e-4 of each tensor's largest value)
+// does not allow; a 3xTF32 split was not tried.
+//
+// The tile helpers (xg_dense, xg_dense_t, xg_outer, xg_rowsum) do the jobs
+// of #7's xd_tile_* in disc_train.cu, which could not serve here as they
+// are: those take one point per thread and scalar reads on a stride of
+// P + 1, where these take four rows a thread as one float4 (the step that
+// cut #3/#4 from 0.76 to 0.62 ms in the tile sweep), add a bias or a time
+// column on the primal rows only, and mask a tangent row by its path's
+// primal row. #7's redesign is to move onto these, in a header of their
+// own.
+#include <cuda_pipeline.h>
+
 #include "steppers.cuh"
 
-#define XN_MAX_FIELD_LAYERS 16  // cap on n_field and n_lift (activation store)
-#define XN_FWD_THREADS 64
+#define XG_RPT 4            // rows per thread in a tile product: one float4
+#define XG_MAX_THREADS 256  // launch bound; the wrapper's blocks stay under it
+#define XG_MAX_SMEM 232448
 
-__device__ inline float xn_warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+// The four schemes as RK tables (ops/kernels/steppers.py :: RK_TABLES):
+// stage s > 0 starts from h + A[s] dt k[s-1] at t + C[s] dt, and the step
+// ends at h + dt sum_s B[s] k[s].
+__constant__ int XG_STAGES[4] = {1, 2, 2, 4};
+__constant__ float XG_C[4][4] = {
+    {0.f}, {0.f, 0.5f}, {0.f, 1.f}, {0.f, 0.5f, 0.5f, 1.f}};
+__constant__ float XG_A[4][4] = {
+    {0.f}, {0.f, 0.5f}, {0.f, 1.f}, {0.f, 0.5f, 0.5f, 1.f}};
+__constant__ float XG_B[4][4] = {{1.f},
+                                 {0.f, 1.f},
+                                 {0.5f, 0.5f},
+                                 {1.f / 6.f, 2.f / 6.f, 2.f / 6.f, 1.f / 6.f}};
+
+// Row stride: R rounded up to a multiple of 4 whose quarter is odd, so that
+// float4 reads of one column by consecutive threads (consecutive rows) and
+// of consecutive rows' columns (consecutive units) hit distinct banks.
+__host__ __device__ inline int xg_stride(int R) {
+  const int q = (R + 3) / 4;
+  return 4 * (q % 2 ? q : q + 1);
 }
 
-// Add one weight-gradient contribution of every lane to the warp's
-// accumulator. Called by all 32 lanes with the same idx.
-__device__ inline void xn_gacc(float* G, int idx, float v, int lane) {
-  v = xn_warp_sum(v);
-  if (lane == 0) G[idx] += v;
+__host__ __device__ inline int xg_round4(int n) { return (n + 3) / 4 * 4; }
+
+__host__ __device__ inline int xg_stages(int method) {
+  return method == XN_EULER ? 1 : method == XN_RK4 ? 4 : 2;
 }
 
-// The four schemes as RK tables (ops/kernels/steppers.py :: RK_TABLES).
-__device__ inline int xn_rk_table(int method, float* C, float* A, float* B) {
-  switch (method) {
-    case XN_EULER:
-      C[0] = 0.f; A[0] = 0.f; B[0] = 1.f;
-      return 1;
-    case XN_MIDPOINT:
-      C[0] = 0.f; C[1] = 0.5f; A[0] = 0.f; A[1] = 0.5f;
-      B[0] = 0.f; B[1] = 1.f;
-      return 2;
-    case XN_HEUN:
-      C[0] = 0.f; C[1] = 1.f; A[0] = 0.f; A[1] = 1.f;
-      B[0] = 0.5f; B[1] = 0.5f;
-      return 2;
-    default:
-      C[0] = 0.f; C[1] = 0.5f; C[2] = 0.5f; C[3] = 1.f;
-      A[0] = 0.f; A[1] = 0.5f; A[2] = 0.5f; A[3] = 1.f;
-      B[0] = 1.f / 6.f; B[1] = 2.f / 6.f; B[2] = 2.f / 6.f; B[3] = 1.f / 6.f;
-      return 4;
-  }
-}
-
-// Per-thread path data shared by the three kernels.
-struct XnPath {
-  int n, k;
-  float feats[XN_MAX_FIELD_IN], xt[XN_MAX_FIELD_IN];
-  float c0[XN_MAX_WIDTH], ct0[XN_MAX_WIDTH];
-  float seed, st;
+// Float offsets of one block's shared buffers (ops/kernels/xnode_train.py
+// :: tile_smem_bytes restates the total; chip_smoke.py holds the two
+// together through xnode_udu_smem_bytes). Buffers are
+// [width][S]; the primal row index of every row (R ints) follows `total`.
+struct XgLayout {
+  int S, R;
+  int acc, fe, cf, sd, ub, t0, dt;    // acc: #5's gradient accumulator
+  int hs, hb, hb0, kb, yb;            // [H][S]: #5's start state, cotangents
+  int st, ys, k, accu, he, hcur, fld;  // state, stage inputs, stage, sum, end
+  int stage;                          // #5's cp.async staging (16-byte aligned)
+  int total;
 };
 
-__device__ inline void xn_load_path(const XnNet& net, int q, int d,
-                                    const float* feats, const float* dfeats,
-                                    const float* seed, const float* dseed,
-                                    XnPath& p) {
-  p.n = q / d;
-  p.k = q - p.n * d;
-  const int F = net.F;
-  for (int i = 0; i < F; ++i) {
-    p.feats[i] = feats[(size_t)p.n * F + i];
-    p.xt[i] = dfeats[(size_t)q * F + i];
+__host__ __device__ inline XgLayout xg_layout(bool bwd, int P, int d, int H,
+                                              int Hh, int F, int n_lift,
+                                              int n_field, int method,
+                                              int n_params) {
+  XgLayout y;
+  y.R = P * (1 + d);
+  const int S = y.S = xg_stride(y.R), ns = xg_stages(method);
+  int o = 0;
+  y.acc = o;  o += bwd ? xg_round4(n_params) : 0;
+  y.fe = o;   o += F * S;
+  y.cf = o;   o += Hh * S;
+  y.sd = o;   o += S;
+  y.ub = o;   o += bwd ? S : 0;
+  y.t0 = o;   o += xg_round4(P);
+  y.dt = o;   o += xg_round4(P);
+  if (!bwd) {  // state, stage input, stage, stage sum; two field buffers
+    y.st = o;   o += H * S;
+    y.ys = o;   o += H * S;
+    y.k = o;    o += H * S;
+    y.accu = o; o += H * S;
+    y.fld = o;  o += 2 * Hh * S;
+    y.hs = y.hb = y.hb0 = y.kb = y.yb = y.he = y.hcur = y.stage = -1;
+    y.total = o;
+    return y;
   }
-  xn_field_const(net, p.feats, p.c0);
-  xn_field_const(net, p.xt, p.ct0);
-  p.seed = seed[p.n];
-  p.st = dseed[q];
+  y.hs = o;  o += H * S;
+  y.hb = o;  o += H * S;
+  y.hb0 = o; o += H * S;
+  y.kb = o;  o += H * S;
+  y.yb = o;  o += H * S;
+  // the walk's buffers; after the walk the lift's reuse them
+  const int main0 = o;
+  y.ys = o;   o += (ns - 1) * H * S;
+  y.k = o;    o += H * S;
+  y.accu = o; o += H * S;
+  y.he = o;   o += H * S;
+  y.hcur = o; o += H * S;
+  // per stage R_1..R_{nh-1}, AL, YT; then AS, AB1
+  y.fld = o;  o += (ns * n_field + 2) * Hh * S;
+  const int lift = main0 + (n_lift + 1) * H * S;
+  if (lift > o) o = lift;
+  y.st = -1;
+  y.stage = o; o += y.R * H + y.R + 2 * P;
+  y.total = o;
+  return y;
+}
+
+__host__ inline size_t xg_smem_bytes(const XgLayout& y) {
+  return sizeof(float) * (size_t)y.total + sizeof(int) * (size_t)y.R;
+}
+
+// The packed weights (device memory) and the net's shape; the packing is
+// steppers.cuh's: lift, field, readout, each W [out, in] then b [out].
+struct XgNet {
+  const float* w;
+  int H, Hh, F, fin, n_lift, n_field;
+  int field_off, hid_off, out_off, readout_off;
+};
+
+__device__ __forceinline__ XgNet xg_net(const float* w, int H, int Hh, int F,
+                                        int n_lift, int n_field) {
+  XgNet n;
+  n.w = w;
+  n.H = H;
+  n.Hh = Hh;
+  n.F = F;
+  n.fin = F + 1 + H;
+  n.n_lift = n_lift;
+  n.n_field = n_field;
+  n.field_off = 2 * H + (n_lift - 1) * (H * H + H);
+  n.hid_off = n.field_off + Hh * n.fin + Hh;
+  n.out_off = n.hid_off + (n_field - 2) * (Hh * Hh + Hh);
+  n.readout_off = n.out_off + H * Hh + H;
+  return n;
+}
+
+// The tile's shape, the same for every tile of a launch.
+struct XgTile {
+  int P, d, R, S;
+  const int* prim;  // [R]: the primal row of each row
+};
+
+// The tile's sample times: t_p = (t0[p] + sub dt[p]) + c dt[p].
+struct XgTime {
+  const float* t0;
+  const float* dt;
+  float sub, c;
+  __device__ __forceinline__ float at(int p) const {
+    const float t = t0[p] + sub * dt[p];
+    return t + c * dt[p];
+  }
+};
+
+// Calls body(a, b) for every a < n, b < m, the block's threads taking
+// consecutive b: no division per element.
+template <class Body>
+__device__ __forceinline__ void xg_each(int n, int m, Body body) {
+  const int bq = blockDim.x / m, br = blockDim.x - bq * m;
+  int a = threadIdx.x / m, b = threadIdx.x - a * m;
+  while (a < n) {
+    body(a, b);
+    b += br;
+    a += bq;
+    if (b >= m) {
+      b -= m;
+      ++a;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Tile products and passes. Every thread of the block calls each of them;
+// none synchronises: the caller puts a __syncthreads() between a pass and
+// the next one that reads what it wrote.
+// ---------------------------------------------------------------------------
+
+// out[j][r] = sum_i W[j ldw + i] x[i][r], plus add[j][r] if given, plus on
+// the primal rows bias[j] and tw[j ldw] t_p if given, plus out[j][r] if
+// ACC; j < n_out, i < n_in. A thread takes XG_RPT consecutive rows of one
+// output, reads them as one float4 and keeps each weight in a register
+// across them.
+template <bool ACC>
+__device__ __forceinline__ void xg_dense(float* out,
+                                         const float* __restrict__ W, int ldw,
+                                         int n_out, int n_in, const float* x,
+                                         const XgTile& g,
+                                         const float* __restrict__ bias = nullptr,
+                                         const float* add = nullptr,
+                                         const float* __restrict__ tw = nullptr,
+                                         XgTime tm = XgTime{}) {
+  const int RC = (g.R + XG_RPT - 1) / XG_RPT, S = g.S, S4 = S / 4;
+  xg_each(n_out, RC, [&](int j, int c) {
+    const float* w = W + (size_t)j * ldw;
+    const float4* xc = reinterpret_cast<const float4*>(x) + c;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int i = 0; i < n_in; ++i) {
+      const float wi = __ldg(w + i);
+      const float4 v = xc[i * S4];
+      s.x = fmaf(wi, v.x, s.x);
+      s.y = fmaf(wi, v.y, s.y);
+      s.z = fmaf(wi, v.z, s.z);
+      s.w = fmaf(wi, v.w, s.w);
+    }
+    const float sv[XG_RPT] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+    for (int m = 0; m < XG_RPT; ++m) {
+      const int r = c * XG_RPT + m;
+      if (r < g.R) {
+        float v = sv[m];
+        if (add) v += add[j * S + r];
+        if (r < g.P) {
+          if (tw) v = fmaf(__ldg(tw + (size_t)j * ldw), tm.at(r), v);
+          if (bias) v += __ldg(bias + j);
+        }
+        if (ACC) v += out[j * S + r];
+        out[j * S + r] = v;
+      }
+    }
+  });
+}
+
+// out[i][r] = sum_j W[j ldw + i] y[j][r] for i < n_out, j < n_in: the
+// transposed product, zero where msk[i][prim r] <= 0 if msk is given.
+__device__ __forceinline__ void xg_dense_t(float* out,
+                                           const float* __restrict__ W,
+                                           int ldw, int n_out, int n_in,
+                                           const float* y, const XgTile& g,
+                                           const float* msk = nullptr) {
+  const int RC = (g.R + XG_RPT - 1) / XG_RPT, S = g.S, S4 = S / 4;
+  xg_each(n_out, RC, [&](int i, int c) {
+    const float4* yc = reinterpret_cast<const float4*>(y) + c;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int j = 0; j < n_in; ++j) {
+      const float wj = __ldg(W + (size_t)j * ldw + i);
+      const float4 v = yc[j * S4];
+      s.x = fmaf(wj, v.x, s.x);
+      s.y = fmaf(wj, v.y, s.y);
+      s.z = fmaf(wj, v.z, s.z);
+      s.w = fmaf(wj, v.w, s.w);
+    }
+    const float sv[XG_RPT] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+    for (int m = 0; m < XG_RPT; ++m) {
+      const int r = c * XG_RPT + m;
+      if (r < g.R)
+        out[i * S + r] =
+            (msk == nullptr || msk[i * S + g.prim[r]] > 0.f) ? sv[m] : 0.f;
+    }
+  });
+}
+
+// relu of a pre-activation buffer: a primal row keeps a > 0, a tangent row
+// its value where its path's primal a > 0.
+__device__ __forceinline__ void xg_relu(float* out, const float* a, int n,
+                                        const XgTile& g) {
+  xg_each(n, g.R, [&](int i, int r) {
+    out[i * g.S + r] = a[i * g.S + g.prim[r]] > 0.f ? a[i * g.S + r] : 0.f;
+  });
+}
+
+// tanh of a pre-activation buffer: y = tanh(a) on a primal row, (1 - y^2)
+// at on its tangent rows; one thread per (unit, path).
+__device__ __forceinline__ void xg_tanh(float* out, const float* a, int n,
+                                        const XgTile& g) {
+  xg_each(n, g.P, [&](int i, int p) {
+    const float* ai = a + i * g.S;
+    float* oi = out + i * g.S;
+    const float y = tanhf(ai[p]), s = 1.f - y * y;
+    oi[p] = y;
+    for (int k = 0, r = g.P + p * g.d; k < g.d; ++k, ++r) oi[r] = s * ai[r];
+  });
+}
+
+// The cotangent of a from that of the tanh pass's output: s ytb on a
+// tangent row, s yb - 2 y s sum_k at_k ytb_k on the primal (s = 1 - y^2).
+__device__ __forceinline__ void xg_tanh_vjp(float* ab, const float* yb,
+                                            const float* a, int n,
+                                            const XgTile& g) {
+  xg_each(n, g.P, [&](int i, int p) {
+    const float* ai = a + i * g.S;
+    const float* bi = yb + i * g.S;
+    float* oi = ab + i * g.S;
+    const float y = tanhf(ai[p]), s = 1.f - y * y;
+    float c = 0.f;
+    for (int k = 0, r = g.P + p * g.d; k < g.d; ++k, ++r) {
+      c = fmaf(ai[r], bi[r], c);
+      oi[r] = s * bi[r];
+    }
+    oi[p] = s * bi[p] - 2.f * y * s * c;
+  });
+}
+
+// acc[j lda + i] += sum_{r < nr} X[j][r] Y[i][r] for j < nx, i < ny: each
+// entry has one owner thread, which sums over the rows in a fixed order,
+// four at a time (float4 reads) and the rest one by one.
+__device__ __forceinline__ void xg_outer(float* acc, int lda, const float* X,
+                                         int nx, const float* Y, int ny,
+                                         int nr, int S) {
+  const int n4 = nr / 4;
+  xg_each(nx, ny, [&](int j, int i) {
+    const float* x = X + j * S;
+    const float* y = Y + i * S;
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    const float4* y4 = reinterpret_cast<const float4*>(y);
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int c = 0; c < n4; ++c) {
+      const float4 a = x4[c], b = y4[c];
+      s.x = fmaf(a.x, b.x, s.x);
+      s.y = fmaf(a.y, b.y, s.y);
+      s.z = fmaf(a.z, b.z, s.z);
+      s.w = fmaf(a.w, b.w, s.w);
+    }
+    for (int r = 4 * n4; r < nr; ++r) s.x = fmaf(x[r], y[r], s.x);
+    acc[j * lda + i] += (s.x + s.y) + (s.z + s.w);
+  });
+}
+
+// acc[j] += sum over the primal rows of X[j][p] (a bias gradient).
+__device__ __forceinline__ void xg_rowsum(float* acc, const float* X, int n,
+                                          const XgTile& g) {
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    float s = 0.f;
+    for (int p = 0; p < g.P; ++p) s += X[j * g.S + p];
+    acc[j] += s;
+  }
+}
+
+// acc[j lda] += sum over the primal rows of X[j][p] t_p (the time column).
+__device__ __forceinline__ void xg_time(float* acc, int lda, const float* X,
+                                        int n, XgTime tm, const XgTile& g) {
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    float s = 0.f;
+    for (int p = 0; p < g.P; ++p) s = fmaf(X[j * g.S + p], tm.at(p), s);
+    acc[j * lda] += s;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The network on a tile
+// ---------------------------------------------------------------------------
+
+// Field buffers, each [Hh][S]. R holds the relu inputs of hidden layers
+// 1 .. nh-1 (nh = n_field - 1) at a stride of rstride floats (0: one buffer
+// reused, when nothing is walked back); AS is a scratch pre-activation (and
+// the VJP's first cotangent buffer), AL the tanh layer's pre-activation, YT
+// its output, AB1 the VJP's second cotangent buffer. R, AL and YT of RK
+// stage s sit kstride floats after those of stage s - 1 (0: shared). CF
+// holds W0[:, :F] applied to each row's features, FE the features.
+struct XgField {
+  float *R, *AS, *AL, *YT, *AB1;
+  const float *CF, *FE;
+  int rstride, kstride;
+  __device__ __forceinline__ XgField stage(int s) const {
+    XgField f = *this;
+    f.R += (size_t)s * kstride;
+    f.AL += (size_t)s * kstride;
+    f.YT += (size_t)s * kstride;
+    return f;
+  }
+};
+
+// The field F(x, t, h) and its tangents at the rows of X [H][S]: keeps
+// every pre-activation in f and, if out is given, writes the field into it.
+__device__ __forceinline__ void xg_field_fwd(const XgNet& n, const XgField& f,
+                                             const float* X, XgTime tm,
+                                             float* out, const XgTile& g) {
+  const float* W0 = n.w + n.field_off;
+  const int nh = n.n_field - 1, Hh = n.Hh;
+  xg_dense<false>(nh == 1 ? f.AL : f.AS, W0 + n.F + 1, n.fin, Hh, n.H, X, g,
+                  W0 + Hh * n.fin, f.CF, W0 + n.F, tm);
+  __syncthreads();
+  for (int l = 1; l < nh; ++l) {
+    float* r = f.R + (size_t)(l - 1) * f.rstride;
+    xg_relu(r, f.AS, Hh, g);
+    __syncthreads();
+    const float* W = n.w + n.hid_off + (l - 1) * (Hh * Hh + Hh);
+    xg_dense<false>(l == nh - 1 ? f.AL : f.AS, W, Hh, Hh, Hh, r, g,
+                    W + Hh * Hh);
+    __syncthreads();
+  }
+  xg_tanh(f.YT, f.AL, Hh, g);
+  __syncthreads();
+  if (out) {
+    const float* Wo = n.w + n.out_off;
+    xg_dense<false>(out, Wo, Hh, n.H, Hh, f.YT, g, Wo + n.H * Hh);
+    __syncthreads();
+  }
+}
+
+// One RK substep from X0 [H][S] at the times tm (tm.sub set): the stage
+// inputs Y_s (s >= 1) go to ys + (s-1) ystride (ystride 0: one buffer), each
+// stage's field activations to f.stage(s), and with `out` the end X0 + dt
+// sum_s B_s k_s goes there (out may be X0).
+__device__ __forceinline__ void xg_step(const XgNet& n, const XgField& f,
+                                        int method, const float* X0, float* ys,
+                                        int ystride, float* K, float* ACC,
+                                        float* out, XgTime tm,
+                                        const XgTile& g) {
+  const int ns = XG_STAGES[method], S = g.S;
+  const int evals = out ? ns : ns - 1;
+  for (int s = 0; s < evals; ++s) {
+    tm.c = XG_C[method][s];
+    xg_field_fwd(n, f.stage(s), s == 0 ? X0 : ys + (size_t)(s - 1) * ystride,
+                 tm, K, g);
+    const float b = XG_B[method][s];
+    const float a = s + 1 < ns ? XG_A[method][s + 1] : 0.f;
+    float* yn = s + 1 < ns ? ys + (size_t)s * ystride : nullptr;
+    xg_each(n.H, g.R, [&](int i, int r) {
+      const int e = i * S + r;
+      const float dt = tm.dt[g.prim[r]], kv = K[e];
+      if (out) ACC[e] = s == 0 ? b * kv : fmaf(b, kv, ACC[e]);
+      if (yn) yn[e] = X0[e] + (a * dt) * kv;
+    });
+    __syncthreads();
+  }
+  if (out) {
+    xg_each(n.H, g.R, [&](int i, int r) {
+      const int e = i * S + r;
+      out[e] = X0[e] + tm.dt[g.prim[r]] * ACC[e];
+    });
+    __syncthreads();
+  }
+}
+
+// The lift of the rows' seeds SD [S] (seed on a primal row, its tangent on
+// a tangent row) into out [H][S]. The relu inputs of layers 1 .. n_lift-1
+// go to LR + (l-1) lstride (lstride 0: one buffer); LS is scratch. With
+// `out` null the last layer is not applied (the VJP needs only its input).
+__device__ __forceinline__ void xg_lift_fwd(const XgNet& n, const float* SD,
+                                            float* LR, int lstride, float* LS,
+                                            float* out, const XgTile& g) {
+  const int H = n.H;
+  xg_dense<false>(n.n_lift == 1 ? out : LS, n.w, 1, H, 1, SD, g, n.w + H);
+  __syncthreads();
+  for (int l = 1; l < n.n_lift; ++l) {
+    float* r = LR + (size_t)(l - 1) * lstride;
+    xg_relu(r, LS, H, g);
+    __syncthreads();
+    if (l == n.n_lift - 1 && out == nullptr) break;
+    const float* W = n.w + 2 * H + (l - 1) * (H * H + H);
+    xg_dense<false>(l == n.n_lift - 1 ? out : LS, W, H, H, H, r, g,
+                    W + H * H);
+    __syncthreads();
+  }
 }
 
 // ---------------------------------------------------------------------------
 // #3 / #4: forward with tangents; STORE also writes the interval start
-// states hs [L, N, H] (direction 0) and hts [L, N, d, H].
+// states hs [L, N, H] and hts [L, N, d, H]. One tile of P paths per block.
 // ---------------------------------------------------------------------------
+
+// The tile's rows, features and seeds: prim, FE [F][S], SD [S]; rows of
+// paths past N get zeros.
+__device__ __forceinline__ void xg_load_rows(
+    int* prim, float* FE, float* SD, const float* __restrict__ feats,
+    const float* __restrict__ dfeats, const float* __restrict__ seed,
+    const float* __restrict__ dseed, int n0, int live, int F,
+    const XgTile& g) {
+  const int P = g.P, d = g.d;
+  for (int r = threadIdx.x; r < g.R; r += blockDim.x) {
+    const int p = r < P ? r : (r - P) / d;
+    prim[r] = p;
+    SD[r] = p >= live ? 0.f
+            : r < P   ? seed[n0 + r]
+                      : dseed[(size_t)n0 * d + (r - P)];
+  }
+  if (F > 0)
+    xg_each(g.R, F, [&](int r, int i) {
+      const int p = r < P ? r : (r - P) / d;
+      FE[i * g.S + r] = p >= live ? 0.f
+                        : r < P   ? feats[(size_t)(n0 + r) * F + i]
+                                  : dfeats[((size_t)n0 * d + (r - P)) * F + i];
+    });
+}
+
 template <bool STORE>
-__global__ void __launch_bounds__(XN_FWD_THREADS)
+__global__ void __launch_bounds__(XG_MAX_THREADS, 1)
 xnode_udu_fwd_kernel(const float* __restrict__ params, int n_params,
                      const float* __restrict__ t0,      // [N, L]
                      const float* __restrict__ dt,      // [N, L] substep
@@ -123,340 +551,334 @@ xnode_udu_fwd_kernel(const float* __restrict__ params, int n_params,
                      float* __restrict__ hs,            // [L, N, H]
                      float* __restrict__ hts,           // [L, N, d, H]
                      int N, int L, int d, int H, int Hh, int F, int n_lift,
-                     int n_field, int n_sub, int method) {
-  extern __shared__ float sw[];
-  xn_stage_weights(sw, params, n_params);
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= N * d) return;
+                     int n_field, int n_sub, int method, int P) {
+  extern __shared__ __align__(16) float smem[];
+  const XgNet n = xg_net(params, H, Hh, F, n_lift, n_field);
+  const XgLayout y = xg_layout(false, P, d, H, Hh, F, n_lift, n_field,
+                               method, n_params);
+  XgTile g;
+  g.P = P;
+  g.d = d;
+  g.R = y.R;
+  g.S = y.S;
+  int* prim = reinterpret_cast<int*>(smem + y.total);
+  g.prim = prim;
+  const int S = g.S, R = g.R;
+  float *FE = smem + y.fe, *CF = smem + y.cf, *SD = smem + y.sd;
+  float *T0 = smem + y.t0, *DT = smem + y.dt;
+  float *HST = smem + y.st, *Y = smem + y.ys, *K = smem + y.k,
+        *ACC = smem + y.accu;
+  XgField f;
+  f.AS = f.AL = smem + y.fld;
+  f.R = f.YT = smem + y.fld + Hh * S;
+  f.AB1 = nullptr;
+  f.CF = CF;
+  f.FE = FE;
+  f.rstride = f.kstride = 0;
 
-  const XnNet net = xn_net(sw, H, Hh, F, n_lift, n_field);
-  XnPath p;
-  xn_load_path(net, q, d, feats, dfeats, seed, dseed, p);
-  float h[XN_MAX_WIDTH], ht[XN_MAX_WIDTH];
-  xn_lift_tan(net, p.seed, p.st, h, ht);
-  const float* wr = sw + net.readout_off;
+  const int n0 = blockIdx.x * P, live = min(P, N - n0);
+  xg_load_rows(prim, FE, SD, feats, dfeats, seed, dseed, n0, live, F, g);
+  __syncthreads();
+  xg_dense<false>(CF, n.w + n.field_off, n.fin, Hh, F, FE, g);
+  xg_lift_fwd(n, SD, Y, 0, K, HST, g);  // its first pass syncs CF too
+  const float* wr = n.w + n.readout_off;
 
   for (int l = 0; l < L; ++l) {
     if (STORE) {
-      if (p.k == 0)
-        for (int j = 0; j < H; ++j) hs[((size_t)l * N + p.n) * H + j] = h[j];
-      for (int j = 0; j < H; ++j) hts[((size_t)l * N * d + q) * H + j] = ht[j];
+      float* dh = hs + ((size_t)l * N + n0) * H;
+      xg_each(live, H, [&](int r, int j) { dh[r * H + j] = HST[j * S + r]; });
+      float* dht = hts + ((size_t)l * N + n0) * d * H;
+      xg_each(live * d, H,
+              [&](int r, int j) { dht[r * H + j] = HST[j * S + P + r]; });
     }
-    const size_t nl = (size_t)p.n * L + l;
-    const float ta = t0[nl], dl = dt[nl];
-    for (int s = 0; s < n_sub; ++s)
-      xn_rk_step_tan(net, method, p.c0, p.ct0, ta + (float)s * dl, dl, h, ht);
-    if (p.k == 0) u[nl] = xn_readout(net, h);
-    float s = 0.f;
-    for (int i = 0; i < H; ++i) s = fmaf(wr[i], ht[i], s);
-    du[nl * d + p.k] = s;
+    for (int p = threadIdx.x; p < P; p += blockDim.x) {
+      const size_t nl = (size_t)(n0 + p) * L + l;
+      T0[p] = p < live ? t0[nl] : 0.f;
+      DT[p] = p < live ? dt[nl] : 0.f;
+    }
+    __syncthreads();
+    XgTime tm{T0, DT, 0.f, 0.f};
+    for (int s = 0; s < n_sub; ++s) {
+      tm.sub = (float)s;
+      xg_step(n, f, method, HST, Y, 0, K, ACC, HST, tm, g);
+    }
+    for (int r = threadIdx.x; r < R; r += blockDim.x) {
+      const int p = prim[r];
+      if (p >= live) continue;
+      float s = 0.f;
+      for (int i = 0; i < H; ++i) s = fmaf(__ldg(wr + i), HST[i * S + r], s);
+      const size_t nl = (size_t)(n0 + p) * L + l;
+      if (r < P)
+        u[nl] = s + __ldg(wr + H);
+      else
+        du[nl * d + (r - P - p * d)] = s;
+    }
   }
 }
 
 // ---------------------------------------------------------------------------
-// #5: backward.
+// #5: backward, a persistent grid of tiles.
 // ---------------------------------------------------------------------------
 
-// VJP of the one-direction joint field at (t, h, ht) for the cotangents
-// (obar, otbar) of (out, outt): adds the input cotangents to (hbar, htbar)
-// and every weight gradient to the warp's accumulator G.
-__device__ void xn_field_vjp(const XnNet& n, const XnPath& p, float t,
-                             const float* h, const float* ht,
-                             const float* obar, const float* otbar,
-                             float* hbar, float* htbar, float* G, int lane) {
-  float A[XN_MAX_FIELD_LAYERS - 1][XN_MAX_WIDTH];
-  float AT[XN_MAX_FIELD_LAYERS - 1][XN_MAX_WIDTH];
-  float r[XN_MAX_WIDTH], rt[XN_MAX_WIDTH], ab[XN_MAX_WIDTH],
-      atb[XN_MAX_WIDTH], rb[XN_MAX_WIDTH], rtb[XN_MAX_WIDTH];
-  const int H = n.H, Hh = n.Hh, F = n.F, fin = F + 1 + H;
-  const int nh = n.n_field - 1;  // hidden pre-activations A[0 .. nh-1]
-
-  // forward recompute, keeping every pre-activation and its tangent
-  const int off0 = n.field_off;
-  const float* W0 = n.w + off0;
-  for (int j = 0; j < Hh; ++j) {
-    const float* row = W0 + j * fin + F;
-    float s = fmaf(row[0], t, p.c0[j]), st = p.ct0[j];
-    for (int i = 0; i < H; ++i) {
-      s = fmaf(row[1 + i], h[i], s);
-      st = fmaf(row[1 + i], ht[i], st);
-    }
-    A[0][j] = s + W0[Hh * fin + j];
-    AT[0][j] = st;
-  }
-  int off = off0 + Hh * fin + Hh;
-  for (int l = 1; l < nh; ++l) {
-    for (int i = 0; i < Hh; ++i) {
-      const bool on = A[l - 1][i] > 0.f;
-      r[i] = on ? A[l - 1][i] : 0.f;
-      rt[i] = on ? AT[l - 1][i] : 0.f;
-    }
-    xn_dense(n.w + off, Hh, Hh, r, A[l]);
-    xn_dense_nb(n.w + off, Hh, Hh, rt, AT[l]);
-    off += Hh * Hh + Hh;
-  }
-  // off is now the output layer W_o [H, Hh], b_o [H]
-  const float* Wo = n.w + off;
-  for (int i = 0; i < Hh; ++i) {
-    const float y = tanhf(A[nh - 1][i]);
-    r[i] = y;
-    rt[i] = (1.f - y * y) * AT[nh - 1][i];
-  }
-  for (int j = 0; j < H; ++j) {
-    for (int i = 0; i < Hh; ++i)
-      xn_gacc(G, off + j * Hh + i, obar[j] * r[i] + otbar[j] * rt[i], lane);
-    xn_gacc(G, off + H * Hh + j, obar[j], lane);
-  }
-  for (int i = 0; i < Hh; ++i) {
-    float yb = 0.f, ytb = 0.f;
-    for (int j = 0; j < H; ++j) {
-      yb = fmaf(Wo[j * Hh + i], obar[j], yb);
-      ytb = fmaf(Wo[j * Hh + i], otbar[j], ytb);
-    }
-    const float y = r[i], s = 1.f - y * y;
-    atb[i] = s * ytb;
-    ab[i] = s * yb - 2.f * y * s * AT[nh - 1][i] * ytb;
-  }
-  // hidden layers l = nh-1 .. 1 map relu(A[l-1]) to A[l]
+// VJP of the field at (X, tm), whose activations xg_field_fwd kept in f,
+// for the cotangent OB [H][S] of its output: writes the cotangent of X into
+// XB and adds every weight gradient to acc.
+__device__ __forceinline__ void xg_field_vjp(const XgNet& n, const XgField& f,
+                                             float* acc, const float* X,
+                                             XgTime tm, const float* OB,
+                                             float* XB, const XgTile& g) {
+  const int H = n.H, Hh = n.Hh, nh = n.n_field - 1, R = g.R, S = g.S;
+  const float* Wo = n.w + n.out_off;
+  xg_outer(acc + n.out_off, Hh, OB, H, f.YT, Hh, R, S);
+  xg_rowsum(acc + n.out_off + H * Hh, OB, H, g);
+  xg_dense_t(f.AB1, Wo, Hh, Hh, H, OB, g);
+  __syncthreads();
+  float *cur = f.AS, *nxt = f.AB1;
+  xg_tanh_vjp(cur, f.AB1, f.AL, Hh, g);
+  __syncthreads();
   for (int l = nh - 1; l >= 1; --l) {
-    off -= Hh * Hh + Hh;
-    const float* W = n.w + off;
-    for (int i = 0; i < Hh; ++i) {
-      const bool on = A[l - 1][i] > 0.f;
-      r[i] = on ? A[l - 1][i] : 0.f;
-      rt[i] = on ? AT[l - 1][i] : 0.f;
-    }
-    for (int j = 0; j < Hh; ++j) {
-      for (int i = 0; i < Hh; ++i)
-        xn_gacc(G, off + j * Hh + i, ab[j] * r[i] + atb[j] * rt[i], lane);
-      xn_gacc(G, off + Hh * Hh + j, ab[j], lane);
-    }
-    for (int i = 0; i < Hh; ++i) {
-      float s = 0.f, st = 0.f;
-      for (int j = 0; j < Hh; ++j) {
-        s = fmaf(W[j * Hh + i], ab[j], s);
-        st = fmaf(W[j * Hh + i], atb[j], st);
-      }
-      rb[i] = s;
-      rtb[i] = st;
-    }
-    for (int i = 0; i < Hh; ++i) {
-      const bool on = A[l - 1][i] > 0.f;
-      ab[i] = on ? rb[i] : 0.f;
-      atb[i] = on ? rtb[i] : 0.f;
-    }
+    const int off = n.hid_off + (l - 1) * (Hh * Hh + Hh);
+    const float* r = f.R + (size_t)(l - 1) * f.rstride;
+    xg_outer(acc + off, Hh, cur, Hh, r, Hh, R, S);
+    xg_rowsum(acc + off + Hh * Hh, cur, Hh, g);
+    xg_dense_t(nxt, n.w + off, Hh, Hh, Hh, cur, g, r);
+    __syncthreads();
+    float* t = cur;
+    cur = nxt;
+    nxt = t;
   }
   // layer 0: input [feats, t, h], tangent [xt, 0, ht]
-  for (int j = 0; j < Hh; ++j) {
-    const int row = off0 + j * fin;
-    for (int i = 0; i < F; ++i)
-      xn_gacc(G, row + i, ab[j] * p.feats[i] + atb[j] * p.xt[i], lane);
-    xn_gacc(G, row + F, ab[j] * t, lane);
-    for (int i = 0; i < H; ++i)
-      xn_gacc(G, row + F + 1 + i, ab[j] * h[i] + atb[j] * ht[i], lane);
-    xn_gacc(G, off0 + Hh * fin + j, ab[j], lane);
-  }
-  for (int i = 0; i < H; ++i) {
-    float s = 0.f, st = 0.f;
-    for (int j = 0; j < Hh; ++j) {
-      s = fmaf(W0[j * fin + F + 1 + i], ab[j], s);
-      st = fmaf(W0[j * fin + F + 1 + i], atb[j], st);
-    }
-    hbar[i] += s;
-    htbar[i] += st;
-  }
-}
-
-// VJP of one joint substep from (h, ht) at time t: (hbar, htbar) hold the
-// cotangents of the substep's output on entry and of its input on exit.
-__device__ void xn_step_vjp(const XnNet& n, int method, const XnPath& p,
-                            float t, float dt, const float* h,
-                            const float* ht, float* hbar, float* htbar,
-                            float* G, int lane) {
-  float C[4], Ac[4], B[4];
-  float Y[4][XN_MAX_WIDTH], YT[4][XN_MAX_WIDTH];
-  float k[XN_MAX_WIDTH], kt[XN_MAX_WIDTH], hb0[XN_MAX_WIDTH],
-      htb0[XN_MAX_WIDTH], kb[XN_MAX_WIDTH], ktb[XN_MAX_WIDTH],
-      yb[XN_MAX_WIDTH], ytb[XN_MAX_WIDTH];
-  const int H = n.H;
-  const int S = xn_rk_table(method, C, Ac, B);
-  for (int j = 0; j < H; ++j) {
-    Y[0][j] = h[j];
-    YT[0][j] = ht[j];
-    hb0[j] = hbar[j];
-    htb0[j] = htbar[j];
-  }
-  for (int s = 1; s < S; ++s) {
-    xn_field_tan(n, p.c0, p.ct0, t + C[s - 1] * dt, Y[s - 1], YT[s - 1], k,
-                 kt);
-    const float a = Ac[s] * dt;
-    for (int j = 0; j < H; ++j) {
-      Y[s][j] = h[j] + a * k[j];
-      YT[s][j] = ht[j] + a * kt[j];
-    }
-  }
-  for (int j = 0; j < H; ++j) {
-    kb[j] = dt * B[S - 1] * hb0[j];
-    ktb[j] = dt * B[S - 1] * htb0[j];
-  }
-  for (int s = S - 1; s >= 0; --s) {
-    for (int j = 0; j < H; ++j) yb[j] = ytb[j] = 0.f;
-    xn_field_vjp(n, p, t + C[s] * dt, Y[s], YT[s], kb, ktb, yb, ytb, G,
-                 lane);
-    for (int j = 0; j < H; ++j) {
-      hbar[j] += yb[j];
-      htbar[j] += ytb[j];
-    }
-    if (s > 0) {
-      const float a = Ac[s] * dt, b = dt * B[s - 1];
-      for (int j = 0; j < H; ++j) {
-        kb[j] = b * hb0[j] + a * yb[j];
-        ktb[j] = b * htb0[j] + a * ytb[j];
-      }
-    }
-  }
-}
-
-// VJP of the lift on (seed, st) for the cotangents (hbar, htbar) of h0.
-__device__ void xn_lift_vjp(const XnNet& n, const XnPath& p,
-                            const float* hbar, const float* htbar, float* G,
-                            int lane) {
-  float A[XN_MAX_FIELD_LAYERS][XN_MAX_WIDTH];
-  float AT[XN_MAX_FIELD_LAYERS][XN_MAX_WIDTH];
-  float r[XN_MAX_WIDTH], rt[XN_MAX_WIDTH], ab[XN_MAX_WIDTH],
-      atb[XN_MAX_WIDTH], rb[XN_MAX_WIDTH], rtb[XN_MAX_WIDTH];
-  const int H = n.H, nl = n.n_lift;
-  for (int j = 0; j < H; ++j) {
-    A[0][j] = n.w[j] * p.seed + n.w[H + j];
-    AT[0][j] = n.w[j] * p.st;
-  }
-  for (int l = 1; l < nl; ++l) {
-    const float* W = n.w + 2 * H + (l - 1) * (H * H + H);
-    for (int i = 0; i < H; ++i) {
-      const bool on = A[l - 1][i] > 0.f;
-      r[i] = on ? A[l - 1][i] : 0.f;
-      rt[i] = on ? AT[l - 1][i] : 0.f;
-    }
-    xn_dense(W, H, H, r, A[l]);
-    xn_dense_nb(W, H, H, rt, AT[l]);
-  }
-  for (int j = 0; j < H; ++j) {
-    ab[j] = hbar[j];
-    atb[j] = htbar[j];
-  }
-  for (int l = nl - 1; l >= 1; --l) {
-    const int off = 2 * H + (l - 1) * (H * H + H);
-    const float* W = n.w + off;
-    for (int i = 0; i < H; ++i) {
-      const bool on = A[l - 1][i] > 0.f;
-      r[i] = on ? A[l - 1][i] : 0.f;
-      rt[i] = on ? AT[l - 1][i] : 0.f;
-    }
-    for (int j = 0; j < H; ++j) {
-      for (int i = 0; i < H; ++i)
-        xn_gacc(G, off + j * H + i, ab[j] * r[i] + atb[j] * rt[i], lane);
-      xn_gacc(G, off + H * H + j, ab[j], lane);
-    }
-    for (int i = 0; i < H; ++i) {
-      float s = 0.f, st = 0.f;
-      for (int j = 0; j < H; ++j) {
-        s = fmaf(W[j * H + i], ab[j], s);
-        st = fmaf(W[j * H + i], atb[j], st);
-      }
-      rb[i] = s;
-      rtb[i] = st;
-    }
-    for (int i = 0; i < H; ++i) {
-      const bool on = A[l - 1][i] > 0.f;
-      ab[i] = on ? rb[i] : 0.f;
-      atb[i] = on ? rtb[i] : 0.f;
-    }
-  }
-  for (int j = 0; j < H; ++j) {
-    xn_gacc(G, j, ab[j] * p.seed + atb[j] * p.st, lane);
-    xn_gacc(G, H + j, ab[j], lane);
-  }
-}
-
-// Every lane of every warp runs the whole walk (the warp reductions need
-// all 32): a thread past N*d works on path 0 with zero cotangents, which
-// adds exactly zero to every gradient.
-__global__ void xnode_udu_bwd_kernel(
-    const float* __restrict__ params, int n_params,
-    const float* __restrict__ t0, const float* __restrict__ dt,
-    const float* __restrict__ feats, const float* __restrict__ dfeats,
-    const float* __restrict__ seed, const float* __restrict__ dseed,
-    const float* __restrict__ hs, const float* __restrict__ hts,
-    const float* __restrict__ ub,   // [N, L]
-    const float* __restrict__ dub,  // [N, L, d]
-    float* __restrict__ partial,    // [gridDim.x, n_params]
-    int N, int L, int d, int H, int Hh, int F, int n_lift, int n_field,
-    int n_sub, int method) {
-  extern __shared__ float smem[];
-  float* sw = smem;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n_warps = blockDim.x >> 5;
-  float* G = smem + (size_t)(1 + warp) * n_params;
-  for (int i = threadIdx.x; i < n_params * (1 + n_warps); i += blockDim.x)
-    smem[i] = i < n_params ? params[i] : 0.f;
+  const int o0 = n.field_off, fin = n.fin;
+  xg_outer(acc + o0, fin, cur, Hh, f.FE, n.F, R, S);
+  xg_time(acc + o0 + n.F, fin, cur, Hh, tm, g);
+  xg_outer(acc + o0 + n.F + 1, fin, cur, Hh, X, H, R, S);
+  xg_rowsum(acc + o0 + Hh * fin, cur, Hh, g);
+  xg_dense_t(XB, n.w + o0 + n.F + 1, fin, H, Hh, cur, g);
   __syncthreads();
+}
 
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = tid < N * d;
-  const int q = active ? tid : 0;
-  const float live = active ? 1.f : 0.f;
-  const XnNet net = xn_net(sw, H, Hh, F, n_lift, n_field);
-  XnPath p;
-  xn_load_path(net, q, d, feats, dfeats, seed, dseed, p);
-  const int ro = net.readout_off;
-  const float* wr = sw + ro;
+// Buffers of the walk, each [H][S] but ys (ns - 1 of them).
+struct XgWalk {
+  float *HS, *HB, *HB0, *KB, *YB, *ys, *K, *ACC, *HE, *HCUR;
+};
 
-  float h[XN_MAX_WIDTH], ht[XN_MAX_WIDTH], he[XN_MAX_WIDTH],
-      hte[XN_MAX_WIDTH], hbar[XN_MAX_WIDTH], htbar[XN_MAX_WIDTH];
-  for (int j = 0; j < H; ++j) hbar[j] = htbar[j] = 0.f;
-
-  for (int l = L - 1; l >= 0; --l) {
-    for (int j = 0; j < H; ++j) {
-      h[j] = hs[((size_t)l * N + p.n) * H + j];
-      ht[j] = hts[((size_t)l * N * d + q) * H + j];
-      he[j] = h[j];
-      hte[j] = ht[j];
-    }
-    const size_t nl = (size_t)p.n * L + l;
-    const float ta = t0[nl], dl = dt[nl];
-    for (int s = 0; s < n_sub; ++s)
-      xn_rk_step_tan(net, method, p.c0, p.ct0, ta + (float)s * dl, dl, he,
-                     hte);
-    // readout u = wr.h + br (share 0 only), du_k = wr.ht_k
-    const float u_b = p.k == 0 ? live * ub[nl] : 0.f;
-    const float du_b = live * dub[nl * d + p.k];
-    for (int i = 0; i < H; ++i) {
-      xn_gacc(G, ro + i, u_b * he[i] + du_b * hte[i], lane);
-      hbar[i] += wr[i] * u_b;
-      htbar[i] += wr[i] * du_b;
-    }
-    xn_gacc(G, ro + H, u_b, lane);
-    // substeps in reverse, each recomputed from the interval start
-    for (int s = n_sub - 1; s >= 0; --s) {
-      for (int j = 0; j < H; ++j) {
-        he[j] = h[j];
-        hte[j] = ht[j];
-      }
-      for (int r = 0; r < s; ++r)
-        xn_rk_step_tan(net, method, p.c0, p.ct0, ta + (float)r * dl, dl, he,
-                       hte);
-      xn_step_vjp(net, method, p, ta + (float)s * dl, dl, he, hte, hbar,
-                  htbar, G, lane);
-    }
-  }
-  xn_lift_vjp(net, p, hbar, htbar, G, lane);
-
+// VJP of one substep from X0 whose stage inputs are in w.ys and stage
+// activations in f (xg_step): w.HB holds the cotangent of the substep's
+// output on entry and of X0 on exit.
+__device__ __forceinline__ void xg_step_vjp(const XgNet& n, const XgField& f,
+                                            int method, float* acc,
+                                            const float* X0, const XgWalk& w,
+                                            XgTime tm, const XgTile& g) {
+  const int ns = XG_STAGES[method], S = g.S, hs = n.H * S;
+  const float bl = XG_B[method][ns - 1];
+  xg_each(n.H, g.R, [&](int i, int r) {
+    const int e = i * S + r;
+    const float hb = w.HB[e];
+    w.HB0[e] = hb;
+    w.KB[e] = (tm.dt[g.prim[r]] * bl) * hb;
+  });
   __syncthreads();
-  for (int i = threadIdx.x; i < n_params; i += blockDim.x) {
-    float s = 0.f;
-    for (int w = 0; w < n_warps; ++w) s += smem[(size_t)(1 + w) * n_params + i];
-    partial[(size_t)blockIdx.x * n_params + i] = s;
+  for (int s = ns - 1; s >= 0; --s) {
+    tm.c = XG_C[method][s];
+    xg_field_vjp(n, f.stage(s), acc, s == 0 ? X0 : w.ys + (size_t)(s - 1) * hs,
+                 tm, w.KB, w.YB, g);
+    const float b = s > 0 ? XG_B[method][s - 1] : 0.f;
+    const float a = XG_A[method][s];
+    xg_each(n.H, g.R, [&](int i, int r) {
+      const int e = i * S + r;
+      const float yb = w.YB[e];
+      w.HB[e] += yb;
+      if (s > 0) {
+        const float dt = tm.dt[g.prim[r]];
+        w.KB[e] = (dt * b) * w.HB0[e] + (a * dt) * yb;
+      }
+    });
+    __syncthreads();
   }
+}
+
+// Start the copies of interval l's start states, readout cotangents and
+// times into the staging buffer st: rows [R][H], then ub [R], t0 [P], dt
+// [P]. Rows of paths past N get zeros.
+__device__ __forceinline__ void xg_prefetch(
+    float* st, const float* __restrict__ hs, const float* __restrict__ hts,
+    const float* __restrict__ ub, const float* __restrict__ dub,
+    const float* __restrict__ t0, const float* __restrict__ dt, int l, int N,
+    int L, int H, int n0, int live, bool vec, const XgTile& g) {
+  const int P = g.P, d = g.d, R = g.R;
+  const int np = live * H, nt = live * d * H;
+  const float* sh = hs + ((size_t)l * N + n0) * H;
+  const float* sht = hts + ((size_t)l * N + n0) * d * H;
+  float* stt = st + P * H;
+  if (vec) {
+    for (int i = 4 * threadIdx.x; i < np; i += 4 * blockDim.x)
+      __pipeline_memcpy_async(st + i, sh + i, 16);
+    for (int i = 4 * threadIdx.x; i < nt; i += 4 * blockDim.x)
+      __pipeline_memcpy_async(stt + i, sht + i, 16);
+  } else {
+    for (int i = threadIdx.x; i < np; i += blockDim.x)
+      __pipeline_memcpy_async(st + i, sh + i, 4);
+    for (int i = threadIdx.x; i < nt; i += blockDim.x)
+      __pipeline_memcpy_async(stt + i, sht + i, 4);
+  }
+  for (int i = np + threadIdx.x; i < P * H; i += blockDim.x) st[i] = 0.f;
+  for (int i = nt + threadIdx.x; i < P * d * H; i += blockDim.x) stt[i] = 0.f;
+  float* sub = st + R * H;
+  for (int r = threadIdx.x; r < R; r += blockDim.x) {
+    const int p = r < P ? r : (r - P) / d;
+    const size_t nl = (size_t)(n0 + p) * L + l;
+    if (p >= live)
+      sub[r] = 0.f;
+    else if (r < P)
+      __pipeline_memcpy_async(sub + r, ub + nl, 4);
+    else
+      __pipeline_memcpy_async(sub + r, dub + nl * d + (r - P - p * d), 4);
+  }
+  for (int p = threadIdx.x; p < P; p += blockDim.x) {
+    const size_t nl = (size_t)(n0 + p) * L + l;
+    if (p >= live) {
+      sub[R + p] = sub[R + P + p] = 0.f;
+    } else {
+      __pipeline_memcpy_async(sub + R + p, t0 + nl, 4);
+      __pipeline_memcpy_async(sub + R + P + p, dt + nl, 4);
+    }
+  }
+  __pipeline_commit();
+}
+
+__global__ void __launch_bounds__(XG_MAX_THREADS, 1)
+xnode_udu_bwd_kernel(const float* __restrict__ params, int n_params,
+                     const float* __restrict__ t0,
+                     const float* __restrict__ dt,
+                     const float* __restrict__ feats,
+                     const float* __restrict__ dfeats,
+                     const float* __restrict__ seed,
+                     const float* __restrict__ dseed,
+                     const float* __restrict__ hs,   // [L, N, H]
+                     const float* __restrict__ hts,  // [L, N, d, H]
+                     const float* __restrict__ ub,   // [N, L]
+                     const float* __restrict__ dub,  // [N, L, d]
+                     float* __restrict__ partial,    // [gridDim.x, n_params]
+                     int N, int L, int d, int H, int Hh, int F, int n_lift,
+                     int n_field, int n_sub, int method, int P, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  const XgNet n = xg_net(params, H, Hh, F, n_lift, n_field);
+  const XgLayout y = xg_layout(true, P, d, H, Hh, F, n_lift, n_field, method,
+                               n_params);
+  XgTile g;
+  g.P = P;
+  g.d = d;
+  g.R = y.R;
+  g.S = y.S;
+  int* prim = reinterpret_cast<int*>(smem + y.total);
+  g.prim = prim;
+  const int S = g.S, R = g.R, HS_ = H * S;
+  float* acc = smem + y.acc;
+  float *FE = smem + y.fe, *CF = smem + y.cf, *SD = smem + y.sd,
+        *UB = smem + y.ub, *T0 = smem + y.t0, *DT = smem + y.dt,
+        *ST = smem + y.stage;
+  XgWalk w;
+  w.HS = smem + y.hs;
+  w.HB = smem + y.hb;
+  w.HB0 = smem + y.hb0;
+  w.KB = smem + y.kb;
+  w.YB = smem + y.yb;
+  w.ys = smem + y.ys;
+  w.K = smem + y.k;
+  w.ACC = smem + y.accu;
+  w.HE = smem + y.he;
+  w.HCUR = smem + y.hcur;
+  XgField f;
+  f.R = smem + y.fld;
+  f.rstride = Hh * S;
+  f.kstride = n_field * Hh * S;
+  f.AL = f.R + (n_field - 2) * Hh * S;
+  f.YT = f.AL + Hh * S;
+  f.AS = f.R + (size_t)XG_STAGES[method] * f.kstride;
+  f.AB1 = f.AS + Hh * S;
+  f.CF = CF;
+  f.FE = FE;
+  const float* wr = n.w + n.readout_off;
+  const int ro = n.readout_off;
+
+  for (int i = threadIdx.x; i < n_params; i += blockDim.x) acc[i] = 0.f;
+  const int n_tiles = (N + P - 1) / P;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int n0 = tile * P, live = min(P, N - n0);
+    __syncthreads();  // the previous tile's last reads are done
+    xg_load_rows(prim, FE, SD, feats, dfeats, seed, dseed, n0, live, F, g);
+    for (int idx = threadIdx.x; idx < HS_; idx += blockDim.x) w.HB[idx] = 0.f;
+    xg_prefetch(ST, hs, hts, ub, dub, t0, dt, L - 1, N, L, H, n0, live, vec,
+                g);
+    __syncthreads();
+    xg_dense<false>(CF, n.w + n.field_off, n.fin, Hh, F, FE, g);
+
+    for (int l = L - 1; l >= 0; --l) {
+      __pipeline_wait_prior(0);
+      __syncthreads();  // the staged interval and CF are in
+      xg_each(R, H, [&](int r, int j) { w.HS[j * S + r] = ST[r * H + j]; });
+      for (int r = threadIdx.x; r < R; r += blockDim.x) UB[r] = ST[R * H + r];
+      for (int p = threadIdx.x; p < P; p += blockDim.x) {
+        T0[p] = ST[R * H + R + p];
+        DT[p] = ST[R * H + R + P + p];
+      }
+      __syncthreads();
+      if (l > 0)
+        xg_prefetch(ST, hs, hts, ub, dub, t0, dt, l - 1, N, L, H, n0, live,
+                    vec, g);
+      for (int sub = n_sub - 1; sub >= 0; --sub) {
+        XgTime tm{T0, DT, 0.f, 0.f};
+        const float* X0 = w.HS;
+        if (sub > 0) {  // the substep's start, recomputed from the interval's
+          for (int idx = threadIdx.x; idx < HS_; idx += blockDim.x)
+            w.HCUR[idx] = w.HS[idx];
+          __syncthreads();
+          for (int s = 0; s < sub; ++s) {
+            tm.sub = (float)s;
+            xg_step(n, f, method, w.HCUR, w.ys, HS_, w.K, w.ACC, w.HCUR, tm,
+                    g);
+          }
+          X0 = w.HCUR;
+        }
+        // the stage inputs and activations the VJP walks back (and the end
+        // state, which the last substep's readout needs)
+        tm.sub = (float)sub;
+        const bool last = sub == n_sub - 1;
+        xg_step(n, f, method, X0, w.ys, HS_, w.K, w.ACC, w.HE, tm, g);
+        if (last) {  // readout u = wr.h + br, du_k = wr.ht_k
+          xg_outer(acc + ro, 0, UB, 1, w.HE, H, R, S);
+          xg_rowsum(acc + ro + H, UB, 1, g);
+          xg_each(H, R, [&](int i, int r) {
+            w.HB[i * S + r] += __ldg(wr + i) * UB[r];
+          });
+          __syncthreads();
+        }
+        xg_step_vjp(n, f, method, acc, X0, w, tm, g);
+      }
+    }
+    // the lift's VJP on the rows' seeds; its buffers reuse the walk's
+    float* LR = w.ys;
+    float* LS = LR + (size_t)(n_lift - 1) * HS_;
+    float* LB = LS + HS_;
+    xg_lift_fwd(n, SD, LR, HS_, LS, nullptr, g);
+    float *cur = w.HB, *nxt = LB;
+    for (int l = n_lift - 1; l >= 1; --l) {
+      const int off = 2 * H + (l - 1) * (H * H + H);
+      const float* r = LR + (size_t)(l - 1) * HS_;
+      xg_outer(acc + off, H, cur, H, r, H, R, S);
+      xg_rowsum(acc + off + H * H, cur, H, g);
+      xg_dense_t(nxt, n.w + off, H, H, H, cur, g, r);
+      __syncthreads();
+      float* t = cur;
+      cur = nxt;
+      nxt = t;
+    }
+    xg_outer(acc, 1, cur, H, SD, 1, R, S);
+    xg_rowsum(acc + H, cur, H, g);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n_params; i += blockDim.x)
+    partial[(size_t)blockIdx.x * n_params + i] = acc[i];
 }
 
 // grad[i] = sum over blocks b, in order, of partial[b, i].
@@ -470,37 +892,64 @@ __global__ void xnode_udu_reduce_kernel(const float* __restrict__ partial,
   grad[i] = s;
 }
 
-static cudaError_t xn_grad_checks(int N, int L, int d, int n_sub,
-                                  int n_lift, int n_field) {
-  if (N < 0 || L < 0 || d < 1 || n_sub < 1 || n_lift > XN_MAX_FIELD_LAYERS ||
-      n_field > XN_MAX_FIELD_LAYERS)
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+static cudaError_t xg_checks(int device, int n_params, int N, int L, int d,
+                             int H, int Hh, int F, int n_lift, int n_field,
+                             int n_sub, int method, int tile, int threads) {
+  if (N < 0 || L < 0 || d < 1 || n_sub < 1 || H < 1 || Hh < 1 || F < 0 ||
+      n_lift < 1 || n_field < 2 || method < XN_EULER || method > XN_RK4 ||
+      n_params != xn_n_params(H, Hh, F, n_lift, n_field) || tile < 1 ||
+      threads < 32 || threads % 32 != 0 || threads > XG_MAX_THREADS)
     return cudaErrorInvalidValue;
-  return cudaSuccess;
+  return cudaSetDevice(device);
+}
+
+static cudaError_t xg_allow_smem(const void* kernel, size_t smem) {
+  if (smem > XG_MAX_SMEM) return cudaErrorInvalidValue;
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+// Shared bytes of one block of #3/#4 (backward 0) or #5 (backward 1) at
+// this geometry: what the launchers ask for.
+extern "C" long long xnode_udu_smem_bytes(int backward, int tile, int d,
+                                          int H, int Hh, int F, int n_lift,
+                                          int n_field, int method) {
+  return (long long)xg_smem_bytes(
+      xg_layout(backward != 0, tile, d, H, Hh, F, n_lift, n_field, method,
+                xn_n_params(H, Hh, F, n_lift, n_field)));
 }
 
 template <bool STORE>
-static int xn_udu_fwd(int device, void* stream, const float* params,
+static int xg_udu_fwd(int device, void* stream, const float* params,
                       int n_params, const float* t0, const float* dt,
                       const float* feats, const float* dfeats,
                       const float* seed, const float* dseed, float* u,
                       float* du, float* hs, float* hts, int N, int L, int d,
                       int H, int Hh, int F, int n_lift, int n_field,
-                      int n_sub, int method) {
-  size_t smem = 0;
-  cudaError_t e = xn_grad_checks(N, L, d, n_sub, n_lift, n_field);
+                      int n_sub, int method, int tile, int threads) {
+  cudaError_t e = xg_checks(device, n_params, N, L, d, H, Hh, F, n_lift,
+                            n_field, n_sub, method, tile, threads);
   if (e != cudaSuccess) return (int)e;
-  e = xn_prepare(xnode_udu_fwd_kernel<STORE>, device, H, Hh, F, n_lift,
-                 n_field, method, n_params, &smem);
+  const size_t smem = xg_smem_bytes(xg_layout(
+      false, tile, d, H, Hh, F, n_lift, n_field, method, n_params));
+  e = xg_allow_smem((const void*)xnode_udu_fwd_kernel<STORE>, smem);
   if (e != cudaSuccess) return (int)e;
   if (N == 0 || L == 0) return 0;
-  const int blocks = (N * d + XN_FWD_THREADS - 1) / XN_FWD_THREADS;
-  xnode_udu_fwd_kernel<STORE>
-      <<<blocks, XN_FWD_THREADS, smem, (cudaStream_t)stream>>>(
-          params, n_params, t0, dt, feats, dfeats, seed, dseed, u, du, hs,
-          hts, N, L, d, H, Hh, F, n_lift, n_field, n_sub, method);
+  const int blocks = (N + tile - 1) / tile;
+  xnode_udu_fwd_kernel<STORE><<<blocks, threads, smem, (cudaStream_t)stream>>>(
+      params, n_params, t0, dt, feats, dfeats, seed, dseed, u, du, hs, hts, N,
+      L, d, H, Hh, F, n_lift, n_field, n_sub, method, tile);
   return (int)cudaGetLastError();
 }
 
+// tile: paths per tile; threads: the block size (a multiple of 32, at most
+// XG_MAX_THREADS); both chosen by the wrapper (xnode_train.py :: grad_tile).
 extern "C" int xnode_udu_fwd_launch(int device, void* stream,
                                     const float* params, int n_params,
                                     const float* t0, const float* dt,
@@ -508,10 +957,12 @@ extern "C" int xnode_udu_fwd_launch(int device, void* stream,
                                     const float* seed, const float* dseed,
                                     float* u, float* du, int N, int L, int d,
                                     int H, int Hh, int F, int n_lift,
-                                    int n_field, int n_sub, int method) {
-  return xn_udu_fwd<false>(device, stream, params, n_params, t0, dt, feats,
+                                    int n_field, int n_sub, int method,
+                                    int tile, int threads) {
+  return xg_udu_fwd<false>(device, stream, params, n_params, t0, dt, feats,
                            dfeats, seed, dseed, u, du, nullptr, nullptr, N,
-                           L, d, H, Hh, F, n_lift, n_field, n_sub, method);
+                           L, d, H, Hh, F, n_lift, n_field, n_sub, method,
+                           tile, threads);
 }
 
 extern "C" int xnode_udu_fwd_store_launch(
@@ -519,49 +970,43 @@ extern "C" int xnode_udu_fwd_store_launch(
     const float* t0, const float* dt, const float* feats,
     const float* dfeats, const float* seed, const float* dseed, float* u,
     float* du, float* hs, float* hts, int N, int L, int d, int H, int Hh,
-    int F, int n_lift, int n_field, int n_sub, int method) {
-  return xn_udu_fwd<true>(device, stream, params, n_params, t0, dt, feats,
+    int F, int n_lift, int n_field, int n_sub, int method, int tile,
+    int threads) {
+  return xg_udu_fwd<true>(device, stream, params, n_params, t0, dt, feats,
                           dfeats, seed, dseed, u, du, hs, hts, N, L, d, H,
-                          Hh, F, n_lift, n_field, n_sub, method);
+                          Hh, F, n_lift, n_field, n_sub, method, tile,
+                          threads);
 }
 
-// threads: the block size the wrapper chose (a multiple of 32) so that the
-// weights and one gradient accumulator per warp fit shared memory;
-// partial holds ceil(N*d / threads) rows of n_params.
+// tile, threads: as for the forward (xnode_train.py :: grad_tile); blocks:
+// the persistent grid, one partial row each (partial holds blocks x
+// n_params floats).
 extern "C" int xnode_udu_bwd_launch(
     int device, void* stream, const float* params, int n_params,
     const float* t0, const float* dt, const float* feats,
     const float* dfeats, const float* seed, const float* dseed,
     const float* hs, const float* hts, const float* ub, const float* dub,
     float* partial, float* grad, int N, int L, int d, int H, int Hh, int F,
-    int n_lift, int n_field, int n_sub, int method, int threads) {
-  size_t smem = 0;
-  cudaError_t e = xn_grad_checks(N, L, d, n_sub, n_lift, n_field);
+    int n_lift, int n_field, int n_sub, int method, int tile, int threads,
+    int blocks) {
+  cudaError_t e = xg_checks(device, n_params, N, L, d, H, Hh, F, n_lift,
+                            n_field, n_sub, method, tile, threads);
+  if (e != cudaSuccess || blocks < 1)
+    return (int)(e != cudaSuccess ? e : cudaErrorInvalidValue);
+  const size_t smem = xg_smem_bytes(xg_layout(
+      true, tile, d, H, Hh, F, n_lift, n_field, method, n_params));
+  e = xg_allow_smem((const void*)xnode_udu_bwd_kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  if (threads < 32 || threads % 32 != 0 || threads > 1024)
-    return (int)cudaErrorInvalidValue;
-  e = xn_prepare(xnode_udu_bwd_kernel, device, H, Hh, F, n_lift, n_field,
-                 method, n_params, &smem);
-  if (e != cudaSuccess) return (int)e;
-  smem = sizeof(float) * (size_t)n_params * (1 + threads / 32);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(xnode_udu_bwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int blocks = N * d > 0 ? (N * d + threads - 1) / threads : 0;
-  if (blocks > 0 && L > 0) {
-    xnode_udu_bwd_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-        params, n_params, t0, dt, feats, dfeats, seed, dseed, hs, hts, ub,
-        dub, partial, N, L, d, H, Hh, F, n_lift, n_field, n_sub, method);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  } else {
+  if (N == 0 || L == 0)
     return (int)cudaMemsetAsync(grad, 0, sizeof(float) * (size_t)n_params,
                                 (cudaStream_t)stream);
-  }
+  // 16-byte copies of the states need H a multiple of 4 and aligned rows
+  const int vec = H % 4 == 0 && (size_t)hs % 16 == 0 && (size_t)hts % 16 == 0;
+  xnode_udu_bwd_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+      params, n_params, t0, dt, feats, dfeats, seed, dseed, hs, hts, ub, dub,
+      partial, N, L, d, H, Hh, F, n_lift, n_field, n_sub, method, tile, vec);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
   xnode_udu_reduce_kernel<<<(n_params + 255) / 256, 256, 0,
                             (cudaStream_t)stream>>>(partial, grad, blocks,
                                                     n_params);

@@ -59,16 +59,24 @@ KERNEL = CudaKernel(
      _I, _I, _I, _I, _I, _I, _I, _I, _I])  # N L H Hh F n_lift n_field n_sub method
 _GEOM = [_I] * 10             # N L d H Hh F n_lift n_field n_sub method
 _PATH = [_P, _I, _P, _P, _P, _P, _P, _P]  # weights, count, t0 dt feats dfeats seed dseed
-# kernel #3: u, du
+# kernel #3: u, du; paths per tile, threads
 FWD_KERNEL = CudaKernel("xnode_grad", "xnode_udu_fwd_launch",
-                        _PATH + [_P, _P] + _GEOM)
-# kernel #4: u, du, hs, hts
+                        _PATH + [_P, _P] + _GEOM + [_I, _I])
+# kernel #4: u, du, hs, hts; paths per tile, threads
 FWD_STORE_KERNEL = CudaKernel("xnode_grad", "xnode_udu_fwd_store_launch",
-                              _PATH + [_P, _P, _P, _P] + _GEOM)
-# kernel #5: hs, hts, ub, dub, partial, grad; block size last
+                              _PATH + [_P, _P, _P, _P] + _GEOM + [_I, _I])
+# kernel #5: hs, hts, ub, dub, partial, grad; paths per tile, threads, blocks
 BWD_KERNEL = CudaKernel("xnode_grad", "xnode_udu_bwd_launch",
-                        _PATH + [_P] * 6 + _GEOM + [_I])
-MAX_FIELD_LAYERS = 16         # XN_MAX_FIELD_LAYERS in csrc/xnode_grad.cu
+                        _PATH + [_P] * 6 + _GEOM + [_I, _I, _I])
+MAX_THREADS = 256             # XG_MAX_THREADS
+SM_SMEM_BYTES = 233472        # shared memory of one Hopper SM
+# Paths per tile, largest first; the threads of a block follow from the
+# tile (block_threads). From the tile sweep (tile_sweep.py) on an H100:
+# the rule picks the fastest shape swept for cube_pde (#3/#4 4 paths and
+# 64 threads, #5 8 and 128) and highdim_d20 (#3/#4 4 and 256, #5 1 and
+# 256), and shapes within 8% of the fastest for ex4_1_d10
+FWD_TILES = (4, 2, 1)
+BWD_TILES = (8, 4, 1)
 
 
 def _live_params(params) -> List[torch.Tensor]:
@@ -202,6 +210,45 @@ def u_du_fwd_plain(net: FlatNet, t0, dt, feats, dfeats, seed, dseed,
     if store:
         return u, du, torch.stack(hs), torch.stack(hts)
     return u, du
+
+
+def relu_margins(net, t0, dt, feats, seed, n_sub: int, method: str):
+    """The smallest ``|a| / (|W| |z| + |b|)`` over the primal relu
+    pre-activations of the lift and the field along each path (in the
+    dtype of ``net``): how close a path comes to a kink, where its
+    tangents jump. A pre-activation whose terms are all zero is exactly
+    zero in any order of summation, and counts as no kink."""
+    margins = []
+
+    def margin(a, z, w, b):
+        den = z.abs() @ w.abs().T + b.abs()
+        ratio = torch.where(den > 0, a.abs() / den,
+                            torch.full_like(den, float("inf")))
+        return ratio.min(-1).values
+
+    z = seed[:, None]
+    for w, b in net.lift[:-1]:
+        a = z @ w.T + b
+        margins.append(margin(a, z, w, b))
+        z = torch.relu(a)
+
+    def field(t, h):
+        z = torch.cat([feats, t, h], dim=-1)
+        hidden = net.field_layers[:-1]
+        for i, (w, b) in enumerate(hidden):
+            a = z @ w.T + b
+            if i < len(hidden) - 1:  # the last one feeds tanh
+                margins.append(margin(a, z, w, b))
+            z = torch.relu(a)
+        w, b = net.field_layers[-1]
+        return torch.tanh(a) @ w.T + b
+
+    h = net.lift_apply(seed)
+    for l in range(t0.shape[1]):
+        for k in range(n_sub):
+            h = rk_step(method, field, t0[:, l:l + 1] + k * dt[:, l:l + 1],
+                        dt[:, l:l + 1], h)
+    return torch.stack(margins).min(0).values
 
 
 def _field_vjp(ws, g, xp, xt, t, h, ht, obar, otbar):
@@ -345,10 +392,6 @@ def u_du_bwd_plain(net: FlatNet, t0, dt, feats, dfeats, seed, dseed, hs,
 def _grad_checks(net: FlatNet, method: str, args) -> torch.device:
     if method not in METHOD_IDS:
         rk_step(method, None, None, None, None)  # raises the shared error
-    net.check_caps()
-    if max(net.n_lift, net.n_field) > MAX_FIELD_LAYERS:
-        raise ValueError(f"{net.n_lift} lift / {net.n_field} field layers "
-                         f"exceed the CUDA kernels' cap of {MAX_FIELD_LAYERS}")
     dev = require_cuda_f32(list(args))
     t0, dt, feats, dfeats, seed, dseed = args[1:7]
     N, L = t0.shape
@@ -360,6 +403,87 @@ def _grad_checks(net: FlatNet, method: str, args) -> torch.device:
     return dev
 
 
+def n_params_of(dims) -> int:
+    """Packed weight count of a net ``(H, Hh, F, n_lift, n_field)``
+    (``xn_n_params`` in ``csrc/steppers.cuh``)."""
+    H, Hh, F, n_lift, n_field = dims
+    fin = F + 1 + H
+    return (2 * H + (n_lift - 1) * (H * H + H) + fin * Hh + Hh
+            + (n_field - 2) * (Hh * Hh + Hh) + Hh * H + H + H + 1)
+
+
+def tile_smem_bytes(dims, d: int, method: str, tile: int,
+                    backward: bool) -> int:
+    """Shared memory of one block of kernel #3/#4 (``backward`` false) or
+    #5 for ``tile`` paths (``xg_layout`` in ``csrc/xnode_grad.cu``). Rows:
+    ``R = tile (1 + d)``, each buffer ``[width][S]`` with ``S`` the rows
+    rounded up to a multiple of 4 whose quarter is odd.
+
+    Forward: features, their field-layer-0 product, seeds, times, the
+    state, a stage input, a stage, the stage sum and two field buffers.
+    Backward: the gradient accumulator, the same inputs plus the readout
+    cotangents, the start state and four cotangent buffers, the stage
+    inputs, stage, sum, end and substep start, every field layer's
+    activation for every RK stage (or the lift's, after the walk), and the
+    ``cp.async`` staging of one interval. The rows' primal indices (ints)
+    come last."""
+    H, Hh, F, n_lift, n_field = dims
+    R = tile * (1 + d)
+    q = -(-R // 4)
+    S = 4 * (q if q % 2 else q + 1)
+
+    def round4(n):
+        return -(-n // 4) * 4
+
+    ns = len(RK_TABLES[method][0])
+    floats = (F + Hh + 1) * S + 2 * round4(tile)
+    if not backward:
+        floats += 4 * H * S + 2 * Hh * S
+    else:
+        floats += round4(n_params_of(dims)) + S + 5 * H * S
+        walk = (ns + 3) * H * S + (ns * n_field + 2) * Hh * S
+        floats += max(walk, (n_lift + 1) * H * S) + R * H + R + 2 * tile
+    return 4 * floats + 4 * R
+
+
+def block_threads(tile: int, d: int, Hh: int, backward: bool) -> int:
+    """Threads a block of kernel #3/#4 or #5 for ``tile`` paths: the
+    largest power of two in [64, :data:`MAX_THREADS`] not above ``k
+    ceil(R / 4) Hh``, the (4-row chunk, unit) items of a field layer's
+    product over the tile's ``R = tile (1 + d)`` rows, with ``k`` 1 for
+    the forward and 2 for the backward, whose owner sums and transposed
+    products add as much work again."""
+    items = (2 if backward else 1) * -(-tile * (1 + d) // 4) * Hh
+    threads = 64
+    while 2 * threads <= min(items, MAX_THREADS):
+        threads *= 2
+    return threads
+
+
+def grad_tile(dims, d: int, method: str, backward: bool) -> Tuple[int, int]:
+    """``(paths per tile, threads a block)`` of kernel #3/#4 or #5: the
+    first tile of :data:`FWD_TILES` / :data:`BWD_TILES` (largest first)
+    whose block fits one block's shared memory, with its
+    :func:`block_threads`. Raises where none fits."""
+    for tile in (BWD_TILES if backward else FWD_TILES):
+        if tile_smem_bytes(dims, d, method, tile, backward) <= MAX_SMEM_BYTES:
+            return tile, block_threads(tile, d, dims[1], backward)
+    kernel = "#5" if backward else "#3/#4"
+    raise ValueError(f"the net {dims} with d={d}, {method}, does not fit "
+                     f"kernel {kernel}'s shared memory ({MAX_SMEM_BYTES} "
+                     "bytes) at one path a tile")
+
+
+def bwd_blocks(n_paths: int, tile: int, smem: int, threads: int,
+               sms: int) -> int:
+    """The persistent grid of kernel #5: as many blocks as fit the SMs at
+    once by shared memory and threads, at most one per tile. Registers are
+    not counted: where they allow fewer, the other blocks start as SMs
+    free up, and the result is the same (one partial row per block)."""
+    per_sm = min(SM_SMEM_BYTES // (smem + 1024), 2048 // threads)
+    return max(1, min(-(-n_paths // tile), per_sm * sms))
+
+
 def u_du_fwd_cuda(net: FlatNet, packed, t0, dt, feats, dfeats, seed, dseed,
                   n_sub: int, method: str, store: bool = False):
     """Launch kernel #3, or #4 with ``store``, on PyTorch's current
@@ -369,12 +493,14 @@ def u_du_fwd_cuda(net: FlatNet, packed, t0, dt, feats, dfeats, seed, dseed,
     N, L = t0.shape
     d = dseed.shape[1]
     H, Hh, F, n_lift, n_field = net.dims()
+    tile, threads = grad_tile(net.dims(), d, method, False)
     f32 = dict(dtype=torch.float32, device=dev)
     u = torch.empty((N, L), **f32)
     du = torch.empty((N, L, d), **f32)
     ptrs = [a.data_ptr() for a in args]
     ptrs.insert(1, packed.numel())
-    geom = (N, L, d, H, Hh, F, n_lift, n_field, n_sub, METHOD_IDS[method])
+    geom = (N, L, d, H, Hh, F, n_lift, n_field, n_sub, METHOD_IDS[method],
+            tile, threads)
     if not store:
         FWD_KERNEL(dev, *ptrs, u.data_ptr(), du.data_ptr(), *geom)
         return u, du
@@ -385,20 +511,11 @@ def u_du_fwd_cuda(net: FlatNet, packed, t0, dt, feats, dfeats, seed, dseed,
     return u, du, hs, hts
 
 
-def bwd_block_threads(n_params: int) -> int:
-    """Block size of kernel #5: up to four warps, as many as leave room in
-    shared memory for the weights and one gradient accumulator each."""
-    warps = min(4, MAX_SMEM_BYTES // (4 * n_params) - 1)
-    if warps < 1:
-        raise ValueError(f"{n_params} weights do not fit the backward "
-                         "kernel's shared memory (weights + 1 accumulator)")
-    return 32 * warps
-
-
 def u_du_bwd_cuda(net: FlatNet, packed, t0, dt, feats, dfeats, seed, dseed,
-                  hs, hts, ub, dub, n_sub: int, method: str) -> torch.Tensor:
-    """Launch kernel #5 on PyTorch's current stream; same result as
-    :func:`u_du_bwd_plain`."""
+                  hs, hts, ub, dub, n_sub: int,
+                  method: str) -> torch.Tensor:
+    """Launch kernel #5 and its fixed-order reduce on PyTorch's current
+    stream; same result as :func:`u_du_bwd_plain`."""
     args = (packed, t0, dt, feats, dfeats, seed, dseed)
     dev = _grad_checks(net, method, args)
     require_cuda_f32([hs, hts, ub, dub])
@@ -410,16 +527,19 @@ def u_du_bwd_cuda(net: FlatNet, packed, t0, dt, feats, dfeats, seed, dseed,
         raise ValueError("shape mismatch: hs [L, N, H], hts [L, N, d, H], "
                          "ub [N, L], dub [N, L, d]")
     n_params = packed.numel()
-    threads = bwd_block_threads(n_params)
-    n_blocks = -(-N * d // threads)
-    partial = torch.empty((max(n_blocks, 1), n_params), dtype=torch.float32,
+    tile, threads = grad_tile(net.dims(), d, method, True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = bwd_blocks(N, tile, tile_smem_bytes(net.dims(), d, method, tile,
+                                                 True), threads, sms)
+    partial = torch.empty((blocks, n_params), dtype=torch.float32,
                           device=dev)
     grad = torch.empty((n_params,), dtype=torch.float32, device=dev)
     ptrs = [a.data_ptr() for a in args]
     ptrs.insert(1, n_params)
     BWD_KERNEL(dev, *ptrs, hs.data_ptr(), hts.data_ptr(), ub.data_ptr(),
                dub.data_ptr(), partial.data_ptr(), grad.data_ptr(), N, L, d,
-               H, Hh, F, n_lift, n_field, n_sub, METHOD_IDS[method], threads)
+               H, Hh, F, n_lift, n_field, n_sub, METHOD_IDS[method], tile,
+               threads, blocks)
     return grad
 
 

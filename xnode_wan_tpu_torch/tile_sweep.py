@@ -1,0 +1,223 @@
+"""Sweep the tile shape of the training kernels #3, #4 and #5
+(``csrc/xnode_grad.cu``) on one GPU.
+
+    python -m xnode_wan_tpu_torch.tile_sweep [--configs cube_pde ...]
+        [--tiles 2 4 8 16] [--threads 64 128 256] [--rule] [--f64]
+        [--out example_run/tile_sweep.json]
+
+For each config (``configs/<name>.yaml``; random weights from a seed, one
+interior path batch of the config's ``N_r`` paths, its ``solver``) and
+each (paths per tile, threads a block) whose block fits shared memory
+(the wrappers' ``FWD_TILES`` / ``BWD_TILES`` and ``block_threads`` set
+to that one shape while it runs), each kernel is held against its plain version (max error over
+the tensor's largest value) and timed by CUDA events, median of ``--reps``
+after warm-up. Prints ``ptxas``'s register and stack lines for the
+kernels first, the card's name and power limit beside the times, and
+writes every row to ``--out``. Needs a CUDA card and ``nvcc``.
+
+``--rule`` times each kernel once, at the wrappers' own tile choice, in
+place of the sweep. It needs nothing of the package but the wrappers
+and the sampling, so a copy of this file in an older checkout's package
+times that checkout's kernels on the same card and configs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _time_ms(fn, reps: int) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _scaled_err(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def f64_check(xt, net, args, want, ub, dub, gwant, n_sub, method):
+    """Each output of the plain f32 version and of the kernels (the
+    wrapper's tile) against the plain version in f64 on the same inputs:
+    the largest error over each tensor's largest value, and how many
+    elements of the kernels' output are off the plain f32 one by more
+    than 2e-4 of that value."""
+    from xnode_wan_tpu_torch.ops.kernels.steppers import FlatNet
+    net64 = FlatNet([a.double() for a in net.flat], net.n_lift, net.n_field)
+    a64 = [a.double() for a in args]
+    with torch.no_grad():
+        w64 = xt.u_du_fwd_plain(net64, *a64, n_sub, method, store=True)
+        g64 = xt.u_du_bwd_plain(net64, *a64, *(a.double() for a in want[2:]),
+                                ub.double(), dub.double(), n_sub, method)
+        got = xt.u_du_fwd_cuda(net, net.packed(), *args, n_sub, method, True)
+        ggot = xt.u_du_bwd_cuda(net, net.packed(), *args, *want[2:], ub, dub,
+                                n_sub, method)
+    out = {}
+    names = ("u", "du", "hs", "hts", "grad")
+    for nm, k, p32, ref in zip(names, (*got, ggot), (*want, gwant),
+                               (*w64, g64)):
+        scale = float(ref.abs().max())
+        out[nm] = {
+            "plain_f32_vs_f64": float((p32.double() - ref).abs().max()) / scale,
+            "kernel_vs_f64": float((k.double() - ref).abs().max()) / scale,
+            "kernel_vs_plain_over_2e-4": int(
+                ((k - p32).abs() > 2e-4 * float(p32.abs().max())).sum()),
+            "elements": k.numel()}
+    # the paths whose du leaves the plain f32 version by more than 2e-4
+    # of its largest value, and how close each path comes to a relu kink
+    off = ((got[1] - want[1]).abs() > 2e-4 * float(want[1].abs().max()))
+    off = off.flatten(1).any(1)
+    with torch.no_grad():
+        m = xt.relu_margins(net64, a64[0], a64[1], a64[2], a64[4], n_sub, method)
+    out["relu_margin"] = {
+        "paths_off": int(off.sum()),
+        "margin_of_paths_off": [float(v) for v in m[off][:10]],
+        "margin_quantiles_0_1e-3_0.5": [
+            float(m.min()), float(torch.quantile(m, 1e-3)),
+            float(m.median())],
+        "paths_with_margin_below_1e-6": int((m < 1e-6).sum())}
+    return out
+
+
+def sweep_config(name: str, tiles, threads, reps: int, card: str,
+                 f64: bool = False, rule: bool = False):
+    from xnode_wan_tpu_torch import (Hypercube, init_xnode, load_params,
+                                     load_problem)
+    from xnode_wan_tpu_torch.ops.kernels import xnode_train as xt
+    from xnode_wan_tpu_torch.ops.kernels.steppers import MAX_SMEM_BYTES
+
+    dev = torch.device("cuda", 0)
+    cfg = load_params(os.path.join(ROOT, "configs", f"{name}.yaml"))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    net = xt.flat_net(init_xnode(cfg, gen, device=dev))
+    cube = Hypercube(cfg.shape_param, cfg.dim, cfg.T0, cfg.T, cfg.N_t)
+    batch = cube.interior(gen, cfg.N_r)
+    inputs = [a.contiguous() for a in xt.path_tangent_inputs(
+        batch, load_problem("Ex4_1_funcs", dim=cfg.dim), cfg)]
+    t0, dt = [a.contiguous() for a in xt._prep_intervals(
+        batch.times, batch.mask, batch.t_start, cfg.n_sub)]
+    args = (t0, dt, *inputs)
+    packed, n_sub, method = net.packed(), cfg.n_sub, cfg.solver
+    N, L, d = cfg.N_r, cfg.N_t, cfg.dim
+    with torch.no_grad():
+        want = xt.u_du_fwd_plain(net, *args, n_sub, method, store=True)
+        ub = torch.randn((N, L), generator=gen, device=dev)
+        dub = torch.randn((N, L, d), generator=gen, device=dev)
+        gwant = xt.u_du_bwd_plain(net, *args, *want[2:], ub, dub, n_sub,
+                                  method)
+    rows = []
+    if f64:
+        row = {"config": name, "card": card, "vs_f64": f64_check(
+            xt, net, args, want, ub, dub, gwant, n_sub, method)}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    kept = None if rule else (xt.FWD_TILES, xt.BWD_TILES, xt.block_threads)
+    shapes = [("rule", None)] if rule else itertools.product(tiles, threads)
+    try:
+        for tile, thr in shapes:
+            row = {"config": name, "tile": tile, "threads": thr, "card": card}
+            if not rule:
+                xt.FWD_TILES = xt.BWD_TILES = (tile,)
+                xt.block_threads = lambda *_, thr=thr: thr
+            for kernel, backward in (("xnode_udu_fwd", False),
+                                     ("xnode_udu_fwd_store", False),
+                                     ("xnode_udu_bwd", True)):
+                smem = None if rule else xt.tile_smem_bytes(
+                    net.dims(), d, method, tile, backward)
+                if smem is not None and smem > MAX_SMEM_BYTES:
+                    continue
+                if backward:
+                    def run():
+                        return xt.u_du_bwd_cuda(net, packed, *args, *want[2:],
+                                                ub, dub, n_sub, method)
+                else:
+                    store = kernel.endswith("store")
+
+                    def run():
+                        return xt.u_du_fwd_cuda(net, packed, *args, n_sub,
+                                                method, store)
+                with torch.no_grad():
+                    got = run()
+                    torch.cuda.synchronize()
+                    if backward:
+                        err = _scaled_err(got, gwant)
+                        bitwise = bool(torch.equal(got, run()))
+                    else:
+                        err = max(_scaled_err(g, w)
+                                  for g, w in zip(got, want))
+                        bitwise = None
+                    ms = _time_ms(run, reps)
+                row[kernel] = {"ms": ms, "smem": smem, "max_rel_err": err,
+                               "bitwise_repeat": bitwise}
+            if len(row) > 4:
+                rows.append(row)
+                print(json.dumps(row), flush=True)
+    finally:
+        if kept:
+            xt.FWD_TILES, xt.BWD_TILES, xt.block_threads = kept
+    return rows
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--configs", nargs="+", default=["cube_pde"])
+    ap.add_argument("--tiles", nargs="+", type=int, default=[2, 4, 8, 16])
+    ap.add_argument("--threads", nargs="+", type=int,
+                    default=[64, 128, 256])
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--rule", action="store_true",
+                    help="time the wrappers' own tile choice only")
+    ap.add_argument("--f64", action="store_true",
+                    help="also hold the plain f32 version and the kernels "
+                         "against the plain version in f64")
+    ap.add_argument("--out", default=os.path.join(ROOT, "example_run",
+                                                  "tile_sweep.json"))
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("tile_sweep: no CUDA device", file=sys.stderr)
+        return 1
+    from xnode_wan_tpu_torch.ops.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(card)
+    _build.build(["xnode_grad"])
+    log = _build.build_dir() / "xnode_grad.log"
+    for line in log.read_text().splitlines():
+        if "Compiling" in line or "registers" in line or "stack" in line:
+            print(f"  ptxas: {line.strip()}")
+    rows = []
+    for name in args.configs:
+        rows += sweep_config(name, args.tiles, args.threads, args.reps, card,
+                             args.f64, args.rule)
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    with open(args.out, "w") as fh:
+        json.dump(rows, fh, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
