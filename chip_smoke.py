@@ -8,9 +8,12 @@ Needs one CUDA card (the kernels are built for Hopper, ``sm_90a``) and
 which raises on failure:
 
 1. build every CUDA kernel from ``xnode_wan_tpu_torch/csrc`` (one ``nvcc``
-   per source, in parallel) and print the build time and ptxas usage;
-   hold the wrapper's shared-memory rule for #3-#5 against the bytes
-   their launchers ask for;
+   per library, in parallel; #1/#2's ``xnode_fwd.cu`` once per (H, Hh)
+   pair of the shipped configs) and print the build time and ptxas
+   usage; #1/#2 must show no stack and no spills; hold
+   ``steppers.staged_floats`` against the staged copy #1/#2 ask for, and
+   the wrapper's shared-memory rule for #3-#5 against the bytes their
+   launchers ask for;
 2. the main paths at the d=5 width of ``configs/cube_pde.yaml``, each
    with every kernel launch counter zeroed just before and read just
    after:
@@ -35,7 +38,11 @@ which raises on failure:
       2a, and the best weights load with ``load_reference_state_dict``;
 
 3. each kernel against its plain PyTorch version on the same card
-   inputs: #1 and #2 within ``rtol=2e-4, atol=2e-5``; #3 / #4 (u, du, hs,
+   inputs: #1 and #2 within ``rtol=2e-4, atol=2e-5`` on all four RK
+   methods, a random 70% mask and rk4 with n_sub 2 (#2), Fourier
+   features (#1), ragged counts (#1 at M = 65,537, #2 at N = 4,001 and
+   37) and the ``highdim_d20`` widths with its Fourier bank (random
+   weights, a library of their own); #3 / #4 (u, du, hs,
    hts) and #5 (the packed weight gradient, against the plain
    hand-derived adjoint) on all four RK methods, a random 70% mask, rk4
    with n_sub 2, Fourier features, ragged path counts (4,001 and 37) and
@@ -70,6 +77,7 @@ import ctypes
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -268,25 +276,49 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     # 1. build ---------------------------------------------------------
+    # #1/#2 (xnode_fwd.cu) get one library per (H, Hh) pair of the
+    # shipped configs; the others one each
+    shipped = {}
+    for name in ("cube_pde", "ex4_1_d10", "highdim_d20"):
+        gcfg = load_params(os.path.join(ROOT, "configs", f"{name}.yaml"))
+        shipped[name] = (gcfg, xnode_train.flat_net(
+            init_xnode(gcfg, device="cpu")).dims())
+    fwd_widths = sorted({dims[:2] for _, dims in shipped.values()})
     t = time.perf_counter()
-    libs = _build.build()
+    libs = _build.build([("xnode_grad", None), ("disc_train", None)]
+                        + [("xnode_fwd", w) for w in fwd_widths])
     print(f"build: {time.perf_counter() - t:.2f} s -> {_build.build_dir()}")
     for name in libs:
-        log = _build.build_dir() / f"{name}.log"
-        if log.exists():
-            for line in log.read_text().splitlines():
-                if ("Compiling entry" in line or "registers" in line
-                        or "spill" in line):
-                    print(f"  {name}: {line.strip()}")
+        log = (_build.build_dir() / f"{name}.log").read_text()
+        for line in log.splitlines():
+            if ("Compiling entry" in line or "registers" in line
+                    or "spill" in line):
+                print(f"  {name}: {line.strip()}")
+        # the width-specialized kernels keep every per-thread array in
+        # registers: no stack, no spills
+        frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                            r"stores, (\d+) bytes spill loads", log)
+        if name.startswith("xnode_fwd") and (
+                not frames or any(v != "0" for f in frames for v in f)):
+            raise AssertionError(f"{name}: stack or spills {frames}")
+    # the staged copy's size in Python against the library's, at the
+    # shipped configs
+    for name, (gcfg, dims) in shipped.items():
+        H, Hh, _, n_lift, n_field = dims
+        lib = ctypes.CDLL(str(libs[_build.lib_name("xnode_fwd", (H, Hh))]))
+        got = lib.xnode_fwd_staged_floats(H, Hh, n_lift, n_field)
+        if got != steppers.staged_floats(H, Hh, n_lift, n_field):
+            raise AssertionError(f"staged_floats {name}: the kernel stages "
+                                 f"{got} floats")
+        print(f"  xnode_fwd {name} (H={H}, Hh={Hh}): {got} staged floats, "
+              f"{4 * got} bytes of shared memory a block")
     # the wrapper's shared-memory rule against the bytes the launchers of
     # #3-#5 ask for, at every shipped config, method and listed tile
     smem_of = ctypes.CDLL(str(libs["xnode_grad"])).xnode_udu_smem_bytes
     smem_of.restype = ctypes.c_longlong
     smem_of.argtypes = [ctypes.c_int] * 9
     n_geom = 0
-    for shipped in ("cube_pde", "ex4_1_d10", "highdim_d20"):
-        gcfg = load_params(os.path.join(ROOT, "configs", f"{shipped}.yaml"))
-        dims = xnode_train.flat_net(init_xnode(gcfg, device="cpu")).dims()
+    for shipped_name, (gcfg, dims) in shipped.items():
         for method, mid in steppers.METHOD_IDS.items():
             for tile in (1, 2, 4, 8, 16):
                 for backward in (False, True):
@@ -295,9 +327,9 @@ def main() -> int:
                                                       tile, backward)
                     if got != want:
                         raise AssertionError(
-                            f"tile_smem_bytes {shipped} {method} tile={tile} "
-                            f"backward={backward}: {got} bytes, the kernel "
-                            f"asks for {want}")
+                            f"tile_smem_bytes {shipped_name} {method} "
+                            f"tile={tile} backward={backward}: {got} bytes, "
+                            f"the kernel asks for {want}")
                     n_geom += 1
     print(f"  xnode_grad: tile_smem_bytes equals the launchers' shared "
           f"bytes at {n_geom} geometries")
@@ -528,6 +560,20 @@ def main() -> int:
                 xnode_train.path_forward_cuda(net, *args, n_sub, method),
                 xnode_train.path_forward_plain(net, *args, n_sub, method)))
 
+        # #1 at a point count one past a whole number of blocks
+        rg = torch.Generator(device=dev).manual_seed(13)
+        m_rag = SERVE_POINTS + 1
+        x_rag = cube.bot + torch.rand((m_rag, cfg.dim), generator=rg,
+                                      device=dev) * (cube.top - cube.bot)
+        rag_args = (x_rag, cfg.T0 + torch.rand((m_rag,), generator=rg,
+                                              device=dev) * (cfg.T - cfg.T0),
+                    torch.full((m_rag,), cfg.T0, device=dev),
+                    torch.randn((m_rag,), generator=rg, device=dev))
+        errs["xnode_eval"] = max(errs["xnode_eval"], compare(
+            f"xnode_eval {cfg.solver} M={m_rag}",
+            xnode_eval.evaluate_cuda(net, *rag_args, k_steps, cfg.solver),
+            xnode_eval.evaluate_plain(net, *rag_args, k_steps, cfg.solver)))
+
         # kernels #3, #4, #5 with the trained weights, and Fourier features
         # with random ones; seeded random readout cotangents
         tan_inputs = [a.contiguous() for a in xnode_train.path_tangent_inputs(
@@ -601,6 +647,11 @@ def main() -> int:
                 rbatch, problem, cfg)]
             check_udu(f"{cfg.solver} N={n_rag}", net_tr, (t0, dt, *rin),
                       cfg.n_sub, cfg.solver)
+            fwd_args = (t0, dt, rin[0], rin[2], cfg.n_sub, cfg.solver)
+            errs["xnode_train"] = max(errs["xnode_train"], compare(
+                f"xnode_train {cfg.solver} N={n_rag}",
+                xnode_train.path_forward_cuda(net_tr, *fwd_args),
+                xnode_train.path_forward_plain(net_tr, *fwd_args)))
 
         # the highdim_d20 geometry: H = 24, Hh = 32, d = 20 with its Fourier
         # bank (F = 60), random weights, one interior batch
@@ -614,6 +665,25 @@ def main() -> int:
             batch20.times, batch20.mask, batch20.t_start, cfg20.n_sub)]
         in20 = [a.contiguous() for a in xnode_train.path_tangent_inputs(
             batch20, load_problem("Ex4_1_funcs", dim=cfg20.dim), cfg20)]
+        # #1 and #2 at these widths: a library of their own
+        fwd_args = (t0, dt, in20[0], in20[2], cfg20.n_sub, cfg20.solver)
+        errs["xnode_train"] = max(errs["xnode_train"], compare(
+            f"xnode_train highdim_d20 {cfg20.solver} N={D20_PATHS} "
+            f"F={net20.F}", xnode_train.path_forward_cuda(net20, *fwd_args),
+            xnode_train.path_forward_plain(net20, *fwd_args)))
+        k20 = max(cfg20.min_steps, cfg20.N_t) * cfg20.n_sub
+        x20 = 2.0 * torch.rand((m_rag, cfg20.dim), generator=g20,
+                               device=dev) - 1.0
+        ev20 = (spatial_features(x20, cfg20.fourier_features).contiguous(),
+                cfg20.T0 + torch.rand((m_rag,), generator=g20, device=dev)
+                * (cfg20.T - cfg20.T0),
+                torch.full((m_rag,), cfg20.T0, device=dev),
+                torch.randn((m_rag,), generator=g20, device=dev))
+        errs["xnode_eval"] = max(errs["xnode_eval"], compare(
+            f"xnode_eval highdim_d20 {cfg20.solver} M={m_rag} k_steps={k20} "
+            f"F={net20.F}",
+            xnode_eval.evaluate_cuda(net20, *ev20, k20, cfg20.solver),
+            xnode_eval.evaluate_plain(net20, *ev20, k20, cfg20.solver)))
         net20_64 = FlatNet([a.double() for a in net20.flat], net20.n_lift,
                            net20.n_field)
         keep = xnode_train.relu_margins(net20_64, t0.double(), dt.double(),
@@ -806,9 +876,9 @@ def main() -> int:
                                                   vgeom)),
         }
         meta = {
-            "xnode_eval": ("xnode_wan_tpu_torch/csrc/xnode_eval.cu",
+            "xnode_eval": ("xnode_wan_tpu_torch/csrc/xnode_fwd.cu",
                            "xnode_wan_tpu/ops/pallas/xnode_eval.py:60"),
-            "xnode_train": ("xnode_wan_tpu_torch/csrc/xnode_train.cu",
+            "xnode_train": ("xnode_wan_tpu_torch/csrc/xnode_fwd.cu",
                             "xnode_wan_tpu/ops/pallas/xnode_train.py:325"),
             "xnode_udu_fwd": ("xnode_wan_tpu_torch/csrc/xnode_grad.cu",
                               "xnode_wan_tpu/ops/pallas/xnode_train.py:241"),

@@ -214,6 +214,41 @@ def test_d5_bound_counts():
     assert steppers.lift_readout_macs(net) == 840
 
 
+def test_d5_staged_copy_hand_count():
+    # by columns, each padded to a multiple of four floats, then the bias:
+    # lift 0 <20, 1> (1 + 1) * 20; lift 1-2 <20, 20> 2 * 21 * 20; field
+    # 0's time and h columns <10, 21> 22 * 12; seven hidden <10, 10>
+    # 7 * 11 * 12; field out <20, 10> 11 * 20; readout <1, 20> 21 * 4
+    want = 40 + 840 + 264 + 924 + 220 + 84
+    assert want == 2372
+    cfg = SolverConfig()
+    from xnode_wan_tpu_torch import init_xnode
+    net = xnode_train.flat_net(init_xnode(cfg, device="cpu"))
+    H, Hh, _, n_lift, n_field = net.dims()
+    assert steppers.staged_floats(H, Hh, n_lift, n_field) == want
+    # odd widths pad every column: H = 7 -> 8, Hh = 5 -> 8
+    assert steppers.staged_floats(7, 5, 2, 2) == 2 * 8 + 8 * 8 + 9 * 8 \
+        + 6 * 8 + 8 * 4
+
+
+def test_nvcc_command_per_width_pair():
+    libs = [_build.library_path("xnode_fwd", w) for w in ((20, 10), (24, 32))]
+    assert libs[0] != libs[1]
+    assert all(p.parent == _build.build_dir() for p in libs)
+    assert libs[0].name == "libxnode_fwd_H20_Hh10.so"
+    cmd = _build.nvcc_command("xnode_fwd", (24, 32), libs[1])
+    assert cmd[0] == "nvcc" and cmd[-1] == str(_build.CSRC / "xnode_fwd.cu")
+    assert "-DXN_H=24" in cmd and "-DXN_HH=32" in cmd
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert "--use_fast_math" not in cmd
+    grad = _build.nvcc_command("xnode_grad", None, "libxnode_grad.so")
+    assert not any(a.startswith("-DXN_H") for a in grad)
+    with pytest.raises(ValueError, match="width"):
+        _build.nvcc_command("xnode_fwd", None, "lib.so")
+    with pytest.raises(ValueError, match="width"):
+        _build.library_path("xnode_grad", (20, 10))
+
+
 def cuda_signature(source, symbol):
     text = (_build.CSRC / f"{source}.cu").read_text()
     m = re.search(r'extern "C" int ' + symbol + r"\((.*?)\)", text, re.S)

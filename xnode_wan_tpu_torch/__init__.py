@@ -2,9 +2,9 @@
 
 A second package beside the JAX reference ``xnode_wan_tpu``; it imports
 neither JAX nor that package. It serves a trained XNODE
-(:func:`evaluate_points`, through the CUDA kernel ``csrc/xnode_eval.cu``),
-scores it on fresh sample paths (:func:`u_forward_fused`, through
-``csrc/xnode_train.cu``, and :func:`rel_err`), and trains it
+(:func:`evaluate_points`, through the CUDA kernel ``csrc/xnode_fwd.cu``),
+scores it on fresh sample paths (:func:`u_forward_fused`, through the
+same source's path forward, and :func:`rel_err`), and trains it
 (:class:`NODEWANSolver`, whose weak-form loss takes ``u`` and ``grad_x u``
 from :func:`u_du_fused`, through ``csrc/xnode_grad.cu``, and with
 ``fused_v`` the adversary side from :func:`v_dv_fused`, through

@@ -1,32 +1,33 @@
-// Device-side XNODE network and fixed-step RK stepper, shared by the
-// serving kernel (xnode_eval.cu) and the path-forward kernel
-// (xnode_train.cu). Device twin of ops/kernels/steppers.py and of the
-// JAX package's ops/pallas/steppers.py::rk_step. The training kernels
-// (xnode_grad.cu) take only the method ids and the weight packing.
+// Device-side XNODE network and fixed-step RK stepper of the path-forward
+// kernels (xnode_fwd.cu: serving #1 and the metric #2). Device twin of
+// ops/kernels/steppers.py and of the JAX package's
+// ops/pallas/steppers.py::rk_step. The training kernels (xnode_grad.cu)
+// take only the method ids and the weight packing.
 //
-// One thread integrates one path. The hidden state, the RK stages and the
-// MLP activations live in per-thread arrays sized by the compile-time caps
-// below; the widths themselves are runtime arguments. The weights sit in
-// shared memory, packed by the wrapper as, for every layer in the order
-// lift..., field..., readout:  W [out, in] row-major, then b [out].
-// Every thread of a warp reads the same weight at the same time, so each
-// shared-memory read is a broadcast.
+// Packing in global memory (FlatNet.packed), for every layer in the order
+// lift..., field..., readout: W [out, in] row-major, then b [out].
+//
+// One thread integrates one path. The widths H (hidden state) and Hh
+// (field) are template parameters, so every per-thread array has a
+// compile-time size and is touched only by fully unrolled loops: ptxas
+// keeps them in registers. The depths (n_lift, n_field), the feature
+// width F and the method stay runtime values.
+//
+// A block stages the weights in shared memory once (xn_stage), by columns
+// at a stride rounded up to four floats, so a thread reads four weights
+// with one 16-byte load; every thread of a warp reads the same address at
+// the same time, a broadcast. The feature columns of field layer 0 are
+// applied once per path, straight from global memory, and are not staged.
 #pragma once
 
 #include <cuda_runtime.h>
 
 #define XN_MAX_WIDTH 64      // cap on H (hidden state) and Hh (field width)
 #define XN_MAX_FIELD_IN 128  // cap on F + 1 + H (field input width)
+#define XN_MAX_SMEM 232448   // shared memory one block may use on Hopper
 
 // Order matches FUSED_KERNEL_METHODS in ops/kernels/steppers.py.
 enum XnMethod { XN_EULER = 0, XN_MIDPOINT = 1, XN_HEUN = 2, XN_RK4 = 3 };
-
-struct XnNet {
-  const float* w;   // packed weights (shared memory)
-  int H, Hh, F, n_lift, n_field;
-  int field_off;    // offset of field layer 0
-  int readout_off;  // offset of the readout layer
-};
 
 __host__ __device__ inline int xn_n_params(int H, int Hh, int F, int n_lift,
                                            int n_field) {
@@ -44,162 +45,257 @@ __host__ inline bool xn_caps_ok(int H, int Hh, int F, int n_lift,
          F + 1 + H <= XN_MAX_FIELD_IN;
 }
 
-__device__ inline XnNet xn_net(const float* w, int H, int Hh, int F,
-                               int n_lift, int n_field) {
-  XnNet n;
-  n.w = w;
-  n.H = H;
-  n.Hh = Hh;
-  n.F = F;
-  n.n_lift = n_lift;
-  n.n_field = n_field;
-  n.field_off = (H + H) + (n_lift - 1) * (H * H + H);
-  n.readout_off = xn_n_params(H, Hh, F, n_lift, n_field) - (H + 1);
-  return n;
+// ---------------------------------------------------------------------------
+// The staged copy in shared memory. Twin: ops/kernels/steppers.py
+// staged_floats. A layer W [out, in], b [out] is stored by columns: column
+// i (the weights of input i) at stride pad4(out), then b padded to
+// pad4(out); every segment starts on 16 bytes. In order: lift 0 <H, 1>,
+// lift l <H, H> (n_lift - 1 times), field 0 <Hh, 1 + H> (its time and h
+// columns; the feature columns stay in global memory), field hidden
+// <Hh, Hh> (n_field - 2 times), field out <H, Hh>, readout <1, H>.
+// ---------------------------------------------------------------------------
+
+__host__ __device__ constexpr int xn_pad4(int n) { return (n + 3) & ~3; }
+
+__host__ __device__ constexpr int xn_staged_layer(int out, int in) {
+  return (in + 1) * xn_pad4(out);
 }
 
-// Copy the packed weights into shared memory (whole block).
-__device__ inline void xn_stage_weights(float* sw, const float* params,
-                                        int n_params) {
-  for (int i = threadIdx.x; i < n_params; i += blockDim.x) sw[i] = params[i];
-  __syncthreads();
+__host__ __device__ inline int xn_staged_floats(int H, int Hh, int n_lift,
+                                                int n_field) {
+  return xn_staged_layer(H, 1) + (n_lift - 1) * xn_staged_layer(H, H) +
+         xn_staged_layer(Hh, 1 + H) + (n_field - 2) * xn_staged_layer(Hh, Hh) +
+         xn_staged_layer(H, Hh) + xn_staged_layer(1, H);
 }
 
-// y[j] = sum_i W[j, i] x[i] + b[j], W [out, in] row-major, b after W.
-__device__ inline void xn_dense(const float* W, int out, int in,
-                                const float* x, float* y) {
-  const float* b = W + out * in;
-  for (int j = 0; j < out; ++j) {
-    const float* row = W + j * in;
-    float s = 0.f;
-    for (int i = 0; i < in; ++i) s = fmaf(row[i], x[i], s);
-    y[j] = s + b[j];
+// Stage one layer: W [OUT, IN] at `w` with rows `ws` apart, b [OUT] at `b`.
+template <int OUT, int IN>
+__device__ __forceinline__ void xn_stage_layer(float* dst,
+                                               const float* __restrict__ w,
+                                               int ws,
+                                               const float* __restrict__ b) {
+  constexpr int SO = xn_pad4(OUT), NW = OUT * IN;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < NW + OUT; i += blockDim.x) {
+    if (i < NW) {
+      const int r = i / IN, c = i - r * IN;
+      dst[c * SO + r] = __ldg(w + r * ws + c);
+    } else {
+      dst[IN * SO + (i - NW)] = __ldg(b + (i - NW));
+    }
   }
 }
 
+// Stage the whole net (whole block, ends in a barrier).
+template <int H, int Hh>
+__device__ void xn_stage(float* sw, const float* __restrict__ params, int F,
+                         int n_lift, int n_field) {
+  const float* src = params;
+  float* dst = sw;
+  xn_stage_layer<H, 1>(dst, src, 1, src + H);
+  dst += xn_staged_layer(H, 1);
+  src += 2 * H;
+  for (int l = 1; l < n_lift; ++l) {
+    xn_stage_layer<H, H>(dst, src, H, src + H * H);
+    dst += xn_staged_layer(H, H);
+    src += H * H + H;
+  }
+  const int fin = F + 1 + H;  // field layer 0: rows [feats, t, h]
+  xn_stage_layer<Hh, 1 + H>(dst, src + F, fin, src + Hh * fin);
+  dst += xn_staged_layer(Hh, 1 + H);
+  src += Hh * fin + Hh;
+  for (int l = 0; l < n_field - 2; ++l) {
+    xn_stage_layer<Hh, Hh>(dst, src, Hh, src + Hh * Hh);
+    dst += xn_staged_layer(Hh, Hh);
+    src += Hh * Hh + Hh;
+  }
+  xn_stage_layer<H, Hh>(dst, src, Hh, src + H * Hh);
+  dst += xn_staged_layer(H, Hh);
+  src += Hh * H + H;
+  xn_stage_layer<1, H>(dst, src, H, src + H);
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// The per-thread network over the staged copy. Each 16-byte broadcast load
+// of a column feeds four independent accumulators; each output still sums
+// its inputs in their order, then adds its bias.
+// ---------------------------------------------------------------------------
+
+// The staged weights' base as the compiler must re-read it at every call:
+// their addresses do not change along a path, so without this the loads of
+// field layer 0, the field's out layer and the readout would be hoisted out
+// of the step loops and some 500 weights held in registers, which spills.
+__device__ __forceinline__ const float* xn_opaque(const float* p) {
+  int off = 0;
+  asm volatile("" : "+r"(off));
+  return p + off;
+}
+
+// N floats of a staged segment (16-byte aligned) into registers.
+template <int N>
+__device__ __forceinline__ void xn_load(const float* src, float (&v)[N]) {
+  const float4* q4 = reinterpret_cast<const float4*>(src);
+#pragma unroll
+  for (int q = 0; q < xn_pad4(N) / 4; ++q) {
+    const float4 w = q4[q];
+    v[4 * q] = w.x;
+    if (4 * q + 1 < N) v[4 * q + 1] = w.y;
+    if (4 * q + 2 < N) v[4 * q + 2] = w.z;
+    if (4 * q + 3 < N) v[4 * q + 3] = w.w;
+  }
+}
+
+// y[j] += col[j] * x for one staged column (16-byte aligned).
+template <int N>
+__device__ __forceinline__ void xn_axpy(const float* col, float x,
+                                        float (&y)[N]) {
+  float w[N];
+  xn_load<N>(col, w);
+#pragma unroll
+  for (int j = 0; j < N; ++j) y[j] = fmaf(w[j], x, y[j]);
+}
+
+// y += sum_i W[:, i] x[i] over a staged layer's columns, then y += b.
+template <int OUT, int IN>
+__device__ __forceinline__ void xn_layer_acc(const float* W,
+                                             const float (&x)[IN],
+                                             float (&y)[OUT]) {
+  constexpr int SO = xn_pad4(OUT);
+#pragma unroll
+  for (int i = 0; i < IN; ++i) xn_axpy<OUT>(W + i * SO, x[i], y);
+  float b[OUT];
+  xn_load<OUT>(W + IN * SO, b);
+#pragma unroll
+  for (int j = 0; j < OUT; ++j) y[j] = y[j] + b[j];
+}
+
+// y[j] = sum_i W[j, i] x[i] + b[j].
+template <int OUT, int IN>
+__device__ __forceinline__ void xn_dense(const float* W, const float (&x)[IN],
+                                         float (&y)[OUT]) {
+#pragma unroll
+  for (int j = 0; j < OUT; ++j) y[j] = 0.f;
+  xn_layer_acc<OUT, IN>(W, x, y);
+}
+
 // Lift MLP: seed -> h [H]: linear, then [relu, linear] * (n_lift - 1).
-__device__ inline void xn_lift(const XnNet& n, float seed, float* h) {
-  float a[XN_MAX_WIDTH];
-  const int H = n.H;
-  const float* p = n.w;
-  for (int j = 0; j < H; ++j) h[j] = p[j] * seed + p[H + j];
-  p += 2 * H;
-  for (int l = 1; l < n.n_lift; ++l) {
+template <int H>
+__device__ __forceinline__ void xn_lift(const float* lw, int n_lift,
+                                        float seed, float (&h)[H]) {
+  const float x[1] = {seed};
+  xn_dense<H, 1>(lw, x, h);
+  const float* p = lw + xn_staged_layer(H, 1);
+  float a[H];
+#pragma unroll 1
+  for (int l = 1; l < n_lift; ++l) {
+#pragma unroll
     for (int i = 0; i < H; ++i) a[i] = fmaxf(h[i], 0.f);
-    xn_dense(p, H, H, a, h);
-    p += H * H + H;
+    xn_dense<H, H>(p, a, h);
+    p += xn_staged_layer(H, H);
   }
 }
 
 // Field layer 0 splits its input [feats, t, h]: the feats part is fixed
-// along a path, so each thread computes c0 = W0[:, :F] feats once.
-__device__ inline void xn_field_const(const XnNet& n, const float* feats,
-                                      float* c0) {
-  const int fin = n.F + 1 + n.H;
-  const float* W = n.w + n.field_off;
-  for (int j = 0; j < n.Hh; ++j) {
-    float s = 0.f;
-    for (int i = 0; i < n.F; ++i) s = fmaf(W[j * fin + i], feats[i], s);
-    c0[j] = s;
+// along a path, so each thread computes c0 = W0[:, :F] feats once, from
+// the packed weights in global memory (W0 at `w0`, rows of F + 1 + H).
+template <int H, int Hh>
+__device__ __forceinline__ void xn_field_const(const float* __restrict__ w0,
+                                               int F,
+                                               const float* __restrict__ feats,
+                                               float (&c0)[Hh]) {
+  const int fin = F + 1 + H;
+#pragma unroll
+  for (int j = 0; j < Hh; ++j) c0[j] = 0.f;
+  for (int i = 0; i < F; ++i) {
+    const float x = feats[i];
+#pragma unroll
+    for (int j = 0; j < Hh; ++j) c0[j] = fmaf(__ldg(w0 + j * fin + i), x, c0[j]);
   }
 }
 
-// ODE field F(x, t, h) -> dh/dt [H]:
-// linear, [relu, linear] * (n_field - 2), tanh, linear.
-__device__ inline void xn_field(const XnNet& n, const float* c0, float t,
-                                const float* h, float* out) {
-  float a[XN_MAX_WIDTH], b[XN_MAX_WIDTH];
-  const int H = n.H, Hh = n.Hh, fin = n.F + 1 + H;
-  const float* W = n.w + n.field_off;
-  const float* bias = W + Hh * fin;
-  for (int j = 0; j < Hh; ++j) {
-    const float* row = W + j * fin + n.F;
-    float s = fmaf(row[0], t, c0[j]);
-    for (int i = 0; i < H; ++i) s = fmaf(row[1 + i], h[i], s);
-    a[j] = s + bias[j];
-  }
-  const float* p = bias + Hh;
-  for (int l = 0; l < n.n_field - 2; ++l) {
+// ODE field F(x, t, h) -> dh/dt [H] from field layer 0's staged copy `fw`:
+// linear, [relu, linear] * n_hidden, tanh, linear. Layer 0 starts from c0
+// and takes the time column, then the h columns, then b0.
+template <int H, int Hh>
+__device__ __forceinline__ void xn_field(const float* fw, int n_hidden,
+                                         const float (&c0)[Hh], float t,
+                                         const float (&h)[H], float (&out)[H]) {
+  constexpr int SHh = xn_pad4(Hh);
+  fw = xn_opaque(fw);
+  float a[Hh], b[Hh];
+#pragma unroll
+  for (int j = 0; j < Hh; ++j) a[j] = c0[j];
+  xn_axpy<Hh>(fw, t, a);
+  xn_layer_acc<Hh, H>(fw + SHh, h, a);
+  const float* p = fw + xn_staged_layer(Hh, 1 + H);
+#pragma unroll 1
+  for (int l = 0; l < n_hidden; ++l) {
+#pragma unroll
     for (int i = 0; i < Hh; ++i) b[i] = fmaxf(a[i], 0.f);
-    xn_dense(p, Hh, Hh, b, a);
-    p += Hh * Hh + Hh;
+    xn_dense<Hh, Hh>(p, b, a);
+    p += xn_staged_layer(Hh, Hh);
   }
+#pragma unroll
   for (int i = 0; i < Hh; ++i) b[i] = tanhf(a[i]);
-  xn_dense(p, H, Hh, b, out);
+  xn_dense<H, Hh>(p, b, out);
 }
 
-__device__ inline float xn_readout(const XnNet& n, const float* h) {
-  const float* W = n.w + n.readout_off;
-  float s = 0.f;
-  for (int i = 0; i < n.H; ++i) s = fmaf(W[i], h[i], s);
-  return s + W[n.H];
+template <int H>
+__device__ __forceinline__ float xn_readout(const float* rw,
+                                            const float (&h)[H]) {
+  float u[1];
+  xn_dense<1, H>(xn_opaque(rw), h, u);
+  return u[0];
 }
 
-// One fixed step of `method` from state h at time t, in place. Same
-// arithmetic order as rk_step in ops/kernels/steppers.py.
-__device__ inline void xn_rk_step(const XnNet& n, int method,
-                                  const float* c0, float t, float dt,
-                                  float* h) {
-  float k[XN_MAX_WIDTH], y[XN_MAX_WIDTH], acc[XN_MAX_WIDTH];
-  const int H = n.H;
+// One fixed step of `method` from state h at time t, in place, as a loop
+// over the scheme's stages (one inlined field). Same arithmetic order as
+// rk_step in ops/kernels/steppers.py: stage s > 0 evaluates the field at
+// h + c k (k the previous stage) and t + c, with c = dt for heun and rk4's
+// last stage and dt / 2 otherwise.
+template <int H, int Hh>
+__device__ __forceinline__ void xn_rk_step(const float* fw, int n_hidden,
+                                           int method, const float (&c0)[Hh],
+                                           float t, float dt, float (&h)[H]) {
   const float hdt = 0.5f * dt;
+  const int n_stages = method == XN_EULER ? 1 : method == XN_RK4 ? 4 : 2;
+  float k[H], y[H], acc[H];
+#pragma unroll 1
+  for (int s = 0; s < n_stages; ++s) {
+    float ts = t;
+    if (s == 0) {
+#pragma unroll
+      for (int j = 0; j < H; ++j) y[j] = h[j];
+    } else {
+      const float c = (method == XN_HEUN || s == 3) ? dt : hdt;
+      ts = t + c;
+#pragma unroll
+      for (int j = 0; j < H; ++j) y[j] = h[j] + c * k[j];
+    }
+    xn_field<H, Hh>(fw, n_hidden, c0, ts, y, k);
+    if (s == 0) {
+#pragma unroll
+      for (int j = 0; j < H; ++j) acc[j] = k[j];
+    } else if (method == XN_RK4 && s < 3) {  // heun's acc stays k1
+#pragma unroll
+      for (int j = 0; j < H; ++j) acc[j] = acc[j] + 2.f * k[j];
+    }
+  }
   switch (method) {
-    case XN_EULER:
-      xn_field(n, c0, t, h, k);
-      for (int j = 0; j < H; ++j) h[j] = h[j] + dt * k[j];
-      break;
-    case XN_MIDPOINT:
-      xn_field(n, c0, t, h, k);
-      for (int j = 0; j < H; ++j) y[j] = h[j] + hdt * k[j];
-      xn_field(n, c0, t + hdt, y, k);
-      for (int j = 0; j < H; ++j) h[j] = h[j] + dt * k[j];
-      break;
     case XN_HEUN:
-      xn_field(n, c0, t, h, acc);
-      for (int j = 0; j < H; ++j) y[j] = h[j] + dt * acc[j];
-      xn_field(n, c0, t + dt, y, k);
+#pragma unroll
       for (int j = 0; j < H; ++j) h[j] = h[j] + hdt * (acc[j] + k[j]);
       break;
-    default:  // XN_RK4; the launchers reject other values
-      xn_field(n, c0, t, h, acc);
-      for (int j = 0; j < H; ++j) y[j] = h[j] + hdt * acc[j];
-      xn_field(n, c0, t + hdt, y, k);
-      for (int j = 0; j < H; ++j) {
-        acc[j] = acc[j] + 2.f * k[j];
-        y[j] = h[j] + hdt * k[j];
-      }
-      xn_field(n, c0, t + hdt, y, k);
-      for (int j = 0; j < H; ++j) {
-        acc[j] = acc[j] + 2.f * k[j];
-        y[j] = h[j] + dt * k[j];
-      }
-      xn_field(n, c0, t + dt, y, k);
+    case XN_RK4:
+#pragma unroll
       for (int j = 0; j < H; ++j) h[j] = h[j] + dt * (acc[j] + k[j]) / 6.f;
       break;
+    default:  // euler, midpoint: the last stage's slope
+#pragma unroll
+      for (int j = 0; j < H; ++j) h[j] = h[j] + dt * k[j];
+      break;
   }
-}
-
-// Launch set-up shared by both kernels: select the caller's device, check
-// the caps and allow the dynamic shared memory the weights need.
-template <typename Kernel>
-__host__ inline cudaError_t xn_prepare(Kernel kernel, int device, int H,
-                                       int Hh, int F, int n_lift,
-                                       int n_field, int method, int n_params,
-                                       size_t* smem) {
-  if (!xn_caps_ok(H, Hh, F, n_lift, n_field) || method < XN_EULER ||
-      method > XN_RK4 ||
-      n_params != xn_n_params(H, Hh, F, n_lift, n_field))
-    return cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
-  *smem = sizeof(float) * (size_t)n_params;
-  if (*smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)*smem);
-    if (e != cudaSuccess) return e;
-  }
-  return cudaSuccess;
 }
 
 extern "C" const char* xn_error_string(int e) {

@@ -164,7 +164,7 @@ def evaluate_points(params: XNODE, pts: torch.Tensor, problem,
     its domain-aware origin (``domain.entry``; without a domain, from
     ``T0`` with the h-seed). On CUDA, in f32, with ``cfg.use_pallas`` and a
     fixed-step RK solver, it runs the serving kernel
-    (``csrc/xnode_eval.cu``); otherwise the masked scan, as the JAX
+    (``csrc/xnode_fwd.cu``); otherwise the masked scan, as the JAX
     package does for x64 and the Adams methods.
     """
     if mesh is not None:

@@ -1,11 +1,14 @@
 """Build and bind the port's CUDA kernels at first use.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``; no
-PyTorch headers are involved, so a build takes seconds. Libraries go
-into ``xnode_wan_tpu_torch/_build/<hash of the sources and flags>/`` (listed
-in ``.gitignore``), so an edited source is rebuilt and an unchanged one
-is reused. :func:`build` starts one ``nvcc`` per missing library, all at
+PyTorch headers are involved, so a build takes seconds. A source listed in
+``WIDTH_SOURCES`` is compiled once per XNODE width pair (H, Hh), with
+``-DXN_H=<H> -DXN_HH=<Hh>``, into ``lib<name>_H<H>_Hh<Hh>.so``: its
+kernels size their per-thread arrays by those widths. Libraries go into
+``xnode_wan_tpu_torch/_build/<hash of the sources and flags>/`` (listed in
+``.gitignore``), so an edited source is rebuilt and an unchanged one is
+reused. :func:`build` starts one ``nvcc`` per missing library, all at
 once, and waits for all of them.
 
 No ``--use_fast_math``: ``tanhf`` and the division stay IEEE, which the
@@ -21,7 +24,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -30,7 +33,10 @@ CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNEL_SOURCES = ("xnode_eval", "xnode_train", "xnode_grad", "disc_train")
+KERNEL_SOURCES = ("xnode_fwd", "xnode_grad", "disc_train")
+WIDTH_SOURCES = ("xnode_fwd",)
+
+Widths = Optional[Tuple[int, int]]
 
 
 def _nvcc() -> str:
@@ -50,24 +56,49 @@ def build_dir() -> Path:
     return BUILD_ROOT / digest.hexdigest()[:16]
 
 
-def library_path(name: str) -> Path:
-    return build_dir() / f"lib{name}.so"
+def lib_name(source: str, widths: Widths = None) -> str:
+    """``source``, or ``source_H<H>_Hh<Hh>`` for a width-specialized one."""
+    if (source in WIDTH_SOURCES) != (widths is not None):
+        raise ValueError(f"{source}: width pair {widths} given, but "
+                         f"width-specialized sources are {WIDTH_SOURCES}")
+    if widths is None:
+        return source
+    H, Hh = widths
+    return f"{source}_H{H}_Hh{Hh}"
 
 
-def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, Path]:
-    """Compile every ``csrc/<name>.cu`` whose library is missing, one
-    ``nvcc`` each, all started together. The compiler's output (``ptxas``
-    register and spill counts) is kept in ``<name>.log`` beside the
-    library. Raises with that output if any build fails."""
+def library_path(source: str, widths: Widths = None) -> Path:
+    return build_dir() / f"lib{lib_name(source, widths)}.so"
+
+
+def nvcc_command(source: str, widths: Widths, out: Path,
+                 nvcc: str = "nvcc") -> List[str]:
+    """The ``nvcc`` command line that builds ``source`` (at ``widths``)."""
+    lib_name(source, widths)  # raises on a wrong pairing
+    defines = ([] if widths is None
+               else [f"-DXN_H={widths[0]}", f"-DXN_HH={widths[1]}"])
+    return [nvcc, *NVCC_FLAGS, *defines, "-o", str(out),
+            str(CSRC / f"{source}.cu")]
+
+
+def build(targets: Iterable[Tuple[str, Widths]]) -> Dict[str, Path]:
+    """Compile every library of ``targets`` (``(source, None)``, or
+    ``(source, (H, Hh))`` for a width-specialized one) that is missing,
+    one ``nvcc`` each, all started together. The compiler's output (``ptxas`` register
+    and spill counts) is kept in ``<library name>.log`` beside the
+    library. Returns the paths by library name; raises with the output if
+    any build fails."""
+    targets = list(targets)
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     pending = {}
-    for name in names:
-        lib = library_path(name)
-        if lib.exists():
+    for source, widths in targets:
+        name = lib_name(source, widths)
+        lib = library_path(source, widths)
+        if lib.exists() or name in pending:
             continue
         tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = nvcc_command(source, widths, tmp, _nvcc())
         pending[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT,
                                           text=True), tmp, lib)
@@ -76,22 +107,24 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, Path]:
         output, _ = proc.communicate()
         (out_dir / f"{name}.log").write_text(output)
         if proc.returncode != 0:
-            failed.append(f"--- {name}.cu (nvcc exit {proc.returncode})\n"
+            failed.append(f"--- {name} (nvcc exit {proc.returncode})\n"
                           f"{output}")
         else:
             os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    return {name: library_path(name) for name in names}
+    return {lib_name(*t): library_path(*t) for t in targets}
 
 
 class CudaKernel:
     """One C entry point of a kernel library, loaded at its first call.
 
-    ``launches`` counts the launches that succeeded; the entry point
+    For a width-specialized source the caller passes ``widths=(H, Hh)``
+    and gets the library built for that pair; ``launches`` counts the
+    launches that succeeded, whichever the library. The entry point
     returns ``cudaGetLastError()`` after its launch, and a non-zero code
-    raises here. Every entry point takes ``(int device, void* stream, ...)``
-    first; the stream is PyTorch's current stream on that device.
+    raises here. Every entry point takes ``(int device, void* stream,
+    ...)`` first; the stream is PyTorch's current stream on that device.
     """
 
     def __init__(self, source: str, symbol: str, argtypes: Sequence):
@@ -99,27 +132,28 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
-        self._lib = None
-        self._fn = None
+        self._loaded = {}  # widths -> (library, entry point)
         self._lock = threading.Lock()
 
-    def load(self):
+    def load(self, widths: Widths = None):
         with self._lock:
-            if self._fn is None:
-                lib = ctypes.CDLL(str(build([self.source])[self.source]))
+            if widths not in self._loaded:
+                name = lib_name(self.source, widths)
+                lib = ctypes.CDLL(str(build([(self.source, widths)])[name]))
                 fn = getattr(lib, self.symbol)
                 fn.argtypes = [ctypes.c_int, ctypes.c_void_p] + self.argtypes
                 fn.restype = ctypes.c_int
                 lib.xn_error_string.argtypes = [ctypes.c_int]
                 lib.xn_error_string.restype = ctypes.c_char_p
-                self._lib, self._fn = lib, fn
-        return self._fn
+                self._loaded[widths] = (lib, fn)
+        return self._loaded[widths]
 
-    def __call__(self, device: torch.device, *args) -> None:
-        fn = self.load()
+    def __call__(self, device: torch.device, *args,
+                 widths: Widths = None) -> None:
+        lib, fn = self.load(widths)
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(device.index, stream, *args)
         if err != 0:
-            msg = self._lib.xn_error_string(err).decode()
+            msg = lib.xn_error_string(err).decode()
             raise RuntimeError(f"{self.symbol} failed: CUDA error {err} ({msg})")
         self.launches += 1

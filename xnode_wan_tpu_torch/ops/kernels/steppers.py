@@ -1,11 +1,11 @@
 """Fixed-step RK step bodies and the plain XNODE network over packed weights.
 
-Port of ``xnode_wan_tpu/ops/pallas/steppers.py``. Both kernels of this
-package (``csrc/xnode_eval.cu``, ``csrc/xnode_train.cu``) integrate the
-same XNODE field with the same four schemes, from one device copy in
-``csrc/steppers.cuh``; this module is its plain PyTorch twin, which the
-wrappers take for CPU tensors and ``chip_smoke.py`` holds the kernels
-against on the card.
+Port of ``xnode_wan_tpu/ops/pallas/steppers.py``. The path-forward
+kernels (``csrc/xnode_fwd.cu``: serving #1 and the metric #2) integrate
+the XNODE field with these four schemes from one width-templated device
+copy in ``csrc/steppers.cuh``; this module is its plain PyTorch twin,
+which the wrappers take for CPU tensors and ``chip_smoke.py`` holds the
+kernels against on the card.
 """
 
 from __future__ import annotations
@@ -116,6 +116,23 @@ class FlatNet:
         if n_bytes > MAX_SMEM_BYTES:
             raise ValueError(f"{n_bytes} bytes of weights do not fit one "
                              f"block's shared memory ({MAX_SMEM_BYTES})")
+
+
+def _pad4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def staged_floats(H: int, Hh: int, n_lift: int, n_field: int) -> int:
+    """Floats of the weights' staged copy in shared memory, twin of
+    ``xn_staged_floats`` in ``csrc/steppers.cuh``: each layer ``W [out,
+    in]`` by columns at a stride of ``out`` rounded up to four floats,
+    then ``b`` padded the same; field layer 0 keeps only its time and
+    ``h`` columns (the feature columns are applied once per path from
+    global memory)."""
+    def layer(out, inp):
+        return (inp + 1) * _pad4(out)
+    return (layer(H, 1) + (n_lift - 1) * layer(H, H) + layer(Hh, 1 + H)
+            + (n_field - 2) * layer(Hh, Hh) + layer(H, Hh) + layer(1, H))
 
 
 def field_macs(net: FlatNet) -> Tuple[int, int]:

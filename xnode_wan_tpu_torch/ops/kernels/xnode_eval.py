@@ -4,23 +4,28 @@ Replaces ``xnode_wan_tpu/ops/pallas/xnode_eval.py::_kernel`` (through
 ``fused_evaluate``), which ``models/xnode.py::evaluate_points`` and
 ``NODEWANSolver.predict`` reach.
 
-Kernel: ``csrc/xnode_eval.cu::xnode_eval_kernel``, one thread per point.
-Each block stages the packed weights in shared memory once; each thread
-lifts its seed, applies the feature columns of field layer 0 once, runs
-``k_steps`` RK steps of ``dt = (t - t_start) / k_steps`` and writes one
-value. The TPU kernel's feature-major 128-lane layout and its VMEM block
-picker are not carried over: here the point axis is the thread axis.
+Kernel: ``csrc/xnode_fwd.cu::xnode_fwd_kernel<true>`` through
+``xnode_eval_launch``, the body it shares with the metric forward (#2),
+built once per width pair (H, Hh) so that each thread's state, RK stages
+and activations live in registers. One thread per point, 128 a block.
+Each block stages the weights in shared memory once, by columns padded
+to four floats (``steppers.staged_floats``), so that one broadcast load
+feeds four independent accumulators; each thread lifts its seed, applies the feature
+columns of field layer 0 once, runs ``k_steps`` RK steps of ``dt = (t -
+t_start) / k_steps`` and writes one value. The TPU kernel's
+feature-major 128-lane layout and its VMEM block picker are not carried
+over: here the point axis is the thread axis.
 
 Bound on an H100 SXM (67 TFLOP/s FP32 without tensor cores, 3.35 TB/s):
 at M = 65,536 points, 20 midpoint steps and the d=5 width, the field
 takes 1,110 multiply-adds per evaluation after the hoisted feature
 columns, 40 evaluations a point, about 5.9 GFLOP in all (88 µs), against
 36 bytes a point moved (2.4 MB, 0.7 µs). The kernel is FP32-compute-bound
-in principle; its design keeps every byte on chip and does plain FMAs on
-the CUDA cores (10-26 wide layers do not fill a tensor-core tile, and
-TF32 would break f32 parity). Its per-thread arrays are indexed by
-runtime widths, so they live in local memory: that traffic, not the
-FMAs, is what a later change should remove.
+in principle and issue-bound in practice: about 1.25 instructions per
+FMA (a 16-byte shared load per four weights), plain FMAs on the CUDA
+cores (10-26 wide layers do not fill a tensor-core tile, and TF32 would
+break f32 parity). Two points a thread, reusing each weight load, is the
+next step.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from xnode_wan_tpu_torch.ops.kernels.xnode_train import flat_net
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
-    "xnode_eval", "xnode_eval_launch",
+    "xnode_fwd", "xnode_eval_launch",
     [_P, _I,                  # packed weights, count
      _P, _P, _P, _P, _P,      # feats, t, t_start, seed, out
      _I, _I, _I, _I, _I, _I, _I, _I])  # M H Hh F n_lift n_field k_steps method
@@ -60,7 +65,8 @@ def evaluate_plain(net: FlatNet, feats, t, t_start, seed, k_steps: int,
 
 def evaluate_cuda(net: FlatNet, feats, t, t_start, seed, k_steps: int,
                   method: str, packed=None) -> torch.Tensor:
-    """Launch ``csrc/xnode_eval.cu`` on PyTorch's current stream."""
+    """Launch ``csrc/xnode_fwd.cu`` (serving) on PyTorch's current
+    stream, from the library built for the net's widths."""
     if method not in METHOD_IDS:
         rk_step(method, None, None, None, None)  # raises the shared error
     if k_steps < 1:
@@ -76,7 +82,8 @@ def evaluate_cuda(net: FlatNet, feats, t, t_start, seed, k_steps: int,
     out = torch.empty((M,), dtype=torch.float32, device=dev)
     KERNEL(dev, packed.data_ptr(), packed.numel(), feats.data_ptr(),
            t.data_ptr(), t_start.data_ptr(), seed.data_ptr(), out.data_ptr(),
-           M, H, Hh, F, n_lift, n_field, k_steps, METHOD_IDS[method])
+           M, H, Hh, F, n_lift, n_field, k_steps, METHOD_IDS[method],
+           widths=(H, Hh))
     return out
 
 

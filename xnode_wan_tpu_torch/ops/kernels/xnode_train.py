@@ -16,22 +16,27 @@ hand-derived adjoint. Replaces ``_fwd_kernel`` (#3), ``_fwd_store_kernel``
 ``csrc/xnode_grad.cu`` (design and bounds in its header); plain versions
 :func:`u_du_fwd_plain` and :func:`u_du_bwd_plain`.
 
-Kernel #2: ``csrc/xnode_train.cu::xnode_path_fwd_kernel``, one thread per
-path. A block stages the packed weights (2,161 floats at the d=5 width)
-in shared memory; the thread lifts its seed, applies the feature columns
-of field layer 0 once, then walks the L intervals with n_sub RK substeps
-each and writes ``u`` after every interval. Masked samples come with
-``dt = 0`` from :func:`_prep_intervals`, so their interval is the
-identity and the kernel needs no branch on the mask.
+Kernel #2: ``csrc/xnode_fwd.cu::xnode_fwd_kernel<false>`` through
+``xnode_path_fwd_launch``, the body it shares with serving (#1), built
+once per width pair (H, Hh) so that each thread's state, RK stages and
+activations live in registers. One thread per path, one warp a block. A
+block stages the weights in shared memory (2,372 floats at the d=5
+width, by columns padded to four floats); the thread lifts its seed, applies
+the feature columns of field layer 0 once, then walks the L intervals
+with n_sub RK substeps each and writes ``u`` after every interval.
+Masked samples come with ``dt = 0`` from :func:`_prep_intervals`, so
+their interval is the identity and the kernel needs no branch on the
+mask.
 
 Bound on an H100 SXM (67 TFLOP/s FP32 without tensor cores, 3.35 TB/s):
 at the d=5 metric batch (N = 4,000, L = 20, midpoint, n_sub = 1) the work
-is about 0.36 GFLOP (5.4 µs) and the bytes about 1.1 MB (0.3 µs). With only 4,000 threads (125 warps, one per SM at 32 threads a
-block) the kernel is bound by the latency of its serial chain of 40
-field evaluations, far above either figure; the design spreads the
-warps over the SMs and keeps every operand on chip, and leaves the
-latency to a later change (more threads per path, for example one per
-hidden unit).
+is about 0.36 GFLOP (5.4 µs) and the bytes about 1.1 MB (0.3 µs). With
+only 4,000 threads (125 warps, one per SM at 32 threads a block) the
+kernel is bound by the latency of its serial chain of 40 field
+evaluations, far above either figure: each SM issues one warp's chain of
+about 1,800 instructions an evaluation. The design spreads the warps over
+the SMs and keeps every operand in registers or shared memory; several
+lanes a path is the next step.
 """
 
 from __future__ import annotations
@@ -53,7 +58,7 @@ from xnode_wan_tpu_torch.ops.kernels.steppers import (MAX_SMEM_BYTES,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
-    "xnode_train", "xnode_path_fwd_launch",
+    "xnode_fwd", "xnode_path_fwd_launch",
     [_P, _I,                  # packed weights, count
      _P, _P, _P, _P, _P,      # t0, dt, feats, seed, u
      _I, _I, _I, _I, _I, _I, _I, _I, _I])  # N L H Hh F n_lift n_field n_sub method
@@ -131,7 +136,8 @@ def path_forward_plain(net: FlatNet, t0, dt, feats, seed, n_sub: int,
 
 def path_forward_cuda(net: FlatNet, t0, dt, feats, seed, n_sub: int,
                       method: str, packed=None) -> torch.Tensor:
-    """Launch ``csrc/xnode_train.cu`` on PyTorch's current stream."""
+    """Launch ``csrc/xnode_fwd.cu`` (path forward) on PyTorch's
+    current stream, from the library built for the net's widths."""
     if method not in METHOD_IDS:
         rk_step(method, None, None, None, None)  # raises the shared error
     net.check_caps()
@@ -145,7 +151,8 @@ def path_forward_cuda(net: FlatNet, t0, dt, feats, seed, n_sub: int,
     u = torch.empty((N, L), dtype=torch.float32, device=dev)
     KERNEL(dev, packed.data_ptr(), packed.numel(), t0.data_ptr(),
            dt.data_ptr(), feats.data_ptr(), seed.data_ptr(), u.data_ptr(),
-           N, L, H, Hh, F, n_lift, n_field, n_sub, METHOD_IDS[method])
+           N, L, H, Hh, F, n_lift, n_field, n_sub, METHOD_IDS[method],
+           widths=(H, Hh))
     return u
 
 

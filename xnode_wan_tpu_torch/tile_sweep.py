@@ -204,7 +204,7 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(card)
-    _build.build(["xnode_grad"])
+    _build.build([("xnode_grad", None)])
     log = _build.build_dir() / "xnode_grad.log"
     for line in log.read_text().splitlines():
         if "Compiling" in line or "registers" in line or "stack" in line:
