@@ -8,10 +8,12 @@ Needs one CUDA card (the kernels are built for Hopper, ``sm_90a``) and
 which raises on failure:
 
 1. build every CUDA kernel from ``xnode_wan_tpu_torch/csrc`` (one ``nvcc``
-   per library, in parallel; #1/#2's ``xnode_fwd.cu`` once per (H, Hh)
-   pair of the shipped configs) and print the build time and ptxas
-   usage; #1/#2 must show no stack and no spills; hold
-   ``steppers.staged_floats`` against the staged copy #1/#2 ask for, and
+   per library, all in parallel; #1/#2's ``xnode_fwd.cu`` once per (H, Hh)
+   pair of the shipped configs, #6's ``disc_fwd.cu`` once per shipped
+   adversary width H) and print the build time and ptxas usage; #1/#2 and
+   #6 must show no stack and no spills; hold ``steppers.staged_floats``
+   against the staged copy #1/#2 ask for, ``disc_train.staged_floats``
+   against #6's (the d=5 adversary tied and untied, the d=20 one), and
    the wrapper's shared-memory rule for #3-#5 against the bytes their
    launchers ask for;
 2. the main paths at the d=5 width of ``configs/cube_pde.yaml``, each
@@ -54,6 +56,8 @@ which raises on failure:
    #6 (v within ``rtol=2e-4, atol=2e-5``, the input gradient) and #7
    (each weight-gradient tensor) at 80,000 points for the trained tied
    adversary, an untied one and the d=20 geometry with its Fourier bank,
+   #6 also at ragged counts (M = 80,001 and 37, the trained and the
+   untied adversary),
    and the fused adversary side's weight gradients against autograd
    through the plain ``create_graph`` path;
 4. CUDA-event times (median of 20 after warm-up) of each kernel and its
@@ -277,16 +281,19 @@ def main() -> int:
 
     # 1. build ---------------------------------------------------------
     # #1/#2 (xnode_fwd.cu) get one library per (H, Hh) pair of the
-    # shipped configs; the others one each
+    # shipped configs, #6 (disc_fwd.cu) one per adversary width; the
+    # others one each
     shipped = {}
     for name in ("cube_pde", "ex4_1_d10", "highdim_d20"):
         gcfg = load_params(os.path.join(ROOT, "configs", f"{name}.yaml"))
         shipped[name] = (gcfg, xnode_train.flat_net(
             init_xnode(gcfg, device="cpu")).dims())
     fwd_widths = sorted({dims[:2] for _, dims in shipped.values()})
+    disc_widths = sorted({(g.v_hidden_dim,) for g, _ in shipped.values()})
     t = time.perf_counter()
     libs = _build.build([("xnode_grad", None), ("disc_train", None)]
-                        + [("xnode_fwd", w) for w in fwd_widths])
+                        + [("xnode_fwd", w) for w in fwd_widths]
+                        + [("disc_fwd", w) for w in disc_widths])
     print(f"build: {time.perf_counter() - t:.2f} s -> {_build.build_dir()}")
     for name in libs:
         log = (_build.build_dir() / f"{name}.log").read_text()
@@ -298,7 +305,7 @@ def main() -> int:
         # registers: no stack, no spills
         frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill "
                             r"stores, (\d+) bytes spill loads", log)
-        if name.startswith("xnode_fwd") and (
+        if name.startswith(("xnode_fwd", "disc_fwd")) and (
                 not frames or any(v != "0" for f in frames for v in f)):
             raise AssertionError(f"{name}: stack or spills {frames}")
     # the staged copy's size in Python against the library's, at the
@@ -312,6 +319,20 @@ def main() -> int:
                                  f"{got} floats")
         print(f"  xnode_fwd {name} (H={H}, Hh={Hh}): {got} staged floats, "
               f"{4 * got} bytes of shared memory a block")
+    for name, tied in (("cube_pde", True), ("cube_pde", False),
+                       ("highdim_d20", True)):
+        gcfg = shipped[name][0]
+        geom = disc_train.geom_of(init_discriminator(
+            gcfg.dim, gcfg.v_hidden_dim, gcfg.v_layers, tied,
+            gcfg.v_fourier_features, device="cpu"), gcfg.v_layers, tied)
+        lib = ctypes.CDLL(str(libs[_build.lib_name("disc_fwd", (geom.H,))]))
+        got = lib.disc_fwd_staged_floats(geom.F, geom.H, geom.L, int(tied))
+        if got != disc_train.staged_floats(geom):
+            raise AssertionError(f"disc_train.staged_floats {name} {geom}: "
+                                 f"the kernel stages {got} floats")
+        print(f"  disc_fwd {name} {geom}: {got} staged floats; "
+              f"{disc_train.fwd_smem_bytes(geom)} bytes of shared memory a "
+              "block with the sign words and slots")
     # the wrapper's shared-memory rule against the bytes the launchers of
     # #3-#5 ask for, at every shipped config, method and listed tile
     smem_of = ctypes.CDLL(str(libs["xnode_grad"])).xnode_udu_smem_bytes
@@ -778,6 +799,24 @@ def main() -> int:
                 disc_train.v_dv_bwd_cuda(dpacked, dfeats, vb, gb, geom),
                 disc_train.v_dv_bwd_plain(dpacked, dfeats, vb, gb, geom),
                 sizes))
+        # #6 at point counts one past a whole number of blocks and under
+        # one block: the trained adversary, and the untied one (the trained
+        # one's relu layers die in training, so its gin is zero)
+        for label, vp, _, n_layers, tied, _ in dcases[:2]:
+            geom = disc_train.geom_of(vp, n_layers, tied)
+            dpacked = disc_train.live_packed_disc(vp, n_layers,
+                                                  tied).detach()
+            for m_rag in (M_v + 1, 37):
+                rpts = cube.interior(vg, -(-m_rag // cfg.N_t)).x.reshape(
+                    -1, cfg.dim + 1)[:m_rag]
+                dfeats = disc_train.disc_features(rpts, 0).contiguous()
+                v_k, g_k = disc_train.v_dv_fwd_cuda(dpacked, dfeats, geom)
+                v_p, g_p = disc_train.v_dv_fwd_plain(dpacked, dfeats, geom)
+                rlabel = f"{label} M={m_rag} {geom}"
+                errs["disc_fwd"] = max(
+                    errs["disc_fwd"],
+                    compare(f"disc_fwd v {rlabel}", v_k, v_p),
+                    compare_scaled(f"disc_fwd gin {rlabel}", g_k, g_p))
 
     # the fused adversary side's weight gradients (#6 forward, #7
     # backward) against autograd through the plain create_graph path, in
@@ -886,7 +925,7 @@ def main() -> int:
                                     "xnode_wan_tpu/ops/pallas/xnode_train.py:264"),
             "xnode_udu_bwd": ("xnode_wan_tpu_torch/csrc/xnode_grad.cu",
                               "xnode_wan_tpu/ops/pallas/xnode_train.py:432"),
-            "disc_fwd": ("xnode_wan_tpu_torch/csrc/disc_train.cu",
+            "disc_fwd": ("xnode_wan_tpu_torch/csrc/disc_fwd.cu",
                          "xnode_wan_tpu/ops/pallas/disc_train.py:95"),
             "disc_bwd": ("xnode_wan_tpu_torch/csrc/disc_train.cu",
                          "xnode_wan_tpu/ops/pallas/disc_train.py:103"),

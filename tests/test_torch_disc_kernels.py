@@ -1,4 +1,5 @@
-"""The adversary's kernels of the port (#6 and #7 in ``csrc/disc_train.cu``)
+"""The adversary's kernels of the port (#6 in ``csrc/disc_fwd.cu``, #7 in
+``csrc/disc_train.cu``)
 through their plain versions: against the JAX package's Pallas kernels in
 interpret mode, the hand-derived backward against double-backward
 autograd, the fused adversary side against the JAX one, and the host side
@@ -243,10 +244,10 @@ def test_live_packed_carries_grad_and_ties_once():
         assert all(bool((p.grad == 1).all()) for p in tparams.parameters())
 
 
-def cuda_signature(symbol):
-    text = (_build.CSRC / "disc_train.cu").read_text()
+def cuda_signature(source, symbol):
+    text = (_build.CSRC / f"{source}.cu").read_text()
     m = re.search(r'extern "C" int ' + symbol + r"\((.*?)\)", text, re.S)
-    assert m, f"{symbol} not found in disc_train.cu"
+    assert m, f"{symbol} not found in {source}.cu"
     return [p.strip() for p in m.group(1).split(",")]
 
 
@@ -254,9 +255,13 @@ def cuda_signature(symbol):
                                     disc_train.BWD_KERNEL],
                          ids=lambda k: k.symbol)
 def test_disc_ctypes_argtypes_match_c_signature(kernel):
-    assert kernel.source == "disc_train"
-    assert "disc_train" in _build.KERNEL_SOURCES
-    params = cuda_signature(kernel.symbol)
+    # #6 has a source of its own, built once per width; #7 stays in
+    # disc_train.cu
+    source = {"disc_fwd_launch": "disc_fwd",
+              "disc_bwd_launch": "disc_train"}[kernel.symbol]
+    assert kernel.source == source
+    assert source in _build.KERNEL_SOURCES
+    params = cuda_signature(source, kernel.symbol)
     declared = [ctypes.c_int, ctypes.c_void_p] + kernel.argtypes
     assert len(params) == len(declared)
     for p, ct in zip(params, declared):
@@ -304,3 +309,86 @@ def test_fits_gate_and_tiles():
     with pytest.raises(ValueError, match="shared memory"):
         disc_train.bwd_tile(disc_train.DiscGeom(F=128, H=64, L=32,
                                                 tied=False))
+
+
+def test_disc_fwd_nvcc_command_per_width():
+    # kernel #6 is built once per adversary width, with -DXD_H=<H>
+    libs = [_build.library_path("disc_fwd", (H,)) for H in (50, 64)]
+    assert [p.name for p in libs] == ["libdisc_fwd_H50.so",
+                                      "libdisc_fwd_H64.so"]
+    assert all(p.parent == _build.build_dir() for p in libs)
+    cmd = _build.nvcc_command("disc_fwd", (64,), libs[1])
+    assert cmd[-1] == str(_build.CSRC / "disc_fwd.cu")
+    assert "-DXD_H=64" in cmd and not any(a.startswith("-DXN_") for a in cmd)
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert "--use_fast_math" not in cmd
+    bwd = _build.nvcc_command("disc_train", None, "libdisc_train.so")
+    assert not any(a.startswith("-DX") for a in bwd)
+    for widths in (None, (50, 10)):
+        with pytest.raises(ValueError, match="width"):
+            _build.nvcc_command("disc_fwd", widths, "lib.so")
+    with pytest.raises(ValueError, match="width"):
+        _build.library_path("disc_train", (50,))
+
+
+def test_disc_fwd_staged_copy_hand_count():
+    # by columns, each padded to a multiple of four floats, then the bias:
+    # d=5 (F = 6, H = 50 -> 52): layer 0 (6 + 1) * 52, hidden (50 + 1) *
+    # 52 once when tied or nine times, output <1, 50> (50 + 1) * 4; d=20
+    # with its Fourier bank (F = 61, H = 64): 62 * 64 + 65 * 64 + 65 * 4
+    tied5 = disc_train.DiscGeom(F=6, H=50, L=9, tied=True)
+    assert disc_train.staged_floats(tied5) == 364 + 2652 + 204 == 3220
+    untied5 = tied5._replace(tied=False)
+    assert disc_train.staged_floats(untied5) == 364 + 9 * 2652 + 204 == 24436
+    d20 = disc_train.DiscGeom(F=61, H=64, L=9, tied=True)
+    assert disc_train.staged_floats(d20) == 3968 + 4160 + 260 == 8388
+    # for each of the block's 128 threads its sign words, ceil(H / 32) a
+    # layer, and its slot of H floats
+    assert disc_train.fwd_smem_bytes(tied5) == 4 * (3220 + (18 + 50) * 128)
+    assert disc_train.fwd_smem_bytes(d20) == 4 * (8388 + (18 + 64) * 128)
+    assert disc_train.fwd_smem_bytes(untied5) == 4 * (24436 + 68 * 128)
+
+
+def stage_by_columns(flat):
+    """Kernel #6's staged copy, built in torch from ``flat_disc``'s
+    ``(W, b)`` pairs: each layer's columns at a stride of ``out`` rounded
+    up to four, then ``b``; NaN in the padding. Returns the buffer and the
+    offset of each layer."""
+    segs, offs, size = [], [], 0
+    for w, b in zip(flat[::2], flat[1::2]):
+        out, inp = w.shape
+        cols = torch.full((inp + 1, -(-out // 4) * 4), float("nan"))
+        cols[:inp, :out] = w.T
+        cols[inp, :out] = b
+        segs.append(cols.reshape(-1))
+        offs.append(size)
+        size += cols.numel()
+    return torch.cat(segs), offs
+
+
+@pytest.mark.parametrize("dim,width,layers,tied,n_freq",
+                         [(5, 50, 9, True, 0), (5, 50, 9, False, 0),
+                          (20, 64, 9, True, 1), (2, 7, 3, False, 2)])
+def test_disc_fwd_staged_layout_rebuilds_the_weights(dim, width, layers, tied,
+                                                     n_freq):
+    # pack by columns, then read every W and b back by the layout's
+    # offsets: the twin's size is the end of the walk, and nothing but the
+    # padding is left unwritten
+    p = init_discriminator(dim, width, layers, tied, n_freq, device="cpu")
+    geom = disc_train.geom_of(p, layers, tied)
+    flat = disc_train.flat_disc(p, layers, tied)
+    buf, offs = stage_by_columns(flat)
+    assert buf.numel() == disc_train.staged_floats(geom)
+    H, F, so = geom.H, geom.F, -(-geom.H // 4) * 4
+    shapes = [(H, F)] + [(H, H)] * geom.n_hidden + [(1, H)]
+    assert len(offs) == len(shapes) == len(flat) // 2
+    n_pad = 0
+    for (out, inp), off, w, b in zip(shapes, offs, flat[::2], flat[1::2]):
+        s_out = -(-out // 4) * 4
+        seg = buf[off:off + (inp + 1) * s_out].view(inp + 1, s_out)
+        torch.testing.assert_close(seg[:inp, :out].T, w.reshape(out, inp),
+                                   rtol=0, atol=0)
+        torch.testing.assert_close(seg[inp, :out], b, rtol=0, atol=0)
+        n_pad += (inp + 1) * (s_out - out)
+    assert int(torch.isnan(buf).sum()) == n_pad
+    assert so * (F + 1) == offs[1]

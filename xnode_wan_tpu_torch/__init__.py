@@ -8,7 +8,7 @@ same source's path forward, and :func:`rel_err`), and trains it
 (:class:`NODEWANSolver`, whose weak-form loss takes ``u`` and ``grad_x u``
 from :func:`u_du_fused`, through ``csrc/xnode_grad.cu``, and with
 ``fused_v`` the adversary side from :func:`v_dv_fused`, through
-``csrc/disc_train.cu``). ``python -m xnode_wan_tpu_torch.main`` is the
+``csrc/disc_fwd.cu`` and ``csrc/disc_train.cu``). ``python -m xnode_wan_tpu_torch.main`` is the
 command line, with logs, checkpoints and resume. Entry points run on the current CUDA device unless the caller
 passes ``device="cpu"``; CPU tensors take the kernels' plain PyTorch
 versions.

@@ -1,30 +1,17 @@
-// Adversary kernels: the discriminator's value with its input gradient, and
-// the weight cotangents of both, the custom VJP of
-// ops/kernels/disc_train.py :: VDvFused. They replace, in the JAX
-// package's ops/pallas/disc_train.py,
+// Adversary kernel #7: the weight cotangents of the discriminator's value
+// and input gradient, the backward of ops/kernels/disc_train.py ::
+// VDvFused. It replaces, in the JAX package's ops/pallas/disc_train.py,
 //
-//   #6 _v_fwd_kernel -> disc_fwd_launch  (v [M], gin [M, F])
 //   #7 _v_bwd_kernel -> disc_bwd_launch  (weight cotangents, summed over M)
 //
-// Network (ops/kernels/disc_train.py, per point with features z [F]):
-//   a0 = W0 z + b0;  a_{i+1} = W_h relu(a_i) + b_h  (i < L);  y = tanh(a_L);
-//   v = w_o . y + b_o;  reverse sweep g_L = w_o (1 - y^2),
-//   g_i = [a_i > 0] (W_h^T g_{i+1}),  gin = W0^T g_0.
-// Packed weights: W0 [H, F], b0 [H], then (W_h [H, H], b_h [H]) once when
-// tied or L times, then w_o [H], b_o; each W row-major [out, in].
+// The forward, #6 (disc_fwd_launch), is in disc_fwd.cu; the network and its
+// packing are in disc_net.cuh.
 //
-// Bounds on an H100 SXM (67 TFLOP/s FP32 without tensor cores, 3.35 TB/s)
-// at the d=5 main path (F = 6, H = 50, L = 9, tied, M = 80,000): #6 does
-// 45,650 multiply-adds a point (7.30 GFLOP, 0.109 ms) against 4.2 MB; #7
-// about 136,650 (21.9 GFLOP, 0.33 ms) against 4.2 MB. Both are bound by
-// operations; neither uses the tensor cores, whose TF32 would break the
-// f32 parity with the plain versions at about 1e-3.
-//
-// #6 design: ONE THREAD PER POINT. The packed weights sit in shared memory
-// (11.8 KB at d=5, 32.8 KB at the d=20 geometry) and every read of them is
-// a broadcast. The sweep needs the sign of every a_i: the thread keeps them
-// as bits (ceil(L*H/32) words, 15 at d=5), not as L*H floats; the one live
-// activation vector and the sweep vector are the only float arrays.
+// Bound on an H100 SXM (67 TFLOP/s FP32 without tensor cores, 3.35 TB/s)
+// at the d=5 main path (F = 6, H = 50, L = 9, tied, M = 80,000): about
+// 136,650 multiply-adds a point (21.9 GFLOP, 0.33 ms) against 4.2 MB: bound
+// by operations. No tensor cores: TF32 would break the f32 parity with the
+// plain version at about 1e-3.
 //
 // #7 design: an MLP over a batch. A block of XD_BWD_THREADS threads takes a
 // TILE of P points (P = 16, or 8 where 16 does not fit) and
@@ -47,109 +34,15 @@
 // order: the result does not depend on scheduling. The weights stay in
 // device memory (read-only path, L1-resident), so an untied net at d=5
 // (93 KB of weights) still fits a block with its accumulator.
-#include <cuda_runtime.h>
+#include "disc_net.cuh"
 
-#define XD_MAX_WIDTH 64   // cap on H (v_hidden_dim)
-#define XD_MAX_FEATS 128  // cap on F (feature width)
-#define XD_MAX_LAYERS 32  // cap on L (v_layers)
-#define XD_MAX_BITS ((XD_MAX_LAYERS * XD_MAX_WIDTH + 31) / 32)
-#define XD_FWD_THREADS 256
 #define XD_BWD_THREADS 512
-#define XD_MAX_SMEM 232448
-
-__host__ __device__ inline int xd_n_params(int F, int H, int L, int tied) {
-  return F * H + H + (tied ? 1 : L) * (H * H + H) + H + 1;
-}
-
-// Offset of hidden layer i's W_h (b_h follows it).
-__host__ __device__ inline int xd_hidden_off(int F, int H, int i, int tied) {
-  return F * H + H + (tied ? 0 : i) * (H * H + H);
-}
-
-__host__ __device__ inline int xd_out_off(int F, int H, int L, int tied) {
-  return F * H + H + (tied ? 1 : L) * (H * H + H);
-}
 
 // Shared memory of one #7 block (ops/kernels/disc_train.py :: bwd_smem_bytes).
 __host__ inline size_t xd_bwd_smem(int F, int H, int L, int n_params,
                                    int P) {
   const size_t rows = 2 * (size_t)(L + 1) * H + 2 * H + 2 * F + 1;
   return sizeof(float) * ((size_t)n_params + (size_t)(P + 1) * rows);
-}
-
-__host__ inline bool xd_caps_ok(int F, int H, int L, int tied,
-                                int n_params) {
-  return F >= 1 && F <= XD_MAX_FEATS && H >= 1 && H <= XD_MAX_WIDTH &&
-         L >= 1 && L <= XD_MAX_LAYERS && (tied == 0 || tied == 1) &&
-         n_params == xd_n_params(F, H, L, tied);
-}
-
-// ---------------------------------------------------------------------------
-// #6: value and input gradient, one thread per point.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(XD_FWD_THREADS)
-disc_fwd_kernel(const float* __restrict__ params, int n_params,
-                const float* __restrict__ feats,  // [M, F]
-                float* __restrict__ v,            // [M]
-                float* __restrict__ gin,          // [M, F]
-                int M, int F, int H, int L, int tied) {
-  extern __shared__ float sw[];
-  for (int i = threadIdx.x; i < n_params; i += blockDim.x) sw[i] = params[i];
-  __syncthreads();
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-
-  float z[XD_MAX_FEATS], a[XD_MAX_WIDTH], r[XD_MAX_WIDTH];
-  unsigned bits[XD_MAX_BITS];
-  const int n_words = (L * H + 31) / 32;
-  for (int w = 0; w < n_words; ++w) bits[w] = 0u;
-  for (int f = 0; f < F; ++f) z[f] = feats[(size_t)m * F + f];
-
-  const float* W0 = sw;
-  const float* b0 = sw + H * F;
-  for (int j = 0; j < H; ++j) {
-    float s = 0.f;
-    for (int f = 0; f < F; ++f) s = fmaf(W0[j * F + f], z[f], s);
-    a[j] = s + b0[j];
-  }
-  for (int i = 0; i < L; ++i) {
-    for (int k = 0; k < H; ++k) {
-      const bool on = a[k] > 0.f;
-      const int bit = i * H + k;
-      bits[bit >> 5] |= (unsigned)on << (bit & 31);
-      r[k] = on ? a[k] : 0.f;
-    }
-    const float* W = sw + xd_hidden_off(F, H, i, tied);
-    const float* b = W + H * H;
-    for (int j = 0; j < H; ++j) {
-      float s = 0.f;
-      for (int k = 0; k < H; ++k) s = fmaf(W[j * H + k], r[k], s);
-      a[j] = s + b[j];
-    }
-  }
-  const float* wo = sw + xd_out_off(F, H, L, tied);
-  float val = 0.f;
-  for (int j = 0; j < H; ++j) {
-    const float y = tanhf(a[j]);
-    val = fmaf(wo[j], y, val);
-    a[j] = wo[j] * (1.f - y * y);  // g_L
-  }
-  v[m] = val + wo[H];
-  for (int i = L - 1; i >= 0; --i) {
-    const float* W = sw + xd_hidden_off(F, H, i, tied);
-    for (int k = 0; k < H; ++k) {
-      float s = 0.f;
-      for (int j = 0; j < H; ++j) s = fmaf(W[j * H + k], a[j], s);
-      const int bit = i * H + k;
-      r[k] = (bits[bit >> 5] >> (bit & 31)) & 1u ? s : 0.f;
-    }
-    for (int k = 0; k < H; ++k) a[k] = r[k];
-  }
-  for (int f = 0; f < F; ++f) {
-    float s = 0.f;
-    for (int j = 0; j < H; ++j) s = fmaf(W0[j * F + f], a[j], s);
-    gin[(size_t)m * F + f] = s;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -361,32 +254,6 @@ __global__ void disc_reduce_kernel(const float* __restrict__ partial,
   float s = 0.f;
   for (int b = 0; b < n_blocks; ++b) s += partial[(size_t)b * n_params + i];
   grad[i] = s;
-}
-
-static cudaError_t xd_allow_smem(const void* kernel, size_t smem) {
-  if (smem > XD_MAX_SMEM) return cudaErrorInvalidValue;
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
-}
-
-extern "C" int disc_fwd_launch(int device, void* stream, const float* params,
-                               int n_params, const float* feats, float* v,
-                               float* gin, int M, int F, int H, int L,
-                               int tied) {
-  if (M < 0 || !xd_caps_ok(F, H, L, tied, n_params))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  const size_t smem = sizeof(float) * (size_t)n_params;
-  e = xd_allow_smem((const void*)disc_fwd_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  if (M == 0) return 0;
-  const int blocks = (M + XD_FWD_THREADS - 1) / XD_FWD_THREADS;
-  disc_fwd_kernel<<<blocks, XD_FWD_THREADS, smem, (cudaStream_t)stream>>>(
-      params, n_params, feats, v, gin, M, F, H, L, tied);
-  return (int)cudaGetLastError();
 }
 
 // tile: points per tile (1..32); blocks: the grid, one partial row each

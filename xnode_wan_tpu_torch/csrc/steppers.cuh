@@ -2,7 +2,8 @@
 // kernels (xnode_fwd.cu: serving #1 and the metric #2). Device twin of
 // ops/kernels/steppers.py and of the JAX package's
 // ops/pallas/steppers.py::rk_step. The training kernels (xnode_grad.cu)
-// take only the method ids and the weight packing.
+// take only the method ids and the weight packing; the adversary's forward
+// (disc_fwd.cu) the column staging and the per-thread layer helpers.
 //
 // Packing in global memory (FlatNet.packed), for every layer in the order
 // lift..., field..., readout: W [out, in] row-major, then b [out].

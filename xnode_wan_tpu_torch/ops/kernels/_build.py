@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``; no
 PyTorch headers are involved, so a build takes seconds. A source listed in
-``WIDTH_SOURCES`` is compiled once per XNODE width pair (H, Hh), with
-``-DXN_H=<H> -DXN_HH=<Hh>``, into ``lib<name>_H<H>_Hh<Hh>.so``: its
+``WIDTH_SOURCES`` is compiled once per tuple of widths, one define each:
+``xnode_fwd`` per XNODE width pair (H, Hh), with ``-DXN_H=<H>
+-DXN_HH=<Hh>``, into ``libxnode_fwd_H<H>_Hh<Hh>.so``, and ``disc_fwd`` per
+adversary width H, with ``-DXD_H=<H>``, into ``libdisc_fwd_H<H>.so``: their
 kernels size their per-thread arrays by those widths. Libraries go into
 ``xnode_wan_tpu_torch/_build/<hash of the sources and flags>/`` (listed in
 ``.gitignore``), so an edited source is rebuilt and an unchanged one is
@@ -33,10 +35,12 @@ CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNEL_SOURCES = ("xnode_fwd", "xnode_grad", "disc_train")
-WIDTH_SOURCES = ("xnode_fwd",)
+KERNEL_SOURCES = ("xnode_fwd", "xnode_grad", "disc_fwd", "disc_train")
+# Width-specialized sources: (define, tag in the library name) per width
+WIDTH_SOURCES = {"xnode_fwd": (("XN_H", "H"), ("XN_HH", "Hh")),
+                 "disc_fwd": (("XD_H", "H"),)}
 
-Widths = Optional[Tuple[int, int]]
+Widths = Optional[Tuple[int, ...]]
 
 
 def _nvcc() -> str:
@@ -56,15 +60,22 @@ def build_dir() -> Path:
     return BUILD_ROOT / digest.hexdigest()[:16]
 
 
+def _width_defines(source: str, widths: Widths) -> List[Tuple[str, str,
+                                                             int]]:
+    """``(define, tag, width)`` for each width of ``source``; raises unless
+    ``widths`` has exactly the widths the source takes."""
+    spec = WIDTH_SOURCES.get(source, ())
+    if (widths is None) != (not spec) or len(widths or ()) != len(spec):
+        raise ValueError(f"{source} takes the widths "
+                         f"{[tag for _, tag in spec]}, given {widths}")
+    return [(d, tag, w) for (d, tag), w in zip(spec, widths or ())]
+
+
 def lib_name(source: str, widths: Widths = None) -> str:
-    """``source``, or ``source_H<H>_Hh<Hh>`` for a width-specialized one."""
-    if (source in WIDTH_SOURCES) != (widths is not None):
-        raise ValueError(f"{source}: width pair {widths} given, but "
-                         f"width-specialized sources are {WIDTH_SOURCES}")
-    if widths is None:
-        return source
-    H, Hh = widths
-    return f"{source}_H{H}_Hh{Hh}"
+    """``source``, or ``source_H<H>_Hh<Hh>`` / ``source_H<H>`` for a
+    width-specialized one."""
+    return source + "".join(f"_{tag}{w}"
+                            for _, tag, w in _width_defines(source, widths))
 
 
 def library_path(source: str, widths: Widths = None) -> Path:
@@ -74,16 +85,14 @@ def library_path(source: str, widths: Widths = None) -> Path:
 def nvcc_command(source: str, widths: Widths, out: Path,
                  nvcc: str = "nvcc") -> List[str]:
     """The ``nvcc`` command line that builds ``source`` (at ``widths``)."""
-    lib_name(source, widths)  # raises on a wrong pairing
-    defines = ([] if widths is None
-               else [f"-DXN_H={widths[0]}", f"-DXN_HH={widths[1]}"])
+    defines = [f"-D{d}={w}" for d, _, w in _width_defines(source, widths)]
     return [nvcc, *NVCC_FLAGS, *defines, "-o", str(out),
             str(CSRC / f"{source}.cu")]
 
 
 def build(targets: Iterable[Tuple[str, Widths]]) -> Dict[str, Path]:
     """Compile every library of ``targets`` (``(source, None)``, or
-    ``(source, (H, Hh))`` for a width-specialized one) that is missing,
+    ``(source, widths)`` for a width-specialized one) that is missing,
     one ``nvcc`` each, all started together. The compiler's output (``ptxas`` register
     and spill counts) is kept in ``<library name>.log`` beside the
     library. Returns the paths by library name; raises with the output if
@@ -119,8 +128,8 @@ def build(targets: Iterable[Tuple[str, Widths]]) -> Dict[str, Path]:
 class CudaKernel:
     """One C entry point of a kernel library, loaded at its first call.
 
-    For a width-specialized source the caller passes ``widths=(H, Hh)``
-    and gets the library built for that pair; ``launches`` counts the
+    For a width-specialized source the caller passes its ``widths`` and
+    gets the library built for them; ``launches`` counts the
     launches that succeeded, whichever the library. The entry point
     returns ``cudaGetLastError()`` after its launch, and a non-zero code
     raises here. Every entry point takes ``(int device, void* stream,

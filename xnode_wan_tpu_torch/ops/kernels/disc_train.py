@@ -2,14 +2,17 @@
 input gradient, and the weight cotangents of both. Port of
 ``xnode_wan_tpu/ops/pallas/disc_train.py`` (the ``fused_v: true`` path).
 
-**Kernel #6** (:func:`v_dv_fwd_cuda`, ``csrc/disc_train.cu::
+**Kernel #6** (:func:`v_dv_fwd_cuda`, ``csrc/disc_fwd.cu::
 disc_fwd_kernel``) replaces ``_v_fwd_kernel``: for features ``z [F]`` per
 point, the forward ``a0 = W0 z + b0``, ``a_{i+1} = W_h relu(a_i) + b_h``
 (``i < L = v_layers``), ``y = tanh(a_L)``, ``v = w_o . y + b_o``, then one
 reverse sweep ``g_L = w_o (1 - y^2)``, ``g_i = [a_i > 0] (W_h^T g_{i+1})``,
-``gin = W0^T g_0``: ``v [M]`` and ``dv/dz [M, F]``.
+``gin = W0^T g_0``: ``v [M]`` and ``dv/dz [M, F]``. It is built once per
+adversary width ``H`` (``libdisc_fwd_H<H>.so``), one thread per point over
+a block's copy of the weights staged by columns (:func:`staged_floats`).
 
-**Kernel #7** (:func:`v_dv_bwd_cuda`, ``disc_bwd_kernel``) replaces
+**Kernel #7** (:func:`v_dv_bwd_cuda`, ``csrc/disc_train.cu::
+disc_bwd_kernel``) replaces
 ``_v_bwd_kernel``: the gradient of ``sum(v vb) + sum(gin gb)`` in the
 packed weights, second-order terms included, summed over the points. The
 Pallas kernel takes it from ``jax.vjp`` of the whole function; here the
@@ -29,7 +32,7 @@ at the d=5 main path (F = 6, H = 50, L = 9, tied, M = 80,000 points):
 #6 does 45,650 multiply-adds a point, 7.30 GFLOP (0.109 ms), against
 4.2 MB (1.3 us); #7 recomputes the forward and the sweep and runs both
 reverses, about 136,650 multiply-adds a point, 21.9 GFLOP (0.33 ms).
-Both are bound by operations. Design notes in the ``.cu`` header.
+Both are bound by operations. Design notes in the ``.cu`` headers.
 """
 
 from __future__ import annotations
@@ -43,21 +46,23 @@ import torch
 from xnode_wan_tpu_torch.models.discriminator import disc_features
 from xnode_wan_tpu_torch.ops.kernels._build import CudaKernel
 from xnode_wan_tpu_torch.ops.kernels.steppers import (MAX_SMEM_BYTES,
+                                                      _pad4,
                                                       require_cuda_f32)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # kernel #6: packed weights, count, feats, v, gin; M F H v_layers tied
-FWD_KERNEL = CudaKernel("disc_train", "disc_fwd_launch",
+FWD_KERNEL = CudaKernel("disc_fwd", "disc_fwd_launch",
                         [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I])
 # kernel #7: packed weights, count, feats, vb, gb, partial, grad;
 # M F H v_layers tied, points per tile, blocks
 BWD_KERNEL = CudaKernel("disc_train", "disc_bwd_launch",
                         [_P, _I, _P, _P, _P, _P, _P] + [_I] * 7)
 
-# Compile-time caps of csrc/disc_train.cu
+# Compile-time caps of csrc/disc_net.cuh
 MAX_WIDTH = 64        # XD_MAX_WIDTH: v_hidden_dim
 MAX_FEATS = 128       # XD_MAX_FEATS: feature width F
 MAX_LAYERS = 32       # XD_MAX_LAYERS: v_layers
+FWD_THREADS = 128     # XD_FWD_THREADS: a kernel-#6 block, one point each
 BWD_TILES = (16, 8)   # points per tile of kernel #7, largest first
 
 
@@ -209,6 +214,26 @@ def v_dv_bwd_plain(packed: torch.Tensor, feats: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def staged_floats(geom: DiscGeom) -> int:
+    """Floats of kernel #6's staged copy of the weights, twin of
+    ``xd_staged_floats`` in ``csrc/disc_fwd.cu``: each layer ``W [out,
+    in]`` by columns at a stride of ``out`` rounded up to four floats,
+    then ``b`` padded the same; layer 0, the hidden layer (once when
+    tied), the output layer ``[1, H]``."""
+    def layer(out, inp):
+        return (inp + 1) * _pad4(out)
+    return (layer(geom.H, geom.F) + geom.n_hidden * layer(geom.H, geom.H)
+            + layer(1, geom.H))
+
+
+def fwd_smem_bytes(geom: DiscGeom) -> int:
+    """Shared memory of one kernel-#6 block (``xd_fwd_smem``): the staged
+    copy, then for each thread its relu sign words, ``ceil(H / 32)`` a
+    layer, and its slot of ``H`` floats."""
+    return 4 * (staged_floats(geom)
+                + (geom.L * -(-geom.H // 32) + geom.H) * FWD_THREADS)
+
+
 def bwd_smem_bytes(geom: DiscGeom, tile: int) -> int:
     """Shared memory of one kernel-#7 block (``xd_bwd_smem`` in the
     ``.cu``): the block's gradient accumulator, then each layer's
@@ -232,14 +257,15 @@ def bwd_tile(geom: DiscGeom) -> int:
 def _geom_fits(geom: DiscGeom) -> bool:
     return (1 <= geom.H <= MAX_WIDTH and 1 <= geom.F <= MAX_FEATS
             and 1 <= geom.L <= MAX_LAYERS
-            and 4 * geom.n_params <= MAX_SMEM_BYTES
+            and fwd_smem_bytes(geom) <= MAX_SMEM_BYTES
             and bwd_smem_bytes(geom, BWD_TILES[-1]) <= MAX_SMEM_BYTES)
 
 
 def v_fused_fits(params, v_layers: int, tied: bool) -> bool:
     """Whether kernels #6 and #7 take this discriminator: widths under the
-    compile-time caps, #6's weights and #7's smallest tile in one block's
-    shared memory. Decided from shapes, before any launch."""
+    compile-time caps, #6's staged weights with its sign words and #7's
+    smallest tile in one block's shared memory. Decided from shapes,
+    before any launch."""
     return _geom_fits(geom_of(params, v_layers, tied))
 
 
@@ -249,9 +275,9 @@ def check_fits(geom: DiscGeom) -> None:
         raise ValueError(
             f"the discriminator {geom} exceeds the CUDA kernels' caps "
             f"(v_fused_fits): v_hidden_dim <= {MAX_WIDTH}, feature width <= "
-            f"{MAX_FEATS}, v_layers <= {MAX_LAYERS}, and the weights and "
-            f"kernel #7's {BWD_TILES[-1]}-point tile within {MAX_SMEM_BYTES} "
-            "bytes of shared memory")
+            f"{MAX_FEATS}, v_layers <= {MAX_LAYERS}, and kernel #6's staged "
+            f"weights and #7's {BWD_TILES[-1]}-point tile each within "
+            f"{MAX_SMEM_BYTES} bytes of shared memory")
 
 
 def _checks(packed, feats, geom: DiscGeom) -> torch.device:
@@ -265,15 +291,15 @@ def _checks(packed, feats, geom: DiscGeom) -> torch.device:
 
 
 def v_dv_fwd_cuda(packed, feats, geom: DiscGeom):
-    """Launch kernel #6 on PyTorch's current stream; same outputs as
-    :func:`v_dv_fwd_plain`."""
+    """Launch kernel #6, from the library built for ``geom.H``, on
+    PyTorch's current stream; same outputs as :func:`v_dv_fwd_plain`."""
     dev = _checks(packed, feats, geom)
     M = feats.shape[0]
     v = torch.empty((M,), dtype=torch.float32, device=dev)
     gin = torch.empty((M, geom.F), dtype=torch.float32, device=dev)
     FWD_KERNEL(dev, packed.data_ptr(), packed.numel(), feats.data_ptr(),
                v.data_ptr(), gin.data_ptr(), M, geom.F, geom.H, geom.L,
-               int(geom.tied))
+               int(geom.tied), widths=(geom.H,))
     return v, gin
 
 
