@@ -9,13 +9,15 @@ which raises on failure:
 
 1. build every CUDA kernel from ``xnode_wan_tpu_torch/csrc`` (one ``nvcc``
    per library, all in parallel; #1/#2's ``xnode_fwd.cu`` once per (H, Hh)
-   pair of the shipped configs, #6's ``disc_fwd.cu`` once per shipped
-   adversary width H) and print the build time and ptxas usage; #1/#2 and
-   #6 must show no stack and no spills; hold ``steppers.staged_floats``
-   against the staged copy #1/#2 ask for, ``disc_train.staged_floats``
-   against #6's (the d=5 adversary tied and untied, the d=20 one), and
-   the wrapper's shared-memory rule for #3-#5 against the bytes their
-   launchers ask for;
+   pair of the shipped configs, #6's ``disc_fwd.cu`` and #7's
+   ``disc_train.cu`` once per shipped adversary width H) and print the
+   build time and ptxas usage; #1/#2, #6 and #7 must show no stack and no
+   spills; hold ``steppers.staged_floats`` against the staged copy #1/#2
+   ask for, ``disc_train.staged_floats`` against #6's and
+   ``disc_train.bwd_smem_bytes`` against #7's shared bytes (the d=5 and
+   the d=20 adversary, each tied and untied; #7's registers and shared
+   bytes a block printed), and the wrapper's shared-memory rule for #3-#5
+   against the bytes their launchers ask for;
 2. the main paths at the d=5 width of ``configs/cube_pde.yaml``, each
    with every kernel launch counter zeroed just before and read just
    after:
@@ -56,10 +58,11 @@ which raises on failure:
    #6 (v within ``rtol=2e-4, atol=2e-5``, the input gradient) and #7
    (each weight-gradient tensor) at 80,000 points for the trained tied
    adversary, an untied one and the d=20 geometry with its Fourier bank,
-   #6 also at ragged counts (M = 80,001 and 37, the trained and the
-   untied adversary),
-   and the fused adversary side's weight gradients against autograd
-   through the plain ``create_graph`` path;
+   tied and untied (the untied one runs #7's 8-point tiles),
+   #6 and #7 also at ragged counts (M = 80,001 and 37, the trained and
+   the untied adversary), two launches of #7 compared bitwise, and the
+   fused adversary side's weight gradients against autograd through the
+   plain ``create_graph`` path;
 4. CUDA-event times (median of 20 after warm-up) of each kernel and its
    plain version at the main path's shapes, beside the bound the card's
    published peaks put on the same work;
@@ -281,8 +284,8 @@ def main() -> int:
 
     # 1. build ---------------------------------------------------------
     # #1/#2 (xnode_fwd.cu) get one library per (H, Hh) pair of the
-    # shipped configs, #6 (disc_fwd.cu) one per adversary width; the
-    # others one each
+    # shipped configs, #6 (disc_fwd.cu) and #7 (disc_train.cu) one per
+    # adversary width; #3-#5 (xnode_grad.cu) one
     shipped = {}
     for name in ("cube_pde", "ex4_1_d10", "highdim_d20"):
         gcfg = load_params(os.path.join(ROOT, "configs", f"{name}.yaml"))
@@ -291,9 +294,10 @@ def main() -> int:
     fwd_widths = sorted({dims[:2] for _, dims in shipped.values()})
     disc_widths = sorted({(g.v_hidden_dim,) for g, _ in shipped.values()})
     t = time.perf_counter()
-    libs = _build.build([("xnode_grad", None), ("disc_train", None)]
+    libs = _build.build([("xnode_grad", None)]
                         + [("xnode_fwd", w) for w in fwd_widths]
-                        + [("disc_fwd", w) for w in disc_widths])
+                        + [(src, w) for src in ("disc_fwd", "disc_train")
+                           for w in disc_widths])
     print(f"build: {time.perf_counter() - t:.2f} s -> {_build.build_dir()}")
     for name in libs:
         log = (_build.build_dir() / f"{name}.log").read_text()
@@ -305,7 +309,7 @@ def main() -> int:
         # registers: no stack, no spills
         frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill "
                             r"stores, (\d+) bytes spill loads", log)
-        if name.startswith(("xnode_fwd", "disc_fwd")) and (
+        if name.startswith(("xnode_fwd", "disc_fwd", "disc_train")) and (
                 not frames or any(v != "0" for f in frames for v in f)):
             raise AssertionError(f"{name}: stack or spills {frames}")
     # the staged copy's size in Python against the library's, at the
@@ -320,7 +324,7 @@ def main() -> int:
         print(f"  xnode_fwd {name} (H={H}, Hh={Hh}): {got} staged floats, "
               f"{4 * got} bytes of shared memory a block")
     for name, tied in (("cube_pde", True), ("cube_pde", False),
-                       ("highdim_d20", True)):
+                       ("highdim_d20", True), ("highdim_d20", False)):
         gcfg = shipped[name][0]
         geom = disc_train.geom_of(init_discriminator(
             gcfg.dim, gcfg.v_hidden_dim, gcfg.v_layers, tied,
@@ -333,6 +337,23 @@ def main() -> int:
         print(f"  disc_fwd {name} {geom}: {got} staged floats; "
               f"{disc_train.fwd_smem_bytes(geom)} bytes of shared memory a "
               "block with the sign words and slots")
+        # #7: the tile's shared bytes in Python against the launcher's
+        bwd_name = _build.lib_name("disc_train", (geom.H,))
+        smem_of = ctypes.CDLL(str(libs[bwd_name])).disc_bwd_smem_bytes
+        smem_of.restype = ctypes.c_longlong
+        tile = disc_train.bwd_tile(geom)
+        got = smem_of(geom.F, geom.H, geom.L, int(tied), tile)
+        if got != disc_train.bwd_smem_bytes(geom, tile):
+            raise AssertionError(f"disc_train.bwd_smem_bytes {name} {geom}: "
+                                 f"the launcher asks for {got} bytes")
+        log = (_build.build_dir() / f"{bwd_name}.log").read_text()
+        regs = [re.search(r"Used (\d+) registers", c).group(1)
+                for c in log.split("Compiling entry function")[1:]
+                if "disc_bwd_kernel" in c.splitlines()[0]]
+        print(f"  disc_train {name} {geom}: {tile} points a tile, rows of "
+              f"{disc_train.bwd_stride(tile)} floats, {got} bytes of shared "
+              f"memory a block, {disc_train.BWD_THREADS} threads, "
+              f"{regs[0] if regs else '?'} registers a thread")
     # the wrapper's shared-memory rule against the bytes the launchers of
     # #3-#5 ask for, at every shipped config, method and listed tile
     smem_of = ctypes.CDLL(str(libs["xnode_grad"])).xnode_udu_smem_bytes
@@ -761,7 +782,9 @@ def main() -> int:
 
     # kernels #6 and #7 at the main path's 80,000 points: the trained tied
     # adversary of 2c, an untied one and the d=20 geometry with its
-    # Fourier bank (random weights, seeded random cotangents)
+    # Fourier bank, tied and untied (random weights, seeded random
+    # cotangents); the untied d=20 net is the one that takes #7's 8-point
+    # tiles with their unpadded rows
     vpts = batch.x.reshape(-1, cfg.dim + 1).contiguous()
     M_v = vpts.shape[0]
     vg = torch.Generator(device=dev).manual_seed(3)
@@ -776,7 +799,11 @@ def main() -> int:
         ("tied d=20 v_fourier_features=1, random", init_discriminator(
             cfg20.dim, cfg20.v_hidden_dim, cfg20.v_layers, True,
             cfg20.v_fourier_features, generator=vg, device=dev), pts20,
-         cfg20.v_layers, True, cfg20.v_fourier_features)]
+         cfg20.v_layers, True, cfg20.v_fourier_features),
+        ("untied d=20 v_fourier_features=1, random", init_discriminator(
+            cfg20.dim, cfg20.v_hidden_dim, cfg20.v_layers, False,
+            cfg20.v_fourier_features, generator=vg, device=dev), pts20,
+         cfg20.v_layers, False, cfg20.v_fourier_features)]
     with torch.no_grad():
         for label, vp, dpts, n_layers, tied, n_freq in dcases:
             geom = disc_train.geom_of(vp, n_layers, tied)
@@ -794,18 +821,26 @@ def main() -> int:
             gb = torch.randn((M_v, geom.F), generator=vg, device=dev)
             sizes = [a.numel() for a in disc_train.flat_disc(vp, n_layers,
                                                              tied)]
+            g_bwd = disc_train.v_dv_bwd_cuda(dpacked, dfeats, vb, gb, geom)
             errs["disc_bwd"] = max(errs["disc_bwd"], compare_scaled(
-                f"disc_bwd {label}",
-                disc_train.v_dv_bwd_cuda(dpacked, dfeats, vb, gb, geom),
+                f"disc_bwd {label}", g_bwd,
                 disc_train.v_dv_bwd_plain(dpacked, dfeats, vb, gb, geom),
                 sizes))
-        # #6 at point counts one past a whole number of blocks and under
-        # one block: the trained adversary, and the untied one (the trained
-        # one's relu layers die in training, so its gin is zero)
+            if not torch.equal(g_bwd, disc_train.v_dv_bwd_cuda(
+                    dpacked, dfeats, vb, gb, geom)):
+                raise AssertionError(f"disc_bwd {label}: two launches differ")
+            print(f"  disc_bwd {label}, {disc_train.bwd_tile(geom)}-point "
+                  "tiles: two launches bitwise equal")
+        # #6 and #7 at point counts one past a whole number of blocks (and
+        # of #7's tiles) and under one block: the trained adversary, and
+        # the untied one (the trained one's relu layers die in training, so
+        # its gin is zero)
         for label, vp, _, n_layers, tied, _ in dcases[:2]:
             geom = disc_train.geom_of(vp, n_layers, tied)
             dpacked = disc_train.live_packed_disc(vp, n_layers,
                                                   tied).detach()
+            sizes = [a.numel() for a in disc_train.flat_disc(vp, n_layers,
+                                                             tied)]
             for m_rag in (M_v + 1, 37):
                 rpts = cube.interior(vg, -(-m_rag // cfg.N_t)).x.reshape(
                     -1, cfg.dim + 1)[:m_rag]
@@ -817,6 +852,13 @@ def main() -> int:
                     errs["disc_fwd"],
                     compare(f"disc_fwd v {rlabel}", v_k, v_p),
                     compare_scaled(f"disc_fwd gin {rlabel}", g_k, g_p))
+                vb = torch.randn((m_rag,), generator=vg, device=dev)
+                gb = torch.randn((m_rag, geom.F), generator=vg, device=dev)
+                errs["disc_bwd"] = max(errs["disc_bwd"], compare_scaled(
+                    f"disc_bwd {rlabel}",
+                    disc_train.v_dv_bwd_cuda(dpacked, dfeats, vb, gb, geom),
+                    disc_train.v_dv_bwd_plain(dpacked, dfeats, vb, gb, geom),
+                    sizes))
 
     # the fused adversary side's weight gradients (#6 forward, #7
     # backward) against autograd through the plain create_graph path, in

@@ -256,9 +256,13 @@ def cuda_signature(source, symbol):
                          ids=lambda k: k.symbol)
 def test_disc_ctypes_argtypes_match_c_signature(kernel):
     # #6 has a source of its own, built once per width; #7 stays in
-    # disc_train.cu
-    source = {"disc_fwd_launch": "disc_fwd",
-              "disc_bwd_launch": "disc_train"}[kernel.symbol]
+    # disc_train.cu. Each block size is a compile-time constant of its
+    # source, mirrored in the wrapper for the grid rule.
+    source, define, threads = {
+        "disc_fwd_launch": ("disc_fwd", "XD_FWD_THREADS",
+                            disc_train.FWD_THREADS),
+        "disc_bwd_launch": ("disc_train", "XD_BWD_THREADS",
+                            disc_train.BWD_THREADS)}[kernel.symbol]
     assert kernel.source == source
     assert source in _build.KERNEL_SOURCES
     params = cuda_signature(source, kernel.symbol)
@@ -266,6 +270,8 @@ def test_disc_ctypes_argtypes_match_c_signature(kernel):
     assert len(params) == len(declared)
     for p, ct in zip(params, declared):
         assert ct is (ctypes.c_void_p if "*" in p else ctypes.c_int), p
+    text = (_build.CSRC / f"{source}.cu").read_text()
+    assert re.findall(r"#define " + define + r" (\d+)", text) == [str(threads)]
 
 
 def test_disc_cuda_wrappers_reject_cpu_tensors():
@@ -289,10 +295,11 @@ def test_disc_cuda_wrappers_reject_cpu_tensors():
 
 
 def test_fits_gate_and_tiles():
-    # the shipped d=5 and d=20 adversaries fit, tied or not (16-point tiles
-    # for #7, 8 for the untied d=20 one); test_fused_disc.py::
+    # the shipped d=5 and d=20 adversaries fit, tied or not (#7 takes
+    # 32-point tiles for the tied d=5 net, 16 for the untied d=5 and the
+    # tied d=20 ones, 8 for the untied d=20 one); test_fused_disc.py::
     # test_fits_gate's absurd geometry does not
-    for name, tiles in (("cube_pde", (16, 16)), ("highdim_d20", (16, 8))):
+    for name, tiles in (("cube_pde", (32, 16)), ("highdim_d20", (16, 8))):
         cfg = load_params(os.path.join(REPO, "configs", f"{name}.yaml"))
         for tied, tile in zip((True, False), tiles):
             p = init_discriminator(cfg.dim, cfg.v_hidden_dim, cfg.v_layers,
@@ -301,9 +308,17 @@ def test_fits_gate_and_tiles():
             assert disc_train.v_fused_fits(p, cfg.v_layers, tied), name
             geom = disc_train.geom_of(p, cfg.v_layers, tied)
             assert disc_train.bwd_tile(geom) == tile
+    # by hand: 2 (L + 1) H + 2 H + 2 F + 1 rows of tile + 4 floats (tile
+    # floats at 8 points), then the n_params accumulator
     geom = disc_train.DiscGeom(F=6, H=50, L=9, tied=True)
     assert geom.n_params == 2951
-    assert disc_train.bwd_smem_bytes(geom, 16) == 4 * (2951 + 17 * 1113)
+    assert disc_train.bwd_smem_bytes(geom, 32) == 4 * (2951 + 36 * 1113)
+    assert disc_train.bwd_smem_bytes(geom, 32) == 172076
+    d20 = disc_train.DiscGeom(F=61, H=64, L=9, tied=False)
+    assert d20.n_params == 41473
+    assert disc_train.bwd_smem_bytes(d20, 8) == 4 * (41473 + 8 * 1531)
+    assert disc_train.bwd_smem_bytes(d20, 8) == 214884
+    assert disc_train.bwd_smem_bytes(d20, 16) > 232448
     big = init_discriminator(50, 400, 40, False, 4, device="cpu")
     assert not disc_train.v_fused_fits(big, 40, False)
     with pytest.raises(ValueError, match="shared memory"):
@@ -311,24 +326,109 @@ def test_fits_gate_and_tiles():
                                                 tied=False))
 
 
-def test_disc_fwd_nvcc_command_per_width():
-    # kernel #6 is built once per adversary width, with -DXD_H=<H>
-    libs = [_build.library_path("disc_fwd", (H,)) for H in (50, 64)]
-    assert [p.name for p in libs] == ["libdisc_fwd_H50.so",
-                                      "libdisc_fwd_H64.so"]
+@pytest.mark.parametrize("source", ["disc_fwd", "disc_train"])
+def test_disc_fwd_nvcc_command_per_width(source):
+    # kernels #6 and #7 are built once per adversary width, with
+    # -DXD_H=<H>
+    libs = [_build.library_path(source, (H,)) for H in (50, 64)]
+    assert [p.name for p in libs] == [f"lib{source}_H50.so",
+                                      f"lib{source}_H64.so"]
     assert all(p.parent == _build.build_dir() for p in libs)
-    cmd = _build.nvcc_command("disc_fwd", (64,), libs[1])
-    assert cmd[-1] == str(_build.CSRC / "disc_fwd.cu")
+    cmd = _build.nvcc_command(source, (64,), libs[1])
+    assert cmd[-1] == str(_build.CSRC / f"{source}.cu")
     assert "-DXD_H=64" in cmd and not any(a.startswith("-DXN_") for a in cmd)
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert "--use_fast_math" not in cmd
-    bwd = _build.nvcc_command("disc_train", None, "libdisc_train.so")
-    assert not any(a.startswith("-DX") for a in bwd)
     for widths in (None, (50, 10)):
         with pytest.raises(ValueError, match="width"):
-            _build.nvcc_command("disc_fwd", widths, "lib.so")
+            _build.nvcc_command(source, widths, "lib.so")
     with pytest.raises(ValueError, match="width"):
-        _build.library_path("disc_train", (50,))
+        _build.library_path(source, None)
+
+
+def tile_walk(packed, feats, vb, gb, geom, tile, blocks):
+    """Kernel #7's algorithm in torch: block ``b`` walks tiles ``b, b +
+    blocks, ...`` of ``tile`` points, zero past ``M``; per tile the
+    forward keeps ``relu(a_i)`` (``i < L``) and ``a_L``, the sweep's
+    reverse masks each product at its output by the next layer's sign, and
+    every weight cotangent is added into the block's partial; the partials
+    are summed in block order.
+
+    A copy of the algorithm, not of the ``.cu``: it shows that the tile
+    walk, the relu outputs standing in for the masks and the masks applied
+    at the outputs give the plain version's gradient, and nothing ties it
+    to the kernel's code. The kernel is held on the card by
+    ``chip_smoke.py``'s phase 3."""
+    pairs = geom.unpack(packed)
+    (w0, b0), (wo, _) = pairs[0], pairs[-1]
+    L, n_tiles = geom.L, -(-feats.shape[0] // tile)
+    pad = n_tiles * tile - feats.shape[0]
+    z_all, gb_all = (torch.cat([a, a.new_zeros(pad, a.shape[1])])
+                     for a in (feats, gb))
+    vb_all = torch.cat([vb, vb.new_zeros(pad)])
+
+    def hid(i):
+        return geom.hidden(pairs, i)
+
+    def where(m, x):
+        return torch.where(m > 0, x, torch.zeros_like(x))
+
+    grad = torch.zeros_like(packed)
+    for b in range(blocks):
+        acc = torch.zeros_like(packed)
+        gp = geom.unpack(acc)
+        for t in range(b, n_tiles, blocks):
+            z, g_b, v_b = (a[t * tile:(t + 1) * tile]
+                           for a in (z_all, gb_all, vb_all))
+            A = [torch.relu(z @ w0.T + b0)]
+            for i in range(L):
+                a = A[i] @ hid(i)[0].T + hid(i)[1]
+                A.append(torch.relu(a) if i + 1 < L else a)
+            y = torch.tanh(A[L])
+            G = [None] * L + [wo * (1.0 - y * y)]
+            for i in range(L - 1, -1, -1):
+                G[i] = where(A[i], G[i + 1] @ hid(i)[0])
+            tb = where(A[0], g_b @ w0.T)
+            gp[0][0].add_(G[0].T @ g_b)
+            for i in range(L):
+                geom.hidden(gp, i)[0].add_(G[i + 1].T @ tb)
+                nxt = tb @ hid(i)[0].T
+                tb = where(A[i + 1], nxt) if i + 1 < L else nxt
+            s = 1.0 - y * y
+            gp[-1][0].add_((tb * s + v_b[:, None] * y).sum(0, keepdim=True))
+            gp[-1][1].add_(v_b.sum())
+            abar = (v_b[:, None] * wo - 2.0 * y * wo * tb) * s
+            for i in range(L - 1, -1, -1):
+                gw, gbias = geom.hidden(gp, i)
+                gw.add_(abar.T @ A[i])
+                gbias.add_(abar.sum(0))
+                abar = where(A[i], abar @ hid(i)[0])
+            gp[0][0].add_(abar.T @ z)
+            gp[0][1].add_(abar.sum(0))
+        grad += acc
+    return grad
+
+
+@pytest.mark.parametrize("tied,n_freq,n_points,tile,blocks",
+                         [(True, 0, 77, 32, 2), (False, 0, 37, 8, 3),
+                          (True, 1, 40, 16, 5)])
+def test_bwd_tile_walk_matches_plain_f64(tied, n_freq, n_points, tile,
+                                         blocks):
+    # ragged last tiles, blocks with no tile (40 points, 3 tiles, 5
+    # blocks), relu outputs standing in for the masks
+    _, tparams = shared_disc(tied, n_freq, seed=16)
+    geom = disc_train.geom_of(tparams, L, tied)
+    packed = torch.cat([a.reshape(-1) for a in disc_train.flat_disc(
+        tparams, L, tied)]).double()
+    feats = disc_train.disc_features(torch.as_tensor(
+        sample_points(n_points, seed=17)).double(), n_freq)
+    rng = np.random.default_rng(18)
+    vb = torch.as_tensor(rng.normal(size=n_points))
+    gb = torch.as_tensor(rng.normal(size=(n_points, geom.F)))
+    torch.testing.assert_close(
+        tile_walk(packed, feats, vb, gb, geom, tile, blocks),
+        disc_train.v_dv_bwd_plain(packed, feats, vb, gb, geom),
+        rtol=1e-10, atol=1e-10)
 
 
 def test_disc_fwd_staged_copy_hand_count():

@@ -17,7 +17,15 @@ disc_bwd_kernel``) replaces
 packed weights, second-order terms included, summed over the points. The
 Pallas kernel takes it from ``jax.vjp`` of the whole function; here the
 adjoint is derived by hand (:func:`v_dv_bwd_plain` writes it as batched
-tensor math, the kernel per tile of points).
+tensor math, the kernel per tile of points). It is built once per
+adversary width ``H`` (``libdisc_train_H<H>.so``). A block of
+:data:`BWD_THREADS` threads walks tiles of :func:`bwd_tile` points with
+every layer's vectors in shared memory (rows of :func:`bwd_stride`
+floats); each matrix product runs as register micro-tiles (2 outputs x 4
+points a thread, one float4 of the tile and two weights per input), each
+weight cotangent as micro-tiles of owned entries, summed over the tile's
+points in order; one partial per block, summed over blocks in a fixed
+order, so two launches are bitwise equal.
 
 :class:`VDvFused` is the autograd function (forward #6, backward #7), and
 :func:`v_dv_fused` the drop-in for ``(v, grad v)`` that
@@ -46,7 +54,7 @@ import torch
 from xnode_wan_tpu_torch.models.discriminator import disc_features
 from xnode_wan_tpu_torch.ops.kernels._build import CudaKernel
 from xnode_wan_tpu_torch.ops.kernels.steppers import (MAX_SMEM_BYTES,
-                                                      _pad4,
+                                                      _pad4, bwd_blocks,
                                                       require_cuda_f32)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -58,12 +66,13 @@ FWD_KERNEL = CudaKernel("disc_fwd", "disc_fwd_launch",
 BWD_KERNEL = CudaKernel("disc_train", "disc_bwd_launch",
                         [_P, _I, _P, _P, _P, _P, _P] + [_I] * 7)
 
-# Compile-time caps of csrc/disc_net.cuh
+# Compile-time constants of csrc/disc_net.cuh, disc_fwd.cu, disc_train.cu
 MAX_WIDTH = 64        # XD_MAX_WIDTH: v_hidden_dim
 MAX_FEATS = 128       # XD_MAX_FEATS: feature width F
 MAX_LAYERS = 32       # XD_MAX_LAYERS: v_layers
 FWD_THREADS = 128     # XD_FWD_THREADS: a kernel-#6 block, one point each
-BWD_TILES = (16, 8)   # points per tile of kernel #7, largest first
+BWD_TILES = (32, 16, 8)  # points per tile of kernel #7, largest first
+BWD_THREADS = 256     # XD_BWD_THREADS: a kernel-#7 block
 
 
 class DiscGeom(NamedTuple):
@@ -234,14 +243,22 @@ def fwd_smem_bytes(geom: DiscGeom) -> int:
                 + (geom.L * -(-geom.H // 32) + geom.H) * FWD_THREADS)
 
 
+def bwd_stride(tile: int) -> int:
+    """Floats a row of kernel #7's tile buffers takes for ``tile`` points
+    (``xd_bwd_stride``): ``tile + 4``, so that rows start on 16 bytes and
+    eight rows an odd count apart fall on distinct banks; ``tile`` itself
+    below 16 points, where the pad would not fit the untied d=20 net."""
+    return tile + 4 if tile >= 16 else tile
+
+
 def bwd_smem_bytes(geom: DiscGeom, tile: int) -> int:
     """Shared memory of one kernel-#7 block (``xd_bwd_smem`` in the
-    ``.cu``): the block's gradient accumulator, then each layer's
-    pre-activations and sweep vectors, two cotangent buffers, features,
-    ``gb`` and ``vb`` for ``tile`` points, rows padded to ``tile + 1``."""
+    ``.cu``): each layer's activations and sweep vectors, two cotangent
+    buffers, features, ``gb`` and ``vb`` for ``tile`` points, rows of
+    :func:`bwd_stride` floats, then the block's gradient accumulator."""
     F, H, L = geom.F, geom.H, geom.L
     rows = 2 * (L + 1) * H + 2 * H + 2 * F + 1
-    return 4 * (geom.n_params + (tile + 1) * rows)
+    return 4 * (geom.n_params + bwd_stride(tile) * rows)
 
 
 def bwd_tile(geom: DiscGeom) -> int:
@@ -303,30 +320,25 @@ def v_dv_fwd_cuda(packed, feats, geom: DiscGeom):
     return v, gin
 
 
-def bwd_blocks(M: int, tile: int, device: torch.device) -> int:
-    """Blocks of kernel #7: one per tile up to four per SM; each block
-    walks its tiles in a fixed order and writes one partial gradient."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-M // tile), 4 * sms))
-
-
 def v_dv_bwd_cuda(packed, feats, vb, gb, geom: DiscGeom) -> torch.Tensor:
-    """Launch kernel #7 and its fixed-order reduce on PyTorch's current
-    stream; same result as :func:`v_dv_bwd_plain`."""
+    """Launch kernel #7, from the library built for ``geom.H``, and its
+    fixed-order reduce on PyTorch's current stream; same result as
+    :func:`v_dv_bwd_plain`."""
     dev = _checks(packed, feats, geom)
     require_cuda_f32([vb, gb])
     M = feats.shape[0]
     if vb.shape != (M,) or gb.shape != (M, geom.F):
         raise ValueError("shape mismatch: vb [M], gb [M, F]")
     tile = bwd_tile(geom)
-    blocks = bwd_blocks(M, tile, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = bwd_blocks(M, tile, bwd_smem_bytes(geom, tile), BWD_THREADS, sms)
     partial = torch.empty((blocks, geom.n_params), dtype=torch.float32,
                           device=dev)
     grad = torch.empty((geom.n_params,), dtype=torch.float32, device=dev)
     BWD_KERNEL(dev, packed.data_ptr(), packed.numel(), feats.data_ptr(),
                vb.data_ptr(), gb.data_ptr(), partial.data_ptr(),
                grad.data_ptr(), M, geom.F, geom.H, geom.L, int(geom.tied),
-               tile, blocks)
+               tile, blocks, widths=(geom.H,))
     return grad
 
 

@@ -20,11 +20,12 @@ import torch
 FUSED_KERNEL_METHODS = ("euler", "midpoint", "heun", "rk4")
 METHOD_IDS = {m: i for i, m in enumerate(FUSED_KERNEL_METHODS)}
 
-# Compile-time caps of csrc/steppers.cuh, and the shared memory one block
-# may use on Hopper (232,448 bytes).
+# Compile-time caps of csrc/steppers.cuh, the shared memory one block may
+# use on Hopper (232,448 bytes), and that of one SM.
 MAX_WIDTH = 64
 MAX_FIELD_IN = 128
 MAX_SMEM_BYTES = 232448
+SM_SMEM_BYTES = 233472
 
 
 def rk_step(method: str, field, t, dt, h):
@@ -247,3 +248,14 @@ def require_cuda_f32(tensors: List[torch.Tensor]) -> torch.device:
                              f"tensors on one CUDA device, got {t.dtype} on "
                              f"{t.device}")
     return dev
+
+
+def bwd_blocks(n_items: int, tile: int, smem: int, threads: int,
+               sms: int) -> int:
+    """The persistent grid of a kernel that walks tiles of ``tile`` items
+    and writes one partial row per block: as many blocks as fit the SMs at
+    once by shared memory and threads, at most one per tile. Registers are
+    not counted: where they allow fewer, the other blocks start as SMs
+    free up, and the result is the same (one partial row per block)."""
+    per_sm = min(SM_SMEM_BYTES // (smem + 1024), 2048 // threads)
+    return max(1, min(-(-n_items // tile), per_sm * sms))

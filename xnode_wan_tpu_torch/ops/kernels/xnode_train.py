@@ -49,7 +49,7 @@ import torch
 from xnode_wan_tpu_torch.ops.kernels._build import CudaKernel
 from xnode_wan_tpu_torch.ops.kernels.steppers import (MAX_SMEM_BYTES,
                                                       METHOD_IDS, RK_TABLES,
-                                                      FlatNet,
+                                                      FlatNet, bwd_blocks,
                                                       field_fwd_tan,
                                                       interval_tan,
                                                       mlp_relu_fwd_tan,
@@ -74,7 +74,6 @@ FWD_STORE_KERNEL = CudaKernel("xnode_grad", "xnode_udu_fwd_store_launch",
 BWD_KERNEL = CudaKernel("xnode_grad", "xnode_udu_bwd_launch",
                         _PATH + [_P] * 6 + _GEOM + [_I, _I, _I])
 MAX_THREADS = 256             # XG_MAX_THREADS
-SM_SMEM_BYTES = 233472        # shared memory of one Hopper SM
 # Paths per tile, largest first; the threads of a block follow from the
 # tile (block_threads). From the tile sweep (tile_sweep.py) on an H100:
 # the rule picks the fastest shape swept for cube_pde (#3/#4 4 paths and
@@ -479,16 +478,6 @@ def grad_tile(dims, d: int, method: str, backward: bool) -> Tuple[int, int]:
     raise ValueError(f"the net {dims} with d={d}, {method}, does not fit "
                      f"kernel {kernel}'s shared memory ({MAX_SMEM_BYTES} "
                      "bytes) at one path a tile")
-
-
-def bwd_blocks(n_paths: int, tile: int, smem: int, threads: int,
-               sms: int) -> int:
-    """The persistent grid of kernel #5: as many blocks as fit the SMs at
-    once by shared memory and threads, at most one per tile. Registers are
-    not counted: where they allow fewer, the other blocks start as SMs
-    free up, and the result is the same (one partial row per block)."""
-    per_sm = min(SM_SMEM_BYTES // (smem + 1024), 2048 // threads)
-    return max(1, min(-(-n_paths // tile), per_sm * sms))
 
 
 def u_du_fwd_cuda(net: FlatNet, packed, t0, dt, feats, dfeats, seed, dseed,
