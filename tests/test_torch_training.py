@@ -213,7 +213,8 @@ def test_same_seed_same_run():
 @pytest.mark.parametrize("kw", [dict(ensemble=2), dict(adjoint=True),
                                 dict(independent_uv=True), dict(primal="wan"),
                                 dict(tangent_shards=2),
-                                dict(domain="NSphere_TCone", shape_param=1.0)])
+                                dict(domain="NSphere_TCone", shape_param=1.0,
+                                     qmc="halton")])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         NODEWANSolver(SolverConfig(**dict(SMALL, **kw)),

@@ -9,8 +9,6 @@ takes the plain versions of the fused kernels and the JAX package on the
 CPU its XLA route.
 """
 
-import math
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -328,12 +326,3 @@ def test_fused_gate_exclusions():
                dict(ensemble=2)):
         assert not twf.fused_gate(base.replace(**kw)), kw
 
-
-def test_make_losses_rejects_grouped_domains():
-    class Cone:
-        def V(self):
-            return math.pi
-
-    with pytest.raises(NotImplementedError, match="exit-group"):
-        twf.make_losses(load_problem("cube_pde"), Cone(),
-                        SolverConfig(**SMALL), apply_xnode, None)

@@ -8,7 +8,9 @@ same source's path forward, and :func:`rel_err`), and trains it
 (:class:`NODEWANSolver`, whose weak-form loss takes ``u`` and ``grad_x u``
 from :func:`u_du_fused`, through ``csrc/xnode_grad.cu``, and with
 ``fused_v`` the adversary side from :func:`v_dv_fused`, through
-``csrc/disc_fwd.cu`` and ``csrc/disc_train.cu``). ``python -m xnode_wan_tpu_torch.main`` is the
+``csrc/disc_fwd.cu`` and ``csrc/disc_train.cu``), on the hypercube or the
+moving domains :class:`NSphereTCone` and :class:`NSphereTHourglass`
+(:func:`make_domain`). ``python -m xnode_wan_tpu_torch.main`` is the
 command line, with logs, checkpoints and resume. Entry points run on the current CUDA device unless the caller
 passes ``device="cpu"``; CPU tensors take the kernels' plain PyTorch
 versions.
@@ -25,7 +27,9 @@ from xnode_wan_tpu_torch.ops.kernels.xnode_eval import fused_evaluate
 from xnode_wan_tpu_torch.ops.kernels.xnode_train import (fused_from_batch,
                                                           u_du_fused,
                                                           u_forward_fused)
-from xnode_wan_tpu_torch.ops.sampling import Hypercube, PathBatch
+from xnode_wan_tpu_torch.ops.sampling import (Hypercube, NSphereTCone,
+                                              NSphereTHourglass, PathBatch,
+                                              make_domain)
 from xnode_wan_tpu_torch.ops.weak_form import make_losses, v_phi_grads_fused
 from xnode_wan_tpu_torch.problems import Problem, load_problem
 from xnode_wan_tpu_torch.training import NODEWANSolver
@@ -38,7 +42,8 @@ from xnode_wan_tpu_torch.utils.torch_compat import (disc_params_from_jax,
 __all__ = [
     "SolverConfig", "load_params", "default_device", "XNODE", "init_xnode",
     "apply_xnode", "evaluate_points", "fused_evaluate", "u_forward_fused",
-    "Hypercube", "PathBatch", "Problem", "load_problem", "l_norm", "rel_err",
+    "Hypercube", "NSphereTCone", "NSphereTHourglass", "make_domain",
+    "PathBatch", "Problem", "load_problem", "l_norm", "rel_err",
     "load_reference_state_dict", "params_from_jax", "disc_params_from_jax",
     "NODEWANSolver", "make_losses", "u_du_fused", "fused_from_batch",
     "init_discriminator", "v_dv_fused", "v_fused_fits", "v_phi_grads_fused",

@@ -605,13 +605,14 @@ def u_du_fused(params, feats, dfeats, seed, dseed, times, mask, t_start, *,
 
 def path_tangent_inputs(batch, problem, cfg):
     """``(feats [N, F], dfeats [N, d, F], seed [N], dseed [N, d])`` of a
-    path batch, in f32: the seed through :func:`models.xnode.path_seed_fn`
-    and the Fourier features, with their spatial tangents by forward mode
+    path batch, in the batch's dtype (the kernels take f32 batches): the
+    seed through :func:`models.xnode.path_seed_fn` and the Fourier
+    features, with their spatial tangents by forward mode
     (``torch.func.jvp``) in each of the d coordinate directions."""
     from xnode_wan_tpu_torch.models.xnode import path_seed_fn, spatial_features
 
     with torch.no_grad():
-        xs = batch.space[:, 0, :].float()
+        xs = batch.space[:, 0, :]
         seed_of = path_seed_fn(batch, problem, cfg)
 
         def feats_of(x):

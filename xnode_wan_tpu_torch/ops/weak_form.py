@@ -14,6 +14,10 @@ the initial-value penalty on h-seeded paths only. Terms:
   (``:66-70``);
 * ``I = s1 - s2 + s3``; ``int = log max(I^2, eps) - log max(V sum v^2 / M,
   eps)``; ``loss_u = int + alpha (init + bdry)``, ``loss_v = -int``.
+
+On the moving domains (``group_loss``, the default) ``int`` is the sum of
+one such log ratio per exit group (:func:`grouped_interior_objective`),
+each group's sums taken in a fixed order.
 """
 
 from __future__ import annotations
@@ -197,6 +201,68 @@ def bdry_loss(u_apply: Callable, u_params, bbatch: PathBatch, problem,
                             problem, at_exit=at_exit)
 
 
+def _bin_sums(vals: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
+    """Per-bin sums of ``vals [N]`` over ``onehot [N, B]``: a reduction
+    over N, which takes the same order in every run (a scatter-add takes
+    the order of its atomics on CUDA, and so differs from run to run)."""
+    return (onehot * vals[:, None]).sum(dim=0)
+
+
+def grouped_interior_objective(u, du, v, phi, dphi, batch: PathBatch,
+                               problem, domain, s1_raw_v: bool = False):
+    """Per-exit-group log-ratio objective (JAX ``weak_form.py:285-345``).
+
+    The reference takes a separate ``log I_g^2 - log norm_g`` per ragged
+    path group, one group per boundary-exit time (``src/training.py:
+    128-137``, ``src/loss.py:87-90``), so the adversary faces one residual
+    channel per group. Here a path's group is its last valid time index
+    (``L`` bins, dead rows in an overflow bin), with the weights ``V / (N_g
+    L_n)`` of the reference's ``V / (N_g L_g)``. On the hypercube every
+    path is in bin ``L - 1`` and this is the pooled objective.
+
+    Returns ``(int_loss, I_total, norm_total)``.
+    """
+    dtype = u.dtype
+    l = u.shape[1]
+    m = batch.mask.to(dtype)
+    vol = domain.V()
+
+    first, last, row_valid = _endpoint_indices(batch.mask)
+    rows = torch.arange(u.shape[0], device=u.device)
+    rv = row_valid.to(dtype)
+    seg = torch.where(row_valid, last, torch.full_like(last, l))
+    onehot = torch.nn.functional.one_hot(seg, l + 1).to(dtype)
+    n_g = _bin_sums(rv, onehot)[:l]
+    occupied = n_g > 0
+    n_g = torch.clamp(n_g, min=1.0)
+    l_n = torch.clamp(m.sum(dim=1), min=1.0)   # per-path valid count
+
+    first_pts = batch.x[rows, first]
+    # h for T0-seeded rows, g(t_re, x) for the g-seeded re-entry rows
+    init_vals = torch.where(batch.seed_from_h, problem.h(first_pts),
+                            problem.g(first_pts))
+    tf = v if s1_raw_v else phi
+    s1_n = (u[rows, last] * tf[rows, last]
+            - init_vals * tf[rows, first]) * rv
+
+    X = batch.x
+    s3f = (diffusion_term(problem, X, dphi[..., 1:], du)
+           + drift_term(problem, X, phi, du)
+           + problem.c(X, u) * u * phi + problem.f(X) * phi)
+    s23_n = torch.sum((s3f - u * dphi[..., 0]) * m, dim=1) / l_n   # [N]
+    v2_n = torch.sum(v * v * m, dim=1) / l_n
+
+    i_g = vol * _bin_sums(s1_n + s23_n * rv, onehot)[:l] / n_g
+    norm_g = vol * _bin_sums(v2_n * rv, onehot)[:l] / n_g
+
+    per_g = (torch.log(torch.clamp(i_g ** 2, min=_EPS))
+             - torch.log(torch.clamp(norm_g, min=_EPS)))
+    zero = torch.zeros_like(per_g)
+    return (torch.where(occupied, per_g, zero).sum(),
+            torch.where(occupied, i_g, zero).sum(),
+            torch.where(occupied, norm_g, zero).sum())
+
+
 class WeakFormLosses(NamedTuple):
     """The two objectives and their hoisted split forms: inside one outer
     iteration the adversary side ``(v, phi, grad phi)`` is constant across
@@ -214,10 +280,6 @@ class WeakFormLosses(NamedTuple):
 def make_losses(problem, domain, cfg: SolverConfig, u_apply: Callable,
                 v_apply: Callable) -> WeakFormLosses:
     """Build the two objectives; each returns ``(loss, aux_dict)``."""
-    if cfg.group_loss and not getattr(domain, "single_exit_group", False):
-        raise NotImplementedError(
-            "the per-exit-group objective (grouped_interior_objective) of "
-            "moving domains is not ported yet")
     use_fused = fused_gate(cfg)
     use_fused_v = fused_v_gate(cfg)
     bdry_at_exit = bool(getattr(domain, "boundary_at_exit", False))
@@ -239,12 +301,23 @@ def make_losses(problem, domain, cfg: SolverConfig, u_apply: Callable,
                 check_fits(geom_of(v_params, cfg.v_layers, cfg.tied_v))
         return v_phi_and_grads(v_apply, v_params, batch.x, domain.func_w)
 
+    # the hypercube's paths all share one exit group: the grouped
+    # objective is the pooled one there, so the pooled form is taken
+    grouped = cfg.group_loss and not getattr(domain, "single_exit_group",
+                                             False)
+
     def int_from_sides(u, du, vside, batch):
         v, phi, dphi = vside
-        current, norm = interior_terms(u, du, v, phi, dphi, batch, problem,
-                                       domain, s1_raw_v=cfg.s1_raw_v)
-        int_loss = (torch.log(torch.clamp(current ** 2, min=_EPS))
-                    - torch.log(torch.clamp(norm, min=_EPS)))
+        if grouped:
+            int_loss, current, norm = grouped_interior_objective(
+                u, du, v, phi, dphi, batch, problem, domain,
+                s1_raw_v=cfg.s1_raw_v)
+        else:
+            current, norm = interior_terms(u, du, v, phi, dphi, batch,
+                                           problem, domain,
+                                           s1_raw_v=cfg.s1_raw_v)
+            int_loss = (torch.log(torch.clamp(current ** 2, min=_EPS))
+                        - torch.log(torch.clamp(norm, min=_EPS)))
         return int_loss, {"I": current, "norm": norm, "int": int_loss}
 
     def loss_u_vside(u_params, vside, batch, bbatch):

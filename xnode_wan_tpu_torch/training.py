@@ -2,7 +2,7 @@
 
 Port of ``xnode_wan_tpu/training.py`` (reference ``src/training.py:54-187``)
 for one device. One outer iteration (:meth:`NODEWANSolver._outer_step`)
-samples the Hypercube interior and boundary from the state's
+samples the domain's interior and boundary from the state's
 ``torch.Generator``, takes ``n1`` primal Adam steps on ``loss_u`` (the u
 side through the fused kernels #4 and #5), ``n2`` adversary steps on
 ``loss_v`` (the u side once more through kernel #3, undifferentiated), and
@@ -12,15 +12,21 @@ the adversary side ``(v, phi, grad phi)`` comes from kernels #6 and #7
 package's compiled ``lax.scan`` / ``while_loop`` dispatch becomes a Python
 loop; the stop criterion is read every iteration.
 
+The domain comes from :func:`ops.sampling.make_domain`: the hypercube, or
+the moving domains ``NSphere_TCone`` and ``NSphere_THourglass``, whose
+paths die as the boundary passes them (the hourglass adds ``N_r``
+g-seeded re-entry rows) and whose loss is the per-exit-group objective
+under ``group_loss``.
+
 :meth:`NODEWANSolver.train` is the CLI's loop (``main.py``): it logs every
 iteration (``utils/logging.py``), keeps the best weights by ``loss_u`` in
 ``best_model_weights_NODE.pth`` and writes the full state to
 ``checkpoint_NODE.pt`` (``utils/checkpoint.py``), which
 :meth:`NODEWANSolver.load_checkpoint` resumes from.
 
-Not ported yet (they raise): ensembles, the stall / milestone learning-rate
-recipes of ``train_until`` (ROADMAP item 11), plots and ``train_chunked``
-(item 8), moving domains (item 9).
+Not ported yet (they raise): ensembles, QMC sampling, the stall /
+milestone learning-rate recipes of ``train_until``, plots and
+``train_chunked`` (ROADMAP.md §1 lists where each comes).
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ from xnode_wan_tpu_torch.models.discriminator import (Discriminator,
 from xnode_wan_tpu_torch.models.xnode import (XNODE, apply_xnode,
                                               evaluate_points, init_xnode)
 from xnode_wan_tpu_torch.ops.kernels.xnode_train import u_forward_fused
-from xnode_wan_tpu_torch.ops.sampling import Hypercube, PathBatch
+from xnode_wan_tpu_torch.ops.sampling import PathBatch, make_domain
 from xnode_wan_tpu_torch.ops.weak_form import fused_gate, make_losses
 from xnode_wan_tpu_torch.problems import Problem
 from xnode_wan_tpu_torch.utils import checkpoint as ckpt
@@ -86,14 +92,14 @@ class NODEWANSolver:
         if problem.dim is not None and problem.dim != cfg.dim:
             raise ValueError(
                 f"problem fixes dim={problem.dim} but config has dim={cfg.dim}")
-        if cfg.domain != "Hypercube":
-            raise NotImplementedError(
-                f"domain {cfg.domain!r} is not ported yet (ROADMAP item 9)")
         self.device = default_device(device)
         self.problem = problem
         self.stop = stop
-        self.domain = Hypercube(cfg.shape_param, cfg.dim, cfg.T0, cfg.T,
-                                cfg.N_t, x64=cfg.x64, qmc=cfg.qmc)
+        self.domain = make_domain(cfg.domain, cfg.shape_param, cfg.dim,
+                                  cfg.T0, cfg.T, cfg.N_t,
+                                  path_boundary=cfg.boundary_paths,
+                                  waist_cap=cfg.waist_cap, x64=cfg.x64,
+                                  qmc=cfg.qmc)
         if cfg.u_scale == 0:  # auto: rms of the initial data over a probe
             probe = self.domain.interior(
                 torch.Generator(device=self.device).manual_seed(17), 512)
@@ -181,7 +187,8 @@ class NODEWANSolver:
 
     # ------------------------------------------------------------------
     def _sample(self, generator: torch.Generator):
-        """An interior and a boundary batch (``:444-464``)."""
+        """An interior batch of ``domain.interior_rows(N_r)`` paths (``2
+        N_r`` on the hourglass) and a boundary batch (``:444-464``)."""
         batch = self.domain.interior(generator, self.cfg.N_r)
         bbatch = self.domain.boundary(generator, self.cfg.N_b)
         return batch, bbatch
@@ -352,7 +359,7 @@ class NODEWANSolver:
         if stall_action != "none" or drop_lr_at > 0:
             raise NotImplementedError(
                 "the stall and milestone learning-rate recipes of "
-                "train_until are not ported yet (ROADMAP item 11)")
+                "train_until are not ported yet (ROADMAP.md §1)")
         if self.problem.u_sol is None:
             raise ValueError("train_until needs problem.u_sol")
         window = max(1, min(window, max_iters))
