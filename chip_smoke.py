@@ -18,9 +18,10 @@ which raises on failure:
    the d=20 adversary, each tied and untied; #7's registers and shared
    bytes a block printed), and the wrapper's shared-memory rule for #3-#5
    against the bytes their launchers ask for;
-2. the main paths at the d=5 width of ``configs/cube_pde.yaml``, each
-   with every kernel launch counter zeroed just before and read just
-   after:
+2. the main paths at the d=5 width of ``configs/cube_pde.yaml``, then
+   on the moving domains and at d = 20, each with every kernel launch
+   counter zeroed just before and read just after (every solver writes
+   into a temporary directory):
 
    a. serving and scoring the reference trainer's checkpoint: 65,536
       points through ``evaluate_points`` and 4,000 fresh interior paths
@@ -59,6 +60,22 @@ which raises on failure:
       hourglass (about a third of them re-entry points, seeded from ``g``
       at ``t_entry > T0``) and held against the plain scan within ``rtol,
       atol`` below;
+   f. the hourglass converging: ``configs/hourglass_pde.yaml`` as shipped
+      (the plain adversary), ``train_until(0.01, iterations, window=100,
+      stall_action="drop_lr")`` from ``seed`` 0 on ``Ex4_1_funcs`` must
+      reach rel-L2 < 1%, with #2 and #3 launched once per iteration, #4
+      and #5 ``n1`` times, #6 and #7 never, and write the best weights
+      and the checkpoint; its iterations, learning-rate drops and rel-L2
+      every 10 iterations are printed beside JAX's run; the converged
+      primal is served through ``predict`` at 65,536 points uniform in
+      the hourglass's space-time set under rel-L2 0.02 and held against
+      the plain scan;
+   g. paper example 4.3 at d = 20: ``configs/highdim_d20.yaml`` as
+      shipped with ``Ex4_3_consistent`` from ``seed`` 0 (auto ``u_scale``,
+      printed), ``train_until(0.01, 150, window=200,
+      stall_action="drop_lr")``: every rel-L2 finite, the least under
+      0.25, the launches exact as in f, the rel-L2 every 10 iterations
+      beside JAX's first 15;
 
 3. each kernel against its plain PyTorch version on the same card
    inputs: #1 and #2 within ``rtol=2e-4, atol=2e-5`` on all four RK
@@ -102,8 +119,11 @@ which raises on failure:
    step (timed in turns with the plain one) with the share of #6 and #7,
    and of the adversary step alone, plain and fused in turns; one cone
    outer step with the share of the plain boundary scan, the
-   per-exit-group objective and each of #2-#5, and its launches an
-   iteration beside the cube's.
+   per-exit-group objective, each of #2-#5, the kernels' tangent inputs
+   and the adversary side, and its launches an iteration beside the
+   cube's; one d = 20 outer step (2g's solver, a median of 10) with the
+   same parts (medians of 5). Parts timed alone can overlap in a step, so
+   their sum may pass the step's time.
 
 Each phase prints its seconds. The line before the last is a JSON object
 with one entry per kernel (its launches on the main path, and by phase);
@@ -139,9 +159,25 @@ CONE_MAX_ITERS = 300
 # the served points fill the cone's space-time set uniformly, unlike the
 # metric's paths (uniform in the ball at T0, cut where they exit)
 CONE_SERVE_LIMIT = 0.02
-# the hourglass converges only with the drop_lr recipe, not ported yet:
-# the run is held to its course, not to the 1% stop
+# 2e holds the command-line run on the hourglass to its course over 20
+# iterations; 2f trains it to the 1% stop with the drop_lr recipe, as JAX
+# did: 0.99% in 496 iterations, one drop at 318, windows of 100
+# (benchmarks/scenarios/hourglass.json)
 HOURGLASS_ITERS = 20
+HOURGLASS_WINDOW = 100
+HOURGLASS_RUN = os.path.join(ROOT, "benchmarks", "scenarios",
+                             "hourglass.json")
+# 2g: paper example 4.3 at d = 20 (Ex4_3_consistent) with JAX's recipe,
+# cut to 150 iterations (JAX's 1,990 to 0.98%, one drop at 662, would
+# take about ten minutes at the d = 20 step); JAX's rel-L2 reached 0.2344
+# by iteration 20 and 0.1038 by 150
+# (benchmarks/scenarios/d20_sines_twophase.json)
+D20_CONFIG = os.path.join(ROOT, "configs", "highdim_d20.yaml")
+D20_RUN = os.path.join(ROOT, "benchmarks", "scenarios",
+                       "d20_sines_twophase.json")
+D20_ITERS = 150
+D20_WINDOW = 200
+D20_BEST_LIMIT = 0.25
 RTOL, ATOL = 2e-4, 2e-5       # kernel against plain; tests/test_pallas.py:33
 # Tangents, stored tangent states and weight gradients are sums of many
 # terms of both signs (the gradient: over 20,000 path-directions and 20
@@ -301,6 +337,211 @@ def inside_points(domain, m: int, generator, radius: float) -> torch.Tensor:
     return torch.cat(parts)[:m].contiguous()
 
 
+def zero_launches(kernels) -> None:
+    for k in kernels.values():
+        k.launches = 0
+
+
+def read_launches(kernels) -> dict:
+    return {n: k.launches for n, k in kernels.items()}
+
+
+def train_launches_want(n: int, c) -> dict:
+    """The launches of ``n`` outer iterations with the plain adversary:
+    #2 and #3 once an iteration, #4 and #5 ``n1`` times."""
+    return {"xnode_eval": 0, "xnode_train": n, "xnode_udu_fwd": n,
+            "xnode_udu_fwd_store": c.n1 * n, "xnode_udu_bwd": c.n1 * n,
+            "disc_fwd": 0, "disc_bwd": 0}
+
+
+def every_10(label: str, rel, reference) -> None:
+    """Print rel-L2 at iterations 0, 10, 20, ... beside the JAX run's
+    samples at the same iterations."""
+    cells = [f"{i}: {rel[i]:.4f}" + (f" ({reference[i // 10]:.4f})"
+                                      if i // 10 < len(reference) else "")
+             for i in range(0, len(rel), 10)]
+    print(f"{label}: rel-L2 every 10 iterations, JAX's in brackets:")
+    for k in range(0, len(cells), 6):
+        print("  " + "; ".join(cells[k:k + 6]))
+
+
+def check_until(label: str, hist, launches, c) -> int:
+    """The checks every ``train_until`` phase shares: one metric per
+    iteration, every one finite, and the exact launches."""
+    n = hist["iterations_run"]
+    if not (len(hist["rel_err"]) == len(hist["loss_u"]) == n > 0):
+        raise AssertionError(f"{label}: {len(hist['rel_err'])} metrics for "
+                             f"{n} iterations")
+    if not all(math.isfinite(v) for k in ("rel_err", "loss_u")
+               for v in hist[k]):
+        raise AssertionError(f"{label}: a non-finite rel-L2 or loss_u")
+    if launches != train_launches_want(n, c):
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{train_launches_want(n, c)}")
+    return n
+
+
+def hourglass_drop_lr(kernels, work: str, gen, card: str) -> dict:
+    """Phase 2f: ``configs/hourglass_pde.yaml`` as shipped, seed 0, trained
+    by ``train_until`` with ``stall_action="drop_lr"`` to rel-L2 < 1% within
+    the config's iterations, exact launches; then the converged primal
+    served through ``predict`` (kernel #1) at ``SERVE_POINTS`` points
+    uniform in the hourglass's space-time set, under ``CONE_SERVE_LIMIT``
+    and against the plain scan."""
+    from xnode_wan_tpu_torch import (NODEWANSolver, evaluate_points,
+                                     load_params, load_problem, rel_err)
+    from xnode_wan_tpu_torch.ops.kernels import xnode_eval
+
+    cfg = load_params(HOURGLASS_CONFIG).replace(seed=SEED)
+    problem = load_problem("Ex4_1_funcs", dim=cfg.dim)
+    solver = NODEWANSolver(cfg, problem, work_dir=work)
+    hg = solver.domain
+    zero_launches(kernels)
+    hist = solver.train_until(TRAIN_TOL, cfg.iterations,
+                              window=HOURGLASS_WINDOW, stall_action="drop_lr")
+    torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    with open(HOURGLASS_RUN) as fh:
+        ref = json.load(fh)
+    n = hist["iterations_run"]
+    print(f"hourglass, train_until(drop_lr, window {HOURGLASS_WINDOW}) "
+          f"({hg.interior_rows(cfg.N_r)} interior rows): {n} outer "
+          f"iterations to rel-L2 {hist['rel_err_final']:.6f}, drops at "
+          f"{hist['lr_drops_at']}, in {hist['wall_train_s']:.3f} s "
+          f"(train_until wall clock, {card}); JAX: "
+          f"{ref['iterations_run']} iterations, drops at "
+          f"{ref['lr_drops_at']}; launches {launches}")
+    if not hist["lr_drops_at"]:
+        print("  no learning-rate drop fired before the stop")
+    every_10("hourglass", hist["rel_err"], ref["rel_err_every_10"])
+    check_until("hourglass (2f)", hist, launches, cfg)
+    if not hist["rel_err_final"] < TRAIN_TOL:
+        raise AssertionError(f"the hourglass stopped at rel-L2 "
+                             f"{hist['rel_err_final']} >= {TRAIN_TOL} after "
+                             f"{n} iterations")
+    for name in ("best_model_weights_NODE.pth", "checkpoint_NODE.pt"):
+        if not os.path.exists(os.path.join(work, name)):
+            raise AssertionError(f"train_until wrote no {name}")
+
+    pts = inside_points(hg, SERVE_POINTS, gen, hg.r * (hg.T - hg.T0))
+    xnode_eval.KERNEL.launches = 0
+    u = solver.predict(pts)
+    torch.cuda.synchronize()
+    if xnode_eval.KERNEL.launches != 1:
+        raise AssertionError("serving the hourglass did not launch #1 once")
+    with torch.no_grad():
+        u_scan = evaluate_points(solver.state.u_params, pts, problem,
+                                 solver.cfg.replace(use_pallas=False),
+                                 domain=hg)
+    served = float(rel_err(u, problem.u_sol(pts),
+                           torch.ones_like(u, dtype=torch.bool), hg.V(),
+                           cfg.p))
+    print(f"served the converged hourglass primal through predict at "
+          f"{SERVE_POINTS} points: rel-L2 {served:.6f} (1 launch of #1)")
+    if u.shape != (SERVE_POINTS,) or not served < CONE_SERVE_LIMIT:
+        raise AssertionError(f"the hourglass serves at rel-L2 {served} >= "
+                             f"{CONE_SERVE_LIMIT}")
+    err = compare(f"served converged hourglass, kernel #1 vs the plain "
+                  f"scan, M={SERVE_POINTS}", u, u_scan)
+    return {"hist": hist, "launches": launches, "served": served,
+            "err": err, "reference": ref}
+
+
+def d20_drop_lr(kernels, work: str, card: str) -> dict:
+    """Phase 2g: ``configs/highdim_d20.yaml`` as shipped with
+    ``Ex4_3_consistent``, seed 0, ``train_until(0.01, D20_ITERS,
+    window=200, stall_action="drop_lr")``: every rel-L2 finite, the least
+    under ``D20_BEST_LIMIT``, exact launches. Returns the solver too, whose
+    outer step phase 5 times."""
+    from xnode_wan_tpu_torch import NODEWANSolver, load_params, load_problem
+
+    cfg = load_params(D20_CONFIG).replace(seed=SEED)
+    solver = NODEWANSolver(cfg, load_problem("Ex4_3_consistent", cfg.dim),
+                           work_dir=work)
+    zero_launches(kernels)
+    hist = solver.train_until(TRAIN_TOL, D20_ITERS, window=D20_WINDOW,
+                              stall_action="drop_lr")
+    torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    with open(D20_RUN) as fh:
+        ref = json.load(fh)
+    n = hist["iterations_run"]
+    best = float(min(hist["rel_err"]))
+    print(f"paper example 4.3, d={cfg.dim}, Ex4_3_consistent, auto u_scale "
+          f"{solver.cfg.u_scale:.6g}: {n} outer iterations, least rel-L2 "
+          f"{best:.6f}, last {hist['rel_err_final']:.6f}, drops at "
+          f"{hist['lr_drops_at']}, in {hist['wall_train_s']:.3f} s "
+          f"(train_until wall clock, {card}); launches {launches}")
+    every_10("d=20", hist["rel_err"], ref["rel_err_every_10"][:15])
+    check_until("d=20 (2g)", hist, launches, cfg)
+    if not best < D20_BEST_LIMIT:
+        raise AssertionError(f"the d=20 run's least rel-L2 {best} >= "
+                             f"{D20_BEST_LIMIT} in {n} iterations")
+    return {"hist": hist, "launches": launches, "best": best,
+            "solver": solver, "u_scale": solver.cfg.u_scale}
+
+
+def step_parts(solver, reps: int, scan_reps: int):
+    """The parts of one outer step of ``solver``, each timed alone (CUDA
+    events, a median) on a fresh draw of its batches and multiplied by its
+    calls a step: kernels #2-#5, the kernels' tangent inputs, the plain
+    boundary scan's forward and backward and the adversary side. Returns
+    the parts in ms and the interior and boundary batches."""
+    from xnode_wan_tpu_torch import apply_xnode
+    from xnode_wan_tpu_torch.ops import weak_form
+    from xnode_wan_tpu_torch.ops.kernels import xnode_train
+
+    cfg, problem, state = solver.cfg, solver.problem, solver.state
+    batch, bbatch = solver._sample(state.generator)
+    net = xnode_train.flat_net(state.u_params)
+    packed = net.packed()
+    args = [a.contiguous() for a in (
+        *xnode_train._prep_intervals(batch.times, batch.mask, batch.t_start,
+                                     cfg.n_sub),
+        *xnode_train.path_tangent_inputs(batch, problem, cfg))]
+    n_sub, method = cfg.n_sub, cfg.solver
+    gen = torch.Generator(device=packed.device).manual_seed(9)
+    at_exit = bool(getattr(solver.domain, "boundary_at_exit", False))
+
+    def bdry():
+        return weak_form.bdry_loss(apply_xnode, state.u_params, bbatch,
+                                   problem, cfg, at_exit=at_exit)
+
+    with torch.no_grad():
+        states = xnode_train.u_du_fwd_cuda(net, packed, *args, n_sub, method,
+                                           store=True)[2:]
+        ub = torch.randn(args[0].shape, generator=gen, device=packed.device)
+        dub = torch.randn((*args[0].shape, cfg.dim), generator=gen,
+                          device=packed.device)
+        parts = {
+            "xnode_train (#2)": time_ms(lambda: xnode_train.path_forward_cuda(
+                net, args[0], args[1], args[2], args[4], n_sub, method,
+                packed=packed), reps=reps),
+            "xnode_udu_fwd (#3)": time_ms(lambda: xnode_train.u_du_fwd_cuda(
+                net, packed, *args, n_sub, method), reps=reps),
+            "xnode_udu_fwd_store (#4)": cfg.n1 * time_ms(
+                lambda: xnode_train.u_du_fwd_cuda(net, packed, *args, n_sub,
+                                                  method, True), reps=reps),
+            "xnode_udu_bwd (#5)": cfg.n1 * time_ms(
+                lambda: xnode_train.u_du_bwd_cuda(net, packed, *args, *states,
+                                                  ub, dub, n_sub, method),
+                reps=reps),
+            # the u side is taken in each of the n1 primal steps and once
+            # for the adversary's
+            "tangent inputs of #3-#5": (cfg.n1 + 1) * time_ms(
+                lambda: xnode_train.path_tangent_inputs(batch, problem, cfg),
+                reps=scan_reps)}
+    # the adversary side, once without a graph and n2 times with one
+    parts["adversary side (v, phi, grad phi)"] = (1 + cfg.n2) * time_ms(
+        lambda: solver._losses.v_side(state.v_params, batch), reps=scan_reps)
+    fwd_ms = time_ms(bdry, reps=scan_reps)
+    parts["boundary scan forward"] = cfg.n1 * fwd_ms
+    parts["boundary scan backward"] = cfg.n1 * (time_ms(
+        lambda: torch.autograd.grad(bdry(), list(state.u_params.parameters())),
+        reps=scan_reps) - fwd_ms)
+    return parts, batch, bbatch
+
+
 def phase_done(name: str, t_start: float) -> float:
     now = time.perf_counter()
     print(f"phase {name}: {now - t_start:.3f} s")
@@ -322,7 +563,8 @@ def read_jsonl(path):
         return [json.loads(line) for line in fh]
 
 
-def main() -> int:
+def main(work_root: str) -> int:
+    """Every phase; the solvers' files go under ``work_root``."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
@@ -461,16 +703,8 @@ def main() -> int:
                "disc_bwd": disc_train.BWD_KERNEL}
     errs = {n: 0.0 for n in kernels}
 
-    def read_launches():
-        return {n: k.launches for n, k in kernels.items()}
-
-    def zero_launches():
-        for k in kernels.values():
-            k.launches = 0
-
     # 2a. serving and scoring ---------------------------------------------
-    for k in kernels.values():
-        k.launches = 0
+    zero_launches(kernels)
     with torch.no_grad():
         t = time.perf_counter()
         u_served = evaluate_points(model, pts, problem, cfg)
@@ -480,7 +714,7 @@ def main() -> int:
         u_paths = u_forward_fused(model, batch, problem, cfg)
         torch.cuda.synchronize()
         t_metric = time.perf_counter() - t
-    launches = {n: k.launches for n, k in kernels.items()}
+    launches = read_launches(kernels)
     print(f"serving and scoring launches: {launches}")
     for n in ("xnode_eval", "xnode_train"):
         if launches[n] < 1:
@@ -513,19 +747,17 @@ def main() -> int:
     t_phase = phase_done("2a", t_phase)
 
     # 2b. training ------------------------------------------------------
-    solver = NODEWANSolver(cfg, problem)
-    for k in kernels.values():
-        k.launches = 0
+    solver = NODEWANSolver(cfg, problem,
+                           work_dir=os.path.join(work_root, "2b"))
+    zero_launches(kernels)
     hist = solver.train_until(TRAIN_TOL, cfg.iterations)
     torch.cuda.synchronize()
-    launches = {n: k.launches for n, k in kernels.items()}
+    launches = read_launches(kernels)
     iters = hist["iterations_run"]
     print(f"training: {iters} outer iterations to rel-L2 "
           f"{hist['rel_err_final']:.6f} in {hist['wall_train_s']:.3f} s "
           f"(train_until wall clock, {card}); launches {launches}")
-    want = {"xnode_eval": 0, "xnode_train": iters, "xnode_udu_fwd": iters,
-            "xnode_udu_fwd_store": cfg.n1 * iters,
-            "xnode_udu_bwd": cfg.n1 * iters, "disc_fwd": 0, "disc_bwd": 0}
+    want = train_launches_want(iters, cfg)
     if launches != want:
         raise AssertionError(f"training launches {launches}, expected {want}")
     if not hist["rel_err_final"] < TRAIN_TOL:
@@ -554,13 +786,12 @@ def main() -> int:
             fh.write(text.rstrip("\n") + "\nfused_v: true\n")
         argv = ["--params", yaml_path, "--funcs", "Ex4_1_funcs", "-w", work,
                 "--report_it", "25"]
-        for k in kernels.values():
-            k.launches = 0
+        zero_launches(kernels)
         t = time.perf_counter()
         out, fv_solver = run_cli(cli_main, argv)
         torch.cuda.synchronize()
         t_cli = time.perf_counter() - t
-        cli_launches = {n: k.launches for n, k in kernels.items()}
+        cli_launches = read_launches(kernels)
         fv_iters = fv_solver.state.step
         records = read_jsonl(os.path.join(work, f"metrics_NODE_{cfg.dim}.jsonl"))
         print(f"command line, fused_v: {fv_iters} outer iterations to rel-L2 "
@@ -586,11 +817,10 @@ def main() -> int:
             if len(json.load(fh)) != fv_iters:
                 raise AssertionError("losses list length != iterations")
 
-        for k in kernels.values():
-            k.launches = 0
+        zero_launches(kernels)
         _, resumed = run_cli(cli_main, argv + ["--resume", "--iterations", "3"])
         torch.cuda.synchronize()
-        resumed_launches = {n: k.launches for n, k in kernels.items()}
+        resumed_launches = read_launches(kernels)
         records2 = read_jsonl(os.path.join(work,
                                            f"metrics_NODE_{cfg.dim}.jsonl"))
         n_res = len(records2)
@@ -646,20 +876,19 @@ def main() -> int:
     # 2d. training the shrinking cone ---------------------------------------
     ccfg = load_params(CONE_CONFIG)
     cproblem = load_problem("Ex4_1_funcs", dim=ccfg.dim)
-    csolver = NODEWANSolver(ccfg, cproblem)
+    csolver = NODEWANSolver(ccfg, cproblem,
+                            work_dir=os.path.join(work_root, "2d"))
     cone = csolver.domain
-    zero_launches()
+    zero_launches(kernels)
     chist = csolver.train_until(TRAIN_TOL, CONE_MAX_ITERS)
     torch.cuda.synchronize()
-    cone_launches = read_launches()
+    cone_launches = read_launches(kernels)
     c_iters = chist["iterations_run"]
     print(f"cone training ({type(cone).__name__}, d={ccfg.dim}, "
           f"N_r={ccfg.N_r}): {c_iters} outer iterations to rel-L2 "
           f"{chist['rel_err_final']:.6f} in {chist['wall_train_s']:.3f} s "
           f"(train_until wall clock, {card}); launches {cone_launches}")
-    want = {"xnode_eval": 0, "xnode_train": c_iters, "xnode_udu_fwd": c_iters,
-            "xnode_udu_fwd_store": ccfg.n1 * c_iters,
-            "xnode_udu_bwd": ccfg.n1 * c_iters, "disc_fwd": 0, "disc_bwd": 0}
+    want = train_launches_want(c_iters, ccfg)
     if cone_launches != want:
         raise AssertionError(f"cone launches {cone_launches}, expected {want}")
     if not chist["rel_err_final"] < TRAIN_TOL:
@@ -696,13 +925,13 @@ def main() -> int:
             fh.write(text.rstrip("\n") + "\nfused_v: true\n")
         argv = ["--params", yaml_path, "--funcs", "Ex4_1_funcs", "-w", work,
                 "--report_it", "5"]
-        zero_launches()
+        zero_launches(kernels)
         t = time.perf_counter()
         out, hsolver = run_cli(cli_main, argv + ["--iterations",
                                                  str(HOURGLASS_ITERS)])
         torch.cuda.synchronize()
         t_hcli = time.perf_counter() - t
-        hg_launches = read_launches()
+        hg_launches = read_launches(kernels)
         hcfg, hg, hproblem = hsolver.cfg, hsolver.domain, hsolver.problem
         h_iters = hsolver.state.step
         metrics_file = os.path.join(work, f"metrics_NODE_{hcfg.dim}.jsonl")
@@ -727,11 +956,11 @@ def main() -> int:
         if hg_launches != cli_launches_want(h_iters, hcfg):
             raise AssertionError(f"hourglass launches {hg_launches}, expected "
                                  f"{cli_launches_want(h_iters, hcfg)}")
-        zero_launches()
+        zero_launches(kernels)
         _, hresumed = run_cli(cli_main, argv + ["--resume", "--iterations",
                                                 "3"])
         torch.cuda.synchronize()
-        hg_res_launches = read_launches()
+        hg_res_launches = read_launches(kernels)
         hrec2 = read_jsonl(metrics_file)
         fresh, stop_l, first = (hrec[0]["loss_u"], hrec[-1]["loss_u"],
                                 hrec2[0]["loss_u"])
@@ -776,6 +1005,19 @@ def main() -> int:
     phase_launches["2e resume"] = hg_res_launches
     phase_launches["2e serve"] = {"xnode_eval": 1}
     t_phase = phase_done("2e", t_phase)
+
+    # 2f. the hourglass to 1% with the drop_lr recipe ---------------------
+    hg_until = hourglass_drop_lr(kernels, os.path.join(work_root, "2f"), gen,
+                                 card)
+    errs["xnode_eval"] = max(errs["xnode_eval"], hg_until["err"])
+    phase_launches["2f"] = hg_until["launches"]
+    phase_launches["2f serve"] = {"xnode_eval": 1}
+    t_phase = phase_done("2f", t_phase)
+
+    # 2g. paper example 4.3 at d=20 ---------------------------------------
+    d20 = d20_drop_lr(kernels, os.path.join(work_root, "2g"), card)
+    phase_launches["2g"] = d20["launches"]
+    t_phase = phase_done("2g", t_phase)
 
     # 3. each kernel against its plain version on the card -----------------
     net = xnode_train.flat_net(model)
@@ -1443,40 +1685,10 @@ def main() -> int:
     # part timed alone on the cone's shapes, times its calls per step
     cone_step_ms = time_ms(lambda: csolver._outer_step(), reps=10, warmup=2)
     cstate = csolver.state
-    cb, cbb = csolver._sample(cstate.generator)
-    cnet = xnode_train.flat_net(cstate.u_params)
-    cpacked = cnet.packed()
-    cargs = [a.contiguous() for a in (
-        *xnode_train._prep_intervals(cb.times, cb.mask, cb.t_start,
-                                     ccfg.n_sub),
-        *xnode_train.path_tangent_inputs(cb, cproblem, ccfg))]
-    c_sub, c_method = ccfg.n_sub, ccfg.solver
-    cg = torch.Generator(device=dev).manual_seed(9)
+    cone_parts, cb, cbb = step_parts(csolver, reps=20, scan_reps=10)
     with torch.no_grad():
-        cstates = xnode_train.u_du_fwd_cuda(cnet, cpacked, *cargs, c_sub,
-                                            c_method, store=True)[2:]
-        cub = torch.randn(cargs[0].shape, generator=cg, device=dev)
-        cdub = torch.randn((*cargs[0].shape, ccfg.dim), generator=cg,
-                           device=dev)
         csides = (*csolver._losses.u_side(cstate.u_params, cb),
                   *csolver._losses.v_side(cstate.v_params, cb))
-        cone_parts = {
-            "xnode_train (#2)": time_ms(lambda: xnode_train.path_forward_cuda(
-                cnet, cargs[0], cargs[1], cargs[2], cargs[4], c_sub,
-                c_method, packed=cpacked)),
-            "xnode_udu_fwd (#3)": time_ms(lambda: xnode_train.u_du_fwd_cuda(
-                cnet, cpacked, *cargs, c_sub, c_method)),
-            "xnode_udu_fwd_store (#4)": ccfg.n1 * time_ms(
-                lambda: xnode_train.u_du_fwd_cuda(cnet, cpacked, *cargs,
-                                                  c_sub, c_method, True)),
-            "xnode_udu_bwd (#5)": ccfg.n1 * time_ms(
-                lambda: xnode_train.u_du_bwd_cuda(cnet, cpacked, *cargs,
-                                                  *cstates, cub, cdub, c_sub,
-                                                  c_method))}
-
-    def cone_bdry():
-        return weak_form.bdry_loss(apply_xnode, cstate.u_params, cbb,
-                                   cproblem, ccfg, at_exit=True)
 
     def cone_objective(grouped):
         leaves = [a.detach().requires_grad_(True) for a in csides]
@@ -1489,12 +1701,6 @@ def main() -> int:
             out = torch.log(current ** 2) - torch.log(norm)
         torch.autograd.grad(out, leaves)
 
-    c_fwd_ms = time_ms(cone_bdry, reps=10)
-    cone_parts["boundary scan forward"] = ccfg.n1 * c_fwd_ms
-    cone_parts["boundary scan backward"] = ccfg.n1 * (time_ms(
-        lambda: torch.autograd.grad(cone_bdry(),
-                                    list(cstate.u_params.parameters())),
-        reps=10) - c_fwd_ms)
     cone_parts["grouped objective with its input gradients"] = (
         (ccfg.n1 + ccfg.n2) * time_ms(lambda: cone_objective(True), reps=10))
     pooled_ms = (ccfg.n1 + ccfg.n2) * time_ms(lambda: cone_objective(False),
@@ -1504,15 +1710,21 @@ def main() -> int:
           "from each part timed alone times its calls per step:")
     for name, ms in cone_parts.items():
         print(f"  {name}: {ms:.4f} ms, {ms / cone_step_ms:.1%}")
-    print(f"  rest (sampling, adversary side, losses, Adam, host): "
+    print(f"  rest (sampling, losses, Adam, host): "
           f"{cone_step_ms - sum(cone_parts.values()):.4f} ms")
     print(f"  (the pooled objective on the same inputs, timed alone: "
           f"{pooled_ms:.4f} ms a step)")
+    f_hist, d_hist = hg_until["hist"], d20["hist"]
     per_iter = {
         "cube (2b)": {n: c / iters for n, c in train_launches.items()},
         "cone (2d)": {n: c / c_iters for n, c in cone_launches.items()},
         "hourglass, fused_v (2e)": {n: c / h_iters
-                                    for n, c in hg_launches.items()}}
+                                    for n, c in hg_launches.items()},
+        "hourglass, drop_lr (2f)": {
+            n: c / f_hist["iterations_run"]
+            for n, c in hg_until["launches"].items()},
+        "d=20 (2g)": {n: c / d_hist["iterations_run"]
+                      for n, c in d20["launches"].items()}}
     print(f"launches an outer iteration: {per_iter}")
     print(json.dumps({"training_cone": {
         "iterations": c_iters, "rel_err_final": chist["rel_err_final"],
@@ -1521,6 +1733,39 @@ def main() -> int:
         "pooled_objective_ms": pooled_ms,
         "hourglass_rel_err": [hrec[0]["rel_err"], hrec[-1]["rel_err"]],
         "hourglass_wall_cli_s": t_hcli, "launches_per_iteration": per_iter}}))
+
+    # one d=20 outer step (2g's solver, paper example 4.3 at the widths of
+    # configs/highdim_d20.yaml), a median of 10
+    dsolver = d20["solver"]
+    d20_step_ms = time_ms(lambda: dsolver._outer_step(), reps=10, warmup=2)
+    d20_parts = step_parts(dsolver, reps=5, scan_reps=5)[0]
+    print(f"d=20 outer step ({card}), median of 10 CUDA-event runs: "
+          f"{d20_step_ms:.4f} ms (cube step: {step_ms:.4f} ms, cone: "
+          f"{cone_step_ms:.4f} ms); shares, from each part timed alone "
+          "(median of 5) times its calls per step:")
+    for name, ms in d20_parts.items():
+        print(f"  {name}: {ms:.4f} ms, {ms / d20_step_ms:.1%}")
+    print(f"  rest (sampling, losses, Adam, host): "
+          f"{d20_step_ms - sum(d20_parts.values()):.4f} ms")
+    print(json.dumps({"training_recipes": {
+        "hourglass": {
+            "iterations": f_hist["iterations_run"],
+            "lr_drops_at": f_hist["lr_drops_at"],
+            "rel_err_final": f_hist["rel_err_final"],
+            "wall_train_s": f_hist["wall_train_s"],
+            "served_rel_err": hg_until["served"],
+            "rel_err_every_10": f_hist["rel_err"][::10].tolist(),
+            "jax_iterations": hg_until["reference"]["iterations_run"],
+            "jax_lr_drops_at": hg_until["reference"]["lr_drops_at"]},
+        "d20": {
+            "iterations": d_hist["iterations_run"],
+            "lr_drops_at": d_hist["lr_drops_at"],
+            "u_scale": d20["u_scale"], "least_rel_err": d20["best"],
+            "rel_err_final": d_hist["rel_err_final"],
+            "wall_train_s": d_hist["wall_train_s"],
+            "rel_err_every_10": d_hist["rel_err"][::10].tolist(),
+            "step_ms": d20_step_ms, "parts_ms": d20_parts},
+        "card": card}}))
     phase_done("5", t_phase)
 
     print(json.dumps({"kernels": rows}))
@@ -1531,4 +1776,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        code = main(root)
+    sys.exit(code)

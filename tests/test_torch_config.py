@@ -111,9 +111,60 @@ def test_problem_a_kind_checked():
     assert p.a(None) == 1.0
 
 
-def test_unported_problem_raises():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        load_problem("Ex4_3_funcs", dim=5)
+@pytest.mark.parametrize("dim", [2, 5, 20])
+def test_ex4_3_matches_jax(dim):
+    # the literal source term and the consistent one, u_sol, g, h, c
+    rng = np.random.default_rng(dim)
+    X = np.concatenate([rng.uniform(0, 1, (64, 1)),
+                        rng.uniform(-1, 1, (64, dim))], axis=-1)
+    Xt = torch.as_tensor(X)
+    for name in ("Ex4_3_funcs", "ex4_3", "Ex4_3_consistent",
+                 "ex4_3_consistent"):
+        jp, tp = jload_problem(name, dim=dim), load_problem(name, dim=dim)
+        assert (tp.name, tp.a_kind, tp.dim, tp.b, tp.stop_rel_err) == (
+            jp.name, jp.a_kind, jp.dim, jp.b, jp.stop_rel_err)
+        with x64():
+            for fn in ("h", "f", "g", "u_sol"):
+                want = np.asarray(getattr(jp, fn)(X))
+                np.testing.assert_allclose(
+                    getattr(tp, fn)(Xt).numpy(), want, rtol=1e-12,
+                    atol=1e-12 * np.abs(want).max(), err_msg=f"{name}.{fn}")
+        u = torch.as_tensor(rng.normal(size=64))
+        np.testing.assert_array_equal(tp.c(Xt, u).numpy(),
+                                      np.asarray(jp.c(X, u.numpy())))
+    assert not np.allclose(load_problem("Ex4_3_funcs", dim).f(Xt).numpy(),
+                           load_problem("Ex4_3_consistent", dim).f(Xt).numpy())
+
+
+def ex4_3_residual(problem, X):
+    """``u_t - Lap u + c(u) u - f`` at the points ``X`` by autograd."""
+    X = X.clone().requires_grad_(True)
+    u = problem.u_sol(X)
+    grad = torch.autograd.grad(u.sum(), X, create_graph=True)[0]
+    lap = sum(torch.autograd.grad(grad[:, i].sum(), X, retain_graph=True)[0][:, i]
+              for i in range(1, X.shape[1]))
+    return grad[:, 0] - lap + problem.c(X, u) * u - problem.f(X)
+
+
+def test_ex4_3_consistent_zeroes_the_residual():
+    # as tests/test_problems.py holds the JAX package's: the consistent f
+    # at any dim, the reference's literal one not even at d = 2
+    rng = np.random.default_rng(7)
+    for d in (2, 7):
+        X = torch.as_tensor(rng.uniform(0.05, 0.9, (16, d + 1)))
+        res = ex4_3_residual(load_problem("Ex4_3_consistent", d), X)
+        np.testing.assert_allclose(res.detach().numpy(), 0.0,
+                                   atol=1e-10 * (math.pi / 2) ** d)
+    X = torch.as_tensor(rng.uniform(0.05, 0.9, (16, 3)))
+    res = ex4_3_residual(load_problem("Ex4_3_funcs", 2), X)
+    assert float(res.detach().abs().max()) > 1e-3
+
+
+def test_ex4_3_needs_a_dim():
+    for name in ("Ex4_3_funcs", "Ex4_3_consistent"):
+        with pytest.raises(ValueError, match="dimension"):
+            load_problem(name, dim=None)
+    assert load_problem("Ex4_3_funcs", dim=3).dim == 3
 
 
 def test_default_device_needs_cuda_unless_asked(monkeypatch):

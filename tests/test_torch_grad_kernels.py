@@ -246,6 +246,39 @@ def test_u_du_fused_values_and_grads_match_pallas(extra):
         assert_grad_close(tl.bias.grad.numpy(), np.asarray(jl["b"]))
 
 
+@pytest.mark.parametrize("domain,dim,problem,ff", [
+    ("Hypercube", 5, "Ex4_1_funcs", 1), ("NSphere_THourglass", 3,
+                                         "Ex4_1_funcs", 0),
+    ("Hypercube", 20, "Ex4_3_consistent", 1)])
+def test_path_tangent_inputs_match_one_jvp_a_direction(domain, dim, problem,
+                                                       ff):
+    # the d directions in one vmap, against a jvp for each direction
+    from xnode_wan_tpu_torch.models.xnode import path_seed_fn, spatial_features
+    from xnode_wan_tpu_torch.ops.sampling import make_domain
+
+    cfg = SolverConfig(dim=dim, N_t=5, domain=domain, fourier_features=ff,
+                       shape_param=1.0 if domain != "Hypercube"
+                       else (-1.0, 1.0))
+    prob = load_problem(problem, dim)
+    batch = make_domain(cfg.domain, cfg.shape_param, dim, cfg.T0, cfg.T,
+                        cfg.N_t).interior(torch.Generator().manual_seed(3), 37)
+    xs = batch.space[:, 0, :]
+    seed_of = path_seed_fn(batch, prob, cfg)
+    want_seed, want_feats = [], []
+    for e in torch.eye(dim):
+        tan = e.expand_as(xs)
+        want_seed.append(torch.func.jvp(seed_of, (xs,), (tan,))[1])
+        want_feats.append(torch.func.jvp(
+            lambda x: spatial_features(x, ff), (xs,), (tan,))[1])
+    feats, dfeats, seed, dseed = xnode_train.path_tangent_inputs(batch, prob,
+                                                                 cfg)
+    for got, want in ((feats, spatial_features(xs, ff)),
+                      (dfeats, torch.stack(want_feats, dim=1)),
+                      (seed, seed_of(xs)),
+                      (dseed, torch.stack(want_seed, dim=1))):
+        assert got.shape == want.shape and torch.equal(got, want)
+
+
 def test_u_du_fused_without_grad_stores_nothing():
     _, tcfg, _, tparams = shared_params(10)
     _, tb = batch_pair(BASE["N_r"], BASE["N_t"], BASE["dim"], seed=11)

@@ -1,17 +1,19 @@
 """The port's trainer: one outer step against the JAX solver from the same
 state and batches, convergence of the small d=2 config on the CPU, and the
-``train`` / ``train_until`` surfaces.
+``train`` / ``train_until`` surfaces (the recipes of ``train_until`` are in
+``test_torch_recipes.py``).
 
 Tolerances of the one-step comparison: 1e-9 relative in f64 (both sides
-integrate the masked scan in forward mode); with ``lr_decay`` 1e-7 on the
-parameters and 1e-6 on the metrics, whose log-ratio loss magnifies the
-difference (optax evaluates ``exponential_decay`` in float32 even under
-x64, 3e-8 off the exact rate); in f32 (the port's fused plain path against the JAX
-package's XLA route on the CPU) 1e-4 on the parameters and Adam moments
-after two Adam steps, 1e-5 on the metrics. The same holds with
-``fused_v``: the port's adversary side through the plain versions of
-kernels #6 and #7, the JAX package's through its XLA route (its gate takes
-the kernels on a TPU only).
+integrate the masked scan in forward mode), also after
+``drop_learning_rate(0.1)``; with ``lr_decay``, or a drop that sets it,
+1e-7 on the parameters and 1e-6 on the metrics, whose log-ratio loss
+magnifies the difference (optax evaluates ``exponential_decay`` in float32
+even under x64, 3e-8 off the exact rate); in f32 (the port's fused plain
+path against the JAX package's XLA route on the CPU) 1e-4 on the
+parameters and Adam moments after two Adam steps, 1e-5 on the metrics.
+The same holds with ``fused_v``: the port's adversary side through the
+plain versions of kernels #6 and #7, the JAX package's through its XLA
+route (its gate takes the kernels on a TPU only).
 """
 
 import dataclasses
@@ -93,15 +95,20 @@ def check_adam(opt, pairs_of, jopt, rtol):
         assert_close(state["exp_avg_sq"].detach().numpy(), nu, rtol)
 
 
-@pytest.mark.parametrize("dtype,extra,rtol,rtol_metrics", [
-    (np.float64, {}, 1e-9, 1e-9),
-    (np.float64, dict(grad_clip=0.5, lr_decay=0.9, ema_decay=0.9), 1e-7,
-     1e-6),
-    (np.float32, {}, 1e-4, 1e-5),
-    (np.float32, dict(fused_v=True), 1e-4, 1e-5),
-], ids=["f64", "f64_clip_decay_ema", "f32_fused_plain", "f32_fused_v_plain"])
+@pytest.mark.parametrize("dtype,extra,drop,rtol,rtol_metrics", [
+    (np.float64, {}, None, 1e-9, 1e-9),
+    (np.float64, dict(grad_clip=0.5, lr_decay=0.9, ema_decay=0.9), None,
+     1e-7, 1e-6),
+    (np.float32, {}, None, 1e-4, 1e-5),
+    (np.float32, dict(fused_v=True), None, 1e-4, 1e-5),
+    (np.float64, {}, {}, 1e-9, 1e-9),
+    (np.float64, {}, dict(lr_decay=0.99), 1e-7, 1e-6),
+], ids=["f64", "f64_clip_decay_ema", "f32_fused_plain", "f32_fused_v_plain",
+        "f64_after_drop", "f64_after_drop_decay"])
 def test_one_outer_step_matches_jax(restore_x64, tmp_path, dtype, extra,
-                                    rtol, rtol_metrics):
+                                    drop, rtol, rtol_metrics):
+    # ``drop``: drop_learning_rate(0.1, **drop) on both solvers first, so
+    # the step runs at the scaled rates with fresh Adam moments
     cfg = dict(STEP, x64=dtype == np.float64, **extra)
     jsolver = JSolver(JConfig(**cfg), jload_problem("cube_pde", 2),
                       work_dir=str(tmp_path), devices=jax.devices()[:1])
@@ -110,6 +117,10 @@ def test_one_outer_step_matches_jax(restore_x64, tmp_path, dtype, extra,
     u_tree = jax.tree.map(np.asarray, jsolver.state.u_params)
     v_tree = jax.tree.map(np.asarray, jsolver.state.v_params)
     state_from_jax(tsolver, u_tree, v_tree)
+    if drop is not None:
+        jsolver.drop_learning_rate(0.1, **drop)
+        tsolver.drop_learning_rate(0.1, **drop)
+        assert tsolver.cfg.to_dict() == jsolver.cfg.to_dict()
 
     jb, tb = path_arrays(24, 6, 2, 0, dtype=dtype)
     jbb, tbb = path_arrays(16, 6, 2, 1, boundary=True, dtype=dtype)
@@ -139,10 +150,21 @@ def test_one_outer_step_matches_jax(restore_x64, tmp_path, dtype, extra,
             assert_close(p.detach().numpy(), w, rtol)
 
 
+def test_auto_u_scale_near_jax_on_the_cube(tmp_path):
+    # each package's own 512-row probe of h: draws of two generators
+    cfg = dict(STEP, u_scale=0.0)
+    jsolver = JSolver(JConfig(**cfg), jload_problem("cube_pde", 2),
+                      work_dir=str(tmp_path), devices=jax.devices()[:1])
+    s = NODEWANSolver(SolverConfig(**cfg), load_problem("cube_pde", 2),
+                      device="cpu", work_dir=str(tmp_path))
+    assert s.cfg.u_scale == pytest.approx(jsolver.cfg.u_scale, rel=0.1)
+
+
 @pytest.fixture(scope="module")
-def small_run():
+def small_run(tmp_path_factory):
     solver = NODEWANSolver(SolverConfig(**SMALL), load_problem("cube_pde", 2),
-                           device="cpu")
+                           device="cpu",
+                           work_dir=str(tmp_path_factory.mktemp("small")))
     return solver, solver.train_until(1e-9, 40)
 
 
@@ -168,9 +190,9 @@ def test_train_until_keeps_best_weights(small_run):
         assert hist["rel_err_best_saved"] < hist["rel_err_final"]
 
 
-def test_train_until_stops_at_tolerance():
+def test_train_until_stops_at_tolerance(tmp_path):
     solver = NODEWANSolver(SolverConfig(**SMALL), load_problem("cube_pde", 2),
-                           device="cpu")
+                           device="cpu", work_dir=str(tmp_path))
     hist = solver.train_until(0.5, 30)
     iters = hist["iterations_run"]
     assert 0 < iters < 30
@@ -201,11 +223,12 @@ def test_train_stop_criteria(tmp_path):
     assert solver.best_u_params is not None
 
 
-def test_same_seed_same_run():
+def test_same_seed_same_run(tmp_path):
     hists = []
-    for _ in range(2):
+    for i in range(2):
         s = NODEWANSolver(SolverConfig(**dict(STEP, seed=3)),
-                          load_problem("cube_pde", 2), device="cpu")
+                          load_problem("cube_pde", 2), device="cpu",
+                          work_dir=str(tmp_path / str(i)))
         hists.append(s.train_until(1e-9, 3)["loss_u"])
     np.testing.assert_array_equal(*hists)
 
@@ -219,16 +242,6 @@ def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         NODEWANSolver(SolverConfig(**dict(SMALL, **kw)),
                       load_problem("cube_pde", 2), device="cpu")
-
-
-def test_unported_train_until_recipes_raise():
-    solver = NODEWANSolver(SolverConfig(**STEP), load_problem("cube_pde", 2),
-                           device="cpu")
-    with pytest.raises(NotImplementedError):
-        solver.train_until(0.01, 5, stall_action="drop_lr")
-    with pytest.raises(NotImplementedError):
-        solver.train_until(0.01, 5, drop_lr_at=0.05)
-    assert solver.state.step == 0
 
 
 def test_solver_defaults_to_cuda():

@@ -608,7 +608,9 @@ def path_tangent_inputs(batch, problem, cfg):
     path batch, in the batch's dtype (the kernels take f32 batches): the
     seed through :func:`models.xnode.path_seed_fn` and the Fourier
     features, with their spatial tangents by forward mode
-    (``torch.func.jvp``) in each of the d coordinate directions."""
+    (``torch.func.jvp``) in the d coordinate directions, all d in one
+    ``torch.func.vmap``: one jvp a direction costs d times the host's
+    launches (at d = 20 most of an outer step on the GPU)."""
     from xnode_wan_tpu_torch.models.xnode import path_seed_fn, spatial_features
 
     with torch.no_grad():
@@ -618,13 +620,15 @@ def path_tangent_inputs(batch, problem, cfg):
         def feats_of(x):
             return spatial_features(x, cfg.fourier_features)
 
-        dseed, dfeats = [], []
-        for e in torch.eye(xs.shape[-1], dtype=xs.dtype, device=xs.device):
+        def tangents(e):
             tan = e.expand_as(xs)
-            dseed.append(torch.func.jvp(seed_of, (xs,), (tan,))[1])
-            dfeats.append(torch.func.jvp(feats_of, (xs,), (tan,))[1])
-        return (feats_of(xs), torch.stack(dfeats, dim=1), seed_of(xs),
-                torch.stack(dseed, dim=1))
+            return (torch.func.jvp(seed_of, (xs,), (tan,))[1],
+                    torch.func.jvp(feats_of, (xs,), (tan,))[1])
+
+        dseed, dfeats = torch.func.vmap(tangents)(
+            torch.eye(xs.shape[-1], dtype=xs.dtype, device=xs.device))
+        return (feats_of(xs), dfeats.transpose(0, 1).contiguous(),
+                seed_of(xs), dseed.t().contiguous())
 
 
 def fused_from_batch(params, batch, problem, cfg):

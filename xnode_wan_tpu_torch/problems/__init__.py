@@ -69,7 +69,6 @@ _ALIASES = {
     "Ex4_3_consistent": f"{_PKG}.ex4_3:consistent",
     "ex4_3_consistent": f"{_PKG}.ex4_3:consistent",
 }
-_NOT_PORTED = (f"{_PKG}.ex4_3",)
 
 
 def load_problem(spec: str, dim: Optional[int] = None) -> Problem:
@@ -80,9 +79,6 @@ def load_problem(spec: str, dim: Optional[int] = None) -> Problem:
     variant = None
     if ":" in target:
         target, variant = target.split(":", 1)
-    if target in _NOT_PORTED:
-        raise NotImplementedError(
-            f"problem {spec!r} is not ported to PyTorch yet (see ROADMAP.md)")
     module = importlib.import_module(target)
     if variant == "consistent":
         return module.get_problem_consistent(dim)

@@ -24,8 +24,13 @@ iteration (``utils/logging.py``), keeps the best weights by ``loss_u`` in
 ``checkpoint_NODE.pt`` (``utils/checkpoint.py``), which
 :meth:`NODEWANSolver.load_checkpoint` resumes from.
 
-Not ported yet (they raise): ensembles, QMC sampling, the stall /
-milestone learning-rate recipes of ``train_until``, plots and
+:meth:`NODEWANSolver.train_until` trains to a rel-L^p tolerance with the
+JAX package's refinement recipes: on a window that shows no significant
+progress (:func:`_window_stalled`) it drops both learning rates
+(:meth:`NODEWANSolver.drop_learning_rate`), replaces the adversary or
+restarts, and a milestone can drop the rates once the error crosses it.
+
+Not ported yet (they raise): ensembles, QMC sampling, plots and
 ``train_chunked`` (ROADMAP.md §1 lists where each comes).
 """
 
@@ -33,6 +38,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import math
 import os
 import time
 from typing import Callable, Dict, Optional
@@ -54,6 +60,55 @@ from xnode_wan_tpu_torch.problems import Problem
 from xnode_wan_tpu_torch.utils import checkpoint as ckpt
 from xnode_wan_tpu_torch.utils.logging import RunLogger
 from xnode_wan_tpu_torch.utils.metrics import l_norm, rel_err
+
+STALL_ACTIONS = ("none", "drop_lr", "reinit_v", "restart")
+
+
+def _window_stalled(rel_window, best_rel: float,
+                    margin_sd: float = 2.0) -> bool:
+    """Trajectory-statistics stall test for one ``train_until`` window;
+    the JAX package's ``_window_stalled`` (``xnode_wan_tpu/training.py``),
+    copied so that the port imports nothing of it.
+
+    A window is stalled when it (a) sets no *significant* new best: its
+    minimum does not undercut ``best_rel`` by more than ``margin_sd``
+    window-noise standard deviations in log space (rel_err is a
+    fresh-sample Monte-Carlo estimate, so sub-noise dips are not
+    progress), and (b) shows no significant downward trend: the
+    least-squares slope of ``log rel_err`` over the window plus two
+    standard errors is still >= 0.
+
+    ``margin_sd``: 2.0 to trigger an intervention (an lr drop or a restart
+    must not fire on noise dips); 0.0 to give up after the final lr drop,
+    where post-drop refinement descends slower than the 2-sigma band can
+    certify, so the bar is "no new best at all".
+    """
+    r = np.asarray(rel_window, dtype=np.float64)
+    r = r[np.isfinite(r) & (r > 0)]
+    if r.size < 4:
+        return False
+    y = np.log(r)
+    t = np.arange(y.size, dtype=np.float64)
+    t -= t.mean()
+    denom = float((t * t).sum())
+    slope = float((t * y).sum()) / denom
+    resid = y - y.mean() - slope * t
+    var = float((resid * resid).sum()) / max(y.size - 2, 1)
+    noise_sd = math.sqrt(max(var, 0.0))
+    if not np.isfinite(best_rel):
+        return False  # no baseline yet: the first window can't stall
+    if float(y.min()) < math.log(best_rel) - margin_sd * noise_sd:
+        return False  # significant new best: real progress
+    stderr = math.sqrt(max(var, 0.0) / denom)
+    return slope + 2.0 * stderr >= 0.0
+
+
+def _restart_seed(seed: int, done: int) -> int:
+    """The seed of a ``restart`` after ``done`` iterations. The JAX package
+    folds ``done`` into its key; here numpy's ``SeedSequence`` mixes the
+    run's seed with ``done``, so equal runs restart alike."""
+    return int(np.random.SeedSequence([seed % 2 ** 32, done])
+               .generate_state(1)[0])
 
 
 @dataclasses.dataclass
@@ -174,11 +229,36 @@ class NODEWANSolver:
         cfg = self.cfg
         gen = torch.Generator(device=self.device).manual_seed(seed)
         u_params = init_xnode(cfg, gen)
-        v_params = init_discriminator(
+        self.state = self._fresh_state(u_params, self._new_adversary(gen),
+                                       gen)
+
+    def _new_adversary(self, generator: torch.Generator) -> Discriminator:
+        cfg = self.cfg
+        return init_discriminator(
             cfg.dim, cfg.v_hidden_dim, cfg.v_layers, cfg.tied_v,
-            cfg.v_fourier_features, generator=gen, device=self.device,
+            cfg.v_fourier_features, generator=generator, device=self.device,
             dtype=torch.float64 if cfg.x64 else torch.float32)
-        self.state = self._fresh_state(u_params, v_params, gen)
+
+    def drop_learning_rate(self, factor: float = 0.1,
+                           lr_decay: Optional[float] = None) -> None:
+        """Refinement phase: scale both Adam rates by ``factor`` (and set
+        ``lr_decay`` when given) with fresh optimizer moments, keeping the
+        parameters and the Polyak average (JAX ``:304-347``).
+
+        The rates live in ``self.cfg``, which :meth:`_apply_tx` reads as the
+        base of the decay schedule, and in the new optimizers'
+        ``param_groups``; the fresh optimizers count their updates from 0,
+        so the schedule restarts as optax's count does after ``init``.
+        ``self._losses`` keeps the construction-time config: no rate enters
+        the losses.
+        """
+        cfg = self.cfg
+        self.cfg = cfg.replace(
+            u_rate=cfg.u_rate * factor, v_rate=cfg.v_rate * factor,
+            lr_decay=cfg.lr_decay if lr_decay is None else lr_decay)
+        state = self.state
+        state.opt_u = self._make_tx(state.u_params, self.cfg.u_rate)
+        state.opt_v = self._make_tx(state.v_params, self.cfg.v_rate)
 
     def _u_params_for_eval(self, state: Optional[TrainState] = None) -> XNODE:
         """The serving parameters: the Polyak average when ``ema_decay > 0``."""
@@ -283,9 +363,10 @@ class NODEWANSolver:
                                   self.problem, self.cfg, domain=self.domain)
         return out[0] if squeeze else out
 
-    def _save_best(self) -> None:
+    def _save_best(self, params: Optional[XNODE] = None) -> None:
+        params = self._u_params_for_eval() if params is None else params
         ckpt.save(os.path.join(self.work_dir, "best_model_weights_NODE.pth"),
-                  ckpt.reference_state_dict(self._u_params_for_eval()))
+                  ckpt.reference_state_dict(params))
 
     def save_checkpoint(self, path: Optional[str] = None) -> str:
         path = path or os.path.join(self.work_dir, "checkpoint_NODE.pt")
@@ -345,27 +426,53 @@ class NODEWANSolver:
         return last
 
     def train_until(self, rel_tol: float, max_iters: int, window: int = 200,
-                    stall_action: str = "none", drop_lr_at: float = 0.0):
+                    stall_action: str = "none", max_lr_drops: int = 1,
+                    drop_lr_at: float = 0.0):
         """Train until the fresh-sample rel-L^p error drops below
-        ``rel_tol`` or ``max_iters`` iterations have run (``:649-893``).
+        ``rel_tol`` or ``max_iters`` iterations have run (JAX ``:649-893``),
+        with the stop checked every iteration.
 
-        The stop is checked every iteration. Every ``window`` iterations
-        (and at the end) the serving weights are kept in memory when their
-        error is the best seen at such a point; ``best_u_params`` holds
-        them afterwards, and ``rel_err_best_saved`` reports their error
-        when it beats the final one. Returns the per-iteration ``loss_u``,
-        ``L2`` and ``rel_err`` and the JAX package's summary keys.
+        Every ``window`` iterations (and at the end) the serving weights
+        are kept when their error is the best seen at such a point. At the
+        end they go to ``best_model_weights_NODE.pth`` and
+        ``best_u_params`` when they beat the final error (reported as
+        ``rel_err_best_saved``), else the final weights do; the full state
+        goes to ``checkpoint_NODE.pt``.
+
+        ``stall_action``: what to do when ``window`` iterations show no
+        significant progress (:func:`_window_stalled`; ``best_rel`` is the
+        best over the windows checked before):
+
+        * ``"drop_lr"``: :meth:`drop_learning_rate` ``(0.1, lr_decay=0.99)``,
+          at most ``max_lr_drops`` times (one by default: in JAX a second
+          drop froze the hourglass's adversary and the run drifted). Once
+          the drops are spent, a window must set any new best at all
+          (margin 0), and three stalled windows in a row end the run.
+        * ``"reinit_v"``: a new adversary; the primal and its moments stay.
+        * ``"restart"``: fresh networks, optimizers and sampling stream
+          from a seed derived from ``cfg.seed`` and the iteration count.
+
+        ``drop_lr_at > 0`` drops the rates at the first iteration whose
+        rel-L^p falls below it, once, against the same ``max_lr_drops``
+        budget, under any ``stall_action``. (JAX checks it at the end of a
+        device dispatch, on the dispatch's minimum.)
+
+        Returns the per-iteration ``loss_u``, ``L2`` and ``rel_err`` and
+        the JAX package's summary keys, ``lr_drops_at`` among them.
         """
-        if stall_action != "none" or drop_lr_at > 0:
-            raise NotImplementedError(
-                "the stall and milestone learning-rate recipes of "
-                "train_until are not ported yet (ROADMAP.md §1)")
+        if stall_action not in STALL_ACTIONS:
+            raise ValueError(f"stall_action {stall_action!r} is not one of "
+                             f"{STALL_ACTIONS}")
         if self.problem.u_sol is None:
             raise ValueError("train_until needs problem.u_sol")
         window = max(1, min(window, max_iters))
         hist = {"loss_u": [], "L2": [], "rel_err": []}
         rel = float("inf")
-        best = (float("inf"), None)
+        best = (float("inf"), None)   # (window-end rel, serving weights)
+        best_rel = float("inf")       # best of the stall windows checked
+        stall_buf: list = []
+        lr_drops_at: list = []
+        give_up_windows = 0
         done = 0
         t_train0 = time.perf_counter()
         while done < max_iters and rel > rel_tol:
@@ -377,14 +484,54 @@ class NODEWANSolver:
             if (done % window == 0 or rel <= rel_tol or done == max_iters) \
                     and rel < best[0]:
                 best = (rel, copy.deepcopy(self._u_params_for_eval()))
+            if (drop_lr_at > 0 and len(lr_drops_at) < max_lr_drops
+                    and rel < drop_lr_at):
+                lr_drops_at.append(done)
+                self.drop_learning_rate(0.1, lr_decay=0.99)
+                drop_lr_at = 0.0   # one milestone
+            if stall_action == "none" or self.cfg.ensemble > 1:
+                continue
+            stall_buf.append(rel)
+            if len(stall_buf) < window:
+                continue
+            # an intervention needs the 2-sigma certification; giving up
+            # after the final drop only needs "no new best" (margin 0)
+            final_drop_done = (stall_action == "drop_lr"
+                               and len(lr_drops_at) >= max_lr_drops)
+            stalled = _window_stalled(stall_buf, best_rel,
+                                      margin_sd=0.0 if final_drop_done
+                                      else 2.0)
+            best_rel = min(best_rel, float(np.min(stall_buf)))
+            stall_buf = []
+            if not stalled:
+                give_up_windows = 0
+            elif stall_action == "drop_lr":
+                if len(lr_drops_at) < max_lr_drops:
+                    lr_drops_at.append(done)
+                    self.drop_learning_rate(0.1, lr_decay=0.99)
+                else:
+                    # the refinement phase oscillates with long gaps between
+                    # new bests; three stalled windows in a row is drift
+                    give_up_windows += 1
+                    if give_up_windows >= 3:
+                        break
+            elif stall_action == "reinit_v":   # the primal is kept
+                state = self.state
+                state.v_params = self._new_adversary(state.generator)
+                state.opt_v = self._make_tx(state.v_params, self.cfg.v_rate)
+            else:   # restart
+                self._reinit_state(_restart_seed(self.cfg.seed, done))
+                best_rel = float("inf")
         out = {name: np.asarray(v, dtype=np.float64) for name, v in hist.items()}
         out["iterations_run"] = done
         out["rel_err_final"] = rel
-        out["lr_drops_at"] = []
+        out["lr_drops_at"] = lr_drops_at
         out["wall_train_s"] = time.perf_counter() - t_train0
         if best[1] is not None and best[0] < rel:
             out["rel_err_best_saved"] = best[0]
             self.best_u_params = best[1]
         else:
             self.best_u_params = copy.deepcopy(self._u_params_for_eval())
+        self._save_best(self.best_u_params)
+        self.save_checkpoint()
         return out
