@@ -76,6 +76,27 @@ which raises on failure:
       stall_action="drop_lr")``: every rel-L2 finite, the least under
       0.25, the launches exact as in f, the rel-L2 every 10 iterations
       beside JAX's first 15;
+   h. randomized QMC: one interior and one boundary batch of each of the
+      three domains with ``qmc: halton`` on the card (every valid sample
+      in its set, each coordinate's mean within 4 sigma / sqrt(N) of the
+      centre), then ``configs/cube_pde.yaml`` with ``qmc: halton`` from
+      ``seed`` 0, ``train_until(0.01, 1000)``: rel-L2 < 1%, the launches
+      of b an iteration, the iterations beside JAX's (131; i.i.d. 108);
+   i. ``ensemble: 4`` on ``configs/cube_pde.yaml`` at ``dim: 20``, seed 0,
+      ``train_until(0.01, 200, window=100)``: the best member under 1%,
+      every kernel launched 4x a single member's count an iteration,
+      ``best_member`` and ``rel_err_worst`` printed; the best member
+      served through ``predict`` at 65,536 points under 2a's limit;
+   j. the WAN primal (``primal: wan``, the plain adversary), seed 0, 500
+      iterations (cut from JAX's 7,015 to 1%): every value finite, the
+      least rel-L2 under 0.05, no kernel launched; then the command line
+      with ``primal: wan`` and ``fused_v: true``, 20 iterations and
+      ``--resume --iterations 3``: a record an iteration, the step and
+      loss continuing, #6 twice and #7 once an iteration, #1-#5 never;
+   k. the f64 reference-parity lane (``x64``, ``s1_raw_v``,
+      ``independent_uv``, ``init_all_rows``; ``benchmarks/run_parity.py``)
+      on the cube, seed 0, ``train_until(0.01, 200)``: rel-L2 < 1%, with
+      no kernel launched;
 
 3. each kernel against its plain PyTorch version on the same card
    inputs: #1 and #2 within ``rtol=2e-4, atol=2e-5`` on all four RK
@@ -122,8 +143,11 @@ which raises on failure:
    per-exit-group objective, each of #2-#5, the kernels' tangent inputs
    and the adversary side, and its launches an iteration beside the
    cube's; one d = 20 outer step (2g's solver, a median of 10) with the
-   same parts (medians of 5). Parts timed alone can overlap in a step, so
-   their sum may pass the step's time.
+   same parts (medians of 5); one ensemble iteration of 2i (4 members at
+   d = 20) beside one member's step, one WAN outer step (plain and
+   ``fused_v``), one f64 parity-lane step, and a Halton draw beside an
+   i.i.d. one at the cube's N_r. Parts timed alone can overlap in a step,
+   so their sum may pass the step's time.
 
 Each phase prints its seconds. The line before the last is a JSON object
 with one entry per kernel (its launches on the main path, and by phase);
@@ -178,6 +202,30 @@ D20_RUN = os.path.join(ROOT, "benchmarks", "scenarios",
 D20_ITERS = 150
 D20_WINDOW = 200
 D20_BEST_LIMIT = 0.25
+# 2h: the cube with qmc: halton; JAX reached 1% in 131 iterations from
+# seed 0 (i.i.d. clouds: 108; benchmarks/ab_qmc.json)
+QMC_RUN = os.path.join(ROOT, "benchmarks", "ab_qmc.json")
+QMC_MAX_ITERS = 1000
+# 2i: the cube at dim 20 with ensemble 4; JAX reached 0.99% in 85
+# iterations (benchmarks/scenarios/d20_cube_ensemble.json)
+ENSEMBLE_RUN = os.path.join(ROOT, "benchmarks", "scenarios",
+                            "d20_cube_ensemble.json")
+ENSEMBLE_MAX_ITERS = 200
+ENSEMBLE_WINDOW = 100
+# 2j: the WAN primal, cut to 500 iterations (JAX: 1% in 7,015, least
+# rel-L2 0.0230 over its first 500; benchmarks/scenarios/wan_d5.json),
+# then 20 iterations of the command line with fused_v and a resume
+WAN_RUN = os.path.join(ROOT, "benchmarks", "scenarios", "wan_d5.json")
+WAN_ITERS = 500
+WAN_BEST_LIMIT = 0.05
+WAN_CLI_ITERS = 20
+# 2k: the f64 reference-parity lane (benchmarks/run_parity.py:48); JAX
+# reached 0.998% in 80 iterations on a CPU
+# (benchmarks/convergence_d5_parity.json)
+PARITY_RUN = os.path.join(ROOT, "benchmarks", "convergence_d5_parity.json")
+PARITY_FLAGS = dict(x64=True, s1_raw_v=True, independent_uv=True,
+                    init_all_rows=True)
+PARITY_MAX_ITERS = 200
 RTOL, ATOL = 2e-4, 2e-5       # kernel against plain; tests/test_pallas.py:33
 # Tangents, stored tangent states and weight gradients are sums of many
 # terms of both signs (the gradient: over 20,000 path-directions and 20
@@ -481,6 +529,274 @@ def d20_drop_lr(kernels, work: str, card: str) -> dict:
             "solver": solver, "u_scale": solver.cfg.u_scale}
 
 
+def check_qmc_clouds(dev) -> dict:
+    """Phase 2h's draws: one interior and one boundary batch of each
+    domain with ``qmc: halton`` on the card, at the shipped configs'
+    N_r / N_b. Every valid sample lies in its set (the boundary paths end
+    on the boundary), and each spatial coordinate's mean lies within
+    4 sigma / sqrt(N) of the i.i.d. expectation, the centre of the
+    domain's symmetric box or ball (sigma: the coordinate's spread)."""
+    from xnode_wan_tpu_torch import load_params, make_domain
+
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    for path in (CONFIG, CONE_CONFIG, HOURGLASS_CONFIG):
+        c = load_params(path)
+        dom = make_domain(c.domain, c.shape_param, c.dim, c.T0, c.T, c.N_t,
+                          qmc="halton")
+        centre = (0.5 * (dom.bot + dom.top) if hasattr(dom, "bot") else 0.0)
+        for kind, b in (("interior", dom.interior(g, c.N_r)),
+                        ("boundary", dom.boundary(g, c.N_b))):
+            name = f"{c.domain} {kind}"
+            w = dom.func_w(b.x)
+            if kind == "interior":
+                gap = float(torch.clamp(-w[b.mask], min=0).max())
+            else:   # the cube's whole paths, the spheres' exit samples
+                w_end = w if c.domain == "Hypercube" else w[:, -1]
+                gap = float(w_end.abs().max())
+            if not gap <= 1e-5:
+                raise AssertionError(f"{name}: a sample {gap:.3e} outside "
+                                     "its set")
+            xs = b.x[:, 0, 1:].double() if kind == "interior" else \
+                b.x[:, -1, 1:].double()
+            n = xs.shape[0]
+            z = ((xs.mean(0) - centre) / (xs.std(0) / math.sqrt(n))).abs()
+            print(f"  qmc {name}: {tuple(b.x.shape)}, every sample in its "
+                  f"set (worst {gap:.2e}); coordinate means at most "
+                  f"{float(z.max()):.3f} sigma/sqrt(N) from the centre")
+            if not bool((z < 4.0).all()):
+                raise AssertionError(f"{name}: a coordinate mean is "
+                                     f"{float(z.max()):.2f} sigma/sqrt(N) off")
+            out[name] = float(z.max())
+    return out
+
+
+def qmc_cube(kernels, work: str, dev, card: str) -> dict:
+    """Phase 2h: the clouds of :func:`check_qmc_clouds`, then
+    ``configs/cube_pde.yaml`` with ``qmc: halton``, seed 0,
+    ``train_until(0.01, QMC_MAX_ITERS)``: rel-L2 < 1%, the launches of 2b
+    an iteration, the iterations beside JAX's (Halton and i.i.d.)."""
+    from xnode_wan_tpu_torch import NODEWANSolver, load_params, load_problem
+
+    clouds = check_qmc_clouds(dev)
+    cfg = load_params(CONFIG).replace(qmc="halton", seed=SEED)
+    solver = NODEWANSolver(cfg, load_problem("Ex4_1_funcs", dim=cfg.dim),
+                           work_dir=work)
+    zero_launches(kernels)
+    hist = solver.train_until(TRAIN_TOL, QMC_MAX_ITERS)
+    torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    with open(QMC_RUN) as fh:
+        runs = json.load(fh)["runs"]
+    jax_iters = {kind: next(r["iterations_run"] for r in runs[kind]
+                            if r["seed"] == SEED)
+                 for kind in ("halton", "none")}
+    n = check_until("qmc cube (2h)", hist, launches, cfg)
+    print(f"qmc: halton cube: {n} outer iterations to rel-L2 "
+          f"{hist['rel_err_final']:.6f} in {hist['wall_train_s']:.3f} s "
+          f"(train_until wall clock, {card}); JAX from seed {SEED}: "
+          f"{jax_iters['halton']} (halton), {jax_iters['none']} (i.i.d.); "
+          f"launches {launches}")
+    if not hist["rel_err_final"] < TRAIN_TOL:
+        raise AssertionError(f"the halton cube stopped at rel-L2 "
+                             f"{hist['rel_err_final']} after {n} iterations")
+    return {"hist": hist, "launches": launches, "jax": jax_iters,
+            "clouds": clouds, "solver": solver}
+
+
+def ensemble_d20(kernels, work: str, dev, card: str) -> dict:
+    """Phase 2i: ``configs/cube_pde.yaml`` at ``dim: 20`` with ``ensemble:
+    4``, seed 0, ``train_until(0.01, ENSEMBLE_MAX_ITERS, window=100)``:
+    rel-L2 < 1% (the best member's), each kernel launched 4x a single
+    member's count an iteration, ``best_member`` and ``rel_err_worst``
+    printed; then the best member served through ``predict`` at
+    ``SERVE_POINTS`` points under ``REL_L2_LIMIT`` (one launch of #1)."""
+    from xnode_wan_tpu_torch import (NODEWANSolver, load_params, load_problem,
+                                     rel_err)
+    from xnode_wan_tpu_torch.ops.kernels import xnode_eval
+
+    cfg = load_params(CONFIG).replace(dim=20, ensemble=4, seed=SEED)
+    problem = load_problem("Ex4_1_funcs", dim=cfg.dim)
+    solver = NODEWANSolver(cfg, problem, work_dir=work)
+    zero_launches(kernels)
+    hist = solver.train_until(TRAIN_TOL, ENSEMBLE_MAX_ITERS,
+                              window=ENSEMBLE_WINDOW)
+    torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    n = hist["iterations_run"]
+    with open(ENSEMBLE_RUN) as fh:
+        ref = json.load(fh)
+    print(f"ensemble {cfg.ensemble}, d={cfg.dim}: {n} outer iterations to "
+          f"rel-L2 {hist['rel_err_final']:.6f} (best member "
+          f"{int(hist['best_member'][-1])}, worst member "
+          f"{hist['rel_err_worst'][-1]:.6f}) in {hist['wall_train_s']:.3f} s "
+          f"(train_until wall clock, {card}); JAX: {ref['iterations_run']} "
+          f"iterations to {ref['rel_err_final']:.6f}; launches {launches}")
+    every_10("ensemble", hist["rel_err"], ref["rel_err_every_10"])
+    members = [int(b) for b in hist["best_member"][::10]]
+    print(f"  best member every 10 iterations: {members}; worst member's "
+          f"rel-L2: {[round(float(v), 4) for v in hist['rel_err_worst'][::10]]}")
+    one = train_launches_want(n, cfg)
+    want = {k: cfg.ensemble * v for k, v in one.items()}
+    if launches != want:
+        raise AssertionError(f"ensemble launches {launches}, expected {want}")
+    if not (len(hist["rel_err"]) == len(hist["best_member"]) == n
+            and all(math.isfinite(v) for v in hist["rel_err_worst"])):
+        raise AssertionError("ensemble: the history is not one entry an "
+                             "iteration, or not finite")
+    if not hist["rel_err_final"] < TRAIN_TOL:
+        raise AssertionError(f"the ensemble stopped at rel-L2 "
+                             f"{hist['rel_err_final']} after {n} iterations")
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    pts = torch.rand((SERVE_POINTS, cfg.dim + 1), generator=g, device=dev)
+    pts[:, 1:] = 2.0 * pts[:, 1:] - 1.0
+    xnode_eval.KERNEL.launches = 0
+    u = solver.predict(pts)
+    torch.cuda.synchronize()
+    served = float(rel_err(u, problem.u_sol(pts),
+                           torch.ones_like(u, dtype=torch.bool),
+                           solver.domain.V(), cfg.p))
+    print(f"served the best member ({solver._best_member}) through predict "
+          f"at {SERVE_POINTS} points: rel-L2 {served:.6f} "
+          f"({xnode_eval.KERNEL.launches} launch of #1)")
+    if xnode_eval.KERNEL.launches != 1:
+        raise AssertionError("serving the ensemble did not launch #1 once")
+    if u.shape != (SERVE_POINTS,) or not served < REL_L2_LIMIT:
+        raise AssertionError(f"the best member serves at rel-L2 {served} >= "
+                             f"{REL_L2_LIMIT}")
+    return {"hist": hist, "launches": launches, "served": served,
+            "solver": solver, "reference": ref}
+
+
+def wan_runs(kernels, work_root: str, cli_main, card: str) -> dict:
+    """Phase 2j: ``configs/cube_pde.yaml`` with ``primal: wan`` (plain
+    adversary), seed 0, ``train_until(0.01, WAN_ITERS)``: every value
+    finite, the least rel-L2 under ``WAN_BEST_LIMIT``, no kernel launched;
+    then the command line with ``primal: wan`` and ``fused_v: true`` for
+    ``WAN_CLI_ITERS`` iterations and ``--resume --iterations 3``: a record
+    an iteration, the step and loss continuing, #6 twice and #7 once an
+    iteration, #1-#5 never."""
+    from xnode_wan_tpu_torch import NODEWANSolver, load_params, load_problem
+
+    cfg = load_params(CONFIG).replace(primal="wan", seed=SEED)
+    solver = NODEWANSolver(cfg, load_problem("Ex4_1_funcs", dim=cfg.dim),
+                           work_dir=os.path.join(work_root, "2j"))
+    zero_launches(kernels)
+    hist = solver.train_until(TRAIN_TOL, WAN_ITERS)
+    torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    with open(WAN_RUN) as fh:
+        ref = json.load(fh)
+    n = hist["iterations_run"]
+    best = float(min(hist["rel_err"]))
+    print(f"WAN primal: {n} outer iterations, least rel-L2 {best:.6f}, last "
+          f"{hist['rel_err_final']:.6f}, in {hist['wall_train_s']:.3f} s "
+          f"(train_until wall clock, {card}); JAX: least "
+          f"{min(ref['rel_err_every_10'][:WAN_ITERS // 10]):.6f} over its "
+          f"first {WAN_ITERS} (every 10th), 1% in {ref['iterations_run']}; "
+          f"launches {launches}")
+    every_10("WAN", hist["rel_err"], ref["rel_err_every_10"])
+    if not (len(hist["rel_err"]) == n and all(
+            math.isfinite(v) for k in ("rel_err", "loss_u", "L2")
+            for v in hist[k])):
+        raise AssertionError("the WAN run logged a non-finite value")
+    if any(launches.values()):
+        raise AssertionError(f"the WAN run launched kernels: {launches}")
+    if not best < WAN_BEST_LIMIT:
+        raise AssertionError(f"the WAN run's least rel-L2 {best} >= "
+                             f"{WAN_BEST_LIMIT}")
+
+    def want(k):
+        return {"xnode_eval": 0, "xnode_train": 0, "xnode_udu_fwd": 0,
+                "xnode_udu_fwd_store": 0, "xnode_udu_bwd": 0,
+                "disc_fwd": (1 + cfg.n2) * k, "disc_bwd": cfg.n2 * k}
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_wan_") as work:
+        yaml_path = os.path.join(work, "cube_pde_wan_fused_v.yaml")
+        with open(CONFIG) as fh:
+            text = fh.read()
+        with open(yaml_path, "w") as fh:
+            fh.write(text.rstrip("\n") + "\nprimal: wan\nfused_v: true\n")
+        argv = ["--params", yaml_path, "--funcs", "Ex4_1_funcs", "-w", work,
+                "--report_it", "5"]
+        zero_launches(kernels)
+        _, wsolver = run_cli(cli_main, argv + ["--iterations",
+                                               str(WAN_CLI_ITERS)])
+        torch.cuda.synchronize()
+        cli_launches = read_launches(kernels)
+        metrics_file = os.path.join(work, f"metrics_NODE_{cfg.dim}.jsonl")
+        rec = read_jsonl(metrics_file)
+        zero_launches(kernels)
+        _, resumed = run_cli(cli_main, argv + ["--resume", "--iterations",
+                                               "3"])
+        torch.cuda.synchronize()
+        res_launches = read_launches(kernels)
+        rec2 = read_jsonl(metrics_file)
+    fresh, last, first = (rec[0]["loss_u"], rec[-1]["loss_u"],
+                          rec2[0]["loss_u"])
+    print(f"WAN command line, fused_v: {wsolver.state.step} iterations, "
+          f"rel-L2 {rec[0]['rel_err']:.6f} -> {rec[-1]['rel_err']:.6f}; "
+          f"launches {cli_launches}; resumed: step {wsolver.state.step} -> "
+          f"{resumed.state.step}, loss_u first fresh {fresh:.6g}, last "
+          f"{last:.6g}, first resumed {first:.6g}; launches {res_launches}")
+    if wsolver.state.step != WAN_CLI_ITERS or \
+            [r["step"] for r in rec] != list(range(WAN_CLI_ITERS)):
+        raise AssertionError(f"{len(rec)} WAN records for {WAN_CLI_ITERS} "
+                             "iterations")
+    if not all(math.isfinite(r[k]) for r in rec + rec2
+               for k in ("loss_u", "loss_v", "rel_err")):
+        raise AssertionError("the WAN command line logged a non-finite loss")
+    if len(rec2) != 3 or resumed.state.step != WAN_CLI_ITERS + 3:
+        raise AssertionError("the resumed WAN run did not continue the step "
+                             "count")
+    if not abs(first - last) < abs(first - fresh):
+        raise AssertionError("the resumed WAN loss_u is nearer the fresh "
+                             "start's than the last one's")
+    if cli_launches != want(WAN_CLI_ITERS) or res_launches != want(3):
+        raise AssertionError(f"WAN command-line launches {cli_launches}, "
+                             f"{res_launches}; expected {want(WAN_CLI_ITERS)}"
+                             f", {want(3)}")
+    return {"hist": hist, "launches": launches, "best": best,
+            "cli_launches": cli_launches, "res_launches": res_launches,
+            "solver": solver, "cli_solver": resumed}
+
+
+def parity_lane(kernels, work: str, card: str) -> dict:
+    """Phase 2k: the f64 reference-parity lane, ``configs/cube_pde.yaml``
+    with the four flags of ``benchmarks/run_parity.py`` (``x64``,
+    ``s1_raw_v``, ``independent_uv``, ``init_all_rows``), seed 0,
+    ``train_until(0.01, PARITY_MAX_ITERS)``: rel-L2 < 1%, and no kernel
+    launched (x64 closes both gates)."""
+    from xnode_wan_tpu_torch import NODEWANSolver, load_params, load_problem
+
+    cfg = load_params(CONFIG).replace(seed=SEED, **PARITY_FLAGS)
+    solver = NODEWANSolver(cfg, load_problem("Ex4_1_funcs", dim=cfg.dim),
+                           work_dir=work)
+    zero_launches(kernels)
+    hist = solver.train_until(TRAIN_TOL, PARITY_MAX_ITERS)
+    torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    with open(PARITY_RUN) as fh:
+        ref = json.load(fh)
+    n = hist["iterations_run"]
+    print(f"f64 parity lane {sorted(PARITY_FLAGS)}: {n} outer iterations to "
+          f"rel-L2 {hist['rel_err_final']:.6f} in {hist['wall_train_s']:.3f} "
+          f"s (train_until wall clock, {card}); JAX on a CPU: "
+          f"{ref['iterations']} to {ref['rel_err_final']:.6f}; launches "
+          f"{launches}")
+    every_10("parity", hist["rel_err"], ref["trajectory"]["rel_err"][::10])
+    if any(launches.values()):
+        raise AssertionError(f"the f64 lane launched kernels: {launches}")
+    if not (len(hist["rel_err"]) == n > 0 and all(
+            math.isfinite(v) for v in hist["loss_u"])):
+        raise AssertionError("the f64 lane logged a non-finite loss_u")
+    if not hist["rel_err_final"] < TRAIN_TOL:
+        raise AssertionError(f"the f64 lane stopped at rel-L2 "
+                             f"{hist['rel_err_final']} after {n} iterations")
+    return {"hist": hist, "launches": launches, "solver": solver,
+            "reference": ref}
+
+
 def step_parts(solver, reps: int, scan_reps: int):
     """The parts of one outer step of ``solver``, each timed alone (CUDA
     events, a median) on a fresh draw of its batches and multiplied by its
@@ -492,7 +808,7 @@ def step_parts(solver, reps: int, scan_reps: int):
     from xnode_wan_tpu_torch.ops.kernels import xnode_train
 
     cfg, problem, state = solver.cfg, solver.problem, solver.state
-    batch, bbatch = solver._sample(state.generator)
+    batch, bbatch, _ = solver._sample(state.generator)
     net = xnode_train.flat_net(state.u_params)
     packed = net.packed()
     args = [a.contiguous() for a in (
@@ -1018,6 +1334,27 @@ def main(work_root: str) -> int:
     d20 = d20_drop_lr(kernels, os.path.join(work_root, "2g"), card)
     phase_launches["2g"] = d20["launches"]
     t_phase = phase_done("2g", t_phase)
+
+    # 2h. the cube with qmc: halton ---------------------------------------
+    qmc = qmc_cube(kernels, os.path.join(work_root, "2h"), dev, card)
+    phase_launches["2h"] = qmc["launches"]
+    t_phase = phase_done("2h", t_phase)
+
+    # 2i. ensemble: 4 at d = 20 -------------------------------------------
+    ens = ensemble_d20(kernels, os.path.join(work_root, "2i"), dev, card)
+    phase_launches["2i"] = ens["launches"]
+    phase_launches["2i serve"] = {"xnode_eval": 1}
+    t_phase = phase_done("2i", t_phase)
+
+    # 2j. the WAN primal, and through the command line with fused_v ---------
+    wan = wan_runs(kernels, work_root, cli_main, card)
+    phase_launches["2j CLI"] = wan["cli_launches"]
+    phase_launches["2j resume"] = wan["res_launches"]
+    t_phase = phase_done("2j", t_phase)
+
+    # 2k. the f64 reference-parity lane -----------------------------------
+    parity = parity_lane(kernels, os.path.join(work_root, "2k"), card)
+    t_phase = phase_done("2k", t_phase)
 
     # 3. each kernel against its plain version on the card -----------------
     net = xnode_train.flat_net(model)
@@ -1598,7 +1935,7 @@ def main(work_root: str) -> int:
     fv_runs.append(time_ms(lambda: fv_solver._outer_step(), reps=10))
     step_runs.append(time_ms(lambda: solver._outer_step(), reps=10))
     step_ms, fv_step_ms = statistics.mean(step_runs), statistics.mean(fv_runs)
-    sbatch, bbatch = solver._sample(solver.state.generator)
+    sbatch, bbatch, _ = solver._sample(solver.state.generator)
     state = solver.state
 
     def bdry_fwd():
@@ -1634,7 +1971,7 @@ def main(work_root: str) -> int:
 
     # the fused_v outer step: the adversary side through #6 twice and #7
     # once, beside the plain one
-    fv_batch, _ = fv_solver._sample(fv_solver.state.generator)
+    fv_batch, _, _ = fv_solver._sample(fv_solver.state.generator)
     with torch.no_grad():
         fv_vside_ms = time_ms(lambda: fv_solver._losses.v_side(
             fv_solver.state.v_params, fv_batch), reps=10)
@@ -1644,7 +1981,7 @@ def main(work_root: str) -> int:
     # the adversary step alone (the n2 part of _step_on): loss_v on a
     # fixed u side, forward and weight gradient, in turns
     def adversary_step(s):
-        b, _ = s._sample(s.state.generator)
+        b, _, _ = s._sample(s.state.generator)
         with torch.no_grad():
             uside = s._losses.u_side(s.state.u_params, b)
         leaves = list(s.state.v_params.parameters())
@@ -1724,7 +2061,13 @@ def main(work_root: str) -> int:
             n: c / f_hist["iterations_run"]
             for n, c in hg_until["launches"].items()},
         "d=20 (2g)": {n: c / d_hist["iterations_run"]
-                      for n, c in d20["launches"].items()}}
+                      for n, c in d20["launches"].items()},
+        "qmc cube (2h)": {n: c / qmc["hist"]["iterations_run"]
+                          for n, c in qmc["launches"].items()},
+        "ensemble 4, d=20 (2i)": {n: c / ens["hist"]["iterations_run"]
+                                  for n, c in ens["launches"].items()},
+        "WAN, fused_v CLI (2j)": {n: c / WAN_CLI_ITERS
+                                  for n, c in wan["cli_launches"].items()}}
     print(f"launches an outer iteration: {per_iter}")
     print(json.dumps({"training_cone": {
         "iterations": c_iters, "rel_err_final": chist["rel_err_final"],
@@ -1766,6 +2109,58 @@ def main(work_root: str) -> int:
             "rel_err_every_10": d_hist["rel_err"][::10].tolist(),
             "step_ms": d20_step_ms, "parts_ms": d20_parts},
         "card": card}}))
+
+    # one ensemble iteration (4 members at d = 20, 2i's solver) beside one
+    # member's step, one WAN outer step (plain adversary, and 2j's
+    # command-line solver with fused_v), one f64 parity step, and a Halton
+    # draw beside an i.i.d. one at the cube's N_r
+    esolver, wsolver = ens["solver"], wan["solver"]
+    ens_ms = time_ms(lambda: esolver._outer_step(), reps=5, warmup=1)
+    member_ms = time_ms(lambda: esolver._outer_step(esolver.members[0]),
+                        reps=5, warmup=1)
+    wan_ms = time_ms(lambda: wsolver._outer_step(), reps=10, warmup=2)
+    wan_fv_ms = time_ms(lambda: wan["cli_solver"]._outer_step(), reps=10,
+                        warmup=2)
+    psolver = parity["solver"]
+    parity_ms = time_ms(lambda: psolver._outer_step(), reps=3, warmup=1)
+    qg = torch.Generator(device=dev).manual_seed(21)
+    hcube, icube = qmc["solver"].domain, solver.domain
+    draws = {"halton interior": time_ms(lambda: hcube.interior(qg, cfg.N_r)),
+             "iid interior": time_ms(lambda: icube.interior(qg, cfg.N_r)),
+             "halton boundary": time_ms(lambda: hcube.boundary(qg, cfg.N_b)),
+             "iid boundary": time_ms(lambda: icube.boundary(qg, cfg.N_b))}
+    print(f"ensemble iteration ({card}), 4 members at d=20, median of 5: "
+          f"{ens_ms:.4f} ms; one member's outer step: {member_ms:.4f} ms "
+          f"({ens_ms / member_ms:.2f}x)")
+    print(f"WAN outer step ({card}), median of 10: plain adversary "
+          f"{wan_ms:.4f} ms, fused_v {wan_fv_ms:.4f} ms (XNODE cube step "
+          f"{step_ms:.4f} ms); f64 parity-lane step, median of 3: "
+          f"{parity_ms:.4f} ms")
+    print(f"cloud draws at N={cfg.N_r}, d={cfg.dim} ({card}), median of 20: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in draws.items()))
+    print(json.dumps({"new_paths": {
+        "qmc_cube": {"iterations": qmc["hist"]["iterations_run"],
+                     "rel_err_final": qmc["hist"]["rel_err_final"],
+                     "wall_train_s": qmc["hist"]["wall_train_s"],
+                     "jax_iterations": qmc["jax"],
+                     "cloud_mean_sigmas": qmc["clouds"]},
+        "ensemble": {"iterations": ens["hist"]["iterations_run"],
+                     "rel_err_final": ens["hist"]["rel_err_final"],
+                     "best_member": int(ens["hist"]["best_member"][-1]),
+                     "rel_err_worst": float(ens["hist"]["rel_err_worst"][-1]),
+                     "served_rel_err": ens["served"],
+                     "wall_train_s": ens["hist"]["wall_train_s"],
+                     "iteration_ms": ens_ms, "member_step_ms": member_ms},
+        "wan": {"iterations": wan["hist"]["iterations_run"],
+                "least_rel_err": wan["best"],
+                "rel_err_every_10": wan["hist"]["rel_err"][::10].tolist(),
+                "wall_train_s": wan["hist"]["wall_train_s"],
+                "step_ms": wan_ms, "fused_v_step_ms": wan_fv_ms},
+        "parity": {"iterations": parity["hist"]["iterations_run"],
+                   "rel_err_final": parity["hist"]["rel_err_final"],
+                   "wall_train_s": parity["hist"]["wall_train_s"],
+                   "step_ms": parity_ms},
+        "draws_ms": draws, "card": card}}))
     phase_done("5", t_phase)
 
     print(json.dumps({"kernels": rows}))

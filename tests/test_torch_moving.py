@@ -217,8 +217,10 @@ def test_make_domain_registry_and_rejections():
         assert dom.interior(gen(), 4).x.dtype == torch.float64
         with pytest.raises(ValueError, match="T0"):
             ts.make_domain(name, 1.0, 3, 0.3, 1.0, 10)
-        with pytest.raises(NotImplementedError, match="qmc"):
-            ts.make_domain(name, 1.0, 3, 0.0, 1.0, 10, qmc="halton")
+        qdom = ts.make_domain(name, 1.0, 3, 0.0, 1.0, 10, qmc="halton")
+        assert isinstance(qdom, cls) and qdom.qmc == "halton"
+        qb = qdom.interior(gen(), 4)
+        assert qb.x.shape == (qdom.interior_rows(4), 10, 4)
     assert ts.make_domain("NSphere_THourglass", 1.0, 3, 0.0, 1.0, 10,
                           waist_cap=True).waist_cap
     with pytest.raises(KeyError):

@@ -111,5 +111,7 @@ def test_same_generator_same_batch_and_x64(cube):
 def test_cube_rejections():
     with pytest.raises(ValueError, match="volume"):
         Hypercube((1.0, 1.0), dim=2, T0=0.0, T=1.0, N_t=4)
-    with pytest.raises(NotImplementedError, match="qmc"):
-        Hypercube((-1.0, 1.0), dim=2, T0=0.0, T=1.0, N_t=4, qmc="halton")
+    # qmc: halton is no rejection: the cube draws its box from the cloud
+    q = Hypercube((-1.0, 1.0), dim=2, T0=0.0, T=1.0, N_t=4, qmc="halton")
+    xs = q.interior(gen(), 16).space[:, 0, :]
+    assert float(xs.min()) >= -1.0 and float(xs.max()) < 1.0

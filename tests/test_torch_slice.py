@@ -46,7 +46,8 @@ def test_import_leaves_jax_out():
             "import xnode_wan_tpu_torch.main, xnode_wan_tpu_torch.ops.kernels."
             "disc_train, xnode_wan_tpu_torch.utils.checkpoint, "
             "xnode_wan_tpu_torch.utils.logging, "
-            "xnode_wan_tpu_torch.problems.ex4_3\n"
+            "xnode_wan_tpu_torch.problems.ex4_3, xnode_wan_tpu_torch.ops.qmc, "
+            "xnode_wan_tpu_torch.models.wan\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'xnode_wan_tpu'))\n"
             "print(bad)\n")

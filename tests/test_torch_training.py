@@ -13,7 +13,9 @@ path against the JAX package's XLA route on the CPU) 1e-4 on the
 parameters and Adam moments after two Adam steps, 1e-5 on the metrics.
 The same holds with ``fused_v``: the port's adversary side through the
 plain versions of kernels #6 and #7, the JAX package's through its XLA
-route (its gate takes the kernels on a TPU only).
+route (its gate takes the kernels on a TPU only). The f64 case with the
+reference-parity flags (``benchmarks/run_parity.py``) gives both solvers
+the same ``independent_uv`` adversary cloud.
 """
 
 import dataclasses
@@ -103,8 +105,10 @@ def check_adam(opt, pairs_of, jopt, rtol):
     (np.float32, dict(fused_v=True), None, 1e-4, 1e-5),
     (np.float64, {}, {}, 1e-9, 1e-9),
     (np.float64, {}, dict(lr_decay=0.99), 1e-7, 1e-6),
+    (np.float64, dict(s1_raw_v=True, independent_uv=True, init_all_rows=True),
+     None, 1e-9, 1e-9),
 ], ids=["f64", "f64_clip_decay_ema", "f32_fused_plain", "f32_fused_v_plain",
-        "f64_after_drop", "f64_after_drop_decay"])
+        "f64_after_drop", "f64_after_drop_decay", "f64_parity_flags"])
 def test_one_outer_step_matches_jax(restore_x64, tmp_path, dtype, extra,
                                     drop, rtol, rtol_metrics):
     # ``drop``: drop_learning_rate(0.1, **drop) on both solvers first, so
@@ -125,11 +129,14 @@ def test_one_outer_step_matches_jax(restore_x64, tmp_path, dtype, extra,
     jb, tb = path_arrays(24, 6, 2, 0, dtype=dtype)
     jbb, tbb = path_arrays(16, 6, 2, 1, boundary=True, dtype=dtype)
     jeb, teb = path_arrays(24, 6, 2, 2, dtype=dtype)
-    draws = iter([(jb, jbb, None), (jeb, None, None)])
+    # independent_uv: the adversary side's own interior cloud
+    jvb, tvb = (path_arrays(24, 6, 2, 3, dtype=dtype)
+                if extra.get("independent_uv") else (None, None))
+    draws = iter([(jb, jbb, jvb), (jeb, None, None)])
     jsolver._sample = lambda key: next(draws)
     with jax.default_matmul_precision("highest"):
         jstate, jm = jax.jit(jsolver._outer_step)(jsolver.state)
-    tm = tsolver._to_host(tsolver._step_on(tsolver.state, tb, tbb, teb))
+    tm = tsolver._to_host(tsolver._step_on(tsolver.state, tb, tbb, teb, tvb))
 
     for k in ("loss_u", "loss_v", "I", "int", "init", "bdry", "L2",
               "rel_err"):
@@ -233,11 +240,10 @@ def test_same_seed_same_run(tmp_path):
     np.testing.assert_array_equal(*hists)
 
 
-@pytest.mark.parametrize("kw", [dict(ensemble=2), dict(adjoint=True),
-                                dict(independent_uv=True), dict(primal="wan"),
-                                dict(tangent_shards=2),
-                                dict(domain="NSphere_TCone", shape_param=1.0,
-                                     qmc="halton")])
+@pytest.mark.parametrize("kw", [dict(solver="dopri5"), dict(adjoint=True),
+                                dict(solver="explicit_adams"),
+                                dict(solver="fixed_adams"),
+                                dict(tangent_shards=2), dict(solver="adams")])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         NODEWANSolver(SolverConfig(**dict(SMALL, **kw)),

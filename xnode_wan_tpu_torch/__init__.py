@@ -10,7 +10,10 @@ from :func:`u_du_fused`, through ``csrc/xnode_grad.cu``, and with
 ``fused_v`` the adversary side from :func:`v_dv_fused`, through
 ``csrc/disc_fwd.cu`` and ``csrc/disc_train.cu``), on the hypercube or the
 moving domains :class:`NSphereTCone` and :class:`NSphereTHourglass`
-(:func:`make_domain`). ``python -m xnode_wan_tpu_torch.main`` is the
+(:func:`make_domain`), with i.i.d. or randomized-Halton clouds
+(``ops/qmc.py``). The primal is the XNODE or the plain MLP
+:class:`WAN` (``primal: wan``), and ``ensemble: K`` trains K members at
+once. ``python -m xnode_wan_tpu_torch.main`` is the
 command line, with logs, checkpoints and resume. Entry points run on the current CUDA device unless the caller
 passes ``device="cpu"``; CPU tensors take the kernels' plain PyTorch
 versions.
@@ -19,6 +22,7 @@ versions.
 from xnode_wan_tpu_torch.config import SolverConfig, load_params
 from xnode_wan_tpu_torch.device import default_device
 from xnode_wan_tpu_torch.models.discriminator import init_discriminator
+from xnode_wan_tpu_torch.models.wan import WAN
 from xnode_wan_tpu_torch.models.xnode import (XNODE, apply_xnode,
                                               evaluate_points, init_xnode)
 from xnode_wan_tpu_torch.ops.kernels.disc_train import (v_dv_fused,
@@ -37,7 +41,8 @@ from xnode_wan_tpu_torch.utils.logging import RunLogger
 from xnode_wan_tpu_torch.utils.metrics import l_norm, rel_err
 from xnode_wan_tpu_torch.utils.torch_compat import (disc_params_from_jax,
                                                     load_reference_state_dict,
-                                                    params_from_jax)
+                                                    params_from_jax,
+                                                    wan_params_from_jax)
 
 __all__ = [
     "SolverConfig", "load_params", "default_device", "XNODE", "init_xnode",
@@ -47,5 +52,5 @@ __all__ = [
     "load_reference_state_dict", "params_from_jax", "disc_params_from_jax",
     "NODEWANSolver", "make_losses", "u_du_fused", "fused_from_batch",
     "init_discriminator", "v_dv_fused", "v_fused_fits", "v_phi_grads_fused",
-    "RunLogger",
+    "RunLogger", "WAN", "wan_params_from_jax",
 ]

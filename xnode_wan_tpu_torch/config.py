@@ -187,10 +187,7 @@ def load_params(path: str) -> SolverConfig:
 def check_trainable(cfg: SolverConfig) -> None:
     """Raise ``NotImplementedError`` for training options the port does
     not implement yet (ROADMAP.md lists where each comes)."""
-    missing = [(cfg.ensemble > 1, "ensemble > 1"),
-               (cfg.adjoint, "adjoint: true"),
-               (cfg.independent_uv, "independent_uv: true"),
-               (cfg.primal != "xnode", f"primal: {cfg.primal}"),
+    missing = [(cfg.adjoint, "adjoint: true"),
                (cfg.tangent_shards > 1, "tangent_shards > 1")]
     names = [name for bad, name in missing if bad]
     if names:

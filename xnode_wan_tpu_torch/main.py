@@ -7,7 +7,9 @@
 It trains on the current CUDA device and raises without one unless
 ``--device`` names another (``--device cpu`` runs every kernel's plain
 PyTorch version). ``--resume`` continues from ``checkpoint_NODE.pt`` in
-the work directory.
+the work directory. The config picks the primal (``primal: wan``), the
+ensemble (``ensemble: K``: each log record is the best member's, with
+``best_member`` and ``rel_err_worst``) and the clouds (``qmc: halton``).
 """
 
 from __future__ import annotations

@@ -24,6 +24,17 @@ ADAPTIVE_METHODS = ("dopri5", "bosh3", "adaptive_heun", "fehlberg2",
 MULTISTEP_METHODS = ("explicit_adams", "fixed_adams")
 
 
+def check_method(method: str) -> None:
+    """Raise for an integration method the port does not run: the
+    multistep and adaptive ones are not ported yet."""
+    if method in MULTISTEP_METHODS or method in ADAPTIVE_METHODS:
+        raise NotImplementedError(
+            f"method {method!r} is not ported yet; the port integrates "
+            f"with {FUSED_KERNEL_METHODS}")
+    if method not in FUSED_KERNEL_METHODS:
+        raise ValueError(f"unknown method {method!r}")
+
+
 def integrate(field: Field, h0: torch.Tensor, times: torch.Tensor,
               t_start: torch.Tensor, mask: torch.Tensor, n_sub: int,
               method: str = "midpoint", remat: bool = False) -> torch.Tensor:
@@ -36,12 +47,7 @@ def integrate(field: Field, h0: torch.Tensor, times: torch.Tensor,
     if remat:
         raise NotImplementedError(
             "remat (activation checkpointing) comes with the training port")
-    if method in MULTISTEP_METHODS or method in ADAPTIVE_METHODS:
-        raise NotImplementedError(
-            f"method {method!r} is not ported yet; the port integrates "
-            f"with {FUSED_KERNEL_METHODS}")
-    if method not in FUSED_KERNEL_METHODS:
-        raise ValueError(f"unknown method {method!r}")
+    check_method(method)
 
     def field_col(t, h):  # rk_step's times are columns [N, 1]
         return field(t[:, 0], h)

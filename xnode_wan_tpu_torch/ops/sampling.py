@@ -17,6 +17,11 @@ after the shrinking boundary passes it, and the hourglass interior has
 dead where the path never exits). Boundary times are drawn by inverse CDF
 with density ``∝ R(t)^d``.
 
+With ``qmc: halton`` every domain draws its spatial points (the cube's
+box, the spheres' balls) and its boundary clouds from one randomized
+Halton cloud (``ops/qmc.py``) instead of i.i.d. uniforms, as the JAX
+samplers do; the stratified times stay as they are.
+
 ``torch.Generator`` and ``jax.random`` draw different numbers from one
 seed: the samplers are held to the JAX samplers' properties, not bits.
 """
@@ -29,6 +34,7 @@ from typing import Tuple, Union
 
 import torch
 
+from xnode_wan_tpu_torch.ops.qmc import qmc_ball, qmc_time_sphere, qmc_uniform
 
 @dataclasses.dataclass
 class PathBatch:
@@ -109,12 +115,6 @@ def _anchored_paths(x: torch.Tensor, t_end: torch.Tensor,
     )
 
 
-def _reject_qmc(qmc: str) -> None:
-    if qmc != "none":
-        raise NotImplementedError(
-            f"qmc={qmc!r} needs ops/qmc.py, which is not ported yet")
-
-
 @dataclasses.dataclass(frozen=True)
 class Hypercube:
     """Time-independent box ``[bot, top]^d`` (reference ``src/dataset.py:232-290``)."""
@@ -135,7 +135,6 @@ class Hypercube:
         bot, top = self.shape_param
         if not top > bot:
             raise ValueError("The hypercube needs to have volume")
-        _reject_qmc(self.qmc)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -153,6 +152,9 @@ class Hypercube:
         return n_r
 
     def _uniform_box(self, generator, n: int) -> torch.Tensor:
+        if self.qmc == "halton":
+            return qmc_uniform(generator, n, self.dim, self.dtype,
+                               minval=self.bot, maxval=self.top)
         u = torch.rand((n, self.dim), generator=generator,
                        device=generator.device, dtype=self.dtype)
         return self.bot + u * (self.top - self.bot)
@@ -175,13 +177,18 @@ class Hypercube:
 
     def boundary(self, generator: torch.Generator, n_b: int) -> PathBatch:
         """One face coordinate pinned per path, faces assigned round-robin
-        (``i % 2d``) as in the JAX sampler."""
+        (``i % 2d``) as in the JAX sampler. Under ``qmc: halton`` each face
+        takes a contiguous block of the base set instead: striding a Halton
+        set by ``2d`` fixes the leading digit in every base dividing ``2d``
+        and confines a column's per-face marginal to a sub-interval."""
         times = stratified_times(generator, self.T0, self.T, self.N_t,
                                  dtype=self.dtype)
         x = self._uniform_box(generator, n_b)
-        face = torch.arange(n_b, device=x.device) % (2 * self.dim)
+        rows = torch.arange(n_b, device=x.device)
+        face = (rows * (2 * self.dim) // n_b if self.qmc == "halton"
+                else rows % (2 * self.dim))
         val = torch.where(face % 2 == 0, self.top, self.bot).to(self.dtype)
-        x[torch.arange(n_b, device=x.device), face // 2] = val
+        x[rows, face // 2] = val
         return self._paths(times, x)
 
     def func_w(self, x: torch.Tensor) -> torch.Tensor:
@@ -199,6 +206,17 @@ class Hypercube:
 
     def V(self) -> float:
         return (self.top - self.bot) ** self.dim * (self.T - self.T0)
+
+
+def _time_and_dirs(domain, generator: torch.Generator, n_b: int):
+    """A moving domain's boundary draw: a uniform column ``u [n_b]`` for
+    its time inverse CDF and directions ``[n_b, d]``, i.i.d. or
+    (``qmc: halton``) from one shifted-Halton cloud."""
+    if domain.qmc == "halton":
+        return qmc_time_sphere(generator, n_b, domain.dim, domain.dtype)
+    u = torch.rand((n_b,), generator=generator, device=generator.device,
+                   dtype=domain.dtype)
+    return u, _unit_sphere(generator, n_b, domain.dim, dtype=domain.dtype)
 
 
 def _ball_volume_coef(dim: int) -> float:
@@ -240,7 +258,6 @@ class NSphereTCone:
 
     def __post_init__(self):
         _reject_nonzero_T0(self)
-        _reject_qmc(self.qmc)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -260,7 +277,9 @@ class NSphereTCone:
     def interior(self, generator: torch.Generator, n_r: int) -> PathBatch:
         times = stratified_times(generator, self.T0, self.T, self.N_t,
                                  dtype=self.dtype)
-        x = _ball(generator, n_r, self.dim, self.r, dtype=self.dtype)
+        x = (qmc_ball(generator, n_r, self.dim, self.r, self.dtype)
+             if self.qmc == "halton"
+             else _ball(generator, n_r, self.dim, self.r, dtype=self.dtype))
         # inside while r (1 - t) > |x| (reference mask, dataset.py:192-195)
         t_exit = 1.0 - torch.linalg.norm(x, dim=-1) / self.r
         mask = times[None, :] < t_exit[:, None]
@@ -279,9 +298,7 @@ class NSphereTCone:
         single points ``[N_b, 1, C]``, or with ``path_boundary`` paths
         ``[N_b, N_t, C]`` from ``T0`` to the exit point."""
         d1 = self.dim + 1
-        u = torch.rand((n_b,), generator=generator, device=generator.device,
-                       dtype=self.dtype)
-        dirs = _unit_sphere(generator, n_b, self.dim, dtype=self.dtype)
+        u, dirs = _time_and_dirs(self, generator, n_b)
         hi = (1.0 - self.T0) ** d1
         lo = (1.0 - self.T) ** d1
         t = 1.0 - (hi - u * (hi - lo)) ** (1.0 / d1)
@@ -350,7 +367,6 @@ class NSphereTHourglass:
 
     def __post_init__(self):
         _reject_nonzero_T0(self)
-        _reject_qmc(self.qmc)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -379,7 +395,10 @@ class NSphereTHourglass:
         span = self.T - self.T0
         times = stratified_times(generator, self.T0, self.T, self.N_t,
                                  dtype=self.dtype)
-        x = _ball(generator, n_r, self.dim, self.r * span, dtype=self.dtype)
+        x = (qmc_ball(generator, n_r, self.dim, self.r * span, self.dtype)
+             if self.qmc == "halton"
+             else _ball(generator, n_r, self.dim, self.r * span,
+                        dtype=self.dtype))
         rho = torch.linalg.norm(x, dim=-1)
         never_exits = rho <= self.r * self.mid
         t_exit = torch.where(never_exits, torch.full_like(rho, math.inf),
@@ -412,9 +431,10 @@ class NSphereTHourglass:
         # the CDF on the descending branch: ((span-T0)^{d+1} - (span-t)^{d+1})/(d+1)
         c_mid = ((span - self.T0) ** d1 - (span - mid) ** d1) / d1
         c_tot = c_mid + (self.T ** d1 - mid ** d1) / d1
-        u = torch.rand((n_b,), generator=generator, device=generator.device,
-                       dtype=self.dtype) * c_tot
-        dirs = _unit_sphere(generator, n_b, self.dim, dtype=self.dtype)
+        # the piecewise inverse CDF is one monotone map of the uniform, so
+        # a QMC column keeps its structure through both branches
+        u, dirs = _time_and_dirs(self, generator, n_b)
+        u = u * c_tot
         # each branch's inverse is NaN off its own range; where picks
         t_desc = span - ((span - self.T0) ** d1 - u * d1) ** (1.0 / d1)
         t_asc = ((u - c_mid) * d1 + mid ** d1) ** (1.0 / d1)

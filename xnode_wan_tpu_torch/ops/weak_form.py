@@ -4,8 +4,10 @@ the log-ratio min-max objectives.
 Port of ``xnode_wan_tpu/ops/weak_form.py`` (reference ``src/loss.py:12-96``),
 with the same deliberate deviations from the reference: pointwise
 ``grad_x u`` by forward mode through the integrator (or the fused
-kernels), u and v on one shared cloud, one masked global quadrature, and
-the initial-value penalty on h-seeded paths only. Terms:
+kernels), u and v on one shared cloud (with ``independent_uv``, v on its
+own interior cloud, paired elementwise, as the reference does), one
+masked global quadrature, and the initial-value penalty on h-seeded
+paths only. Terms:
 
 * ``s1``: ``V (u_T phi_T - h phi_0) / N``, at each path's first and last
   valid sample (``loss.py:64``);
@@ -43,11 +45,13 @@ def fused_gate(cfg: SolverConfig) -> bool:
     (``ops/kernels/xnode_train.py::u_du_fused``). Shared by the loss
     builder and the trainer's metric forward so the two cannot drift. The
     exclusions are the JAX package's: the WAN primal, ``fused_grad: false``,
-    f64 parity runs, adaptive and multistep solvers, ensembles. On CUDA
-    tensors the wrappers launch the kernels; on CPU tensors they take
-    their plain versions."""
+    f64 parity runs, adaptive and multistep solvers. Ensembles take the
+    kernels: the trainer steps one member at a time, so each launch sees
+    one member's shapes (JAX excludes them because its vmapped member axis
+    overflowed the TPU's scoped VMEM). On CUDA tensors the wrappers launch
+    the kernels; on CPU tensors they take their plain versions."""
     return (cfg.primal == "xnode" and cfg.fused_grad and not cfg.x64
-            and cfg.solver in FUSED_KERNEL_METHODS and cfg.ensemble == 1)
+            and cfg.solver in FUSED_KERNEL_METHODS)
 
 
 def fused_v_gate(cfg: SolverConfig) -> bool:
@@ -64,19 +68,24 @@ def u_with_spatial_grad(u_apply: Callable, u_params, batch: PathBatch,
                         problem, cfg: SolverConfig
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``u [N, L]`` and ``grad_x u [N, L, d]`` by forward mode through
-    ``u_apply`` (the masked scan), one ``torch.func.jvp`` per coordinate
-    direction. Differentiable in the parameters by reverse mode."""
+    ``u_apply`` (the masked scan, or the WAN's MLP): one
+    ``torch.func.jvp`` for each coordinate direction, all d in one
+    ``torch.func.vmap``, as the JAX package's one vmapped ``jax.jvp``
+    (one jvp a direction costs d times the host's launches). The primal
+    rides along in each direction; the first copy is returned.
+    Differentiable in the parameters by reverse mode."""
     xs0 = batch.space[:, 0, :]
 
     def u_of(xs):
         b = dataclasses.replace(batch, x=_assemble(batch.times, xs))
         return u_apply(u_params, b, problem, cfg)
 
-    u, dus = None, []
-    for e in torch.eye(xs0.shape[-1], dtype=xs0.dtype, device=xs0.device):
-        u, du = torch.func.jvp(u_of, (xs0,), (e.expand_as(xs0),))
-        dus.append(du)
-    return u, torch.stack(dus, dim=-1)
+    def one(e):
+        return torch.func.jvp(u_of, (xs0,), (e.expand_as(xs0),))
+
+    u_rep, du = torch.func.vmap(one)(
+        torch.eye(xs0.shape[-1], dtype=xs0.dtype, device=xs0.device))
+    return u_rep[0], torch.movedim(du, 0, -1)
 
 
 def v_phi_and_grads(v_apply: Callable, v_params, pts: torch.Tensor,
@@ -269,12 +278,12 @@ class WeakFormLosses(NamedTuple):
     the ``n1`` primal steps and the primal side ``(u, grad u)`` across the
     ``n2`` adversary steps, so the trainer computes each once and
     differentiates only the dependent half."""
-    loss_u: Callable        # (u_params, v_params, batch, bbatch)
-    loss_v: Callable        # (v_params, u_params, batch)
-    v_side: Callable        # (v_params, batch) -> (v, phi, dphi)
+    loss_u: Callable        # (u_params, v_params, batch, bbatch, vbatch=None)
+    loss_v: Callable        # (v_params, u_params, batch, vbatch=None)
+    v_side: Callable        # (v_params, batch, vbatch=None) -> (v, phi, dphi)
     loss_u_vside: Callable  # (u_params, vside, batch, bbatch) -> (loss, aux)
     u_side: Callable        # (u_params, batch) -> (u, du)
-    loss_v_uside: Callable  # (v_params, uside, batch) -> (loss, aux)
+    loss_v_uside: Callable  # (v_params, uside, batch, vbatch=None) -> (loss, aux)
 
 
 def make_losses(problem, domain, cfg: SolverConfig, u_apply: Callable,
@@ -291,15 +300,17 @@ def make_losses(problem, domain, cfg: SolverConfig, u_apply: Callable,
             return fused_from_batch(u_params, batch, problem, cfg)
         return u_with_spatial_grad(u_apply, u_params, batch, problem, cfg)
 
-    def v_side(v_params, batch):
+    def v_side(v_params, batch, vbatch=None):
+        # independent_uv: the v side on its own interior cloud, paired
+        # elementwise with the u side on batch (reference src/loss.py:51-70)
+        v_pts = batch.x if vbatch is None else vbatch.x
         if use_fused_v:
             if v_fused_fits(v_params, cfg.v_layers, cfg.tied_v):
-                return v_phi_grads_fused(v_params, batch.x, domain.func_w,
-                                         cfg)
+                return v_phi_grads_fused(v_params, v_pts, domain.func_w, cfg)
             # over the caps only CPU tensors take the plain side
-            if batch.x.device.type != "cpu":
+            if v_pts.device.type != "cpu":
                 check_fits(geom_of(v_params, cfg.v_layers, cfg.tied_v))
-        return v_phi_and_grads(v_apply, v_params, batch.x, domain.func_w)
+        return v_phi_and_grads(v_apply, v_params, v_pts, domain.func_w)
 
     # the hypercube's paths all share one exit group: the grouped
     # objective is the pooled one there, so the pooled form is taken
@@ -331,16 +342,18 @@ def make_losses(problem, domain, cfg: SolverConfig, u_apply: Callable,
         total = int_loss + cfg.alpha * (init + bdry)
         return total, dict(aux, init=init, bdry=bdry, loss_u=total)
 
-    def loss_v_uside(v_params, uside, batch):
+    def loss_v_uside(v_params, uside, batch, vbatch=None):
         u, du = uside
-        int_loss, aux = int_from_sides(u, du, v_side(v_params, batch), batch)
+        int_loss, aux = int_from_sides(u, du, v_side(v_params, batch, vbatch),
+                                       batch)
         return -int_loss, dict(aux, loss_v=-int_loss)
 
-    def loss_u(u_params, v_params, batch, bbatch):
-        return loss_u_vside(u_params, v_side(v_params, batch), batch, bbatch)
+    def loss_u(u_params, v_params, batch, bbatch, vbatch=None):
+        return loss_u_vside(u_params, v_side(v_params, batch, vbatch), batch,
+                            bbatch)
 
-    def loss_v(v_params, u_params, batch):
-        return loss_v_uside(v_params, u_side(u_params, batch), batch)
+    def loss_v(v_params, u_params, batch, vbatch=None):
+        return loss_v_uside(v_params, u_side(u_params, batch), batch, vbatch)
 
     return WeakFormLosses(loss_u, loss_v, v_side, loss_u_vside, u_side,
                           loss_v_uside)

@@ -16,7 +16,18 @@ The domain comes from :func:`ops.sampling.make_domain`: the hypercube, or
 the moving domains ``NSphere_TCone`` and ``NSphere_THourglass``, whose
 paths die as the boundary passes them (the hourglass adds ``N_r``
 g-seeded re-entry rows) and whose loss is the per-exit-group objective
-under ``group_loss``.
+under ``group_loss``; ``qmc: halton`` draws every cloud from a randomized
+Halton set (``ops/qmc.py``).
+
+The primal is the XNODE or, with ``primal: wan``, the plain MLP of
+``models/wan.py`` (:data:`PRIMAL_MODELS`); only the XNODE runs through
+kernels #1-#5. ``independent_uv`` evaluates the adversary side on a
+second interior draw of the same generator. ``ensemble: K`` trains K
+members, each with its own networks, Adam moments, generator (seeded
+from ``SeedSequence([seed, k])``) and Polyak average; an outer iteration
+steps them in turn through the kernels, one member a launch, where JAX
+vmaps the members on XLA, and reports the best member's metrics
+(:meth:`NODEWANSolver._ensemble_step`).
 
 :meth:`NODEWANSolver.train` is the CLI's loop (``main.py``): it logs every
 iteration (``utils/logging.py``), keeps the best weights by ``loss_u`` in
@@ -30,8 +41,9 @@ progress (:func:`_window_stalled`) it drops both learning rates
 (:meth:`NODEWANSolver.drop_learning_rate`), replaces the adversary or
 restarts, and a milestone can drop the rates once the error crosses it.
 
-Not ported yet (they raise): ensembles, QMC sampling, plots and
-``train_chunked`` (ROADMAP.md §1 lists where each comes).
+Not ported yet (they raise, or are absent): the adjoint, the multistep
+and adaptive integrators, ``tangent_shards``, plots and ``train_chunked``
+(ROADMAP.md §1 lists where each comes).
 """
 
 from __future__ import annotations
@@ -41,7 +53,7 @@ import dataclasses
 import math
 import os
 import time
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -51,8 +63,9 @@ from xnode_wan_tpu_torch.device import default_device
 from xnode_wan_tpu_torch.models.discriminator import (Discriminator,
                                                       apply_discriminator,
                                                       init_discriminator)
-from xnode_wan_tpu_torch.models.xnode import (XNODE, apply_xnode,
-                                              evaluate_points, init_xnode)
+from xnode_wan_tpu_torch.models import wan as wan_model
+from xnode_wan_tpu_torch.models import xnode as xnode_model
+from xnode_wan_tpu_torch.ops.integrate import check_method
 from xnode_wan_tpu_torch.ops.kernels.xnode_train import u_forward_fused
 from xnode_wan_tpu_torch.ops.sampling import PathBatch, make_domain
 from xnode_wan_tpu_torch.ops.weak_form import fused_gate, make_losses
@@ -62,6 +75,15 @@ from xnode_wan_tpu_torch.utils.logging import RunLogger
 from xnode_wan_tpu_torch.utils.metrics import l_norm, rel_err
 
 STALL_ACTIONS = ("none", "drop_lr", "reinit_v", "restart")
+
+# primal family -> (init, apply on a path batch, evaluate at points), as
+# the JAX package's table (xnode_wan_tpu/training.py:50-55)
+PRIMAL_MODELS = {
+    "xnode": (xnode_model.init_xnode, xnode_model.apply_xnode,
+              xnode_model.evaluate_points),
+    "wan": (wan_model.init_wan, wan_model.apply_wan,
+            wan_model.evaluate_points),
+}
 
 
 def _window_stalled(rel_window, best_rel: float,
@@ -104,24 +126,26 @@ def _window_stalled(rel_window, best_rel: float,
 
 
 def _restart_seed(seed: int, done: int) -> int:
-    """The seed of a ``restart`` after ``done`` iterations. The JAX package
-    folds ``done`` into its key; here numpy's ``SeedSequence`` mixes the
-    run's seed with ``done``, so equal runs restart alike."""
+    """The seed of a ``restart`` after ``done`` iterations, and of ensemble
+    member ``done``. The JAX package folds ``done`` into its key (or
+    splits it per member); here numpy's ``SeedSequence`` mixes the run's
+    seed with ``done``, so equal runs restart and seed their members
+    alike."""
     return int(np.random.SeedSequence([seed % 2 ** 32, done])
                .generate_state(1)[0])
 
 
 @dataclasses.dataclass
 class TrainState:
-    """Everything one outer iteration reads and advances."""
-    u_params: XNODE
+    """Everything one outer iteration of one member reads and advances."""
+    u_params: Any                # models.xnode.XNODE or models.wan.WAN
     v_params: Discriminator
     opt_u: torch.optim.Adam
     opt_v: torch.optim.Adam
     generator: torch.Generator
     step: int = 0
     # Polyak/EMA average of the primal iterates (None when ema_decay == 0)
-    u_ema: Optional[XNODE] = None
+    u_ema: Optional[Any] = None
 
 
 class NODEWANSolver:
@@ -144,6 +168,8 @@ class NODEWANSolver:
         cfg = (params if isinstance(params, SolverConfig)
                else SolverConfig.from_dict(dict(params)))
         check_trainable(cfg)
+        if cfg.primal == "xnode":   # the WAN integrates nothing
+            check_method(cfg.solver)
         if problem.dim is not None and problem.dim != cfg.dim:
             raise ValueError(
                 f"problem fixes dim={problem.dim} but config has dim={cfg.dim}")
@@ -161,14 +187,24 @@ class NODEWANSolver:
             s = float(torch.sqrt(torch.mean(problem.h(probe.x[:, 0, :]) ** 2)))
             cfg = cfg.replace(u_scale=max(1.0, s))
         self.cfg = cfg
+        self._init_u, self._u_apply, self._u_eval_points = \
+            PRIMAL_MODELS[cfg.primal]
         self._use_fused = fused_gate(cfg)
-        self._losses = make_losses(problem, self.domain, cfg, apply_xnode,
+        self._losses = make_losses(problem, self.domain, cfg, self._u_apply,
                                    self._v_apply)
+        self.members: List[TrainState] = []
+        self._best_member = 0
         self._reinit_state(cfg.seed)
         self.best_l = float("inf")
-        self.best_u_params: Optional[XNODE] = None
+        self.best_u_params: Optional[Any] = None
         self.work_dir = work_dir
         self.logger = RunLogger(cfg.dim, work_dir)
+
+    @property
+    def state(self) -> TrainState:
+        """The state of the best member (the only one without an
+        ensemble); ``members`` holds all K."""
+        return self.members[self._best_member]
 
     # ------------------------------------------------------------------
     def _v_apply(self, v_params, pts):
@@ -178,11 +214,11 @@ class NODEWANSolver:
 
     def _metric_u_apply(self, params, batch: PathBatch) -> torch.Tensor:
         """The fresh-sample metric forward: kernel #2 when the fused gate
-        holds, else the masked scan."""
+        holds, else the primal's own apply (the XNODE's masked scan)."""
         if self._use_fused:
             return u_forward_fused(params, batch, self.problem, self.cfg)
         with torch.no_grad():
-            return apply_xnode(params, batch, self.problem, self.cfg)
+            return self._u_apply(params, batch, self.problem, self.cfg)
 
     @staticmethod
     def _make_tx(module: torch.nn.Module, lr: float) -> torch.optim.Adam:
@@ -213,7 +249,7 @@ class NODEWANSolver:
                 group["lr"] = base_lr * cfg.lr_decay ** (count / 1000.0)
         opt.step()
 
-    def _fresh_state(self, u_params: XNODE, v_params: Discriminator,
+    def _fresh_state(self, u_params, v_params: Discriminator,
                      generator: torch.Generator) -> TrainState:
         """A state with fresh Adam moments around the given networks."""
         cfg = self.cfg
@@ -225,12 +261,19 @@ class NODEWANSolver:
             u_ema=copy.deepcopy(u_params) if cfg.ema_decay > 0 else None)
 
     def _reinit_state(self, seed: int) -> None:
-        """Fresh networks and optimizers from ``seed`` (``:349-379``)."""
-        cfg = self.cfg
+        """Fresh networks and optimizers from ``seed`` (``:349-379``); with
+        ``ensemble: K``, K members, member k from ``SeedSequence([seed,
+        k])``."""
+        k_members = self.cfg.ensemble
+        seeds = ([seed] if k_members == 1
+                 else [_restart_seed(seed, k) for k in range(k_members)])
+        self.members = [self._member_state(s) for s in seeds]
+        self._best_member = 0
+
+    def _member_state(self, seed: int) -> TrainState:
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        u_params = init_xnode(cfg, gen)
-        self.state = self._fresh_state(u_params, self._new_adversary(gen),
-                                       gen)
+        u_params = self._init_u(self.cfg, gen)
+        return self._fresh_state(u_params, self._new_adversary(gen), gen)
 
     def _new_adversary(self, generator: torch.Generator) -> Discriminator:
         cfg = self.cfg
@@ -250,51 +293,92 @@ class NODEWANSolver:
         ``param_groups``; the fresh optimizers count their updates from 0,
         so the schedule restarts as optax's count does after ``init``.
         ``self._losses`` keeps the construction-time config: no rate enters
-        the losses.
+        the losses. Every ensemble member gets fresh optimizers.
         """
         cfg = self.cfg
         self.cfg = cfg.replace(
             u_rate=cfg.u_rate * factor, v_rate=cfg.v_rate * factor,
             lr_decay=cfg.lr_decay if lr_decay is None else lr_decay)
-        state = self.state
-        state.opt_u = self._make_tx(state.u_params, self.cfg.u_rate)
-        state.opt_v = self._make_tx(state.v_params, self.cfg.v_rate)
+        for state in self.members:
+            state.opt_u = self._make_tx(state.u_params, self.cfg.u_rate)
+            state.opt_v = self._make_tx(state.v_params, self.cfg.v_rate)
 
-    def _u_params_for_eval(self, state: Optional[TrainState] = None) -> XNODE:
-        """The serving parameters: the Polyak average when ``ema_decay > 0``."""
+    def _u_params_for_eval(self, state: Optional[TrainState] = None):
+        """The serving parameters of ``state`` (default: the best member's):
+        the Polyak average when ``ema_decay > 0`` (JAX ``:435-443``)."""
         state = self.state if state is None else state
         return state.u_ema if self.cfg.ema_decay > 0 else state.u_params
 
     # ------------------------------------------------------------------
     def _sample(self, generator: torch.Generator):
         """An interior batch of ``domain.interior_rows(N_r)`` paths (``2
-        N_r`` on the hourglass) and a boundary batch (``:444-464``)."""
+        N_r`` on the hourglass), a boundary batch and, with
+        ``independent_uv``, the adversary side's own interior batch, a
+        second interior draw of the same generator (``:444-464``); else
+        None."""
         batch = self.domain.interior(generator, self.cfg.N_r)
         bbatch = self.domain.boundary(generator, self.cfg.N_b)
-        return batch, bbatch
+        vbatch = (self.domain.interior(generator, self.cfg.N_r)
+                  if self.cfg.independent_uv else None)
+        return batch, bbatch, vbatch
+
+    def _draw(self, state: TrainState):
+        """The batches of one member's outer iteration, in the order
+        :meth:`_step_on` takes them: interior, boundary, the fresh metric
+        draw (None without an exact solution) and the adversary's own
+        cloud (None without ``independent_uv``)."""
+        batch, bbatch, vbatch = self._sample(state.generator)
+        ebatch = (self.domain.interior(state.generator, self.cfg.N_r)
+                  if self.problem.u_sol is not None else None)
+        return batch, bbatch, ebatch, vbatch
 
     def _outer_step(self, state: Optional[TrainState] = None
                     ) -> Dict[str, torch.Tensor]:
-        """One outer iteration (``:466-529``) on freshly sampled batches;
-        advances ``state`` (default: the solver's) in place and returns
-        its metrics as device scalars."""
+        """One outer iteration (``:466-529``) on freshly sampled batches,
+        returning its metrics as device scalars. Without ``state`` it
+        advances the solver (every member under an ensemble, through
+        :meth:`_ensemble_step`); with one it advances that state alone, in
+        place."""
+        if state is None and self.cfg.ensemble > 1:
+            return self._ensemble_step()
         state = self.state if state is None else state
-        batch, bbatch = self._sample(state.generator)
-        ebatch = (self.domain.interior(state.generator, self.cfg.N_r)
-                  if self.problem.u_sol is not None else None)
-        return self._step_on(state, batch, bbatch, ebatch)
+        return self._step_on(state, *self._draw(state))
+
+    def _ensemble_step(self, draws: Optional[Sequence] = None
+                       ) -> Dict[str, torch.Tensor]:
+        """One outer iteration of every member in turn (JAX
+        ``_step_fn_ensemble``, ``:401-423``), each on its own draws (or on
+        ``draws[k]``, the arguments of :meth:`_step_on` after the state),
+        so every kernel launch sees one member's shapes. Returns the best
+        member's metrics, by ``rel_err`` or, without an exact solution, by
+        ``init + bdry`` (``loss_u``'s min-max value can mark the member
+        with the weakest adversary instead), with ``best_member`` and
+        ``rel_err_worst``."""
+        per = [self._step_on(st, *(self._draw(st) if draws is None
+                                   else draws[k]))
+               for k, st in enumerate(self.members)]
+        m = {name: torch.stack([p[name] for p in per]) for name in per[0]}
+        crit = m["rel_err"] if "rel_err" in m else m["init"] + m["bdry"]
+        best = torch.argmin(crit)
+        scalar = {name: v[best] for name, v in m.items()}
+        scalar["best_member"] = best.to(torch.float32)
+        if "rel_err" in m:
+            scalar["rel_err_worst"] = torch.max(m["rel_err"])
+        return scalar
 
     def _step_on(self, state: TrainState, batch: PathBatch,
-                 bbatch: PathBatch, ebatch: Optional[PathBatch]
+                 bbatch: PathBatch, ebatch: Optional[PathBatch],
+                 vbatch: Optional[PathBatch] = None
                  ) -> Dict[str, torch.Tensor]:
-        """:meth:`_outer_step` on given batches (``ebatch``: the fresh
-        metric draw, or None)."""
+        """:meth:`_outer_step` of one member on given batches (``ebatch``:
+        the fresh metric draw, or None; ``vbatch``: the adversary side's
+        own cloud under ``independent_uv``, or None)."""
         cfg, losses = self.cfg, self._losses
         # the adversary side is constant across the n1 primal steps; taken
         # without a graph, so kernel #6 arms no backward and the plain path
         # builds no create_graph graph
         with torch.no_grad():
-            vside = losses.v_side(state.v_params, batch)
+            vside = losses.v_side(state.v_params, batch, vbatch)
         u_params, v_params = state.u_params, state.v_params
         aux_u = None
         for _ in range(cfg.n1):
@@ -316,7 +400,7 @@ class NODEWANSolver:
         aux_v = {"loss_v": torch.zeros((), device=self.device)}
         for _ in range(cfg.n2):
             state.opt_v.zero_grad(set_to_none=True)
-            loss, aux_v = losses.loss_v_uside(v_params, uside, batch)
+            loss, aux_v = losses.loss_v_uside(v_params, uside, batch, vbatch)
             loss.backward()
             self._apply_tx(state.opt_v, v_params, cfg.v_rate)
 
@@ -349,33 +433,37 @@ class NODEWANSolver:
 
     # ------------------------------------------------------------------
     def predict(self, pts) -> torch.Tensor:
-        """The trained primal at ``[..., (t, x)]`` points through
-        :func:`models.xnode.evaluate_points` (kernel #1 on the GPU), with
-        the serving parameters (the Polyak average under ``ema_decay``).
-        Same contract as the JAX package's ``predict`` (``:942-958``)."""
+        """The trained primal at ``[..., (t, x)]`` points through the
+        primal's ``evaluate_points`` (for the XNODE kernel #1 on the GPU),
+        with the serving parameters (the best member's under ``ensemble``,
+        the Polyak average under ``ema_decay``). Same contract as the JAX
+        package's ``predict`` (``:942-958``)."""
         dtype = torch.float64 if self.cfg.x64 else torch.float32
         pts = torch.as_tensor(pts, dtype=dtype, device=self.device)
         squeeze = pts.dim() == 1
         if squeeze:
             pts = pts[None, :]
         with torch.no_grad():
-            out = evaluate_points(self._u_params_for_eval(), pts,
-                                  self.problem, self.cfg, domain=self.domain)
+            out = self._u_eval_points(self._u_params_for_eval(), pts,
+                                      self.problem, self.cfg,
+                                      domain=self.domain)
         return out[0] if squeeze else out
 
-    def _save_best(self, params: Optional[XNODE] = None) -> None:
+    def _save_best(self, params=None) -> None:
         params = self._u_params_for_eval() if params is None else params
         ckpt.save(os.path.join(self.work_dir, "best_model_weights_NODE.pth"),
-                  ckpt.reference_state_dict(params))
+                  ckpt.best_weights_dict(params))
 
     def save_checkpoint(self, path: Optional[str] = None) -> str:
         path = path or os.path.join(self.work_dir, "checkpoint_NODE.pt")
-        ckpt.save(path, ckpt.train_state_dict(self.state, self.best_l))
+        ckpt.save(path, ckpt.train_state_dict(self.members, self.best_l,
+                                              self._best_member))
         return path
 
     def load_checkpoint(self, path: Optional[str] = None):
         path = path or os.path.join(self.work_dir, "checkpoint_NODE.pt")
-        self.best_l = ckpt.restore_train_state(self.state, ckpt.load(path))
+        self.best_l, self._best_member = ckpt.restore_train_state(
+            self.members, ckpt.load(path))
         return self
 
     def train(self, report: bool = False, report_it: int = 10,
@@ -392,8 +480,11 @@ class NODEWANSolver:
         On ``problem.stop_rel_err`` or the ``stop`` callback it saves the
         best weights and the checkpoint, prints ``Stopping Criterion
         Reached`` and returns; otherwise it runs ``iterations`` (default
-        ``cfg.iterations``) and saves the checkpoint. Returns the last
-        iteration's metrics. Plots are not ported (``show_plt`` raises).
+        ``cfg.iterations``) and saves the checkpoint. Under an ensemble the
+        metrics (and the log records) are the best member's, with
+        ``best_member`` and ``rel_err_worst``, and the best member serves.
+        Returns the last iteration's metrics. Plots are not ported
+        (``show_plt`` raises).
         """
         if show_plt:
             raise NotImplementedError(
@@ -403,6 +494,8 @@ class NODEWANSolver:
         last: Dict[str, float] = {}
         for step in range(iterations):
             last = self._to_host(self._outer_step())
+            if "best_member" in last:
+                self._best_member = int(last["best_member"])
             self.logger.log(step, last)
             if last["loss_u"] < self.best_l:
                 self.best_l = last["loss_u"]
@@ -457,6 +550,11 @@ class NODEWANSolver:
         budget, under any ``stall_action``. (JAX checks it at the end of a
         device dispatch, on the dispatch's minimum.)
 
+        Under an ensemble the best member is taken every iteration, the
+        history is the best member's with ``best_member`` and
+        ``rel_err_worst`` beside it, and the stall actions are off (the
+        ensemble is the multi-start), as in JAX (``:805``).
+
         Returns the per-iteration ``loss_u``, ``L2`` and ``rel_err`` and
         the JAX package's summary keys, ``lr_drops_at`` among them.
         """
@@ -466,7 +564,9 @@ class NODEWANSolver:
         if self.problem.u_sol is None:
             raise ValueError("train_until needs problem.u_sol")
         window = max(1, min(window, max_iters))
-        hist = {"loss_u": [], "L2": [], "rel_err": []}
+        hist = {name: [] for name in ("loss_u", "L2", "rel_err")}
+        if self.cfg.ensemble > 1:
+            hist.update(best_member=[], rel_err_worst=[])
         rel = float("inf")
         best = (float("inf"), None)   # (window-end rel, serving weights)
         best_rel = float("inf")       # best of the stall windows checked
@@ -477,6 +577,8 @@ class NODEWANSolver:
         t_train0 = time.perf_counter()
         while done < max_iters and rel > rel_tol:
             m = self._to_host(self._outer_step())
+            if "best_member" in m:
+                self._best_member = int(m["best_member"])
             for name in hist:
                 hist[name].append(m[name])
             rel = m["rel_err"]

@@ -6,7 +6,11 @@
 * :func:`disc_params_from_jax`: the JAX discriminator pytree
   ``{"inp", "hidden", "out"}`` (``hidden`` one layer when tied, else a
   list);
-* :func:`state_from_jax`: both into a solver, with fresh Adam moments;
+* :func:`wan_params_from_jax`: the JAX ``init_wan`` pytree ``{"net":
+  [...]}`` into a :class:`models.wan.WAN`;
+* :func:`state_from_jax`: the primal (by ``cfg.primal``) and the
+  discriminator into a solver, with fresh Adam moments; under
+  ``ensemble: K`` the trees are JAX's stacked ``[K, ...]`` member trees;
 * :func:`load_reference_state_dict`: the reference's
   ``best_model_weights_NODE.pth`` (``torch.save`` of a
   ``DataParallel(NeuralODE)`` state dict), mapped as
@@ -26,6 +30,7 @@ from torch import nn
 
 from xnode_wan_tpu_torch.device import default_device
 from xnode_wan_tpu_torch.models.discriminator import Discriminator
+from xnode_wan_tpu_torch.models.wan import WAN
 from xnode_wan_tpu_torch.models.xnode import XNODE
 
 
@@ -72,16 +77,44 @@ def disc_params_from_jax(tree: Mapping[str, Any], device=None,
     return Discriminator(lin(tree["inp"]), hidden, lin(tree["out"]))
 
 
+def wan_params_from_jax(tree: Mapping[str, Any], device=None,
+                        dtype=torch.float32) -> WAN:
+    """WAN from a JAX ``init_wan``-shaped pytree of numpy arrays."""
+    dev = default_device(device)
+    return WAN(nn.ModuleList(
+        _linear(np.asarray(l["w"]).T, np.asarray(l["b"]), dev, dtype)
+        for l in tree["net"]))
+
+
+def _member(tree, k: int):
+    """Member ``k`` of a pytree whose leaves are stacked ``[K, ...]``."""
+    if isinstance(tree, Mapping):
+        return {name: _member(v, k) for name, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_member(v, k) for v in tree]
+    return np.asarray(tree)[k]
+
+
 def state_from_jax(solver, u_tree: Mapping[str, Any],
                    v_tree: Mapping[str, Any]) -> None:
     """Give ``solver`` (a ``training.NODEWANSolver``) the JAX package's
-    primal and discriminator weights, with fresh Adam moments and its own
-    generator, at step 0."""
-    dtype = torch.float64 if solver.cfg.x64 else torch.float32
-    solver.state = solver._fresh_state(
-        params_from_jax(u_tree, solver.device, dtype),
-        disc_params_from_jax(v_tree, solver.device, dtype),
-        solver.state.generator)
+    primal (an XNODE or a WAN, by ``cfg.primal``) and discriminator
+    weights, with fresh Adam moments and each member's own generator, at
+    step 0. Under ``ensemble: K`` the trees are the JAX solver's stacked
+    ``[K, ...]`` ones, and member k gets slice k."""
+    cfg = solver.cfg
+    dtype = torch.float64 if cfg.x64 else torch.float32
+    primal_from_jax = (params_from_jax if cfg.primal == "xnode"
+                       else wan_params_from_jax)
+    members = []
+    for k, state in enumerate(solver.members):
+        u_k, v_k = ((u_tree, v_tree) if cfg.ensemble == 1
+                    else (_member(u_tree, k), _member(v_tree, k)))
+        members.append(solver._fresh_state(
+            primal_from_jax(u_k, solver.device, dtype),
+            disc_params_from_jax(v_k, solver.device, dtype),
+            state.generator))
+    solver.members = members
 
 
 def load_reference_state_dict(path: str, device=None,
