@@ -47,7 +47,8 @@ def test_import_leaves_jax_out():
             "disc_train, xnode_wan_tpu_torch.utils.checkpoint, "
             "xnode_wan_tpu_torch.utils.logging, "
             "xnode_wan_tpu_torch.problems.ex4_3, xnode_wan_tpu_torch.ops.qmc, "
-            "xnode_wan_tpu_torch.models.wan\n"
+            "xnode_wan_tpu_torch.models.wan, xnode_wan_tpu_torch.ops.adjoint, "
+            "xnode_wan_tpu_torch.ops.integrate\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'xnode_wan_tpu'))\n"
             "print(bad)\n")

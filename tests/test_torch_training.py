@@ -31,6 +31,7 @@ from xnode_wan_tpu.ops.sampling import PathBatch as JPathBatch
 from xnode_wan_tpu.problems import load_problem as jload_problem
 from xnode_wan_tpu.training import NODEWANSolver as JSolver
 from xnode_wan_tpu_torch import NODEWANSolver, SolverConfig, load_problem
+from xnode_wan_tpu_torch.ops.kernels.steppers import FUSED_KERNEL_METHODS
 from xnode_wan_tpu_torch.ops.sampling import PathBatch
 from xnode_wan_tpu_torch.utils.torch_compat import state_from_jax
 
@@ -107,8 +108,11 @@ def check_adam(opt, pairs_of, jopt, rtol):
     (np.float64, {}, dict(lr_decay=0.99), 1e-7, 1e-6),
     (np.float64, dict(s1_raw_v=True, independent_uv=True, init_all_rows=True),
      None, 1e-9, 1e-9),
+    # one primal step: JAX's compile of the adaptive step dominates
+    (np.float64, dict(solver="dopri5", n1=1), None, 1e-9, 1e-9),
 ], ids=["f64", "f64_clip_decay_ema", "f32_fused_plain", "f32_fused_v_plain",
-        "f64_after_drop", "f64_after_drop_decay", "f64_parity_flags"])
+        "f64_after_drop", "f64_after_drop_decay", "f64_parity_flags",
+        "f64_dopri5"])
 def test_one_outer_step_matches_jax(restore_x64, tmp_path, dtype, extra,
                                     drop, rtol, rtol_metrics):
     # ``drop``: drop_learning_rate(0.1, **drop) on both solvers first, so
@@ -243,7 +247,22 @@ def test_same_seed_same_run(tmp_path):
 @pytest.mark.parametrize("kw", [dict(solver="dopri5"), dict(adjoint=True),
                                 dict(solver="explicit_adams"),
                                 dict(solver="fixed_adams"),
-                                dict(tangent_shards=2), dict(solver="adams")])
+                                dict(solver="adams")])
+def test_integrator_options_train(kw, tmp_path):
+    # one CPU outer step: the adaptive and multistep solvers close the
+    # fused gate, as in the JAX package; adjoint: true means remat
+    cfg = SolverConfig(**dict(SMALL, **kw))
+    solver = NODEWANSolver(cfg, load_problem("cube_pde", 2), device="cpu",
+                           work_dir=str(tmp_path))
+    assert solver._use_fused == (cfg.solver in FUSED_KERNEL_METHODS)
+    metrics = solver._to_host(solver._outer_step())
+    assert solver.state.step == 1
+    assert all(np.isfinite(v) for v in metrics.values()), metrics
+    assert all(bool(torch.isfinite(p).all())
+               for p in solver.state.u_params.parameters())
+
+
+@pytest.mark.parametrize("kw", [dict(tangent_shards=2)])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         NODEWANSolver(SolverConfig(**dict(SMALL, **kw)),

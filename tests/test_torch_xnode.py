@@ -228,15 +228,7 @@ def test_unported_paths_raise():
     pts = torch.zeros((2, 4))
     with pytest.raises(NotImplementedError, match="sharded"):
         tx.evaluate_points(model, pts, tp, tcfg, mesh=object())
-    _, tb = path_batch(2, 6, 3, "f32", masked=False)
-    with pytest.raises(NotImplementedError, match="adaptive"):
-        tx.apply_xnode(model, tb, tp, tcfg.replace(solver="dopri5"))
     args = (lambda t, h: h, torch.zeros((1, 2)), torch.ones((1, 3)),
             torch.zeros(1), torch.ones((1, 3), dtype=torch.bool), 1)
-    for method in ("fixed_adams", "explicit_adams", "bosh3"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tint.integrate(*args, method=method)
-    with pytest.raises(NotImplementedError, match="remat"):
-        tint.integrate(*args, remat=True)
     with pytest.raises(ValueError, match="unknown method"):
         tint.integrate(*args, method="leapfrog")

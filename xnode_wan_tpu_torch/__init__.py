@@ -11,7 +11,9 @@ from :func:`u_du_fused`, through ``csrc/xnode_grad.cu``, and with
 ``csrc/disc_fwd.cu`` and ``csrc/disc_train.cu``), on the hypercube or the
 moving domains :class:`NSphereTCone` and :class:`NSphereTHourglass`
 (:func:`make_domain`), with i.i.d. or randomized-Halton clouds
-(``ops/qmc.py``). The primal is the XNODE or the plain MLP
+(``ops/qmc.py``), and with any of the JAX package's integrators
+(:func:`integrate`, :func:`integrate_adaptive`; the continuous adjoint
+in :func:`apply_xnode_adjoint`). The primal is the XNODE or the plain MLP
 :class:`WAN` (``primal: wan``), and ``ensemble: K`` trains K members at
 once. ``python -m xnode_wan_tpu_torch.main`` is the
 command line, with logs, checkpoints and resume. Entry points run on the current CUDA device unless the caller
@@ -24,9 +26,11 @@ from xnode_wan_tpu_torch.device import default_device
 from xnode_wan_tpu_torch.models.discriminator import init_discriminator
 from xnode_wan_tpu_torch.models.wan import WAN
 from xnode_wan_tpu_torch.models.xnode import (XNODE, apply_xnode,
+                                              apply_xnode_adjoint,
                                               evaluate_points, init_xnode)
 from xnode_wan_tpu_torch.ops.kernels.disc_train import (v_dv_fused,
                                                          v_fused_fits)
+from xnode_wan_tpu_torch.ops.integrate import integrate, integrate_adaptive
 from xnode_wan_tpu_torch.ops.kernels.xnode_eval import fused_evaluate
 from xnode_wan_tpu_torch.ops.kernels.xnode_train import (fused_from_batch,
                                                           u_du_fused,
@@ -52,5 +56,6 @@ __all__ = [
     "load_reference_state_dict", "params_from_jax", "disc_params_from_jax",
     "NODEWANSolver", "make_losses", "u_du_fused", "fused_from_batch",
     "init_discriminator", "v_dv_fused", "v_fused_fits", "v_phi_grads_fused",
-    "RunLogger", "WAN", "wan_params_from_jax",
+    "RunLogger", "WAN", "wan_params_from_jax", "integrate",
+    "integrate_adaptive", "apply_xnode_adjoint",
 ]

@@ -4,8 +4,8 @@ Same YAML key set, defaults, coercions and validation as the JAX
 package's ``xnode_wan_tpu/config.py``: a flat reference-style params dict
 is parsed by name into a frozen dataclass, and unknown keys are rejected.
 Every shipped config loads; the trainer (``training.py``) acts on the
-training fields and :func:`check_trainable` rejects the options this port
-does not implement yet.
+training fields and :func:`check_trainable` rejects the option this port
+does not implement yet (``tangent_shards > 1``).
 """
 
 from __future__ import annotations
@@ -186,10 +186,8 @@ def load_params(path: str) -> SolverConfig:
 
 def check_trainable(cfg: SolverConfig) -> None:
     """Raise ``NotImplementedError`` for training options the port does
-    not implement yet (ROADMAP.md lists where each comes)."""
-    missing = [(cfg.adjoint, "adjoint: true"),
-               (cfg.tangent_shards > 1, "tangent_shards > 1")]
-    names = [name for bad, name in missing if bad]
-    if names:
+    not implement yet (ROADMAP.md lists where each comes). ``adjoint:
+    true`` trains, and means remat, as in the JAX package."""
+    if cfg.tangent_shards > 1:
         raise NotImplementedError(
-            f"not ported to PyTorch yet: {', '.join(names)}")
+            "not ported to PyTorch yet: tangent_shards > 1")

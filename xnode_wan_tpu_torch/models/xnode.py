@@ -19,11 +19,14 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from xnode_wan_tpu_torch.config import SolverConfig
 from xnode_wan_tpu_torch.device import default_device
 from xnode_wan_tpu_torch.models.layers import linear_init, mlp_init
-from xnode_wan_tpu_torch.ops.integrate import ADAPTIVE_METHODS, integrate
+from xnode_wan_tpu_torch.ops.adjoint import make_adjoint_integrator
+from xnode_wan_tpu_torch.ops.integrate import (ADAPTIVE_METHODS, Jet,
+                                               integrate, integrate_adaptive)
 from xnode_wan_tpu_torch.ops.kernels.steppers import FUSED_KERNEL_METHODS
 from xnode_wan_tpu_torch.ops.kernels.xnode_eval import fused_evaluate
 from xnode_wan_tpu_torch.ops.sampling import PathBatch
@@ -81,14 +84,45 @@ def lift_apply(params: XNODE, seed: torch.Tensor) -> torch.Tensor:
     return z
 
 
+def field_weights(params: XNODE):
+    """The field's ``(W0, b0, W1, b1, ...)``."""
+    return tuple(w for layer in params.field
+                 for w in (layer.weight, layer.bias))
+
+
+def field_apply_weights(weights, x: torch.Tensor, t: torch.Tensor,
+                        h: torch.Tensor) -> torch.Tensor:
+    """ODE field ``F(x, t, h) -> dh/dt`` over :func:`field_weights`;
+    ``x [N,F], t [N], h [N,H]``. ``F.linear`` is ``nn.Linear``'s forward,
+    without the module call's overhead."""
+    pairs = [weights[i:i + 2] for i in range(0, len(weights), 2)]
+    z = F.linear(torch.cat([x, t[:, None], h], dim=-1), *pairs[0])
+    for w, b in pairs[1:-1]:
+        z = F.linear(torch.relu(z), w, b)
+    return F.linear(torch.tanh(z), *pairs[-1])
+
+
 def field_apply(params: XNODE, x: torch.Tensor, t: torch.Tensor,
                 h: torch.Tensor) -> torch.Tensor:
     """ODE field ``F(x, t, h) -> dh/dt``; ``x [N,F], t [N], h [N,H]``."""
-    layers = params.field
-    z = layers[0](torch.cat([x, t[:, None], h], dim=-1))
-    for layer in layers[1:-1]:
-        z = layer(torch.relu(z))
-    return layers[-1](torch.tanh(z))
+    return field_apply_weights(field_weights(params), x, t, h)
+
+
+def field_jvp(params: XNODE, x: Jet, t: torch.Tensor, h: Jet) -> Jet:
+    """:func:`field_apply` on :class:`Jet` features and state: the primal
+    exactly as :func:`field_apply` computes it, the D tangents by its
+    forward-mode derivative (the time column has none)."""
+    wb = [(layer.weight, layer.bias) for layer in params.field]
+    z = torch.cat([x.p, t[:, None], h.p], dim=-1)
+    dz = torch.cat([x.t, x.t.new_zeros(x.t.shape[:-1] + (1,)), h.t], dim=-1)
+    a, da = F.linear(z, *wb[0]), F.linear(dz, wb[0][0])
+    for w, b in wb[1:-1]:
+        # relu's derivative: da where a > 0, else 0
+        da = F.linear(torch.ops.aten.threshold_backward(da, a, 0), w)
+        a = F.linear(torch.relu(a), w, b)
+    th = torch.tanh(a)
+    return Jet(F.linear(th, *wb[-1]),
+               F.linear(torch.ops.aten.tanh_backward(da, th), wb[-1][0]))
 
 
 def path_seed_fn(batch: PathBatch, problem, cfg: SolverConfig):
@@ -107,17 +141,32 @@ def path_seed_fn(batch: PathBatch, problem, cfg: SolverConfig):
     return seed_of
 
 
+def _integrate(cfg: SolverConfig, field, h0, batch: PathBatch, closed):
+    """The configured integrator (JAX ``models/xnode.py:131-146``): the
+    adaptive and VCABM methods through :func:`integrate_adaptive` with
+    ``ode_rtol``/``ode_atol``/``ode_max_steps``/``ode_strict``, the
+    fixed-step ones through :func:`integrate`; each sample interval
+    checkpointed under ``remat_scan`` (the default) or ``adjoint``, which
+    means remat as in the JAX package (its ``docs/DESIGN.md`` §17.2);
+    ``closed``: the tensors the field closes over."""
+    remat = cfg.adjoint or cfg.remat_scan
+    if cfg.solver in ADAPTIVE_METHODS:
+        return integrate_adaptive(field, h0, batch.times, batch.t_start,
+                                  batch.mask, rtol=cfg.ode_rtol,
+                                  atol=cfg.ode_atol,
+                                  max_steps=cfg.ode_max_steps, remat=remat,
+                                  strict=cfg.ode_strict, method=cfg.solver,
+                                  closed=closed)
+    return integrate(field, h0, batch.times, batch.t_start, batch.mask,
+                     n_sub=cfg.n_sub, method=cfg.solver, remat=remat,
+                     closed=closed)
+
+
 def apply_xnode(params: XNODE, batch: PathBatch, problem,
                 cfg: SolverConfig) -> torch.Tensor:
-    """u at every sample point of ``batch`` -> ``u [N, L]`` (masked scan).
-
-    The path's spatial coords are frozen at its first point. Forward
-    only here: ``remat_scan`` changes the backward's memory, not values,
-    and comes with the training port.
-    """
-    if cfg.solver in ADAPTIVE_METHODS:
-        raise NotImplementedError(
-            f"adaptive solver {cfg.solver!r} is not ported yet")
+    """u at every sample point of ``batch`` -> ``u [N, L]`` (masked scan,
+    the configured integrator: :func:`_integrate`). The path's spatial
+    coords are frozen at its first point."""
     xs = batch.space[:, 0, :]                       # [N, d]
     seed = path_seed_fn(batch, problem, cfg)(xs)[:, None]
     h0 = lift_apply(params, seed)
@@ -126,8 +175,68 @@ def apply_xnode(params: XNODE, batch: PathBatch, problem,
     def field(t, h):
         return field_apply(params, xs_f, t, h)
 
-    hs = integrate(field, h0, batch.times, batch.t_start, batch.mask,
-                   n_sub=cfg.n_sub, method=cfg.solver)
+    hs = _integrate(cfg, field, h0, batch, (xs_f, *field_weights(params)))
+    return params.readout(hs)[..., 0] * cfg.u_scale_eff   # [N, L]
+
+
+def apply_xnode_with_spatial_grad(params: XNODE, batch: PathBatch, problem,
+                                  cfg: SolverConfig):
+    """``u [N, L]`` and ``grad_x u [N, L, d]``: :func:`apply_xnode` with the
+    d coordinate tangents carried through the integrator as a
+    :class:`Jet` (:func:`field_jvp`), so that remat recomputes each
+    interval of the u side too (a recompute cannot run inside
+    ``torch.func.jvp``). The start state and the features take their
+    tangents by ``torch.func.jvp``, all d directions in one ``vmap``. The
+    values are those of forward mode through :func:`apply_xnode`; ``u``
+    is :func:`apply_xnode`'s."""
+    xs = batch.space[:, 0, :]
+    seed_of = path_seed_fn(batch, problem, cfg)
+
+    def start(x):
+        return (lift_apply(params, seed_of(x)[:, None]),
+                spatial_features(x, cfg.fourier_features))
+
+    def one(e):
+        return torch.func.jvp(start, (xs,), (e.expand_as(xs),))
+
+    (h0, xs_f), (dh0, dxs_f) = torch.func.vmap(one, out_dims=(None, 0))(
+        torch.eye(xs.shape[-1], dtype=xs.dtype, device=xs.device))
+    feats = Jet(xs_f, dxs_f)
+
+    def field(t, h):
+        return field_jvp(params, feats, t, h)
+
+    hs = _integrate(cfg, field, Jet(h0, dh0), batch,
+                    (xs_f, dxs_f, *field_weights(params)))
+    scale = cfg.u_scale_eff
+    u = params.readout(hs.p)[..., 0] * scale
+    du = F.linear(hs.t, params.readout.weight)[..., 0] * scale   # [d, N, L]
+    return u, torch.movedim(du, 0, -1)
+
+
+def apply_xnode_adjoint(params: XNODE, batch: PathBatch, problem,
+                        cfg: SolverConfig) -> torch.Tensor:
+    """:func:`apply_xnode` whose backward is the continuous adjoint
+    (``ops/adjoint.py``, the reference's ``odeint_adjoint``): the adjoint
+    ODE integrated backward in time, O(1) activations in the substeps,
+    gradients exact only up to discretization error (JAX
+    ``models/xnode.py:150-188``). The forward is :func:`apply_xnode`'s
+    without remat, value for value. Cotangents reach the field's
+    parameters, the features and the start state, so the lift, the seed
+    and the readout get theirs by autograd. For reverse-mode consumers:
+    the weak-form u side needs forward mode, so ``adjoint: true`` in a
+    config means remat. Raises for the adaptive and multistep solvers."""
+    if cfg.solver not in FUSED_KERNEL_METHODS:
+        raise ValueError(
+            "continuous adjoint supports the fixed-step RK methods "
+            f"{FUSED_KERNEL_METHODS}, not {cfg.solver!r}")
+    xs = batch.space[:, 0, :]
+    seed = path_seed_fn(batch, problem, cfg)(xs)[:, None]
+    h0 = lift_apply(params, seed)
+    xs_f = spatial_features(xs, cfg.fourier_features)
+    run = make_adjoint_integrator(field_apply_weights, cfg.n_sub, cfg.solver)
+    hs = run(field_weights(params), xs_f, h0, batch.times,
+             batch.t_start.to(h0.dtype), batch.mask)
     return params.readout(hs)[..., 0] * cfg.u_scale_eff   # [N, L]
 
 

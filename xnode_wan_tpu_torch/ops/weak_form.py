@@ -30,6 +30,7 @@ from typing import Callable, NamedTuple, Tuple
 import torch
 
 from xnode_wan_tpu_torch.config import SolverConfig
+from xnode_wan_tpu_torch.models.xnode import apply_xnode_with_spatial_grad
 from xnode_wan_tpu_torch.ops.coefficients import diffusion_term, drift_term
 from xnode_wan_tpu_torch.ops.kernels.disc_train import (check_fits, geom_of,
                                                         v_dv_fused,
@@ -73,7 +74,15 @@ def u_with_spatial_grad(u_apply: Callable, u_params, batch: PathBatch,
     ``torch.func.vmap``, as the JAX package's one vmapped ``jax.jvp``
     (one jvp a direction costs d times the host's launches). The primal
     rides along in each direction; the first copy is returned.
-    Differentiable in the parameters by reverse mode."""
+    Differentiable in the parameters by reverse mode.
+
+    The XNODE carries its tangents through the integrator instead
+    (:func:`models.xnode.apply_xnode_with_spatial_grad`): under remat (the
+    default) a checkpointed interval cannot run inside ``torch.func.jvp``,
+    and without it the explicit tangents take a fraction of the host's
+    launches. Same values."""
+    if cfg.primal == "xnode":
+        return apply_xnode_with_spatial_grad(u_params, batch, problem, cfg)
     xs0 = batch.space[:, 0, :]
 
     def u_of(xs):

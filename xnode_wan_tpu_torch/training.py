@@ -41,9 +41,15 @@ progress (:func:`_window_stalled`) it drops both learning rates
 (:meth:`NODEWANSolver.drop_learning_rate`), replaces the adversary or
 restarts, and a milestone can drop the rates once the error crosses it.
 
-Not ported yet (they raise, or are absent): the adjoint, the multistep
-and adaptive integrators, ``tangent_shards``, plots and ``train_chunked``
-(ROADMAP.md §1 lists where each comes).
+Every ``solver`` of the config trains: the four RK schemes, the Adams
+multisteps, the embedded pairs and VCABM ``adams``
+(``ops/integrate.py``); all but the four RK schemes close the fused gate,
+as in the JAX package, so their u side is the plain one. ``remat_scan``
+(the default) and ``adjoint: true`` recompute each sample interval of
+the plain scans in the backward.
+
+Not ported yet (they raise, or are absent): ``tangent_shards``, plots
+and ``train_chunked`` (ROADMAP.md §1 lists where each comes).
 """
 
 from __future__ import annotations
@@ -65,7 +71,6 @@ from xnode_wan_tpu_torch.models.discriminator import (Discriminator,
                                                       init_discriminator)
 from xnode_wan_tpu_torch.models import wan as wan_model
 from xnode_wan_tpu_torch.models import xnode as xnode_model
-from xnode_wan_tpu_torch.ops.integrate import check_method
 from xnode_wan_tpu_torch.ops.kernels.xnode_train import u_forward_fused
 from xnode_wan_tpu_torch.ops.sampling import PathBatch, make_domain
 from xnode_wan_tpu_torch.ops.weak_form import fused_gate, make_losses
@@ -168,8 +173,6 @@ class NODEWANSolver:
         cfg = (params if isinstance(params, SolverConfig)
                else SolverConfig.from_dict(dict(params)))
         check_trainable(cfg)
-        if cfg.primal == "xnode":   # the WAN integrates nothing
-            check_method(cfg.solver)
         if problem.dim is not None and problem.dim != cfg.dim:
             raise ValueError(
                 f"problem fixes dim={problem.dim} but config has dim={cfg.dim}")
