@@ -33,11 +33,16 @@ which raises on failure:
       rel-L2 < 1%, with kernels #2 and #3 launched once per outer
       iteration, #4 and #5 ``n1`` times, #6 and #7 never;
    c. the command line (``xnode_wan_tpu_torch.main``) on the same config
-      with ``fused_v: true``: it must print ``Stopping Criterion
+      with ``fused_v: true``, which trains in chunks of ``train_chunk``
+      ending at each report step: it must print ``Stopping Criterion
       Reached`` within the config's iterations, launch #6 twice, #7
-      once, #4 and #5 ``n1`` times and #2 and #3 once per iteration, and
-      write one metrics record per iteration, the three JSON lists, the
-      checkpoint and the best weights; ``--resume --iterations 3`` must
+      once, #4 and #5 ``n1`` times and #2 and #3 once per iteration run
+      (the chunks run whole, then the replay to the stop:
+      ``chunked_run``), #1 once a report step (the plot), and write one
+      metrics record per iteration kept, the three JSON lists, the
+      checkpoint of the stop iteration and the best weights (the same
+      counts hold for the command lines of e, j and l);
+      ``--resume --iterations 3`` must
       continue the step count and the loss; the resumed primal is served
       through ``evaluate_points`` (kernel #1) under the rel-L2 limit of
       2a, and the best weights load with ``load_reference_state_dict``;
@@ -99,10 +104,10 @@ which raises on failure:
       rel-L2 under 0.05, with no kernel launched;
    l. the adaptive integrator at full width: ``configs/cube_pde.yaml`` with
       ``solver: dopri5`` and ``ode_max_steps: 16`` (JAX's ``d5_dopri5``
-      scenario), seed 0, cut to ``train_until(0.01, 30)``: every value
+      scenario), seed 0, cut to ``train_until(0.01, 20)``: every value
       finite, the least rel-L2 under 0.15, no kernel launched (the
       adaptive solvers close the fused gate); then the command line with
-      ``fused_v: true`` for 5 iterations and ``--resume --iterations 2``:
+      ``fused_v: true`` for 3 iterations and ``--resume --iterations 1``:
       #6 twice and #7 once an iteration and nothing else, the step and
       loss continuing; the resumed primal served through ``predict`` at
       65,536 points by the dopri5 masked scan, finite;
@@ -111,16 +116,40 @@ which raises on failure:
       against f64 on the card within 1e-3 of the tensor's largest value,
       and with ``remat`` bitwise equal to without; then the size of the
       JAX package's on-chip test (d=2, N_r = N_b = 256, N_t = 10, H = 16,
-      Hh = 10, 3 layers, alpha 1e5): ``adams`` for 30 iterations to a
+      Hh = 10, 3 layers, alpha 1e5): ``adams`` for 20 iterations to a
       final rel-L2 under 0.3, and ``bosh3``, ``adaptive_heun``,
       ``fehlberg2``, ``dopri8``, ``explicit_adams`` and ``fixed_adams``
-      for 5 iterations each: finite, no kernel launched;
+      for 3 iterations each: finite, no kernel launched;
    n. the continuous adjoint (``apply_xnode_adjoint``) on a 4,000-path d=5
       midpoint batch: its forward bitwise equal to ``apply_xnode``'s
       without remat, its parameter gradient within 2e-2 (relative, in
       norm) of autograd through the scan; and the peak device memory and
       time of one backward without remat, with remat and with the adjoint
       at L = 20 and 200;
+   o. chunked training: the cube from ``seed`` 0 by
+      ``train_chunked(300, chunk=20)`` to the 1% stop: its stop iteration
+      and final rel-L2 bitwise b's, its checkpoint's networks bitwise b's
+      stop state, the replay bitwise the chunk's own metrics, the
+      launches exact; the host syncs of one chunk of 20 (only the
+      metrics' copy and the improved best weights' may wait), and the
+      chunked iteration's time against one at a time;
+   p. ``profile_dir`` through the command line, 10 iterations: the
+      Chrome trace exists and names the launchers of #2-#5; the card's
+      busy share over the traced window;
+   q. the contour plot's slice of o's primal at resolution 200 through
+      kernel #1 (once), ``guess_cn.npy`` and ``error_cn.npy`` written,
+      the slice's rel-L2 under 0.05, a missing matplotlib printed;
+   r. two ranks on the card over ``gloo``, the cube at full width (2,000
+      interior and boundary rows a rank): one outer step against one
+      process (1e-4 of each parameter tensor's largest value, 1e-5 on
+      the metrics), ``train_until`` to 1% beside b's iterations with
+      the exact launches a rank, a ``fused_v`` step through #6/#7,
+      65,536 points served on the mesh bitwise equal to one process, an
+      ``ensemble: 2`` step (a member a rank, through #2-#5) and a
+      ``fused_v`` ``tangent_shards: 2`` step at d = 20 (u side plain, #2
+      and #6/#7 kept), each with exact launches against its fused
+      single-process twin; then ``nccl`` on a world of every card, one
+      step equal to one process;
 
 3. each kernel against its plain PyTorch version on the same card
    inputs: #1 and #2 within ``rtol=2e-4, atol=2e-5`` on all four RK
@@ -170,8 +199,9 @@ which raises on failure:
    same parts (medians of 5); one ensemble iteration of 2i (4 members at
    d = 20) beside one member's step, one WAN outer step (plain and
    ``fused_v``), one f64 parity-lane step, and a Halton draw beside an
-   i.i.d. one at the cube's N_r; one dopri5 outer step of l (a median of
-   3) with its u side and boundary scan timed alone, one ``adams`` step
+   i.i.d. one at the cube's N_r; one dopri5 outer step of l (one run,
+   three before phases 2o-2r) with its u side and boundary scan timed
+   alone, one ``adams`` step
    of m (the median of its last three iterations, by the host clock of
    its log), and the cube's midpoint step with ``remat_scan`` on and off
    in turns (on, off, off, on). Parts timed alone can overlap in a step, so
@@ -186,6 +216,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import inspect
 import io
 import json
 import math
@@ -196,8 +227,11 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(ROOT, "benchmarks", "ref_run_nr4000",
@@ -259,31 +293,45 @@ PARITY_ITERS = 60
 PARITY_BEST_LIMIT = 0.05
 # 2l: the cube with solver: dopri5 (JAX's benchmarks/scenarios/d5_dopri5.json:
 # 1% in 118 iterations; 0.461, 0.148, 0.084 at iterations 0, 10, 20), cut
-# to 30 iterations and held to its least rel-L2; then the command line
-# with fused_v for 5 iterations and a resume of 2
+# to 20 iterations (30 before phases 2o-2r) and held to its least rel-L2;
+# then the command line with fused_v for 3 iterations and a resume of 1
+# (5 and 2 before phases 2o-2r)
 DOPRI5_RUN = os.path.join(ROOT, "benchmarks", "scenarios", "d5_dopri5.json")
-DOPRI5_ITERS = 30
+DOPRI5_ITERS = 20
 DOPRI5_BEST_LIMIT = 0.15
-DOPRI5_CLI_ITERS = 5
+DOPRI5_CLI_ITERS = 3
+DOPRI5_RESUME_ITERS = 1
 # 2m: the other solvers at the size of the JAX package's on-chip test
-# (tests/test_tpu_hardware.py:218-228): adams for 30 iterations to a final
-# rel-L2 under 0.3 (its assertion), every other solver 5 iterations;
+# (tests/test_tpu_hardware.py:218-228): adams cut from its 30 iterations
+# to 20 (before phases 2o-2r: 30), to a final rel-L2 under 0.3 (its
+# assertion), every other solver 3 iterations (5 before 2o-2r);
 # before them each adaptive method's f32 integration held against f64
 SOLVER_CFG = dict(dim=2, shape_param=(-1.0, 1.0), N_t=10, N_r=256, N_b=256,
                   u_hidden_dim=16, u_hidden_hidden_dim=10, u_layers=3,
                   v_layers=4, v_hidden_dim=20, min_steps=5, alpha=1e5,
                   u_rate=0.015, v_rate=0.04, n1=2, n2=1, seed=0)
-ADAMS_ITERS = 30
+ADAMS_ITERS = 20
 ADAMS_LIMIT = 0.3
 OTHER_SOLVERS = ("bosh3", "adaptive_heun", "fehlberg2", "dopri8",
                  "explicit_adams", "fixed_adams")
-OTHER_ITERS = 5
+OTHER_ITERS = 3
 F64_SCALED_TOL = 1e-3
 # 2n: the continuous adjoint's gradient against autograd through the scan
 # (the bound of tests/test_adjoint.py:77-90), and the peak memory of one
 # backward at two path lengths (benchmarks/ab_adjoint.py's A/B)
 ADJOINT_GRAD_RTOL = 2e-2
 ADJOINT_LENGTHS = (20, 200)
+# 2o: the cube by train_chunked to the 1% stop, against 2b's train_until
+CHUNK = 20
+CHUNKED_MAX_ITERS = 300
+# 2p: the command line with profile_dir, one iteration a chunk
+PROFILE_ITERS = 10
+# 2q: the slice through x_2..x_d = 0.5 of 2o's primal, as plotted
+PLOT_REL_LIMIT = 0.05
+# 2r: two ranks on the card against one process, at the f32 tolerances of
+# tests/test_torch_training.py::test_one_outer_step_matches_jax[f32_*]
+MG_MAX_ITERS = 300
+PARAM_RTOL, METRIC_RTOL = 1e-4, 1e-5
 RTOL, ATOL = 2e-4, 2e-5       # kernel against plain; tests/test_pallas.py:33
 # Tangents, stored tangent states and weight gradients are sums of many
 # terms of both signs (the gradient: over 20,000 path-directions and 20
@@ -458,6 +506,39 @@ def train_launches_want(n: int, c) -> dict:
     return {"xnode_eval": 0, "xnode_train": n, "xnode_udu_fwd": n,
             "xnode_udu_fwd_store": c.n1 * n, "xnode_udu_bwd": c.n1 * n,
             "disc_fwd": 0, "disc_bwd": 0}
+
+
+def chunked_run(kept: int, iterations: int, chunk: int, report_it=None,
+                stopped: bool = False) -> int:
+    """The outer iterations a chunked ``train`` (or ``train_chunked``)
+    runs to keep ``kept``: chunks of ``chunk``, each ending at the next
+    report step when ``report_it`` is given, the stop's chunk run whole
+    and then replayed to the stop unless the stop is its last iteration
+    (``NODEWANSolver._chunk``)."""
+    done = run = 0
+    while done < kept:
+        n = min(chunk, iterations - done)
+        if report_it:
+            n = min(n, -(-done // report_it) * report_it - done + 1)
+        run += n
+        if stopped and done + n > kept:
+            run += kept - done
+        done += n
+    return run
+
+
+def cli_launches_want(kept: int, c, report_it: int, iterations: int,
+                      stopped: bool, plots_launch: bool = True) -> dict:
+    """The launches of a ``fused_v`` command-line run that kept ``kept``
+    iterations: those of :func:`chunked_run`'s iterations (#2, #3 once,
+    #4, #5 ``n1`` times, #6 ``1 + n2``, #7 ``n2`` times an iteration),
+    and #1 once for each report step's plot when the primal serves
+    through it."""
+    n = chunked_run(kept, iterations, c.train_chunk, report_it, stopped)
+    plots = len(range(0, kept, report_it)) if plots_launch else 0
+    return {"xnode_eval": plots, "xnode_train": n, "xnode_udu_fwd": n,
+            "xnode_udu_fwd_store": c.n1 * n, "xnode_udu_bwd": c.n1 * n,
+            "disc_fwd": (1 + c.n2) * n, "disc_bwd": c.n2 * n}
 
 
 def every_10(label: str, rel, reference) -> None:
@@ -764,10 +845,12 @@ def wan_runs(kernels, work_root: str, cli_main, card: str) -> dict:
         raise AssertionError(f"the WAN run's least rel-L2 {best} >= "
                              f"{WAN_BEST_LIMIT}")
 
-    def want(k):
+    def want(k, iterations, stopped):
+        # the WAN's u side and its plots launch none of #1-#5
+        n = chunked_run(k, iterations, cfg.train_chunk, 5, stopped)
         return {"xnode_eval": 0, "xnode_train": 0, "xnode_udu_fwd": 0,
                 "xnode_udu_fwd_store": 0, "xnode_udu_bwd": 0,
-                "disc_fwd": (1 + cfg.n2) * k, "disc_bwd": cfg.n2 * k}
+                "disc_fwd": (1 + cfg.n2) * n, "disc_bwd": cfg.n2 * n}
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_wan_") as work:
         yaml_path = os.path.join(work, "cube_pde_wan_fused_v.yaml")
@@ -778,15 +861,15 @@ def wan_runs(kernels, work_root: str, cli_main, card: str) -> dict:
         argv = ["--params", yaml_path, "--funcs", "Ex4_1_funcs", "-w", work,
                 "--report_it", "5"]
         zero_launches(kernels)
-        _, wsolver = run_cli(cli_main, argv + ["--iterations",
-                                               str(WAN_CLI_ITERS)])
+        out, wsolver = run_cli(cli_main, argv + ["--iterations",
+                                                 str(WAN_CLI_ITERS)])
         torch.cuda.synchronize()
         cli_launches = read_launches(kernels)
         metrics_file = os.path.join(work, f"metrics_NODE_{cfg.dim}.jsonl")
         rec = read_jsonl(metrics_file)
         zero_launches(kernels)
-        _, resumed = run_cli(cli_main, argv + ["--resume", "--iterations",
-                                               "3"])
+        out_res, resumed = run_cli(cli_main, argv + ["--resume",
+                                                     "--iterations", "3"])
         torch.cuda.synchronize()
         res_launches = read_launches(kernels)
         rec2 = read_jsonl(metrics_file)
@@ -810,10 +893,13 @@ def wan_runs(kernels, work_root: str, cli_main, card: str) -> dict:
     if not abs(first - last) < abs(first - fresh):
         raise AssertionError("the resumed WAN loss_u is nearer the fresh "
                              "start's than the last one's")
-    if cli_launches != want(WAN_CLI_ITERS) or res_launches != want(3):
+    want_cli = want(WAN_CLI_ITERS, WAN_CLI_ITERS,
+                    "Stopping Criterion Reached" in out)
+    want_res = want(3, 3, "Stopping Criterion Reached" in out_res)
+    if cli_launches != want_cli or res_launches != want_res:
         raise AssertionError(f"WAN command-line launches {cli_launches}, "
-                             f"{res_launches}; expected {want(WAN_CLI_ITERS)}"
-                             f", {want(3)}")
+                             f"{res_launches}; expected {want_cli}, "
+                             f"{want_res}")
     return {"hist": hist, "launches": launches, "best": best,
             "cli_launches": cli_launches, "res_launches": res_launches,
             "solver": solver, "cli_solver": resumed}
@@ -864,7 +950,8 @@ def dopri5_cube(kernels, work_root: str, cli_main, pts, card: str) -> dict:
     rel-L2 under ``DOPRI5_BEST_LIMIT``, no kernel launched (the adaptive
     solvers close the fused gate); then the command line with ``fused_v:
     true`` for ``DOPRI5_CLI_ITERS`` iterations and ``--resume --iterations
-    2``: #6 twice and #7 once an iteration and nothing else, the step and
+    DOPRI5_RESUME_ITERS``: #6 twice and #7 once an iteration and nothing
+    else, the step and
     loss continuing; the resumed primal served by ``predict`` at the
     65,536 points ``pts`` through the dopri5 masked scan: finite, no
     launch."""
@@ -921,8 +1008,8 @@ def dopri5_cube(kernels, work_root: str, cli_main, pts, card: str) -> dict:
         metrics_file = os.path.join(work, f"metrics_NODE_{cfg.dim}.jsonl")
         rec = read_jsonl(metrics_file)
         zero_launches(kernels)
-        _, resumed = run_cli(cli_main, argv + ["--resume", "--iterations",
-                                               "2"])
+        _, resumed = run_cli(cli_main, argv + [
+            "--resume", "--iterations", str(DOPRI5_RESUME_ITERS)])
         torch.cuda.synchronize()
         res_launches = read_launches(kernels)
         rec2 = read_jsonl(metrics_file)
@@ -945,16 +1032,19 @@ def dopri5_cube(kernels, work_root: str, cli_main, pts, card: str) -> dict:
                for k in ("loss_u", "loss_v", "rel_err")):
         raise AssertionError("the dopri5 command line logged a non-finite "
                              "loss")
-    if len(rec2) != 2 or resumed.state.step != DOPRI5_CLI_ITERS + 2:
+    if len(rec2) != DOPRI5_RESUME_ITERS or \
+            resumed.state.step != DOPRI5_CLI_ITERS + DOPRI5_RESUME_ITERS:
         raise AssertionError("the resumed dopri5 run did not continue the "
                              "step count")
     if not abs(first - last) < abs(first - fresh):
         raise AssertionError("the resumed dopri5 loss_u is nearer the fresh "
                              "start's than the last one's")
-    if cli_launches != want(DOPRI5_CLI_ITERS) or res_launches != want(2):
+    if cli_launches != want(DOPRI5_CLI_ITERS) or \
+            res_launches != want(DOPRI5_RESUME_ITERS):
         raise AssertionError(f"dopri5 command-line launches {cli_launches}, "
                              f"{res_launches}; expected "
-                             f"{want(DOPRI5_CLI_ITERS)}, {want(2)}")
+                             f"{want(DOPRI5_CLI_ITERS)}, "
+                             f"{want(DOPRI5_RESUME_ITERS)}")
     zero_launches(kernels)
     t = time.perf_counter()
     u_served = resumed.predict(pts)
@@ -1047,7 +1137,9 @@ def other_solvers(kernels, work_root: str, dop, card: str) -> dict:
                                                           f"2m_{name}"))
         zero_launches(kernels)
         t = time.perf_counter()
-        m = s.train(report=False)
+        # one iteration a chunk: the log then stamps every iteration's end
+        # (phase 5 times the adams step from those stamps)
+        m = s.train(report=False, chunk=1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         launches = read_launches(kernels)
@@ -1155,8 +1247,8 @@ def adjoint_and_remat(dev, card: str) -> dict:
 
 def integrator_steps(solver, dop, others, work_root: str, card: str):
     """Phase 5's integrator figures: one dopri5 outer step (2l's solver,
-    median of 3) with its u side and boundary scan timed alone (medians
-    of 2), times their calls a step; one adams step at d=2 (the median of
+    one run) with its u side and boundary scan timed alone (one run
+    each), times their calls a step; one adams step at d=2 (the median of
     2m's last three iterations, by the host clock its log keeps);
     the cube's midpoint step with ``remat_scan`` on (2b's ``solver``) and
     off (a solver with the same weights), in turns on, off, off, on,
@@ -1168,7 +1260,7 @@ def integrator_steps(solver, dop, others, work_root: str, card: str):
     dsolver = dop["solver"]
     dcfg, dstate = dsolver.cfg, dsolver.state
     # 2l's and 2m's solvers are warm: no warm-up runs
-    dop_step_ms = time_ms(lambda: dsolver._outer_step(), reps=3, warmup=0)
+    dop_step_ms = time_ms(lambda: dsolver._outer_step(), reps=1, warmup=0)
     db, dbb, _ = dsolver._sample(dstate.generator)
     dleaves = list(dstate.u_params.parameters())
 
@@ -1181,13 +1273,13 @@ def integrator_steps(solver, dop, others, work_root: str, card: str):
                                    dsolver.problem, dcfg)
 
     dop_parts = {"u side with its backward": dcfg.n1 * time_ms(
-        dop_uside, reps=2, warmup=0)}
+        dop_uside, reps=1, warmup=0)}
     with torch.no_grad():
         dop_parts["u side without gradient"] = time_ms(
-            lambda: dsolver._losses.u_side(dstate.u_params, db), reps=2,
+            lambda: dsolver._losses.u_side(dstate.u_params, db), reps=1,
             warmup=0)
     dop_parts["boundary scan forward and backward"] = dcfg.n1 * time_ms(
-        lambda: torch.autograd.grad(dop_bdry(), dleaves), reps=2, warmup=0)
+        lambda: torch.autograd.grad(dop_bdry(), dleaves), reps=1, warmup=0)
     # the adams step: the median of 2m's last three iterations, from the
     # times its run logged after each iteration's metrics reached the host
     asolver = others["runs"]["adams"]["solver"]
@@ -1204,7 +1296,7 @@ def integrator_steps(solver, dop, others, work_root: str, card: str):
                   time_ms(lambda: solver._outer_step(), reps=10)]
     remat_on_ms = statistics.mean(remat_runs[::3])
     remat_off_ms = statistics.mean(remat_runs[1:3])
-    print(f"dopri5 outer step ({card}), median of 3: {dop_step_ms:.4f} ms; "
+    print(f"dopri5 outer step ({card}), one run: {dop_step_ms:.4f} ms; "
           "parts timed alone times their calls a step:")
     for name, ms in dop_parts.items():
         print(f"  {name}: {ms:.4f} ms, {ms / dop_step_ms:.1%}")
@@ -1278,6 +1370,473 @@ def step_parts(solver, reps: int, scan_reps: int):
         lambda: torch.autograd.grad(bdry(), list(state.u_params.parameters())),
         reps=scan_reps) - fwd_ms)
     return parts, batch, bbatch
+
+
+def sync_sites(fn) -> list:
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: the
+    ``file:line`` of every call that made the host wait on the card."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
+            if "synchronizing CUDA operation" in str(w.message)]
+
+
+def source_lines(fn) -> set:
+    """The ``file:line`` of every line of ``fn``'s source."""
+    lines, first = inspect.getsourcelines(fn)
+    path = os.path.relpath(inspect.getsourcefile(fn), ROOT)
+    return {f"{path}:{first + i}" for i in range(len(lines))}
+
+
+def chunked_cube(kernels, work_root: str, ref, ref_hist, card: str) -> dict:
+    """Phase 2o: ``configs/cube_pde.yaml`` from ``seed`` 0,
+    ``train_chunked(CHUNKED_MAX_ITERS, chunk=CHUNK)`` to the 1% stop: the
+    stop iteration and the final rel-L2 bitwise 2b's, the checkpoint's
+    networks bitwise 2b's stop state, the replay bitwise the chunk's own
+    metrics, the launches exact (the chunks run whole, then the replay);
+    then the host syncs of one chunk (``sync_sites``: only the metrics'
+    copy, and the best weights' copy when they improved, may wait), and
+    the chunked loop's time an iteration against one at a time (in turns:
+    1, CHUNK, CHUNK, 1)."""
+    from xnode_wan_tpu_torch import NODEWANSolver, load_params, load_problem
+    from xnode_wan_tpu_torch.training import NODEWANSolver as Solver
+    from xnode_wan_tpu_torch.utils import checkpoint as ckpt
+
+    cfg = load_params(CONFIG).replace(seed=SEED)
+    problem = load_problem("Ex4_1_funcs", dim=cfg.dim)
+    work = os.path.join(work_root, "2o")
+    solver = NODEWANSolver(cfg, problem, work_dir=work)
+    zero_launches(kernels)
+    t = time.perf_counter()
+    m = solver.train_chunked(CHUNKED_MAX_ITERS, chunk=CHUNK)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = read_launches(kernels)
+    n = m["iterations_run"]
+    run = chunked_run(n, CHUNKED_MAX_ITERS, CHUNK, None, True)
+    want = train_launches_want(run, cfg)
+    sd = torch.load(os.path.join(work, "checkpoint_NODE.pt"),
+                    map_location="cpu", weights_only=True)["members"][0]
+    differ = [f"{net}.{k}" for net, module in (
+        ("u_params", ref.state.u_params), ("v_params", ref.state.v_params))
+        for k, v in module.state_dict().items()
+        if not torch.equal(sd[net][k], v.cpu())]
+    print(f"chunked training (train_chunked, chunk {CHUNK}): {n} outer "
+          f"iterations to rel-L2 {m['rel_err']!r} in {wall:.3f} s (wall "
+          f"clock, {card}); 2b's train_until: {ref_hist['iterations_run']} "
+          f"to {ref_hist['rel_err_final']!r}; {run} iterations run; the "
+          f"replay bitwise the chunk's own metrics: {solver.replay_bitwise}; "
+          f"checkpoint tensors that differ from 2b's stop state: {differ}; "
+          f"launches {launches}")
+    if n != ref_hist["iterations_run"] or m["rel_err"] != \
+            ref_hist["rel_err_final"]:
+        raise AssertionError("the chunked run's stop iteration or rel-L2 is "
+                             "not 2b's")
+    if differ or sd["step"] != n or solver.replay_bitwise is False:
+        raise AssertionError("the chunked run's checkpoint is not 2b's stop "
+                             "state, or its replay left the chunk's metrics")
+    if launches != want:
+        raise AssertionError(f"chunked launches {launches}, expected {want}")
+
+    fresh = NODEWANSolver(cfg, problem, work_dir=work + "_syncs")
+    fresh.train_chunked(2, chunk=2, log=False)   # the first chunk warms up
+    sites = sync_sites(lambda: fresh._chunk(CHUNK, fresh._can_stop()))
+    allowed = (source_lines(Solver._host_values)
+               | source_lines(ckpt.cpu_parameters))
+    print(f"host syncs in one chunk of {CHUNK} iterations on the cube: "
+          f"{len(sites)} ({', '.join(sites) or 'none'})")
+    if not 1 <= len(sites) <= 2 or not set(sites) <= allowed:
+        raise AssertionError(f"a chunk waits on the card at {sites}; only "
+                             "its metrics' copy and the best weights' may")
+
+    step_ms = {}
+    for label, chunk in (("1", 1), (str(CHUNK), CHUNK), (f"{CHUNK} again",
+                                                        CHUNK),
+                         ("1 again", 1)):
+        timed = NODEWANSolver(cfg, problem, work_dir=work + "_timed")
+        timed.train_chunked(1, chunk=1, log=False)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        timed.train_chunked(CHUNK, chunk=chunk, log=False)
+        torch.cuda.synchronize()
+        step_ms[label] = 1e3 * (time.perf_counter() - t) / CHUNK
+    print(f"outer iteration ({card}), host clock over {CHUNK} iterations "
+          f"after one: " + ", ".join(f"chunk {k} {v:.4f} ms"
+                                     for k, v in step_ms.items()))
+    return {"solver": solver, "iterations": n, "rel_err": m["rel_err"],
+            "run": run, "wall_s": wall, "launches": launches,
+            "syncs": sites, "step_ms": step_ms,
+            "replay_bitwise": solver.replay_bitwise}
+
+
+PROFILE_LAUNCHERS = ("xnode_path_fwd_launch", "xnode_udu_fwd_launch",
+                     "xnode_udu_fwd_store_launch", "xnode_udu_bwd_launch")
+
+
+def profile_cli(kernels, cli_main, card: str) -> dict:
+    """Phase 2p: the command line on the cube for ``PROFILE_ITERS``
+    iterations with ``profile_dir`` set (one iteration a chunk): the
+    Chrome trace of iterations [3, 8) exists and names the launchers of
+    #2-#5; the launches exact (and #1 once for each report step's plot);
+    the card's busy share over the traced window, from the trace's kernel
+    events."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_profile_") as work:
+        yaml_path = os.path.join(work, "cube_pde_profile.yaml")
+        with open(CONFIG) as fh:
+            text = fh.read()
+        trace_dir = os.path.join(work, "trace")
+        with open(yaml_path, "w") as fh:
+            fh.write(text.rstrip("\n") + f"\nprofile_dir: {trace_dir}\n")
+        zero_launches(kernels)
+        t = time.perf_counter()
+        out, solver = run_cli(cli_main, [
+            "--params", yaml_path, "--funcs", "Ex4_1_funcs", "-w", work,
+            "--report_it", "5", "--iterations", str(PROFILE_ITERS)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = read_launches(kernels)
+        path = os.path.join(trace_dir, "trace.json")
+        with open(path) as fh:
+            text = fh.read()
+    trace = json.loads(text)["traceEvents"]
+    named = {n: text.count(f'"{n}"') for n in PROFILE_LAUNCHERS}
+    kernel_ev = [e for e in trace if e.get("cat") == "kernel"]
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in kernel_ev)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    timed = [e for e in trace if "dur" in e and e.get("ph") == "X"]
+    window = (max(e["ts"] + e["dur"] for e in timed)
+              - min(e["ts"] for e in timed)) if timed else 0.0
+    by_name = {}
+    for e in kernel_ev:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e.get("dur", 0)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    cfg = solver.cfg
+    kept = solver.state.step
+    want = train_launches_want(
+        chunked_run(kept, PROFILE_ITERS, 1, 5,
+                    "Stopping Criterion Reached" in out), cfg)
+    want["xnode_eval"] = len(range(0, kept, 5))
+    print(f"profile_dir: {PROFILE_ITERS} iterations in {wall:.3f} s ({card}); "
+          f"trace {len(text)} bytes, launcher names {named}; {len(kernel_ev)} "
+          f"kernel events, the card busy {busy / 1e3:.3f} of "
+          f"{window / 1e3:.3f} ms traced ({100 * busy / max(window, 1):.2f}%);"
+          f" kernel time by name (ms): "
+          + "; ".join(f"{k[:60]} {v / 1e3:.3f}" for k, v in top)
+          + f"; launches {launches}")
+    if not all(named.values()):
+        raise AssertionError(f"the trace does not name every launcher: "
+                             f"{named}")
+    if launches != want:
+        raise AssertionError(f"profiled launches {launches}, expected {want}")
+    return {"launches": launches, "busy_ms": busy / 1e3,
+            "window_ms": window / 1e3, "kernel_events": len(kernel_ev),
+            "named": named, "top_ms": {k: v / 1e3 for k, v in top}}
+
+
+def plots(kernels, solver, card: str) -> dict:
+    """Phase 2q: ``proj`` (through the solver's ``_maybe_plot``) on 2o's
+    primal at resolution 200: kernel #1 launched once for the 40,000
+    points, ``guess_cn.npy`` and ``error_cn.npy`` written, the guess's
+    rel-L2 against the exact slice (free coordinates at 0.5) under
+    ``PLOT_REL_LIMIT``; a missing matplotlib is printed, and only that is
+    caught."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_plots_") as work:
+        solver.work_dir = work
+        zero_launches(kernels)
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            solver._maybe_plot(solver.state.step, False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = read_launches(kernels)
+        guess = np.load(os.path.join(work, "guess_cn.npy"))
+        error = np.load(os.path.join(work, "error_cn.npy"))
+        png = [f for f in os.listdir(work) if f.endswith(".png")]
+    print(buf.getvalue(), end="")
+    sol = guess - error
+    rel = float(np.sqrt(np.sum(error ** 2) / np.sum(sol ** 2)))
+    print(f"plot of 2o's primal at step {solver.state.step}: {guess.size} "
+          f"points in {1e3 * wall:.3f} ms ({card}); rel-L2 against the exact "
+          f"slice {rel:.6f}; PNG files {png}; launches {launches}")
+    if guess.shape != (200, 200) or not np.isfinite(guess).all():
+        raise AssertionError("the plot's guess is not a finite 200 x 200 grid")
+    if launches != dict({n: 0 for n in kernels}, xnode_eval=1):
+        raise AssertionError(f"the plot launched {launches}")
+    if not rel < PLOT_REL_LIMIT:
+        raise AssertionError(f"the plotted slice's rel-L2 {rel} >= "
+                             f"{PLOT_REL_LIMIT}")
+    if not png and "No module named 'matplotlib'" not in buf.getvalue():
+        raise AssertionError("no PNG, and no missing matplotlib printed")
+    return {"rel_err": rel, "points": int(guess.size), "ms": 1e3 * wall,
+            "launches": launches, "png": bool(png)}
+
+
+def mg_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    """One rank of phase 2r (spawned): the cube at full width on a mesh of
+    two ranks sharing the card over ``gloo``; saves what the parent holds
+    against the single-process runs."""
+    sys.path.insert(0, ROOT)
+    from xnode_wan_tpu_torch import (NODEWANSolver, evaluate_points,
+                                     load_params, load_problem,
+                                     load_reference_state_dict)
+    from xnode_wan_tpu_torch.parallel.mesh import init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = init_distributed("cuda:0", backend="gloo",
+                           init_method=f"tcp://localhost:{port}",
+                           world_size=world, rank=rank)
+    kernels = kernel_table()
+    cfg = load_params(CONFIG).replace(seed=SEED)
+    problem = load_problem("Ex4_1_funcs", dim=cfg.dim)
+    res = {}
+
+    def step(name, c, prob=problem):
+        s = NODEWANSolver(c, prob, work_dir=os.path.join(out_dir, name))
+        zero_launches(kernels)
+        m = s._to_host(s._outer_step())
+        torch.cuda.synchronize()
+        res[name] = {"metrics": m, "launches": read_launches(kernels),
+                     "params": member_params(s, s._owned),
+                     "rows": (s.cfg.N_r // s.mesh.shape.get("data", 1),
+                              s.cfg.N_b // s.mesh.shape.get("data", 1)),
+                     "mesh": dict(s.mesh.shape)}
+        return s
+
+    try:
+        step("step", cfg)
+        s = NODEWANSolver(cfg, problem, work_dir=os.path.join(out_dir, "2r"))
+        zero_launches(kernels)
+        hist = s.train_until(TRAIN_TOL, MG_MAX_ITERS)
+        torch.cuda.synchronize()
+        res["until"] = {k: hist[k] for k in ("iterations_run",
+                                             "rel_err_final",
+                                             "wall_train_s")}
+        res["until"]["rel_err"] = hist["rel_err"].tolist()
+        res["until"]["launches"] = read_launches(kernels)
+        step("fused_v", cfg.replace(fused_v=True))
+        model = load_reference_state_dict(CKPT, device=dev,
+                                          dtype=torch.float32)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        pts = torch.rand((SERVE_POINTS, cfg.dim + 1), generator=gen,
+                         device=dev)
+        pts[:, 1:] = 2 * pts[:, 1:] - 1
+        zero_launches(kernels)
+        with torch.no_grad():
+            t = time.perf_counter()
+            sharded = evaluate_points(model, pts, problem, cfg, mesh=s.mesh)
+            torch.cuda.synchronize()
+            t_sharded = time.perf_counter() - t
+            whole = evaluate_points(model, pts, problem, cfg)
+        torch.cuda.synchronize()
+        res["serve"] = {"bitwise": bool(torch.equal(sharded, whole)),
+                        "launches": read_launches(kernels),
+                        "ms": 1e3 * t_sharded}
+        step("ensemble", cfg.replace(ensemble=2))
+        dcfg = load_params(D20_CONFIG).replace(seed=SEED, tangent_shards=2,
+                                               fused_v=True)
+        step("tangent", dcfg, load_problem("Ex4_3_consistent", dcfg.dim))
+    finally:
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.destroy_process_group()
+
+
+def nccl_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    """Phase 2r's ``nccl`` world of every card (one on a one-card
+    machine): an all-reduce through ``parallel.mesh``, then one outer
+    step of the cube on the world's mesh (none for one rank)."""
+    sys.path.insert(0, ROOT)
+    from xnode_wan_tpu_torch import NODEWANSolver, load_params, load_problem
+    from xnode_wan_tpu_torch.parallel.mesh import (all_reduce_sum,
+                                                   init_distributed)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = init_distributed(f"cuda:{rank}",
+                           init_method=f"tcp://localhost:{port}",
+                           world_size=world, rank=rank)
+    try:
+        total = all_reduce_sum(torch.ones(1, device=dev), dist.group.WORLD)
+        cfg = load_params(CONFIG).replace(seed=SEED)
+        s = NODEWANSolver(cfg, load_problem("Ex4_1_funcs", dim=cfg.dim),
+                          device=dev, work_dir=os.path.join(out_dir, "nccl"))
+        m = s._to_host(s._outer_step())
+        torch.save({"backend": dist.get_backend(), "sum": float(total),
+                    "metrics": m, "params": member_params(s, [0]),
+                    "mesh": None if s.mesh is None else dict(s.mesh.shape)},
+                   os.path.join(out_dir, f"nccl{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def member_params(solver, members) -> list:
+    """The networks of ``members`` as CPU tensors."""
+    return [p.detach().cpu() for k in members
+            for net in (solver.members[k].u_params,
+                        solver.members[k].v_params)
+            for p in net.parameters()]
+
+
+def kernel_table() -> dict:
+    """The seven kernels' launch counters by name."""
+    from xnode_wan_tpu_torch.ops.kernels import (disc_train, xnode_eval,
+                                                 xnode_train)
+    return {"xnode_eval": xnode_eval.KERNEL, "xnode_train": xnode_train.KERNEL,
+            "xnode_udu_fwd": xnode_train.FWD_KERNEL,
+            "xnode_udu_fwd_store": xnode_train.FWD_STORE_KERNEL,
+            "xnode_udu_bwd": xnode_train.BWD_KERNEL,
+            "disc_fwd": disc_train.FWD_KERNEL,
+            "disc_bwd": disc_train.BWD_KERNEL}
+
+
+def spawn(fn, nprocs: int, out_dir: str) -> None:
+    """``fn(rank, nprocs, port, out_dir)`` in ``nprocs`` fresh processes;
+    raises if any rank fails."""
+    import socket
+    import torch.multiprocessing as mp
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    mp.spawn(fn, args=(nprocs, port, out_dir), nprocs=nprocs, join=True)
+
+
+def close_f32(label: str, got, want, rtol: float) -> float:
+    """``max |got - want| <= rtol * max |want|``, tensor by tensor."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        scale = float(w.abs().max()) or 1.0
+        worst = max(worst, float((g - w).abs().max()) / scale)
+    if not worst <= rtol:
+        raise AssertionError(f"{label}: {worst:.3e} of the largest value > "
+                             f"{rtol}")
+    return worst
+
+
+def multi_gpu(kernels, work_root: str, b_hist, card: str) -> dict:
+    """Phase 2r: two ranks on the one card over ``gloo`` (passed
+    explicitly: NCCL refuses two ranks on one device), the cube at full
+    width, 2,000 interior and 2,000 boundary rows a rank: one outer step
+    against one process at the f32 tolerance of
+    ``test_one_outer_step_matches_jax[f32_*]`` (1e-4 of each parameter
+    tensor's largest value, 1e-5 on the metrics); ``train_until(0.01,
+    MG_MAX_ITERS)`` to 1%, beside 2b's iterations; the exact launches a
+    rank; a ``fused_v`` step through #6/#7; 65,536 points served on the
+    mesh bitwise equal to one process; an ``ensemble: 2`` step (a member
+    a rank, through #2-#5) and a ``fused_v`` ``tangent_shards: 2`` step
+    at d = 20 (the u side plain, #2 and #6/#7 kept), each with its exact
+    launches a rank, against its fused single-process twin and that
+    twin's own exact launches; then ``nccl`` on a world of every card."""
+    from xnode_wan_tpu_torch import NODEWANSolver, load_params, load_problem
+
+    out = os.path.join(work_root, "2r")
+    os.makedirs(out, exist_ok=True)
+    t = time.perf_counter()
+    spawn(mg_rank, 2, out)
+    t_ranks = time.perf_counter() - t
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    cfg = load_params(CONFIG).replace(seed=SEED)
+    problem = load_problem("Ex4_1_funcs", dim=cfg.dim)
+
+    def twin(c, prob=problem):
+        s = NODEWANSolver(c, prob,
+                          work_dir=os.path.join(out, "twin", str(len(errs))))
+        zero_launches(kernels)
+        m = s._to_host(s._outer_step())
+        torch.cuda.synchronize()
+        return m, s, read_launches(kernels)
+
+    dcfg = load_params(D20_CONFIG).replace(seed=SEED, fused_v=True)
+    want_step = train_launches_want(1, cfg)
+    want_fv = cli_launches_want(1, cfg, 10 ** 9, 1, False, False)
+    # one member's step a rank; the fused twin steps both
+    want_twin = {"ensemble": {n: 2 * v for n, v in want_step.items()},
+                 "tangent": cli_launches_want(1, dcfg, 10 ** 9, 1, False,
+                                              False)}
+    # the tangent split's u side is plain: #2 (the metric) and #6/#7 stay
+    want_tan = dict(want_twin["tangent"], xnode_udu_fwd=0,
+                    xnode_udu_fwd_store=0, xnode_udu_bwd=0)
+    errs = {}
+    for name, c, prob in (
+            ("step", cfg, problem), ("fused_v", cfg.replace(fused_v=True),
+                                     problem),
+            ("ensemble", cfg.replace(ensemble=2), problem),
+            ("tangent", dcfg, load_problem("Ex4_3_consistent", 20))):
+        m, s, twin_launches = twin(c, prob)
+        if name in want_twin and twin_launches != want_twin[name]:
+            raise AssertionError(f"2r {name} twin: launches {twin_launches}, "
+                                 f"expected {want_twin[name]}")
+        for r, res in enumerate(ranks):
+            got = res[name]
+            members = [r] if name == "ensemble" else [0]
+            worst = close_f32(f"{name} rank {r}", got["params"],
+                              member_params(s, members), PARAM_RTOL)
+            for k, v in m.items():
+                if not abs(got["metrics"][k] - v) <= METRIC_RTOL * abs(v):
+                    raise AssertionError(f"{name} rank {r}: {k} "
+                                         f"{got['metrics'][k]} vs {v}")
+            errs[f"{name} rank {r}"] = worst
+        print(f"  {name}: mesh {ranks[0][name]['mesh']}, interior and "
+              f"boundary rows a rank {ranks[0][name]['rows']}, parameters within "
+              f"{max(errs[f'{name} rank {r}'] for r in range(2)):.3e} of the "
+              f"largest value of one process's; launches a rank "
+              f"{ranks[0][name]['launches']}, {ranks[1][name]['launches']}")
+    none = {n: 0 for n in kernels}
+    for r, res in enumerate(ranks):
+        n = res["until"]["iterations_run"]
+        want = {"step": want_step, "fused_v": want_fv,
+                "ensemble": want_step, "tangent": want_tan}
+        for name, w in want.items():
+            if res[name]["launches"] != w:
+                raise AssertionError(f"2r {name} rank {r}: launches "
+                                     f"{res[name]['launches']}, expected {w}")
+        if res["until"]["launches"] != train_launches_want(n, cfg):
+            raise AssertionError(f"2r train_until rank {r}: launches "
+                                 f"{res['until']['launches']}")
+        if not res["serve"]["bitwise"] or res["serve"]["launches"] != dict(
+                none, xnode_eval=2):
+            raise AssertionError(f"2r serving rank {r}: {res['serve']}")
+    until = ranks[0]["until"]
+    if ranks[1]["until"]["rel_err"] != until["rel_err"]:
+        raise AssertionError("the two ranks logged other rel-L2s")
+    print(f"two ranks on one card (gloo): train_until to rel-L2 "
+          f"{until['rel_err_final']:.6f} in {until['iterations_run']} "
+          f"iterations (2b: {b_hist['iterations_run']}), "
+          f"{until['wall_train_s']:.3f} s (train_until wall clock, {card}); "
+          f"launches a rank {ranks[0]['until']['launches']}; served "
+          f"{SERVE_POINTS} points on the mesh in "
+          f"{ranks[0]['serve']['ms']:.3f} ms (first call), bitwise equal to "
+          f"one process: {ranks[0]['serve']['bitwise']}; ranks took "
+          f"{t_ranks:.3f} s")
+    if not until["rel_err_final"] < TRAIN_TOL:
+        raise AssertionError(f"the two-rank cube stopped at rel-L2 "
+                             f"{until['rel_err_final']}")
+
+    n_cards = torch.cuda.device_count()
+    spawn(nccl_rank, n_cards, out)
+    nccl = torch.load(os.path.join(out, "nccl0.pt"), weights_only=False)
+    m, s, _ = twin(cfg)
+    bitwise = all(torch.equal(a, b) for a, b in
+                  zip(nccl["params"], member_params(s, [0])))
+    worst = close_f32("nccl step", nccl["params"], member_params(s, [0]),
+                      PARAM_RTOL)
+    print(f"nccl world of {n_cards} card(s): backend {nccl['backend']}, "
+          f"all-reduce of ones {nccl['sum']}, mesh {nccl['mesh']}; one step "
+          f"against one process: bitwise {bitwise}, within {worst:.3e}")
+    if nccl["backend"] != "nccl" or nccl["sum"] != n_cards:
+        raise AssertionError(f"the nccl world: {nccl}")
+    return {"ranks": ranks, "errs": errs, "nccl_bitwise": bitwise,
+            "wall_s": t_ranks}
 
 
 def phase_done(name: str, t_start: float) -> float:
@@ -1433,12 +1992,7 @@ def main(work_root: str) -> int:
     pts[:, 1:] = cube.bot + pts[:, 1:] * (cube.top - cube.bot)
     pts[:, 0] = cfg.T0 + pts[:, 0] * (cfg.T - cfg.T0)
     batch = cube.interior(gen, cfg.N_r)
-    kernels = {"xnode_eval": xnode_eval.KERNEL, "xnode_train": xnode_train.KERNEL,
-               "xnode_udu_fwd": xnode_train.FWD_KERNEL,
-               "xnode_udu_fwd_store": xnode_train.FWD_STORE_KERNEL,
-               "xnode_udu_bwd": xnode_train.BWD_KERNEL,
-               "disc_fwd": disc_train.FWD_KERNEL,
-               "disc_bwd": disc_train.BWD_KERNEL}
+    kernels = kernel_table()
     errs = {n: 0.0 for n in kernels}
 
     # 2a. serving and scoring ---------------------------------------------
@@ -1510,12 +2064,6 @@ def main(work_root: str) -> int:
     t_phase = phase_done("2b", t_phase)
 
     # 2c. the command line with fused_v ------------------------------------
-    def cli_launches_want(n, c=cfg):
-        return {"xnode_eval": 0, "xnode_train": n, "xnode_udu_fwd": n,
-                "xnode_udu_fwd_store": c.n1 * n,
-                "xnode_udu_bwd": c.n1 * n, "disc_fwd": (1 + c.n2) * n,
-                "disc_bwd": c.n2 * n}
-
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as work:
         yaml_path = os.path.join(work, "cube_pde_fused_v.yaml")
         with open(CONFIG) as fh:
@@ -1539,9 +2087,21 @@ def main(work_root: str) -> int:
             raise AssertionError("the fused_v command-line run did not reach "
                                  f"rel-L2 < {TRAIN_TOL} in {fv_iters} "
                                  "iterations")
-        if cli_launches != cli_launches_want(fv_iters):
+        want = cli_launches_want(fv_iters, cfg, 25, cfg.iterations, True)
+        sd = torch.load(os.path.join(work, "checkpoint_NODE.pt"),
+                        map_location="cpu", weights_only=True)
+        print(f"  chunks of {cfg.train_chunk} ending at the report steps: "
+              f"{chunked_run(fv_iters, cfg.iterations, cfg.train_chunk, 25, True)}"
+              f" iterations run for {fv_iters} kept; the replay to the stop "
+              f"bitwise equal to the chunk's own: {fv_solver.replay_bitwise}; "
+              f"checkpoint at step {sd['members'][0]['step']}")
+        if cli_launches != want:
             raise AssertionError(f"command-line launches {cli_launches}, "
-                                 f"expected {cli_launches_want(fv_iters)}")
+                                 f"expected {want}")
+        if sd["members"][0]["step"] != fv_iters or \
+                fv_solver.replay_bitwise is False:
+            raise AssertionError("the checkpoint is not the stop iteration's "
+                                 "or the replay left the chunk's metrics")
         if len(records) != fv_iters or [r["step"] for r in records] != \
                 list(range(fv_iters)):
             raise AssertionError(f"{len(records)} metrics records for "
@@ -1556,7 +2116,8 @@ def main(work_root: str) -> int:
                 raise AssertionError("losses list length != iterations")
 
         zero_launches(kernels)
-        _, resumed = run_cli(cli_main, argv + ["--resume", "--iterations", "3"])
+        out_res, resumed = run_cli(cli_main,
+                                   argv + ["--resume", "--iterations", "3"])
         torch.cuda.synchronize()
         resumed_launches = read_launches(kernels)
         records2 = read_jsonl(os.path.join(work,
@@ -1575,9 +2136,11 @@ def main(work_root: str) -> int:
         if not abs(first - stop_l) < 0.2 * abs(stop_l):
             raise AssertionError("the resumed loss_u is not near the stop's: "
                                  "the checkpoint was not restored")
-        if resumed_launches != cli_launches_want(n_res):
+        want = cli_launches_want(n_res, cfg, 25, 3,
+                                 "Stopping Criterion Reached" in out_res)
+        if resumed_launches != want:
             raise AssertionError(f"resumed launches {resumed_launches}, "
-                                 f"expected {cli_launches_want(n_res)}")
+                                 f"expected {want}")
 
         xnode_eval.KERNEL.launches = 0
         u_resumed = resumed.predict(pts)
@@ -1691,9 +2254,10 @@ def main(work_root: str) -> int:
         if not hrec[-1]["rel_err"] < hrec[0]["rel_err"]:
             raise AssertionError("the hourglass rel-L2 did not fall below its "
                                  "first iteration's")
-        if hg_launches != cli_launches_want(h_iters, hcfg):
+        want = cli_launches_want(h_iters, hcfg, 5, HOURGLASS_ITERS, stopped)
+        if hg_launches != want:
             raise AssertionError(f"hourglass launches {hg_launches}, expected "
-                                 f"{cli_launches_want(h_iters, hcfg)}")
+                                 f"{want}")
         zero_launches(kernels)
         _, hresumed = run_cli(cli_main, argv + ["--resume", "--iterations",
                                                 "3"])
@@ -1712,7 +2276,7 @@ def main(work_root: str) -> int:
         if not abs(first - stop_l) < abs(first - fresh):
             raise AssertionError("the resumed hourglass loss_u is nearer the "
                                  "fresh start's than the last one's")
-        if hg_res_launches != cli_launches_want(3, hcfg):
+        if hg_res_launches != cli_launches_want(3, hcfg, 5, 3, False):
             raise AssertionError(f"resumed hourglass launches "
                                  f"{hg_res_launches}")
     hpts = inside_points(hg, SERVE_POINTS, gen, hg.r * (hg.T - hg.T0))
@@ -1791,6 +2355,43 @@ def main(work_root: str) -> int:
     # 2n. the continuous adjoint and remat on the card ------------------------
     adj = adjoint_and_remat(dev, card)
     t_phase = phase_done("2n", t_phase)
+
+    # 2o. chunked training with the exact stop --------------------------------
+    chunked = chunked_cube(kernels, work_root, solver, hist, card)
+    phase_launches["2o"] = chunked["launches"]
+    t_phase = phase_done("2o", t_phase)
+
+    # 2p. profile_dir through the command line ---------------------------------
+    prof = profile_cli(kernels, cli_main, card)
+    phase_launches["2p"] = prof["launches"]
+    t_phase = phase_done("2p", t_phase)
+
+    # 2q. the contour plot's slice ---------------------------------------------
+    plot = plots(kernels, chunked["solver"], card)
+    phase_launches["2q"] = plot["launches"]
+    t_phase = phase_done("2q", t_phase)
+
+    # 2r. two ranks on the card, then nccl -------------------------------------
+    mg = multi_gpu(kernels, work_root, hist, card)
+    for r, res in enumerate(mg["ranks"]):
+        for name in ("step", "until", "fused_v", "serve", "ensemble",
+                     "tangent"):
+            phase_launches[f"2r rank {r} {name}"] = res[name]["launches"]
+    print(json.dumps({"slice14": {
+        "chunked": {k: chunked[k] for k in ("iterations", "rel_err", "run",
+                                            "wall_s", "syncs", "step_ms",
+                                            "replay_bitwise")},
+        "profile": {k: prof[k] for k in ("busy_ms", "window_ms",
+                                         "kernel_events", "top_ms")},
+        "plot": {k: plot[k] for k in ("rel_err", "points", "ms", "png")},
+        "two_ranks": {"until": {k: v for k, v in
+                                mg["ranks"][0]["until"].items()
+                                if k != "launches"},
+                      "serve_ms": mg["ranks"][0]["serve"]["ms"],
+                      "param_rel": mg["errs"], "wall_s": mg["wall_s"],
+                      "nccl_bitwise": mg["nccl_bitwise"]},
+        "card": card}}))
+    t_phase = phase_done("2r", t_phase)
 
     # 3. each kernel against its plain version on the card -----------------
     net = xnode_train.flat_net(model)

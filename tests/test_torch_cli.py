@@ -181,14 +181,15 @@ def test_train_stop_saves_and_reports(tmp_path, capsys):
 
 
 def test_show_plt_raises(tmp_path):
-    solver = NODEWANSolver(SolverConfig(**STEP), load_problem("cube_pde", 2),
-                           device="cpu", work_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        solver.train(show_plt=True, iterations=2)
-    assert solver.state.step == 0
-    with pytest.raises(NotImplementedError, match="viz"):
-        main(["--params", write_config(tmp_path), "--funcs", "cube_pde",
-              "-w", str(tmp_path), "--device", "cpu", "--show_plt"])
+    # plots are ported: --show_plt plots every report step instead
+    work = tmp_path / "plots"
+    solver = main(["--params", write_config(tmp_path, iterations=3),
+                   "--funcs", "cube_pde", "-w", str(work), "--device", "cpu",
+                   "--report_it", "2", "--show_plt"])
+    assert solver.state.step == 3
+    for step in (0, 2):
+        assert (work / f"plot_at_{step}_along_[0, 1].png").exists()
+    assert (work / "guess_cn.npy").exists() and (work / "error_cn.npy").exists()
 
 
 def test_cli_flags_cover_the_jax_cli():

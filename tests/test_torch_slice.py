@@ -48,7 +48,8 @@ def test_import_leaves_jax_out():
             "xnode_wan_tpu_torch.utils.logging, "
             "xnode_wan_tpu_torch.problems.ex4_3, xnode_wan_tpu_torch.ops.qmc, "
             "xnode_wan_tpu_torch.models.wan, xnode_wan_tpu_torch.ops.adjoint, "
-            "xnode_wan_tpu_torch.ops.integrate\n"
+            "xnode_wan_tpu_torch.ops.integrate, "
+            "xnode_wan_tpu_torch.parallel.mesh, xnode_wan_tpu_torch.utils.viz\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'xnode_wan_tpu'))\n"
             "print(bad)\n")

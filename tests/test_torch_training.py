@@ -264,7 +264,8 @@ def test_integrator_options_train(kw, tmp_path):
 
 @pytest.mark.parametrize("kw", [dict(tangent_shards=2)])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError):
+    # tangent_shards is ported; one process cannot lay out its two shards
+    with pytest.raises(ValueError, match="tangent_shards=2 cannot be laid"):
         NODEWANSolver(SolverConfig(**dict(SMALL, **kw)),
                       load_problem("cube_pde", 2), device="cpu")
 

@@ -22,6 +22,7 @@ from xnode_wan_tpu_torch import SolverConfig, load_problem, params_from_jax
 from xnode_wan_tpu_torch.models import xnode as tx
 from xnode_wan_tpu_torch.ops import integrate as tint
 from xnode_wan_tpu_torch.ops.sampling import Hypercube, PathBatch
+from xnode_wan_tpu_torch.parallel.mesh import make_mesh
 
 BASE = dict(dim=3, N_t=6, N_r=8, N_b=8, u_hidden_dim=8,
             u_hidden_hidden_dim=8, u_layers=2, v_layers=2, v_hidden_dim=8,
@@ -226,8 +227,12 @@ def test_unported_paths_raise():
     model = tx.init_xnode(tcfg, device="cpu")
     tp = load_problem("cube_pde")
     pts = torch.zeros((2, 4))
-    with pytest.raises(NotImplementedError, match="sharded"):
-        tx.evaluate_points(model, pts, tp, tcfg, mesh=object())
+    # sharded serving is ported: a mesh of one rank serves as no mesh does
+    with torch.no_grad():
+        np.testing.assert_array_equal(
+            tx.evaluate_points(model, pts, tp, tcfg,
+                               mesh=make_mesh([0])).numpy(),
+            tx.evaluate_points(model, pts, tp, tcfg).numpy())
     args = (lambda t, h: h, torch.zeros((1, 2)), torch.ones((1, 3)),
             torch.zeros(1), torch.ones((1, 3), dtype=torch.bool), 1)
     with pytest.raises(ValueError, match="unknown method"):

@@ -16,9 +16,13 @@ moving domains :class:`NSphereTCone` and :class:`NSphereTHourglass`
 in :func:`apply_xnode_adjoint`). The primal is the XNODE or the plain MLP
 :class:`WAN` (``primal: wan``), and ``ensemble: K`` trains K members at
 once. ``python -m xnode_wan_tpu_torch.main`` is the
-command line, with logs, checkpoints and resume. Entry points run on the current CUDA device unless the caller
-passes ``device="cpu"``; CPU tensors take the kernels' plain PyTorch
-versions.
+command line, with logs, checkpoints, resume and contour plots
+(:func:`proj`); :meth:`NODEWANSolver.train` runs in chunks with an exact
+stop, and ``from_reference`` takes the reference's constructor.
+``parallel`` lays ``torch.distributed`` ranks out as data, member and
+tangent meshes (:func:`init_distributed`, :func:`make_mesh`). Entry
+points run on the current CUDA device unless the caller passes
+``device="cpu"``; CPU tensors take the kernels' plain PyTorch versions.
 """
 
 from xnode_wan_tpu_torch.config import SolverConfig, load_params
@@ -35,10 +39,13 @@ from xnode_wan_tpu_torch.ops.kernels.xnode_eval import fused_evaluate
 from xnode_wan_tpu_torch.ops.kernels.xnode_train import (fused_from_batch,
                                                           u_du_fused,
                                                           u_forward_fused)
-from xnode_wan_tpu_torch.ops.sampling import (Hypercube, NSphereTCone,
+from xnode_wan_tpu_torch.ops.sampling import (DOMAIN_REGISTRY, CombLoader,
+                                              Hypercube, NSphereTCone,
                                               NSphereTHourglass, PathBatch,
-                                              make_domain)
+                                              fillt, make_domain)
 from xnode_wan_tpu_torch.ops.weak_form import make_losses, v_phi_grads_fused
+from xnode_wan_tpu_torch.parallel import (init_distributed, make_mesh,
+                                          make_mesh_2d, make_mesh_ensemble)
 from xnode_wan_tpu_torch.problems import Problem, load_problem
 from xnode_wan_tpu_torch.training import NODEWANSolver
 from xnode_wan_tpu_torch.utils.logging import RunLogger
@@ -47,6 +54,13 @@ from xnode_wan_tpu_torch.utils.torch_compat import (disc_params_from_jax,
                                                     load_reference_state_dict,
                                                     params_from_jax,
                                                     wan_params_from_jax)
+from xnode_wan_tpu_torch.utils.viz import proj
+
+# the reference's class names (src/dataset.py, src/training.py), as the
+# JAX package's __init__ gives them
+NSphere_TCone = NSphereTCone
+NSphere_THourglass = NSphereTHourglass
+NODE_WAN_solver = NODEWANSolver
 
 __all__ = [
     "SolverConfig", "load_params", "default_device", "XNODE", "init_xnode",
@@ -57,5 +71,8 @@ __all__ = [
     "NODEWANSolver", "make_losses", "u_du_fused", "fused_from_batch",
     "init_discriminator", "v_dv_fused", "v_fused_fits", "v_phi_grads_fused",
     "RunLogger", "WAN", "wan_params_from_jax", "integrate",
-    "integrate_adaptive", "apply_xnode_adjoint",
+    "integrate_adaptive", "apply_xnode_adjoint", "fillt", "CombLoader",
+    "DOMAIN_REGISTRY", "NSphere_TCone", "NSphere_THourglass",
+    "NODE_WAN_solver", "proj", "init_distributed", "make_mesh",
+    "make_mesh_2d", "make_mesh_ensemble",
 ]

@@ -3,9 +3,10 @@
 Same YAML key set, defaults, coercions and validation as the JAX
 package's ``xnode_wan_tpu/config.py``: a flat reference-style params dict
 is parsed by name into a frozen dataclass, and unknown keys are rejected.
-Every shipped config loads; the trainer (``training.py``) acts on the
-training fields and :func:`check_trainable` rejects the option this port
-does not implement yet (``tangent_shards > 1``).
+Every shipped config loads and the trainer (``training.py``) acts on the
+training fields; the JAX package's compiler knobs (``fused_chunk``,
+``compile_cache``, ``scan_unroll``, ``window_target_s``, ``debug_nans``)
+are read and unused.
 """
 
 from __future__ import annotations
@@ -183,11 +184,3 @@ def load_params(path: str) -> SolverConfig:
         raw = yaml.safe_load(fh)
     return SolverConfig.from_dict(raw)
 
-
-def check_trainable(cfg: SolverConfig) -> None:
-    """Raise ``NotImplementedError`` for training options the port does
-    not implement yet (ROADMAP.md lists where each comes). ``adjoint:
-    true`` trains, and means remat, as in the JAX package."""
-    if cfg.tangent_shards > 1:
-        raise NotImplementedError(
-            "not ported to PyTorch yet: tangent_shards > 1")

@@ -10,13 +10,24 @@ PyTorch version). ``--resume`` continues from ``checkpoint_NODE.pt`` in
 the work directory. The config picks the primal (``primal: wan``), the
 ensemble (``ensemble: K``: each log record is the best member's, with
 ``best_member`` and ``rel_err_worst``) and the clouds (``qmc: halton``).
+With the default ``--report`` the slice along axes (0, 1) is plotted at
+every report step (``utils/viz.py``).
+
+Under ``torchrun --nproc_per_node=N -m xnode_wan_tpu_torch.main ...``
+(``WORLD_SIZE > 1``) each rank takes ``cuda:LOCAL_RANK`` (or ``--device``)
+and joins the world (``parallel.mesh.init_distributed``); the solver's
+mesh is then the world and rank 0 writes the files.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+
+import torch.distributed as dist
 
 from xnode_wan_tpu_torch.config import load_params
+from xnode_wan_tpu_torch.parallel.mesh import init_distributed
 from xnode_wan_tpu_torch.problems import load_problem
 from xnode_wan_tpu_torch.training import NODEWANSolver
 
@@ -51,12 +62,22 @@ def main(argv=None) -> NODEWANSolver:
     args = build_parser().parse_args(argv)
     cfg = load_params(args.params)
     problem = load_problem(args.funcs, dim=cfg.dim)
-    solver = NODEWANSolver(cfg, problem, device=args.device,
-                           work_dir=args.work_dir)
-    if args.resume:
-        solver.load_checkpoint()
-    solver.train(report=args.report, report_it=args.report_it,
-                 show_plt=args.show_plt, iterations=args.iterations)
+    device = args.device
+    joined = (int(os.environ.get("WORLD_SIZE", "1")) > 1
+              and not dist.is_initialized())
+    if joined:
+        device = init_distributed(
+            device or f"cuda:{os.environ.get('LOCAL_RANK', '0')}")
+    try:
+        solver = NODEWANSolver(cfg, problem, device=device,
+                               work_dir=args.work_dir)
+        if args.resume:
+            solver.load_checkpoint()
+        solver.train(report=args.report, report_it=args.report_it,
+                     show_plt=args.show_plt, iterations=args.iterations)
+    finally:
+        if joined:   # NCCL's communicators must close before the exit
+            dist.destroy_process_group()
     return solver
 
 

@@ -22,6 +22,7 @@ from xnode_wan_tpu_torch.config import SolverConfig
 from xnode_wan_tpu_torch.device import default_device
 from xnode_wan_tpu_torch.models.layers import mlp_init
 from xnode_wan_tpu_torch.ops.sampling import PathBatch
+from xnode_wan_tpu_torch.parallel.mesh import serve_sharded
 
 
 class WAN(nn.Module):
@@ -67,8 +68,11 @@ def evaluate_points(params: WAN, pts: torch.Tensor, problem,
                     cfg: SolverConfig, k_steps: int | None = None,
                     domain=None, mesh=None) -> torch.Tensor:
     """u at arbitrary space-time points ``pts [M, C]`` -> ``[M]``: the MLP
-    evaluates anywhere directly, so there is no path and no seeding."""
+    evaluates anywhere directly, so there is no path and no seeding. On a
+    ``mesh`` each rank serves its share, as the XNODE's
+    ``evaluate_points`` does."""
+    if mesh is not None and mesh.size > 1:
+        return serve_sharded(evaluate_points, mesh, params, pts, problem,
+                             cfg)
     del problem, k_steps, domain
-    if mesh is not None:
-        raise NotImplementedError("sharded serving is not ported yet")
     return _mlp(params, pts) * cfg.u_scale_eff

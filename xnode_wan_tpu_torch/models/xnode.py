@@ -30,6 +30,7 @@ from xnode_wan_tpu_torch.ops.integrate import (ADAPTIVE_METHODS, Jet,
 from xnode_wan_tpu_torch.ops.kernels.steppers import FUSED_KERNEL_METHODS
 from xnode_wan_tpu_torch.ops.kernels.xnode_eval import fused_evaluate
 from xnode_wan_tpu_torch.ops.sampling import PathBatch
+from xnode_wan_tpu_torch.parallel.mesh import serve_sharded
 
 
 class XNODE(nn.Module):
@@ -180,16 +181,21 @@ def apply_xnode(params: XNODE, batch: PathBatch, problem,
 
 
 def apply_xnode_with_spatial_grad(params: XNODE, batch: PathBatch, problem,
-                                  cfg: SolverConfig):
-    """``u [N, L]`` and ``grad_x u [N, L, d]``: :func:`apply_xnode` with the
-    d coordinate tangents carried through the integrator as a
-    :class:`Jet` (:func:`field_jvp`), so that remat recomputes each
-    interval of the u side too (a recompute cannot run inside
-    ``torch.func.jvp``). The start state and the features take their
-    tangents by ``torch.func.jvp``, all d directions in one ``vmap``. The
-    values are those of forward mode through :func:`apply_xnode`; ``u``
-    is :func:`apply_xnode`'s."""
+                                  cfg: SolverConfig,
+                                  basis: Optional[torch.Tensor] = None):
+    """``u [N, L]`` and ``grad_x u [N, L, D]``: :func:`apply_xnode` with the
+    tangents carried through the integrator as a :class:`Jet`
+    (:func:`field_jvp`), so that remat recomputes each interval of the u
+    side too (a recompute cannot run inside ``torch.func.jvp``). The
+    directions are the rows of ``basis [D, d]``, by default the d
+    coordinate directions (a rank of a tangent group carries its slice,
+    ``ops/weak_form.py::tangent_basis``). The start state and the features
+    take their tangents by ``torch.func.jvp``, all D directions in one
+    ``vmap``. The values are those of forward mode through
+    :func:`apply_xnode`; ``u`` is :func:`apply_xnode`'s."""
     xs = batch.space[:, 0, :]
+    if basis is None:
+        basis = torch.eye(xs.shape[-1], dtype=xs.dtype, device=xs.device)
     seed_of = path_seed_fn(batch, problem, cfg)
 
     def start(x):
@@ -200,7 +206,7 @@ def apply_xnode_with_spatial_grad(params: XNODE, batch: PathBatch, problem,
         return torch.func.jvp(start, (xs,), (e.expand_as(xs),))
 
     (h0, xs_f), (dh0, dxs_f) = torch.func.vmap(one, out_dims=(None, 0))(
-        torch.eye(xs.shape[-1], dtype=xs.dtype, device=xs.device))
+        basis)
     feats = Jet(xs_f, dxs_f)
 
     def field(t, h):
@@ -210,7 +216,7 @@ def apply_xnode_with_spatial_grad(params: XNODE, batch: PathBatch, problem,
                     (xs_f, dxs_f, *field_weights(params)))
     scale = cfg.u_scale_eff
     u = params.readout(hs.p)[..., 0] * scale
-    du = F.linear(hs.t, params.readout.weight)[..., 0] * scale   # [d, N, L]
+    du = F.linear(hs.t, params.readout.weight)[..., 0] * scale   # [D, N, L]
     return u, torch.movedim(du, 0, -1)
 
 
@@ -275,9 +281,15 @@ def evaluate_points(params: XNODE, pts: torch.Tensor, problem,
     fixed-step RK solver, it runs the serving kernel
     (``csrc/xnode_fwd.cu``); otherwise the masked scan, as the JAX
     package does for x64 and the Adams methods.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``): every rank serves its share of
+    the points, the mesh collapsed to one data group as in JAX
+    (``models/xnode.py:215-227``), and the shares are gathered; each
+    point's value is the one a single process gives it.
     """
-    if mesh is not None:
-        raise NotImplementedError("sharded serving is not ported yet")
+    if mesh is not None and mesh.size > 1:
+        return serve_sharded(evaluate_points, mesh, params, pts, problem,
+                             cfg, k_steps=k_steps, domain=domain)
     if k_steps is None:
         k_steps = max(cfg.min_steps, cfg.N_t)
     m = pts.shape[0]

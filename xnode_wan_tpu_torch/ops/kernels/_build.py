@@ -163,7 +163,9 @@ class CudaKernel:
                  widths: Widths = None) -> None:
         lib, fn = self.load(widths)
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(device.index, stream, *args)
+        # names the launch in a torch.profiler trace (profile_dir)
+        with torch.profiler.record_function(self.symbol):
+            err = fn(device.index, stream, *args)
         if err != 0:
             msg = lib.xn_error_string(err).decode()
             raise RuntimeError(f"{self.symbol} failed: CUDA error {err} ({msg})")

@@ -32,6 +32,7 @@ import dataclasses
 import math
 from typing import Tuple, Union
 
+import numpy as np
 import torch
 
 from xnode_wan_tpu_torch.ops.qmc import qmc_ball, qmc_time_sphere, qmc_uniform
@@ -63,9 +64,9 @@ def stratified_times(generator: torch.Generator, T0: float, T: float, n: int,
     u = torch.rand((n,), generator=generator, device=dev, dtype=dtype)
     i = torch.arange(n, device=dev, dtype=dtype)
     t = T0 + (i + u) * (T - T0) / n
-    t[0] = T0
-    t[-1] = T
-    return t
+    # pinned by where: an indexed store of a Python number copies it to
+    # the card and waits there
+    return torch.where(i == 0, T0, torch.where(i == n - 1, T, t))
 
 
 def _unit_sphere(generator: torch.Generator, n: int, dim: int,
@@ -282,8 +283,8 @@ class NSphereTCone:
              else _ball(generator, n_r, self.dim, self.r, dtype=self.dtype))
         # inside while r (1 - t) > |x| (reference mask, dataset.py:192-195)
         t_exit = 1.0 - torch.linalg.norm(x, dim=-1) / self.r
-        mask = times[None, :] < t_exit[:, None]
-        mask[:, 0] = True  # every path is valid at T0
+        # every path is valid at T0
+        mask = (times[None, :] < t_exit[:, None]) | (times == times[0])
         dev = x.device
         return PathBatch(
             x=_assemble(times[None, :].expand(n_r, self.N_t), x),
@@ -405,8 +406,7 @@ class NSphereTHourglass:
                              span - rho / self.r)
         t_re = rho / self.r
         # segment A: from T0 until the shrinking boundary passes the point
-        mask_a = times[None, :] < t_exit[:, None]
-        mask_a[:, 0] = True
+        mask_a = (times[None, :] < t_exit[:, None]) | (times == times[0])
         # segment B: after the growing boundary takes it back (if it left)
         mask_b = (times[None, :] > t_re[:, None]) & (~never_exits)[:, None]
         dev = x.device
@@ -503,6 +503,65 @@ DOMAIN_REGISTRY = {
     "NSphere_THourglass": NSphereTHourglass,
     "NSphereTHourglass": NSphereTHourglass,
 }
+
+
+
+def fillt(times, T: float, T0: float, min_steps: int = 5):
+    """The reference's grid densifier (``src/dataset.py:13-32``; JAX
+    ``ops/sampling.py:610-636``): pads a sorted time vector so that no gap
+    exceeds ``(T - T0) / min_steps``. Returns ``(idx, filled)`` as
+    tensors on the input's device, ``idx[i]`` locating ``times[i]`` in
+    ``filled``; ``filled`` takes the input's floating dtype (float32 for
+    any other input), computed in float64 and rounded once, as in JAX.
+    The trainer never calls it: stratified times and a static substep
+    count keep the same bound with static shapes. It is here for code
+    written against the reference; its output length depends on the
+    data, so it runs on the host."""
+    t_in = torch.as_tensor(times)
+    dtype = t_in.dtype if t_in.is_floating_point() else torch.float32
+    t = t_in.detach().cpu().numpy().astype(float)
+    h = (float(T) - float(T0)) / int(min_steps)
+    out = [t[0]]
+    idx = [0]
+    for val in t[1:]:
+        gap = val - out[-1]
+        if gap > h:
+            k = int(np.ceil(gap / h)) - 1
+            out.extend(np.linspace(out[-1], val, k + 2)[1:-1].tolist())
+        out.append(val)
+        idx.append(len(out) - 1)
+    filled = torch.as_tensor(np.array(out), dtype=dtype, device=t_in.device)
+    # each grid point rounds by half an ulp in ``dtype``: JAX asserts
+    # ``h + 1e-9``, which a float32 grid can break by rounding alone
+    ulp = torch.finfo(dtype).eps * max(abs(float(T)), abs(float(T0)), 1.0)
+    assert float(torch.max(torch.diff(filled))) <= h + 1e-9 + ulp
+    return torch.as_tensor(np.array(idx), device=t_in.device), filled
+
+
+class CombLoader:
+    """The reference's batching shim (``Comb_loader``,
+    ``src/dataset.py:293-322``; JAX ``ops/sampling.py:639-667``): one
+    static-shape ``(interioru, interiorv, boundary)`` triple of
+    :class:`PathBatch` es drawn from ``generator``, u and v sharing the
+    interior cloud unless ``independent_uv``. The draws come in the
+    trainer's order (interior, boundary, then the adversary's own
+    interior cloud, a second draw of the same generator), where JAX folds
+    the key for the v cloud."""
+
+    def __init__(self, n_r: int, n_b: int, shape, generator: torch.Generator,
+                 independent_uv: bool = False):
+        self.interioru = shape.interior(generator, n_r)
+        self.boundary = shape.boundary(generator, n_b)
+        self.interiorv = (shape.interior(generator, n_r) if independent_uv
+                          else self.interioru)
+
+    def __len__(self) -> int:
+        return 1
+
+    def __getitem__(self, idx: int):
+        if idx != 0:
+            raise IndexError(idx)
+        return (self.interioru, self.interiorv, self.boundary)
 
 
 def make_domain(name: str, shape_param, dim: int, T0: float, T: float,

@@ -20,6 +20,12 @@ paths only. Terms:
 On the moving domains (``group_loss``, the default) ``int`` is the sum of
 one such log ratio per exit group (:func:`grouped_interior_objective`),
 each group's sums taken in a fixed order.
+
+On a mesh (``parallel/mesh.py``) each rank holds its shard of the paths,
+and every sum over paths that feeds a clamp, a division or a log is the
+global one (``group=``, :func:`parallel.mesh.global_sum`); with
+``tangent_shards`` each rank of a tangent group carries its slice of the d
+directions of ``grad_x u`` (:func:`u_with_spatial_grad`).
 """
 
 from __future__ import annotations
@@ -37,36 +43,68 @@ from xnode_wan_tpu_torch.ops.kernels.disc_train import (check_fits, geom_of,
                                                         v_fused_fits)
 from xnode_wan_tpu_torch.ops.kernels.steppers import FUSED_KERNEL_METHODS
 from xnode_wan_tpu_torch.ops.sampling import PathBatch, _assemble
+from xnode_wan_tpu_torch.parallel.mesh import (gather_slices, global_sum,
+                                               tangent_count, tangent_shard)
 
 _EPS = 1e-12
 
 
-def fused_gate(cfg: SolverConfig) -> bool:
-    """Whether the u side runs through the fused training kernels
-    (``ops/kernels/xnode_train.py::u_du_fused``). Shared by the loss
-    builder and the trainer's metric forward so the two cannot drift. The
-    exclusions are the JAX package's: the WAN primal, ``fused_grad: false``,
-    f64 parity runs, adaptive and multistep solvers. Ensembles take the
-    kernels: the trainer steps one member at a time, so each launch sees
-    one member's shapes (JAX excludes them because its vmapped member axis
-    overflowed the TPU's scoped VMEM). On CUDA tensors the wrappers launch
-    the kernels; on CPU tensors they take their plain versions."""
+def kernel_gate(cfg: SolverConfig) -> bool:
+    """Whether the primal's tangentless forward, the fresh-sample metric,
+    runs through kernel #2 (``ops/kernels/xnode_train.py::
+    u_forward_fused``): the XNODE primal, ``fused_grad``, f32, and a
+    solver of ``FUSED_KERNEL_METHODS``. No mesh term: a rank computes it
+    on its own rows, which is one process's work on fewer rows."""
     return (cfg.primal == "xnode" and cfg.fused_grad and not cfg.x64
             and cfg.solver in FUSED_KERNEL_METHODS)
 
 
+def fused_gate(cfg: SolverConfig, mesh=None) -> bool:
+    """Whether the u side runs through the fused training kernels
+    (``ops/kernels/xnode_train.py::u_du_fused``). Shared by the loss
+    builder and the trainer so the two cannot drift. The exclusions are
+    the JAX package's: the WAN primal, ``fused_grad: false``, f64 parity
+    runs, adaptive and multistep solvers (:func:`kernel_gate`), and a
+    ``tangent`` axis of more than one rank, whose ranks each carry a slice
+    of the d directions that the kernels compute whole. Ensembles take
+    the kernels, with a mesh or without: a rank steps one member at a
+    time on its own rows, so each launch sees one member's shapes (JAX
+    excludes them because its vmapped member axis overflowed the TPU's
+    scoped VMEM, and for shard_map composition; neither applies here). On
+    CUDA tensors the wrappers launch the kernels; on CPU tensors they take
+    their plain versions."""
+    return kernel_gate(cfg) and tangent_count(mesh) == 1
+
+
 def fused_v_gate(cfg: SolverConfig) -> bool:
     """Whether the adversary side may run through kernels #6 and #7
-    (``ops/kernels/disc_train.py``): the opt-in ``fused_v``, as in the JAX
-    package (``weak_form.py:401-402``) without its mesh and TPU terms.
-    ``make_losses`` also asks ``v_fused_fits`` of the discriminator's
-    shapes: over the kernels' caps CPU tensors take the plain side, and
-    any other device raises."""
+    (``ops/kernels/disc_train.py``): the opt-in ``fused_v``, f32 and
+    ``fused_grad``, as in the JAX package (``weak_form.py:401-402``)
+    without its TPU term. No mesh term: the adversary reads no tangent of
+    u, and a rank of any mesh runs it on its own rows. ``make_losses``
+    also asks ``v_fused_fits`` of the discriminator's shapes: over the
+    kernels' caps CPU tensors take the plain side, and any other device
+    raises."""
     return cfg.fused_v and cfg.fused_grad and not cfg.x64
 
 
+def tangent_basis(d: int, dtype, device, tangent=None) -> torch.Tensor:
+    """The coordinate directions a rank carries: all d, or with
+    ``tangent = (group, index, count)`` the ``index``-th of ``count`` equal
+    slices of ``ceil(d / count)`` directions, the last padded with zero
+    directions."""
+    eye = torch.eye(d, dtype=dtype, device=device)
+    if tangent is None:
+        return eye
+    _, index, count = tangent
+    width = -(-d // count)
+    rows = eye[index * width:(index + 1) * width]
+    pad = rows.new_zeros((width - rows.shape[0], d))
+    return torch.cat([rows, pad])
+
+
 def u_with_spatial_grad(u_apply: Callable, u_params, batch: PathBatch,
-                        problem, cfg: SolverConfig
+                        problem, cfg: SolverConfig, tangent=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``u [N, L]`` and ``grad_x u [N, L, d]`` by forward mode through
     ``u_apply`` (the masked scan, or the WAN's MLP): one
@@ -80,21 +118,31 @@ def u_with_spatial_grad(u_apply: Callable, u_params, batch: PathBatch,
     (:func:`models.xnode.apply_xnode_with_spatial_grad`): under remat (the
     default) a checkpointed interval cannot run inside ``torch.func.jvp``,
     and without it the explicit tangents take a fraction of the host's
-    launches. Same values."""
-    if cfg.primal == "xnode":
-        return apply_xnode_with_spatial_grad(u_params, batch, problem, cfg)
+    launches. Same values.
+
+    ``tangent = (group, index, count)`` (``tangent_shards``, JAX
+    ``weak_form.py:68-97``): this rank carries its slice of the directions
+    (:func:`tangent_basis`) and the slices are gathered along the group,
+    each rank's gradient flowing into its own slice only."""
     xs0 = batch.space[:, 0, :]
+    d = xs0.shape[-1]
+    basis = tangent_basis(d, xs0.dtype, xs0.device, tangent)
+    if cfg.primal == "xnode":
+        u, du = apply_xnode_with_spatial_grad(u_params, batch, problem, cfg,
+                                              basis=basis)
+    else:
+        def u_of(xs):
+            b = dataclasses.replace(batch, x=_assemble(batch.times, xs))
+            return u_apply(u_params, b, problem, cfg)
 
-    def u_of(xs):
-        b = dataclasses.replace(batch, x=_assemble(batch.times, xs))
-        return u_apply(u_params, b, problem, cfg)
+        def one(e):
+            return torch.func.jvp(u_of, (xs0,), (e.expand_as(xs0),))
 
-    def one(e):
-        return torch.func.jvp(u_of, (xs0,), (e.expand_as(xs0),))
-
-    u_rep, du = torch.func.vmap(one)(
-        torch.eye(xs0.shape[-1], dtype=xs0.dtype, device=xs0.device))
-    return u_rep[0], torch.movedim(du, 0, -1)
+        u_rep, du = torch.func.vmap(one)(basis)
+        u, du = u_rep[0], torch.movedim(du, 0, -1)
+    if tangent is not None:
+        du = gather_slices(du, tangent[0], dim=-1)[..., :d]
+    return u, du
 
 
 def v_phi_and_grads(v_apply: Callable, v_params, pts: torch.Tensor,
@@ -150,41 +198,43 @@ def _endpoint_indices(mask: torch.Tensor):
 
 
 def interior_terms(u, du, v, phi, dphi, batch: PathBatch, problem, domain,
-                   s1_raw_v: bool = False):
+                   s1_raw_v: bool = False, group=None):
     """The operator estimate ``I`` and the test norm ``V sum v^2 / M``.
     ``s1_raw_v`` pairs the temporal-boundary term with the raw ``v`` as
-    the reference does (``loss.py:64``), instead of ``phi``."""
+    the reference does (``loss.py:64``), instead of ``phi``. ``group``:
+    the data group whose paths the sums run over (None: this rank's)."""
     dtype = u.dtype
     m = batch.mask.to(dtype)
-    big_m = torch.clamp(m.sum(), min=1.0)
+    big_m = torch.clamp(global_sum(m.sum(), group), min=1.0)
     vol = domain.V()
 
     first, last, row_valid = _endpoint_indices(batch.mask)
     rows = torch.arange(u.shape[0], device=u.device)
     rv = row_valid.to(dtype)
-    n_valid = torch.clamp(rv.sum(), min=1.0)
+    n_valid = torch.clamp(global_sum(rv.sum(), group), min=1.0)
 
     first_pts = batch.x[rows, first]
     init_vals = torch.where(batch.seed_from_h, problem.h(first_pts),
                             problem.g(first_pts))
     tf = v if s1_raw_v else phi
     s1 = u[rows, last] * tf[rows, last] - init_vals * tf[rows, first]
-    s1 = vol * torch.sum(s1 * rv) / n_valid
+    s1 = vol * global_sum(torch.sum(s1 * rv), group) / n_valid
 
-    s2 = vol * torch.sum(u * dphi[..., 0] * m) / big_m
+    s2 = vol * global_sum(torch.sum(u * dphi[..., 0] * m), group) / big_m
 
     X = batch.x
     s3f = (diffusion_term(problem, X, dphi[..., 1:], du)
            + drift_term(problem, X, phi, du)
            + problem.c(X, u) * u * phi + problem.f(X) * phi)
-    s3 = vol * torch.sum(s3f * m) / big_m
+    s3 = vol * global_sum(torch.sum(s3f * m), group) / big_m
 
     current = s1 - s2 + s3
-    norm = vol * torch.sum(v * v * m) / big_m
+    norm = vol * global_sum(torch.sum(v * v * m), group) / big_m
     return current, norm
 
 
-def init_loss(u, batch: PathBatch, problem, all_rows: bool = False):
+def init_loss(u, batch: PathBatch, problem, all_rows: bool = False,
+              group=None):
     """``mean (u(t_first, x) - h(x))^2`` over h-seeded valid paths (all
     valid paths with ``all_rows``, the reference's form)."""
     first, _, row_valid = _endpoint_indices(batch.mask)
@@ -193,10 +243,12 @@ def init_loss(u, batch: PathBatch, problem, all_rows: bool = False):
     w_rows = row_valid if all_rows else (batch.seed_from_h & row_valid)
     w = w_rows.to(u.dtype)
     sq = (u[rows, first] - h_vals) ** 2
-    return torch.sum(sq * w) / torch.clamp(w.sum(), min=1.0)
+    return (global_sum(torch.sum(sq * w), group)
+            / torch.clamp(global_sum(w.sum(), group), min=1.0))
 
 
-def bdry_from_values(u_b, bbatch: PathBatch, problem, at_exit: bool = False):
+def bdry_from_values(u_b, bbatch: PathBatch, problem, at_exit: bool = False,
+                     group=None):
     """Boundary penalty from ``u(BX) [N, L]`` (``loss.py:83-85``); with
     ``at_exit`` only at each path's last valid sample."""
     if at_exit:
@@ -205,18 +257,19 @@ def bdry_from_values(u_b, bbatch: PathBatch, problem, at_exit: bool = False):
         g_vals = problem.g(bbatch.x[rows, last])
         w = row_valid.to(u_b.dtype)
         sq = (u_b[rows, last] - g_vals) ** 2
-        return torch.sum(sq * w) / torch.clamp(w.sum(), min=1.0)
+        return (global_sum(torch.sum(sq * w), group)
+                / torch.clamp(global_sum(w.sum(), group), min=1.0))
     m = bbatch.mask.to(u_b.dtype)
-    return (torch.sum((u_b - problem.g(bbatch.x)) ** 2 * m)
-            / torch.clamp(m.sum(), min=1.0))
+    return (global_sum(torch.sum((u_b - problem.g(bbatch.x)) ** 2 * m), group)
+            / torch.clamp(global_sum(m.sum(), group), min=1.0))
 
 
 def bdry_loss(u_apply: Callable, u_params, bbatch: PathBatch, problem,
-              cfg: SolverConfig, at_exit: bool = False):
+              cfg: SolverConfig, at_exit: bool = False, group=None):
     """``mean (u(BX) - g(BX))^2`` through ``u_apply`` (the plain masked
     scan, differentiated by autograd)."""
     return bdry_from_values(u_apply(u_params, bbatch, problem, cfg), bbatch,
-                            problem, at_exit=at_exit)
+                            problem, at_exit=at_exit, group=group)
 
 
 def _bin_sums(vals: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
@@ -227,7 +280,8 @@ def _bin_sums(vals: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
 
 
 def grouped_interior_objective(u, du, v, phi, dphi, batch: PathBatch,
-                               problem, domain, s1_raw_v: bool = False):
+                               problem, domain, s1_raw_v: bool = False,
+                               group=None):
     """Per-exit-group log-ratio objective (JAX ``weak_form.py:285-345``).
 
     The reference takes a separate ``log I_g^2 - log norm_g`` per ragged
@@ -238,7 +292,8 @@ def grouped_interior_objective(u, du, v, phi, dphi, batch: PathBatch,
     L_n)`` of the reference's ``V / (N_g L_g)``. On the hypercube every
     path is in bin ``L - 1`` and this is the pooled objective.
 
-    Returns ``(int_loss, I_total, norm_total)``.
+    Returns ``(int_loss, I_total, norm_total)``; ``group`` as in
+    :func:`interior_terms`.
     """
     dtype = u.dtype
     l = u.shape[1]
@@ -250,7 +305,7 @@ def grouped_interior_objective(u, du, v, phi, dphi, batch: PathBatch,
     rv = row_valid.to(dtype)
     seg = torch.where(row_valid, last, torch.full_like(last, l))
     onehot = torch.nn.functional.one_hot(seg, l + 1).to(dtype)
-    n_g = _bin_sums(rv, onehot)[:l]
+    n_g = global_sum(_bin_sums(rv, onehot)[:l], group)
     occupied = n_g > 0
     n_g = torch.clamp(n_g, min=1.0)
     l_n = torch.clamp(m.sum(dim=1), min=1.0)   # per-path valid count
@@ -270,8 +325,9 @@ def grouped_interior_objective(u, du, v, phi, dphi, batch: PathBatch,
     s23_n = torch.sum((s3f - u * dphi[..., 0]) * m, dim=1) / l_n   # [N]
     v2_n = torch.sum(v * v * m, dim=1) / l_n
 
-    i_g = vol * _bin_sums(s1_n + s23_n * rv, onehot)[:l] / n_g
-    norm_g = vol * _bin_sums(v2_n * rv, onehot)[:l] / n_g
+    i_g = vol * global_sum(_bin_sums(s1_n + s23_n * rv, onehot)[:l],
+                           group) / n_g
+    norm_g = vol * global_sum(_bin_sums(v2_n * rv, onehot)[:l], group) / n_g
 
     per_g = (torch.log(torch.clamp(i_g ** 2, min=_EPS))
              - torch.log(torch.clamp(norm_g, min=_EPS)))
@@ -296,18 +352,29 @@ class WeakFormLosses(NamedTuple):
 
 
 def make_losses(problem, domain, cfg: SolverConfig, u_apply: Callable,
-                v_apply: Callable) -> WeakFormLosses:
-    """Build the two objectives; each returns ``(loss, aux_dict)``."""
-    use_fused = fused_gate(cfg)
+                v_apply: Callable, mesh=None) -> WeakFormLosses:
+    """Build the two objectives; each returns ``(loss, aux_dict)``.
+
+    On a ``mesh`` the batches are this rank's rows and the sums run over
+    the data group. With a tangent axis every rank of a tangent group
+    computes the same ``u``, so only its first rank lets ``u`` (and the
+    boundary term) into the primal's gradient; the others contribute
+    their slice of ``grad_x u`` alone, and the trainer's one sum of the
+    gradients over the ranks then counts every part once."""
+    use_fused = fused_gate(cfg, mesh)
     use_fused_v = fused_v_gate(cfg)
     bdry_at_exit = bool(getattr(domain, "boundary_at_exit", False))
+    group = None if mesh is None else mesh.group(cfg.data_axis)
+    tangent = tangent_shard(mesh)
+    owns_u = tangent is None or tangent[1] == 0
 
     def u_side(u_params, batch):
         if use_fused:
             from xnode_wan_tpu_torch.ops.kernels.xnode_train import \
                 fused_from_batch
             return fused_from_batch(u_params, batch, problem, cfg)
-        return u_with_spatial_grad(u_apply, u_params, batch, problem, cfg)
+        return u_with_spatial_grad(u_apply, u_params, batch, problem, cfg,
+                                   tangent=tangent)
 
     def v_side(v_params, batch, vbatch=None):
         # independent_uv: the v side on its own interior cloud, paired
@@ -331,23 +398,27 @@ def make_losses(problem, domain, cfg: SolverConfig, u_apply: Callable,
         if grouped:
             int_loss, current, norm = grouped_interior_objective(
                 u, du, v, phi, dphi, batch, problem, domain,
-                s1_raw_v=cfg.s1_raw_v)
+                s1_raw_v=cfg.s1_raw_v, group=group)
         else:
             current, norm = interior_terms(u, du, v, phi, dphi, batch,
                                            problem, domain,
-                                           s1_raw_v=cfg.s1_raw_v)
+                                           s1_raw_v=cfg.s1_raw_v, group=group)
             int_loss = (torch.log(torch.clamp(current ** 2, min=_EPS))
                         - torch.log(torch.clamp(norm, min=_EPS)))
         return int_loss, {"I": current, "norm": norm, "int": int_loss}
 
     def loss_u_vside(u_params, vside, batch, bbatch):
         u, du = u_side(u_params, batch)
+        if not owns_u:
+            u = u.detach()
         int_loss, aux = int_from_sides(u, du, vside, batch)
-        init = init_loss(u, batch, problem, all_rows=cfg.init_all_rows)
+        init = init_loss(u, batch, problem, all_rows=cfg.init_all_rows,
+                         group=group)
         # the boundary term stays on the plain masked scan, as in the JAX
         # package (weak_form.py:487-494)
-        bdry = bdry_loss(u_apply, u_params, bbatch, problem, cfg,
-                         at_exit=bdry_at_exit)
+        with torch.set_grad_enabled(owns_u and torch.is_grad_enabled()):
+            bdry = bdry_loss(u_apply, u_params, bbatch, problem, cfg,
+                             at_exit=bdry_at_exit, group=group)
         total = int_loss + cfg.alpha * (init + bdry)
         return total, dict(aux, init=init, bdry=bdry, loss_u=total)
 

@@ -1,7 +1,7 @@
 """The XNODE-WAN solver: alternating primal / adversarial Adam training.
 
-Port of ``xnode_wan_tpu/training.py`` (reference ``src/training.py:54-187``)
-for one device. One outer iteration (:meth:`NODEWANSolver._outer_step`)
+Port of ``xnode_wan_tpu/training.py`` (reference ``src/training.py:54-187``).
+One outer iteration (:meth:`NODEWANSolver._outer_step`)
 samples the domain's interior and boundary from the state's
 ``torch.Generator``, takes ``n1`` primal Adam steps on ``loss_u`` (the u
 side through the fused kernels #4 and #5), ``n2`` adversary steps on
@@ -31,9 +31,17 @@ vmaps the members on XLA, and reports the best member's metrics
 
 :meth:`NODEWANSolver.train` is the CLI's loop (``main.py``): it logs every
 iteration (``utils/logging.py``), keeps the best weights by ``loss_u`` in
-``best_model_weights_NODE.pth`` and writes the full state to
+``best_model_weights_NODE.pth``, plots the solution's slice at each report
+step (``utils/viz.py``) and writes the full state to
 ``checkpoint_NODE.pt`` (``utils/checkpoint.py``), which
-:meth:`NODEWANSolver.load_checkpoint` resumes from.
+:meth:`NODEWANSolver.load_checkpoint` resumes from. It runs ``train_chunk``
+iterations back to back (:meth:`NODEWANSolver._run_chunk`: the metrics
+stay on the device until the chunk ends, the best weights are tracked
+there) and, when the stop fires inside a chunk, replays from the chunk's
+snapshot to the stop iteration, so that its records, best weights and
+checkpoint are those of one iteration at a time; ``train_chunked`` is the
+same loop without reports. ``profile_dir`` traces iterations [3, 8) with
+``torch.profiler``.
 
 :meth:`NODEWANSolver.train_until` trains to a rel-L^p tolerance with the
 JAX package's refinement recipes: on a window that shows no significant
@@ -48,14 +56,23 @@ as in the JAX package, so their u side is the plain one. ``remat_scan``
 (the default) and ``adjoint: true`` recompute each sample interval of
 the plain scans in the backward.
 
-Not ported yet (they raise, or are absent): ``tangent_shards``, plots
-and ``train_chunked`` (ROADMAP.md §1 lists where each comes).
+On a mesh of ``torch.distributed`` ranks (``parallel/mesh.py``; the
+world by default once it is initialized) every rank draws each global
+batch from the member's generator and keeps its rows, the loss sums are
+global and the gradients are summed once before the optimizer, so the
+run follows the single-process one up to the order of its sums.
+``ensemble: K`` puts the members on the ``member`` groups of
+:func:`parallel.mesh.make_mesh_ensemble`, and ``tangent_shards`` splits
+the d directions of ``grad_x u`` over a ``tangent`` axis. Every rank runs
+the kernels on its own rows; a tangent axis closes #3-#5 only
+(``ops/weak_form.py::fused_gate``). Only rank 0 writes files.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import itertools
 import math
 import os
 import time
@@ -63,8 +80,9 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from xnode_wan_tpu_torch.config import SolverConfig, check_trainable
+from xnode_wan_tpu_torch.config import SolverConfig
 from xnode_wan_tpu_torch.device import default_device
 from xnode_wan_tpu_torch.models.discriminator import (Discriminator,
                                                       apply_discriminator,
@@ -73,11 +91,18 @@ from xnode_wan_tpu_torch.models import wan as wan_model
 from xnode_wan_tpu_torch.models import xnode as xnode_model
 from xnode_wan_tpu_torch.ops.kernels.xnode_train import u_forward_fused
 from xnode_wan_tpu_torch.ops.sampling import PathBatch, make_domain
-from xnode_wan_tpu_torch.ops.weak_form import fused_gate, make_losses
-from xnode_wan_tpu_torch.problems import Problem
+from xnode_wan_tpu_torch.ops.weak_form import kernel_gate, make_losses
+from xnode_wan_tpu_torch.parallel.mesh import (MEMBER_AXIS, TANGENT_AXIS,
+                                               Mesh, all_gather_cat,
+                                               all_reduce_sum, broadcast,
+                                               make_mesh, make_mesh_2d,
+                                               make_mesh_ensemble, round_up,
+                                               shard_batch, world_ranks)
+from xnode_wan_tpu_torch.problems import Problem, from_reference_callables
 from xnode_wan_tpu_torch.utils import checkpoint as ckpt
 from xnode_wan_tpu_torch.utils.logging import RunLogger
 from xnode_wan_tpu_torch.utils.metrics import l_norm, rel_err
+from xnode_wan_tpu_torch.utils.viz import proj, slice_points
 
 STALL_ACTIONS = ("none", "drop_lr", "reinit_v", "restart")
 
@@ -140,6 +165,28 @@ def _restart_seed(seed: int, done: int) -> int:
                .generate_state(1)[0])
 
 
+def _flat(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    return torch.cat([t.reshape(-1) for t in tensors])
+
+
+def _unflat_into(flat: torch.Tensor, tensors: Sequence[torch.Tensor]) -> None:
+    offset = 0
+    for t in tensors:
+        t.copy_(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()
+
+
+def _to_cpu(obj):
+    """``obj`` with every tensor in it copied to the CPU."""
+    if torch.is_tensor(obj):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
+
+
 @dataclasses.dataclass
 class TrainState:
     """Everything one outer iteration of one member reads and advances."""
@@ -154,7 +201,7 @@ class TrainState:
 
 
 class NODEWANSolver:
-    """The solver of the JAX package's ``NODEWANSolver`` on one device.
+    """The solver of the JAX package's ``NODEWANSolver``.
 
     Args:
         params: a :class:`SolverConfig` or a reference-style flat dict.
@@ -163,22 +210,35 @@ class NODEWANSolver:
             or a device name such as ``"cpu"``, where every kernel takes
             its plain PyTorch version.
         stop: optional ``stop(solver, metrics) -> bool`` checked by
-            :meth:`train` every iteration, beside ``problem.stop_rel_err``.
+            :meth:`train` every iteration, beside ``problem.stop_rel_err``
+            (after a chunk, with each iteration's metrics in turn; a
+            callback that reads the solver's weights sets the attribute
+            ``reads_solver = True`` and is called after each iteration).
         work_dir: where :meth:`train` writes its logs and checkpoints
             (the reference's ``path``).
+        mesh: a :class:`parallel.mesh.Mesh` of ``torch.distributed``
+            ranks; by default every rank of an initialized world (a
+            ``data x tangent`` mesh with ``tangent_shards``), else none.
+        devices: the ranks of the default mesh instead of the world's
+            (``devices=[rank]``: one process, no collective).
+
+    On a mesh every rank builds the solver and calls each method that
+    trains, serves or saves at the same point: they are collective.
     """
 
     def __init__(self, params, problem: Problem, device=None,
-                 stop: Optional[Callable] = None, work_dir: str = "./"):
+                 stop: Optional[Callable] = None, work_dir: str = "./",
+                 mesh: Optional[Mesh] = None, devices=None):
         cfg = (params if isinstance(params, SolverConfig)
                else SolverConfig.from_dict(dict(params)))
-        check_trainable(cfg)
         if problem.dim is not None and problem.dim != cfg.dim:
             raise ValueError(
                 f"problem fixes dim={problem.dim} but config has dim={cfg.dim}")
         self.device = default_device(device)
         self.problem = problem
         self.stop = stop
+        self.mesh = self._layout(cfg, mesh, devices)
+        cfg = self._shard_counts(cfg)
         self.domain = make_domain(cfg.domain, cfg.shape_param, cfg.dim,
                                   cfg.T0, cfg.T, cfg.N_t,
                                   path_boundary=cfg.boundary_paths,
@@ -192,16 +252,75 @@ class NODEWANSolver:
         self.cfg = cfg
         self._init_u, self._u_apply, self._u_eval_points = \
             PRIMAL_MODELS[cfg.primal]
-        self._use_fused = fused_gate(cfg)
+        # the metric forward through kernel #2 (the u side's own gate,
+        # weak_form.fused_gate, also closes on a tangent axis)
+        self._use_fused = kernel_gate(cfg)
         self._losses = make_losses(problem, self.domain, cfg, self._u_apply,
-                                   self._v_apply)
+                                   self._v_apply, mesh=self.mesh)
         self.members: List[TrainState] = []
         self._best_member = 0
         self._reinit_state(cfg.seed)
         self.best_l = float("inf")
         self.best_u_params: Optional[Any] = None
         self.work_dir = work_dir
-        self.logger = RunLogger(cfg.dim, work_dir)
+        self._writer = not dist.is_initialized() or dist.get_rank() == 0
+        self.logger = RunLogger(cfg.dim, work_dir, write=self._writer)
+        # whether the last stop inside a chunk replayed to metrics
+        # bitwise equal to the chunk's own (None: no replay yet)
+        self.replay_bitwise: Optional[bool] = None
+
+    def _layout(self, cfg: SolverConfig, mesh: Optional[Mesh], devices
+                ) -> Optional[Mesh]:
+        """The mesh and its process groups (JAX ``:176-207``): by default
+        the world (``data``, or ``data x tangent``), re-laid as ``member x
+        data`` (or ``member``) for an ensemble; a mesh of one rank is
+        none. Raises ``ValueError`` for a layout that cannot be built."""
+        if mesh is None:
+            ranks = list(devices) if devices is not None else world_ranks()
+            if cfg.tangent_shards > 1:
+                mesh = make_mesh_2d(ranks, cfg.data_axis,
+                                    tangent_shards=cfg.tangent_shards)
+            elif len(ranks) > 1:
+                mesh = make_mesh(ranks, cfg.data_axis)
+        if cfg.ensemble > 1:
+            if cfg.tangent_shards > 1:
+                raise ValueError(
+                    "ensemble and tangent_shards do not compose; pick one")
+            if mesh is not None and MEMBER_AXIS not in mesh.axis_names:
+                mesh = make_mesh_ensemble(list(mesh.ranks.flat), cfg.ensemble,
+                                          cfg.data_axis)
+        if mesh is None or mesh.size == 1:
+            return None
+        mesh.group()   # builds every group, on every rank at this point
+        return mesh
+
+    def _shard_counts(self, cfg: SolverConfig) -> SolverConfig:
+        """N_r and N_b rounded up to the data shard count (JAX
+        ``:206-207``), and the groups the step sums over: the data group
+        (the loss sums, the adversary's gradient), the primal gradient's
+        group (every rank with ``tangent_shards``, whose ranks each give a
+        slice of it), the flat group (metrics to the host) and the member
+        group, with the members this rank steps."""
+        mesh = self.mesh
+        k = cfg.ensemble
+        self._owned = list(range(k))
+        self._data_group = self._u_grad_group = self._flat_group = None
+        self._member_group = None
+        if mesh is None:
+            return cfg
+        coord = mesh.coordinate()
+        n_data = mesh.shape.get(cfg.data_axis, 1)
+        self._data_group = mesh.group(cfg.data_axis)
+        self._u_grad_group = (mesh.group() if TANGENT_AXIS in mesh.axis_names
+                              else self._data_group)
+        self._flat_group = mesh.group()
+        if MEMBER_AXIS in mesh.axis_names:
+            per = k // mesh.shape[MEMBER_AXIS]
+            self._owned = list(range(coord[MEMBER_AXIS] * per,
+                                     (coord[MEMBER_AXIS] + 1) * per))
+            self._member_group = mesh.group(MEMBER_AXIS)
+        return cfg.replace(N_r=round_up(cfg.N_r, n_data),
+                           N_b=round_up(cfg.N_b, n_data))
 
     @property
     def state(self) -> TrainState:
@@ -216,8 +335,9 @@ class NODEWANSolver:
                                    cfg.v_fourier_features)
 
     def _metric_u_apply(self, params, batch: PathBatch) -> torch.Tensor:
-        """The fresh-sample metric forward: kernel #2 when the fused gate
-        holds, else the primal's own apply (the XNODE's masked scan)."""
+        """The fresh-sample metric forward: kernel #2 when
+        ``weak_form.kernel_gate`` holds, else the primal's own apply (the
+        XNODE's masked scan)."""
         if self._use_fused:
             return u_forward_fused(params, batch, self.problem, self.cfg)
         with torch.no_grad():
@@ -232,13 +352,25 @@ class NODEWANSolver:
                                 betas=(0.9, 0.999), eps=1e-8)
 
     def _apply_tx(self, opt: torch.optim.Adam, module: torch.nn.Module,
-                  base_lr: float) -> None:
+                  base_lr: float, group=None) -> None:
         """One update from the gradients in ``module``: optional global-norm
         clipping (``optax.clip_by_global_norm``), then Adam at the rate of
         ``optax.exponential_decay(base_lr, 1000, lr_decay)`` at this
-        optimizer's update count (``training.py:269-293``)."""
+        optimizer's update count (``training.py:269-293``). With a
+        ``group`` the gradients are first summed over its ranks, in one
+        all-reduce, a parameter without a gradient on this rank taking
+        zeros (on a tangent rank past the first, the primal's readout bias
+        gets none)."""
         cfg = self.cfg
-        params = [p for p in module.parameters() if p.grad is not None]
+        if group is not None:
+            params = list(module.parameters())
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            grads = [p.grad for p in params]
+            _unflat_into(all_reduce_sum(_flat(grads), group), grads)
+        else:
+            params = [p for p in module.parameters() if p.grad is not None]
         if cfg.grad_clip > 0:
             norm = torch.sqrt(sum(torch.sum(p.grad * p.grad) for p in params))
             scale = torch.where(norm < cfg.grad_clip,
@@ -270,6 +402,7 @@ class NODEWANSolver:
         k_members = self.cfg.ensemble
         seeds = ([seed] if k_members == 1
                  else [_restart_seed(seed, k) for k in range(k_members)])
+        # on a mesh every rank holds all K, and steps its own (_owned)
         self.members = [self._member_state(s) for s in seeds]
         self._best_member = 0
 
@@ -308,9 +441,39 @@ class NODEWANSolver:
 
     def _u_params_for_eval(self, state: Optional[TrainState] = None):
         """The serving parameters of ``state`` (default: the best member's):
-        the Polyak average when ``ema_decay > 0`` (JAX ``:435-443``)."""
-        state = self.state if state is None else state
-        return state.u_ema if self.cfg.ema_decay > 0 else state.u_params
+        the Polyak average when ``ema_decay > 0`` (JAX ``:435-443``). On a
+        member mesh the best member's come from the rank that steps it
+        (:meth:`_serving_tensors`, collective)."""
+        if state is not None or self._member_group is None:
+            state = self.state if state is None else state
+            return state.u_ema if self.cfg.ema_decay > 0 else state.u_params
+        served = copy.deepcopy(self._u_params_for_eval(self.state))
+        best = torch.tensor(self._best_member, device=self.device)
+        with torch.no_grad():
+            for p, t in zip(served.parameters(), self._serving_tensors(best)):
+                p.copy_(t)
+        return served
+
+    def _serving_tensors(self, best: Optional[torch.Tensor]
+                         ) -> List[torch.Tensor]:
+        """The serving parameters of member ``best`` (a device scalar; None
+        without an ensemble) as tensors, without a host sync: picked on
+        the device among the members this rank steps and, on a member
+        mesh, summed over the member group, where only the owner gives
+        non-zeros (collective)."""
+        if best is None:
+            return [p.detach() for p in
+                    self._u_params_for_eval(self.members[0]).parameters()]
+        out = None
+        for k in self._owned:
+            ps = [p.detach() for p in
+                  self._u_params_for_eval(self.members[k]).parameters()]
+            if out is None:
+                out = [torch.zeros_like(p) for p in ps]
+            out = [torch.where(best == k, p, o) for p, o in zip(ps, out)]
+        if self._member_group is not None:
+            _unflat_into(all_reduce_sum(_flat(out), self._member_group), out)
+        return out
 
     # ------------------------------------------------------------------
     def _sample(self, generator: torch.Generator):
@@ -318,12 +481,15 @@ class NODEWANSolver:
         N_r`` on the hourglass), a boundary batch and, with
         ``independent_uv``, the adversary side's own interior batch, a
         second interior draw of the same generator (``:444-464``); else
-        None."""
-        batch = self.domain.interior(generator, self.cfg.N_r)
-        bbatch = self.domain.boundary(generator, self.cfg.N_b)
-        vbatch = (self.domain.interior(generator, self.cfg.N_r)
+        None. On a mesh each is drawn whole and this rank keeps its rows."""
+        batch = self._shard(self.domain.interior(generator, self.cfg.N_r))
+        bbatch = self._shard(self.domain.boundary(generator, self.cfg.N_b))
+        vbatch = (self._shard(self.domain.interior(generator, self.cfg.N_r))
                   if self.cfg.independent_uv else None)
         return batch, bbatch, vbatch
+
+    def _shard(self, batch: PathBatch) -> PathBatch:
+        return shard_batch(batch, self.mesh, self.cfg.data_axis)
 
     def _draw(self, state: TrainState):
         """The batches of one member's outer iteration, in the order
@@ -331,7 +497,8 @@ class NODEWANSolver:
         draw (None without an exact solution) and the adversary's own
         cloud (None without ``independent_uv``)."""
         batch, bbatch, vbatch = self._sample(state.generator)
-        ebatch = (self.domain.interior(state.generator, self.cfg.N_r)
+        ebatch = (self._shard(self.domain.interior(state.generator,
+                                                   self.cfg.N_r))
                   if self.problem.u_sol is not None else None)
         return batch, bbatch, ebatch, vbatch
 
@@ -356,11 +523,20 @@ class NODEWANSolver:
         member's metrics, by ``rel_err`` or, without an exact solution, by
         ``init + bdry`` (``loss_u``'s min-max value can mark the member
         with the weakest adversary instead), with ``best_member`` and
-        ``rel_err_worst``."""
-        per = [self._step_on(st, *(self._draw(st) if draws is None
-                                   else draws[k]))
-               for k, st in enumerate(self.members)]
-        m = {name: torch.stack([p[name] for p in per]) for name in per[0]}
+        ``rel_err_worst``. On a member mesh a rank steps its own members
+        and the members' metrics are gathered over the member group."""
+        per = [self._step_on(self.members[k],
+                             *(self._draw(self.members[k]) if draws is None
+                               else draws[k]))
+               for k in self._owned]
+        names = list(per[0])
+        local = torch.stack([torch.stack([p[n] for n in names]) for p in per])
+        if self._member_group is not None:
+            local = all_gather_cat(local, self._member_group)
+            for k, st in enumerate(self.members):
+                if k not in self._owned:
+                    st.step += 1   # kept in step with the owner's count
+        m = {name: local[:, j] for j, name in enumerate(names)}
         crit = m["rel_err"] if "rel_err" in m else m["init"] + m["bdry"]
         best = torch.argmin(crit)
         scalar = {name: v[best] for name, v in m.items()}
@@ -388,7 +564,8 @@ class NODEWANSolver:
             state.opt_u.zero_grad(set_to_none=True)
             loss, aux_u = losses.loss_u_vside(u_params, vside, batch, bbatch)
             loss.backward()
-            self._apply_tx(state.opt_u, u_params, cfg.u_rate)
+            self._apply_tx(state.opt_u, u_params, cfg.u_rate,
+                           self._u_grad_group)
 
         if cfg.ema_decay > 0:
             t = float(state.step + 1)
@@ -405,7 +582,8 @@ class NODEWANSolver:
             state.opt_v.zero_grad(set_to_none=True)
             loss, aux_v = losses.loss_v_uside(v_params, uside, batch, vbatch)
             loss.backward()
-            self._apply_tx(state.opt_v, v_params, cfg.v_rate)
+            self._apply_tx(state.opt_v, v_params, cfg.v_rate,
+                           self._data_group)
 
         metrics = {"loss_u": aux_u["loss_u"], "loss_v": aux_v["loss_v"],
                    "I": aux_u["I"], "int": aux_u["int"],
@@ -416,16 +594,24 @@ class NODEWANSolver:
                                           ebatch)
             sol = self.problem.u_sol(ebatch.x)
             vol = self.domain.V()
-            metrics["L2"] = l_norm(u_vals, sol, ebatch.mask, vol, cfg.p)
-            metrics["rel_err"] = rel_err(u_vals, sol, ebatch.mask, vol, cfg.p)
+            group = self._data_group
+            metrics["L2"] = l_norm(u_vals, sol, ebatch.mask, vol, cfg.p,
+                                   group=group)
+            metrics["rel_err"] = rel_err(u_vals, sol, ebatch.mask, vol, cfg.p,
+                                         group=group)
         state.step += 1
         return metrics
 
-    @staticmethod
-    def _to_host(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    def _host_values(self, values: torch.Tensor) -> list:
+        """One device-to-host copy of a vector, rank 0's on every rank of
+        a mesh, so that every host decision is the same on all of them."""
+        return broadcast(values, self._flat_group).tolist()
+
+    def _to_host(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
         """One device-to-host copy for all the step's scalars."""
         names = list(metrics)
-        values = torch.stack([metrics[k].double() for k in names]).tolist()
+        values = self._host_values(
+            torch.stack([metrics[k].double() for k in names]))
         return dict(zip(names, values))
 
     def _should_stop(self, m: Dict[str, float]) -> bool:
@@ -449,18 +635,37 @@ class NODEWANSolver:
         with torch.no_grad():
             out = self._u_eval_points(self._u_params_for_eval(), pts,
                                       self.problem, self.cfg,
-                                      domain=self.domain)
+                                      domain=self.domain, mesh=self.mesh)
         return out[0] if squeeze else out
 
     def _save_best(self, params=None) -> None:
         params = self._u_params_for_eval() if params is None else params
-        ckpt.save(os.path.join(self.work_dir, "best_model_weights_NODE.pth"),
-                  ckpt.best_weights_dict(params))
+        if self._writer:
+            ckpt.save(os.path.join(self.work_dir,
+                                   "best_model_weights_NODE.pth"),
+                      ckpt.best_weights_dict(params))
+
+    def _train_state(self) -> Dict[str, Any]:
+        """:func:`utils.checkpoint.train_state_dict` of every member; on a
+        member mesh each member's from a rank that steps it (collective)."""
+        sd = ckpt.train_state_dict(self.members, self.best_l,
+                                   self._best_member)
+        if self._member_group is not None:
+            mine = {k: _to_cpu(sd["members"][k]) for k in self._owned}
+            every = [None] * dist.get_world_size(self._flat_group)
+            dist.all_gather_object(every, mine, group=self._flat_group)
+            for part in every:
+                for k, member in part.items():
+                    sd["members"][k] = member
+        return sd
 
     def save_checkpoint(self, path: Optional[str] = None) -> str:
+        """The full training state into ``path`` (default
+        ``checkpoint_NODE.pt`` in ``work_dir``), written by rank 0."""
         path = path or os.path.join(self.work_dir, "checkpoint_NODE.pt")
-        ckpt.save(path, ckpt.train_state_dict(self.members, self.best_l,
-                                              self._best_member))
+        sd = self._train_state()
+        if self._writer:
+            ckpt.save(path, sd)
         return path
 
     def load_checkpoint(self, path: Optional[str] = None):
@@ -469,57 +674,233 @@ class NODEWANSolver:
             self.members, ckpt.load(path))
         return self
 
+    # ------------------------------------------------------------------
+    def _snapshot(self):
+        """Everything an outer iteration advances, copied on the device
+        without a host sync: each member's networks, both Adam states with
+        their counts, the Polyak average, the generator's state and step,
+        and the config (the rates), the best member and ``best_l``."""
+        return (copy.deepcopy(ckpt.train_state_dict(
+            self.members, self.best_l, self._best_member)), self.cfg)
+
+    def _restore(self, snapshot) -> None:
+        sd, self.cfg = snapshot
+        self.best_l, self._best_member = ckpt.restore_train_state(
+            self.members, sd)
+
+    def _run_chunk(self, n: int):
+        """``n`` outer iterations back to back with nothing copied to the
+        host: each iteration's metrics are stacked on the device, and the
+        serving weights of the best ``loss_u`` below ``best_l`` are kept
+        there (``torch.where`` on a copy). Returns ``(names, metrics [n,
+        k] float64, best loss, best weights)``; the best weights mean
+        something only where the best loss is below ``best_l``."""
+        names, rows, best_p = None, [], None
+        best_l = None
+        for _ in range(n):
+            m = self._outer_step()
+            if names is None:
+                names = list(m)
+                best_l = torch.full((), self.best_l, dtype=m["loss_u"].dtype,
+                                    device=m["loss_u"].device)
+            better = m["loss_u"] < best_l
+            served = self._serving_tensors(m.get("best_member"))
+            best_p = ([p.clone() for p in served] if best_p is None else
+                      [torch.where(better, p, b)
+                       for p, b in zip(served, best_p)])
+            best_l = torch.where(better, m["loss_u"], best_l)
+            rows.append(torch.stack([m[k].double() for k in names]))
+        return names, torch.stack(rows), best_l, best_p
+
+    def _chunk(self, n: int, can_stop: bool):
+        """:meth:`_run_chunk` of ``n`` iterations and one copy of its
+        metrics (and best loss) to the host, with the stop checked at each
+        iteration in turn. When it fires at in-chunk index ``i < n - 1``,
+        the snapshot taken before the chunk (when ``can_stop``; a chunk of
+        one needs none) is
+        restored and ``i + 1`` iterations replayed, so that the state, the
+        best weights and ``best_l`` are those of the stop iteration (JAX
+        ``:587-647``; its ``train`` runs past the stop, and tracks the best
+        over the whole chunk). A ``stop`` that reads the solver's weights
+        (``reads_solver``, as the reference adapter's) runs chunks of one,
+        whatever ``n``, so that it sees each iteration's weights. Returns
+        the kept iterations' metrics and whether the stop fired."""
+        if getattr(self.stop, "reads_solver", False):
+            n = 1
+        snap = self._snapshot() if can_stop and n > 1 else None
+        rows, best_l, best_p = self._chunk_rows(n)
+        stop_at = next((i for i, m in enumerate(rows)
+                        if self._should_stop(m)), None)
+        if stop_at is not None and stop_at < n - 1:
+            first = rows[:stop_at + 1]
+            self._restore(snap)
+            rows, best_l, best_p = self._chunk_rows(stop_at + 1)
+            self.replay_bitwise = rows == first
+        if best_l < self.best_l:
+            self.best_l = best_l
+            self.best_u_params = copy.deepcopy(self._u_params_for_eval(
+                self.members[self._owned[0]]))
+            with torch.no_grad():
+                for p, b in zip(self.best_u_params.parameters(), best_p):
+                    p.copy_(b)
+            self._save_best(self.best_u_params)
+        if "best_member" in rows[-1]:
+            self._best_member = int(rows[-1]["best_member"])
+        return rows, stop_at is not None
+
+    def _chunk_rows(self, n: int):
+        """:meth:`_run_chunk` with its metrics and best loss on the host:
+        ``(one dict a iteration, best loss, best weights)``."""
+        names, stacked, best_l, best_p = self._run_chunk(n)
+        flat = self._host_values(torch.cat([stacked.reshape(-1),
+                                            best_l.double()[None]]))
+        k = len(names)
+        return ([dict(zip(names, flat[i * k:(i + 1) * k])) for i in range(n)],
+                flat[-1], best_p)
+
+    def _can_stop(self) -> bool:
+        return self.problem.stop_rel_err is not None or self.stop is not None
+
+    def train_chunked(self, iterations: int, chunk: int = 20,
+                      log: bool = True) -> Dict[str, float]:
+        """Chunks of ``chunk`` outer iterations (the last one shorter), the
+        metrics copied to the host once a chunk (JAX ``:587-647``). On the
+        stop, replayed to the stop iteration (:meth:`_chunk`), it saves the
+        best weights and the checkpoint and returns; otherwise it runs
+        ``iterations`` and saves neither. Returns the last iteration's
+        metrics with ``iterations_run``."""
+        done, last = 0, {}
+        while done < iterations:
+            rows, stopped = self._chunk(min(chunk, iterations - done),
+                                        self._can_stop())
+            if log:
+                for i, m in enumerate(rows):
+                    self.logger.log(done + i, m)
+            done += len(rows)
+            last = rows[-1]
+            if stopped:
+                self._save_best()
+                self.save_checkpoint()
+                break
+        if log:
+            self.logger.flush()
+        return dict(last, iterations_run=done)
+
     def train(self, report: bool = False, report_it: int = 10,
-              show_plt: bool = False,
-              iterations: Optional[int] = None) -> Dict[str, float]:
+              show_plt: bool = False, iterations: Optional[int] = None,
+              chunk: Optional[int] = None) -> Dict[str, float]:
         """The alternating loop (reference ``train``,
-        ``src/training.py:109-187``; JAX ``training.py:977-1073``), one
-        outer iteration at a time.
+        ``src/training.py:109-187``; JAX ``training.py:977-1073``) in chunks
+        of ``chunk`` iterations (default ``cfg.train_chunk``; 1 with
+        ``profile_dir``, and always 1 under a stop callback that reads the
+        solver's weights, :meth:`_chunk`).
 
         Each iteration is logged under its index in this call (from 0),
         the weights of a new best ``loss_u`` go to
         ``best_model_weights_NODE.pth`` (and ``best_u_params``), and every
-        ``report_it`` iterations the reference's report line is printed.
-        On ``problem.stop_rel_err`` or the ``stop`` callback it saves the
+        ``report_it`` iterations with ``report`` the reference's report
+        line is printed and the slice plotted (:meth:`_maybe_plot`; a
+        chunk ends at each report step, so the plot shows that
+        iteration's weights; ``show_plt`` also shows it). On
+        ``problem.stop_rel_err`` or the ``stop`` callback it saves the
         best weights and the checkpoint, prints ``Stopping Criterion
-        Reached`` and returns; otherwise it runs ``iterations`` (default
-        ``cfg.iterations``) and saves the checkpoint. Under an ensemble the
-        metrics (and the log records) are the best member's, with
+        Reached`` and returns; a stop inside a chunk is replayed to
+        (:meth:`_chunk`), so the records, best weights and checkpoint are
+        those of ``chunk=1``. Otherwise it runs ``iterations`` (default
+        ``cfg.iterations``) and saves the checkpoint. Under an ensemble
+        the metrics (and the log records) are the best member's, with
         ``best_member`` and ``rel_err_worst``, and the best member serves.
-        Returns the last iteration's metrics. Plots are not ported
-        (``show_plt`` raises).
+        Returns the last iteration's metrics.
         """
-        if show_plt:
-            raise NotImplementedError(
-                "plots (utils/viz.py) are not ported yet (ROADMAP item 8)")
         cfg = self.cfg
         iterations = cfg.iterations if iterations is None else iterations
-        last: Dict[str, float] = {}
-        for step in range(iterations):
-            last = self._to_host(self._outer_step())
-            if "best_member" in last:
-                self._best_member = int(last["best_member"])
-            self.logger.log(step, last)
-            if last["loss_u"] < self.best_l:
-                self.best_l = last["loss_u"]
-                self.best_u_params = copy.deepcopy(self._u_params_for_eval())
-                self._save_best()
-            if report and step % report_it == 0:
-                msg = (f"iteration: {step} Loss u: {last['loss_u']:.6g} "
-                       f"Loss v: {last['loss_v']:.6g}")
-                if "L2" in last:
-                    msg += (f" L^{cfg.p:g} error: {last['L2']:.6g}"
-                            f" rel: {last['rel_err']:.4g}")
-                print(msg)
-            if self._should_stop(last):
-                self._save_best()
-                self.save_checkpoint()
-                print("Stopping Criterion Reached")
-                self.logger.flush()
-                return last
+        if chunk is None:
+            chunk = 1 if cfg.profile_dir else cfg.train_chunk
+        done, last, prof = 0, {}, None
+        try:
+            while done < iterations:
+                n = min(chunk, iterations - done)
+                if report:   # end the chunk at the next report step
+                    n = min(n, -(-done // report_it) * report_it - done + 1)
+                if cfg.profile_dir and done == 3 and self._writer:
+                    prof = self._start_profile()
+                rows, stopped = self._chunk(n, self._can_stop())
+                for i, m in enumerate(rows):
+                    step = done + i
+                    self.logger.log(step, m)
+                    if report and step % report_it == 0:
+                        msg = (f"iteration: {step} Loss u: {m['loss_u']:.6g} "
+                               f"Loss v: {m['loss_v']:.6g}")
+                        if "L2" in m:
+                            msg += (f" L^{cfg.p:g} error: {m['L2']:.6g}"
+                                    f" rel: {m['rel_err']:.4g}")
+                        if self._writer:
+                            print(msg)
+                        self._maybe_plot(step, show_plt)
+                done += len(rows)
+                last = rows[-1]
+                if prof is not None and done >= 8:
+                    self._end_profile(prof)
+                    prof = None
+                if stopped:
+                    self._save_best()
+                    self.save_checkpoint()
+                    if self._writer:
+                        print("Stopping Criterion Reached")
+                    self.logger.flush()
+                    return last
+        finally:
+            if prof is not None:
+                self._end_profile(prof)
         self.logger.flush()
         self.save_checkpoint()
         return last
+
+    def _start_profile(self):
+        """``torch.profiler`` over the CPU and, on a GPU, the card, for the
+        iterations [3, 8) (JAX ``:1054-1064``)."""
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _end_profile(self, prof) -> None:
+        """Stop ``prof`` and write its Chrome trace, ``trace.json`` in
+        ``profile_dir``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        os.makedirs(self.cfg.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(self.cfg.profile_dir,
+                                              "trace.json"))
+
+    def _maybe_plot(self, step: int, show: bool) -> None:
+        """The solution along axes (0, 1) at ``step`` (JAX ``:1075-1093``,
+        the reference's ``resolution=200, colours=20``): ``guess_cn.npy``,
+        ``error_cn.npy`` and ``plot_at_<step>_along_[0, 1].png`` in
+        ``work_dir``. Where matplotlib is missing the arrays are written
+        and the ImportError printed; anything else raises (a failed
+        kernel #1 must not pass for a missing plot). On a mesh every rank
+        serves its share of the slice and rank 0 writes."""
+        cfg = self.cfg
+        sp = cfg.shape_param
+        down, up = (sp if isinstance(sp, (tuple, list)) else (-sp, sp))
+        view = dict(axes=(0, 1), T=cfg.T, T0=cfg.T0, down=down, up=up,
+                    resolution=200)
+        if not self._writer:
+            self.predict(torch.as_tensor(slice_points(cfg.dim, **view)[0]))
+            return
+        try:
+            proj(self.predict, cfg.dim, step, colours=20, save=True,
+                 show=show, func_u_sol=self.problem.u_sol,
+                 work_dir=self.work_dir, domain=self.domain, **view)
+        except ImportError as exc:
+            if (exc.name or "").split(".")[0] != "matplotlib":
+                raise
+            print(f"plot at {step} not drawn (the slice's arrays are "
+                  f"written): {exc}")
 
     def train_until(self, rel_tol: float, max_iters: int, window: int = 200,
                     stall_action: str = "none", max_lr_drops: int = 1,
@@ -640,3 +1021,69 @@ class NODEWANSolver:
         self._save_best(self.best_u_params)
         self.save_checkpoint()
         return out
+
+    # ------------------------------------------------------------------
+    # The reference's solver surface: what a reference-style
+    # ``stop(solver, points, domain)`` callback reads off the solver
+    # (``configs/Ex4_1_funcs.py:36-37``: ``u_net``, ``func_u_sol``, ``p``,
+    # ``params['N_r']``; JAX ``:1096-1159``).
+    @property
+    def u_net(self):
+        """``u_net(batch) -> u [N, L]`` at the current serving weights."""
+        params = self._u_params_for_eval()
+
+        def net(batch: PathBatch) -> torch.Tensor:
+            with torch.no_grad():
+                return self._u_apply(params, batch, self.problem, self.cfg)
+        return net
+
+    @property
+    def func_u_sol(self):
+        return self.problem.u_sol
+
+    @property
+    def p(self) -> float:
+        return self.cfg.p
+
+    @property
+    def params(self) -> dict:
+        return dataclasses.asdict(self.cfg)
+
+    @staticmethod
+    def _adapt_reference_stop(ref_stop: Callable) -> Callable:
+        """A reference-style ``stop(solver, points, domain)`` as the
+        ``stop(solver, metrics)`` hook. Each call draws a fresh interior
+        batch of ``N_r`` paths, call ``c`` from a generator seeded with
+        ``SeedSequence([seed ^ 0x5709, c])`` (JAX folds ``c`` into the
+        key of ``seed ^ 0x5709``), and passes the solver and the domain.
+        It reads the solver's weights, so :meth:`train` steps one
+        iteration at a time under it (``reads_solver``)."""
+        counter = itertools.count()
+
+        def adapted(solver, metrics):
+            del metrics
+            seed = _restart_seed(solver.cfg.seed ^ 0x5709, next(counter))
+            gen = torch.Generator(device=solver.device).manual_seed(seed)
+            points = solver.domain.interior(gen, solver.cfg.N_r)
+            return bool(ref_stop(solver, points, solver.domain))
+
+        adapted.reads_solver = True
+        return adapted
+
+    @classmethod
+    def from_reference(cls, params, func_a, func_b, func_c, func_h, func_f,
+                       func_g, device=None, path: str = "./", stop=None,
+                       func_u_sol=None, p: float = 1.0):
+        """The reference's constructor signature (``src/training.py:65-79``;
+        JAX ``:1139-1159``): entrywise coefficient callables, ``p`` unless
+        ``params`` gives it, and a reference-style ``stop`` adapted by
+        :meth:`_adapt_reference_stop`. ``device`` is the port's device
+        argument (JAX ignores it)."""
+        raw = dict(params)
+        raw.setdefault("p", p)
+        cfg = SolverConfig.from_dict(raw)
+        problem = from_reference_callables(
+            func_a, func_b, func_c, func_h, func_f, func_g, dim=cfg.dim,
+            func_u_sol=func_u_sol)
+        stop_cb = cls._adapt_reference_stop(stop) if stop is not None else None
+        return cls(cfg, problem, device=device, stop=stop_cb, work_dir=path)

@@ -41,25 +41,39 @@ def load(path: str) -> Any:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def cpu_parameters(params) -> Dict[str, torch.Tensor]:
+    """A module's parameters by name, on the CPU, in one device-to-host
+    copy (one copy a tensor would wait on the device once a tensor)."""
+    named = list(params.named_parameters())
+    flat = torch.cat([p.detach().reshape(-1) for _, p in named]).cpu()
+    out, offset = {}, 0
+    for name, p in named:
+        out[name] = flat[offset:offset + p.numel()].view(p.shape).clone()
+        offset += p.numel()
+    return out
+
+
 def reference_state_dict(params) -> Dict[str, torch.Tensor]:
     """An ``XNODE``'s weights under the reference's keys."""
     sd = {}
-    for prefix, layers in (("module.initial_layers", params.lift),
-                           ("module.ODE_rhs.net", params.field)):
-        for i, layer in enumerate(layers):
-            sd[f"{prefix}.{2 * i}.weight"] = layer.weight.detach().cpu()
-            sd[f"{prefix}.{2 * i}.bias"] = layer.bias.detach().cpu()
-    sd["module.final_linear.weight"] = params.readout.weight.detach().cpu()
-    sd["module.final_linear.bias"] = params.readout.bias.detach().cpu()
+    for name, t in cpu_parameters(params).items():
+        part, rest = name.split(".", 1)
+        if part == "readout":
+            sd[f"module.final_linear.{rest}"] = t
+            continue
+        i, kind = rest.split(".")
+        prefix = ("module.initial_layers" if part == "lift"
+                  else "module.ODE_rhs.net")
+        sd[f"{prefix}.{2 * int(i)}.{kind}"] = t
     return sd
 
 
 def best_weights_dict(params) -> Dict[str, torch.Tensor]:
     """The best-weights file's contents: the reference layout for an
-    XNODE, the module's own ``state_dict`` for any other primal."""
+    XNODE, the module's own parameters for any other primal."""
     if isinstance(params, XNODE):
         return reference_state_dict(params)
-    return {k: v.detach().cpu() for k, v in params.state_dict().items()}
+    return cpu_parameters(params)
 
 
 def _member_dict(state) -> Dict[str, Any]:

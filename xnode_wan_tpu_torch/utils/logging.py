@@ -14,6 +14,8 @@ plus ``metrics_NODE_<dim>.jsonl`` with one JSON object per iteration
 the previous flush appended every ``_FLUSH_EVERY`` iterations; the three
 list artifacts are rewritten on :meth:`RunLogger.flush` and every
 ``_FULL_FLUSH_EVERY`` jsonl flushes, so a crashed run still leaves them.
+With ``write=False`` (a rank past the first of a mesh) it keeps the same
+lists and writes nothing.
 """
 
 from __future__ import annotations
@@ -27,16 +29,18 @@ _FLUSH_EVERY = 25        # iterations between jsonl appends
 _FULL_FLUSH_EVERY = 10   # jsonl appends between rewrites of the lists
 
 class RunLogger:
-    def __init__(self, dim: int, work_dir: str = "./"):
+    def __init__(self, dim: int, work_dir: str = "./", write: bool = True):
         self.dim = dim
         self.work_dir = work_dir
+        self.write = write
         self.losses: List[float] = []
         self.l2s: List[float] = []
         self.times: List[float] = [time.time()]
         self._records: List[dict] = []
         self._jsonl_written = 0
         self._n_flushes = 0
-        os.makedirs(work_dir, exist_ok=True)
+        if write:
+            os.makedirs(work_dir, exist_ok=True)
 
     def _path(self, name: str) -> str:
         return os.path.join(self.work_dir, name)
@@ -48,7 +52,7 @@ class RunLogger:
         self.times.append(time.time())
         self._records.append({"step": step, "time": self.times[-1],
                               **{k: float(v) for k, v in metrics.items()}})
-        if (step + 1) % _FLUSH_EVERY == 0:
+        if self.write and (step + 1) % _FLUSH_EVERY == 0:
             self._flush_jsonl()
             self._n_flushes += 1
             if self._n_flushes % _FULL_FLUSH_EVERY == 0:
@@ -75,5 +79,7 @@ class RunLogger:
 
     def flush(self) -> None:
         """The jsonl tail and the whole-history list artifacts."""
+        if not self.write:
+            return
         self._flush_jsonl()
         self._write_lists()
