@@ -77,7 +77,7 @@ which raises on failure:
       the plain scan;
    g. paper example 4.3 at d = 20: ``configs/highdim_d20.yaml`` as
       shipped with ``Ex4_3_consistent`` from ``seed`` 0 (auto ``u_scale``,
-      printed), ``train_until(0.01, 150, window=200,
+      printed), ``train_until(0.01, 70, window=200,
       stall_action="drop_lr")``: every rel-L2 finite, the least under
       0.25, the launches exact as in f, the rel-L2 every 10 iterations
       beside JAX's first 15;
@@ -116,7 +116,7 @@ which raises on failure:
       against f64 on the card within 1e-3 of the tensor's largest value,
       and with ``remat`` bitwise equal to without; then the size of the
       JAX package's on-chip test (d=2, N_r = N_b = 256, N_t = 10, H = 16,
-      Hh = 10, 3 layers, alpha 1e5): ``adams`` for 20 iterations to a
+      Hh = 10, 3 layers, alpha 1e5): ``adams`` for 14 iterations to a
       final rel-L2 under 0.3, and ``bosh3``, ``adaptive_heun``,
       ``fehlberg2``, ``dopri8``, ``explicit_adams`` and ``fixed_adams``
       for 3 iterations each: finite, no kernel launched;
@@ -150,6 +150,27 @@ which raises on failure:
       and #6/#7 kept), each with exact launches against its fused
       single-process twin; then ``nccl`` on a world of every card, one
       step equal to one process;
+   s. the wide cube: ``configs/cube_pde.yaml`` with ``u_hidden_dim`` =
+      ``u_hidden_hidden_dim`` = 64 (the widest primal the JAX package's
+      Pallas #5 takes at d = 5), seed 0, ``train_until(0.01, 300)``:
+      launches of b an iteration, #5 all in its global-accumulator
+      variant, the least rel-L2 under 0.05 and the iteration of the 1%
+      stop printed if it fired; the result served through #1 at 65,536
+      points, finite and within 2x the least training rel-L2;
+   t. the cube at d = 100 with ``fourier_features: 1`` (F = 300), seed
+      0, ``N_r = N_b = 4,000``, 20 iterations of ``train_until``: #2 once
+      an iteration in its path-tile variant, #3 once and #4 and #5 twice
+      a tangent chunk an iteration, every rel-L2 and weight finite
+      (``loss_u`` overflows f32 at this volume, as in the JAX package),
+      the least rel-L2 under the first; 65,536 points served through #1's
+      path-tile variant, finite (the interior term's gradient is zero
+      here, as ``log`` of an inf; 2u trains through it);
+   u. the cube at d = 30 with ``u_hidden_dim = u_hidden_hidden_dim = 48``
+      and ``fourier_features: 1`` (F = 90), seed 0, 20 iterations of
+      ``train_until``: #2 in its path-tile variant, #3-#5 in tangent
+      chunks with #5's global accumulator, exact launches by variant,
+      every ``loss_u`` finite (the chunked interior term drives the
+      training), the least rel-L2 under the first;
 
 3. each kernel against its plain PyTorch version on the same card
    inputs: #1 and #2 within ``rtol=2e-4, atol=2e-5`` on all four RK
@@ -182,10 +203,25 @@ which raises on failure:
    with their entry times and seeds; the fused adversary side with the
    hourglass's time-dependent cutoff against autograd through the plain
    path; and the per-exit-group objective with its input gradients
-   computed twice on the same card inputs, compared bitwise;
+   computed twice on the same card inputs, compared bitwise; the
+   kernel variants: #1 and #2's path-tile variant at 2t's net and
+   at d = 5 with H = 96, Hh = 64 (and both variants at the cube's net),
+   #5's global-accumulator variant at 2s's trained net (twice, bitwise)
+   and bitwise equal to the shared one at the cube's trained net with
+   the launcher called with each at the same tile and grid, and #3-#5 in
+   tangent chunks of 10 at the ``highdim_d20`` geometry against the
+   full-d kernels (u and du bitwise, the weight gradient within the
+   scaled limit), and #3-#5 against their plain versions, with the kink
+   rule of the d=20 check, at a chunk of 2t's (50 of d = 100, F = 300)
+   and of 2u's trained net (15 of d = 30, #5's global accumulator twice,
+   bitwise);
 4. CUDA-event times (median of 20 after warm-up) of each kernel and its
    plain version at the main path's shapes, beside the bound the card's
-   published peaks put on the same work;
+   published peaks put on the same work; and each kernel variant
+   at its phase's shapes (the path-tile #1/#2 at 2t's, and both variants
+   of #2 at the cube's net, #5's global accumulator at 2s's, #3-#5 a
+   chunk at 2t's, #5's global accumulator a chunk at 2u's), with its
+   bound and its launches there;
 5. CUDA-event times (median of 10) of the two serving entry points and
    the share of each that its kernel takes, of one training outer step
    with the share of each kernel, of the plain boundary scan's forward
@@ -208,8 +244,9 @@ which raises on failure:
    their sum may pass the step's time.
 
 Each phase prints its seconds. The line before the last is a JSON object
-with one entry per kernel (its launches on the main path, and by phase);
-the last line is ``{"ok": true, "device": {...}}``.
+with one entry per kernel (its launches on the main path, and by phase;
+for #1, #2 and #5 also by variant, and the times of the variants); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -226,6 +263,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
@@ -254,14 +292,14 @@ HOURGLASS_WINDOW = 100
 HOURGLASS_RUN = os.path.join(ROOT, "benchmarks", "scenarios",
                              "hourglass.json")
 # 2g: paper example 4.3 at d = 20 (Ex4_3_consistent) with JAX's recipe,
-# cut to 150 iterations (JAX's 1,990 to 0.98%, one drop at 662, would
-# take about ten minutes at the d = 20 step); JAX's rel-L2 reached 0.2344
-# by iteration 20 and 0.1038 by 150
+# cut to 70 iterations (JAX's 1,990 to 0.98%, one drop at 662, would
+# take about ten minutes at the d = 20 step; 150 before phases 2s-2u);
+# JAX's rel-L2 reached 0.2344 by iteration 20
 # (benchmarks/scenarios/d20_sines_twophase.json)
 D20_CONFIG = os.path.join(ROOT, "configs", "highdim_d20.yaml")
 D20_RUN = os.path.join(ROOT, "benchmarks", "scenarios",
                        "d20_sines_twophase.json")
-D20_ITERS = 150
+D20_ITERS = 70
 D20_WINDOW = 200
 D20_BEST_LIMIT = 0.25
 # 2h: the cube with qmc: halton; JAX reached 1% in 131 iterations from
@@ -303,14 +341,14 @@ DOPRI5_CLI_ITERS = 3
 DOPRI5_RESUME_ITERS = 1
 # 2m: the other solvers at the size of the JAX package's on-chip test
 # (tests/test_tpu_hardware.py:218-228): adams cut from its 30 iterations
-# to 20 (before phases 2o-2r: 30), to a final rel-L2 under 0.3 (its
-# assertion), every other solver 3 iterations (5 before 2o-2r);
+# to 14 (before phases 2o-2r: 30, before 2s-2u: 20), to a final rel-L2
+# under 0.3 (its assertion), every other solver 3 iterations (5 before 2o-2r);
 # before them each adaptive method's f32 integration held against f64
 SOLVER_CFG = dict(dim=2, shape_param=(-1.0, 1.0), N_t=10, N_r=256, N_b=256,
                   u_hidden_dim=16, u_hidden_hidden_dim=10, u_layers=3,
                   v_layers=4, v_hidden_dim=20, min_steps=5, alpha=1e5,
                   u_rate=0.015, v_rate=0.04, n1=2, n2=1, seed=0)
-ADAMS_ITERS = 20
+ADAMS_ITERS = 14
 ADAMS_LIMIT = 0.3
 OTHER_SOLVERS = ("bosh3", "adaptive_heun", "fehlberg2", "dopri8",
                  "explicit_adams", "fixed_adams")
@@ -332,6 +370,26 @@ PLOT_REL_LIMIT = 0.05
 # tests/test_torch_training.py::test_one_outer_step_matches_jax[f32_*]
 MG_MAX_ITERS = 300
 PARAM_RTOL, METRIC_RTOL = 1e-4, 1e-5
+# 2s: the cube at u_hidden_dim = u_hidden_hidden_dim = 64, to the 1% stop
+# within 300 iterations, held to its least rel-L2; served within 2x that
+WIDE = dict(u_hidden_dim=64, u_hidden_hidden_dim=64)
+WIDE_MAX_ITERS = 300
+WIDE_BEST_LIMIT = 0.05
+WIDE_SERVE_FACTOR = 2.0
+# 2t: the cube at d = 100 with its Fourier bank (F = 300), as JAX's
+# benchmarks/scenarios/d50_cube.json runs d = 50, 20 iterations
+D100 = dict(dim=100, fourier_features=1)
+D100_ITERS = 20
+# 2u: the cube at d = 30 with H = Hh = 48 and its Fourier bank (F = 90):
+# 2t's route (the path-tile #2, #3-#5 in tangent chunks) with #5's
+# global accumulator, at a volume (2^30) where loss_u stays finite, so
+# that the chunked interior term drives the training; 20 iterations
+D30 = dict(dim=30, u_hidden_dim=48, u_hidden_hidden_dim=48,
+           fourier_features=1)
+D30_ITERS = 20
+# phase 3: #3-#5 at the highdim_d20 geometry in chunks of this many
+# tangent directions, against the full d
+D20_CHUNK = 10
 RTOL, ATOL = 2e-4, 2e-5       # kernel against plain; tests/test_pallas.py:33
 # Tangents, stored tangent states and weight gradients are sums of many
 # terms of both signs (the gradient: over 20,000 path-directions and 20
@@ -496,8 +554,29 @@ def zero_launches(kernels) -> None:
         k.launches = 0
 
 
-def read_launches(kernels) -> dict:
-    return {n: k.launches for n, k in kernels.items()}
+class Launches(dict):
+    """Launches by kernel name, which the phases compare with the counts
+    they expect, and ``variants``: for each kernel built in more than one
+    variant (#1, #2, #5), its launches by variant."""
+
+    def __init__(self, counts, variants):
+        super().__init__(counts)
+        self.variants = variants
+
+
+def read_launches(kernels) -> Launches:
+    return Launches({n: k.launches for n, k in kernels.items()},
+                    {n: k.by_variant() for n, k in kernels.items()
+                     if hasattr(k, "by_variant")})
+
+
+def check_served(label: str, launches, n: int = 1) -> None:
+    """Serving a shipped net launched #1 ``n`` times, all in its register
+    kernel (``launches`` read just after, :func:`read_launches`)."""
+    if launches.variants["xnode_eval"] != {"registers": n, "tile": 0}:
+        raise AssertionError(f"serving {label} launched #1 by variant "
+                             f"{launches.variants['xnode_eval']}, expected "
+                             f"{n} of its register kernel")
 
 
 def train_launches_want(n: int, c) -> dict:
@@ -577,7 +656,6 @@ def hourglass_drop_lr(kernels, work: str, gen, card: str) -> dict:
     and against the plain scan."""
     from xnode_wan_tpu_torch import (NODEWANSolver, evaluate_points,
                                      load_params, load_problem, rel_err)
-    from xnode_wan_tpu_torch.ops.kernels import xnode_eval
 
     cfg = load_params(HOURGLASS_CONFIG).replace(seed=SEED)
     problem = load_problem("Ex4_1_funcs", dim=cfg.dim)
@@ -611,11 +689,11 @@ def hourglass_drop_lr(kernels, work: str, gen, card: str) -> dict:
             raise AssertionError(f"train_until wrote no {name}")
 
     pts = inside_points(hg, SERVE_POINTS, gen, hg.r * (hg.T - hg.T0))
-    xnode_eval.KERNEL.launches = 0
+    zero_launches(kernels)
     u = solver.predict(pts)
     torch.cuda.synchronize()
-    if xnode_eval.KERNEL.launches != 1:
-        raise AssertionError("serving the hourglass did not launch #1 once")
+    serve = read_launches(kernels)
+    check_served("the hourglass (2f)", serve)
     with torch.no_grad():
         u_scan = evaluate_points(solver.state.u_params, pts, problem,
                                  solver.cfg.replace(use_pallas=False),
@@ -624,14 +702,15 @@ def hourglass_drop_lr(kernels, work: str, gen, card: str) -> dict:
                            torch.ones_like(u, dtype=torch.bool), hg.V(),
                            cfg.p))
     print(f"served the converged hourglass primal through predict at "
-          f"{SERVE_POINTS} points: rel-L2 {served:.6f} (1 launch of #1)")
+          f"{SERVE_POINTS} points: rel-L2 {served:.6f} (#1 by variant "
+          f"{serve.variants['xnode_eval']})")
     if u.shape != (SERVE_POINTS,) or not served < CONE_SERVE_LIMIT:
         raise AssertionError(f"the hourglass serves at rel-L2 {served} >= "
                              f"{CONE_SERVE_LIMIT}")
     err = compare(f"served converged hourglass, kernel #1 vs the plain "
                   f"scan, M={SERVE_POINTS}", u, u_scan)
     return {"hist": hist, "launches": launches, "served": served,
-            "err": err, "reference": ref}
+            "err": err, "reference": ref, "serve_launches": serve}
 
 
 def d20_drop_lr(kernels, work: str, card: str) -> dict:
@@ -752,7 +831,6 @@ def ensemble_d20(kernels, work: str, dev, card: str) -> dict:
     ``SERVE_POINTS`` points under ``REL_L2_LIMIT`` (one launch of #1)."""
     from xnode_wan_tpu_torch import (NODEWANSolver, load_params, load_problem,
                                      rel_err)
-    from xnode_wan_tpu_torch.ops.kernels import xnode_eval
 
     cfg = load_params(CONFIG).replace(dim=20, ensemble=4, seed=SEED)
     problem = load_problem("Ex4_1_funcs", dim=cfg.dim)
@@ -789,22 +867,22 @@ def ensemble_d20(kernels, work: str, dev, card: str) -> dict:
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     pts = torch.rand((SERVE_POINTS, cfg.dim + 1), generator=g, device=dev)
     pts[:, 1:] = 2.0 * pts[:, 1:] - 1.0
-    xnode_eval.KERNEL.launches = 0
+    zero_launches(kernels)
     u = solver.predict(pts)
     torch.cuda.synchronize()
+    serve = read_launches(kernels)
     served = float(rel_err(u, problem.u_sol(pts),
                            torch.ones_like(u, dtype=torch.bool),
                            solver.domain.V(), cfg.p))
     print(f"served the best member ({solver._best_member}) through predict "
           f"at {SERVE_POINTS} points: rel-L2 {served:.6f} "
-          f"({xnode_eval.KERNEL.launches} launch of #1)")
-    if xnode_eval.KERNEL.launches != 1:
-        raise AssertionError("serving the ensemble did not launch #1 once")
+          f"(#1 by variant {serve.variants['xnode_eval']})")
+    check_served("the ensemble (2i)", serve)
     if u.shape != (SERVE_POINTS,) or not served < REL_L2_LIMIT:
         raise AssertionError(f"the best member serves at rel-L2 {served} >= "
                              f"{REL_L2_LIMIT}")
     return {"hist": hist, "launches": launches, "served": served,
-            "solver": solver, "reference": ref}
+            "solver": solver, "reference": ref, "serve_launches": serve}
 
 
 def wan_runs(kernels, work_root: str, cli_main, card: str) -> dict:
@@ -1606,7 +1684,9 @@ def mg_rank(rank: int, world: int, port: int, out_dir: str) -> None:
         zero_launches(kernels)
         m = s._to_host(s._outer_step())
         torch.cuda.synchronize()
-        res[name] = {"metrics": m, "launches": read_launches(kernels),
+        launches = read_launches(kernels)
+        res[name] = {"metrics": m, "launches": dict(launches),
+                     "variants": launches.variants,
                      "params": member_params(s, s._owned),
                      "rows": (s.cfg.N_r // s.mesh.shape.get("data", 1),
                               s.cfg.N_b // s.mesh.shape.get("data", 1)),
@@ -1623,7 +1703,9 @@ def mg_rank(rank: int, world: int, port: int, out_dir: str) -> None:
                                              "rel_err_final",
                                              "wall_train_s")}
         res["until"]["rel_err"] = hist["rel_err"].tolist()
-        res["until"]["launches"] = read_launches(kernels)
+        launches = read_launches(kernels)
+        res["until"]["launches"] = dict(launches)
+        res["until"]["variants"] = launches.variants
         step("fused_v", cfg.replace(fused_v=True))
         model = load_reference_state_dict(CKPT, device=dev,
                                           dtype=torch.float32)
@@ -1639,8 +1721,10 @@ def mg_rank(rank: int, world: int, port: int, out_dir: str) -> None:
             t_sharded = time.perf_counter() - t
             whole = evaluate_points(model, pts, problem, cfg)
         torch.cuda.synchronize()
+        launches = read_launches(kernels)
         res["serve"] = {"bitwise": bool(torch.equal(sharded, whole)),
-                        "launches": read_launches(kernels),
+                        "launches": dict(launches),
+                        "variants": launches.variants,
                         "ms": 1e3 * t_sharded}
         step("ensemble", cfg.replace(ensemble=2))
         dcfg = load_params(D20_CONFIG).replace(seed=SEED, tangent_shards=2,
@@ -1688,13 +1772,15 @@ def member_params(solver, members) -> list:
 
 
 def kernel_table() -> dict:
-    """The seven kernels' launch counters by name."""
+    """The seven kernels' launch counters by name; #1, #2 and #5 count
+    their variants together (``_build.KernelVariants``)."""
     from xnode_wan_tpu_torch.ops.kernels import (disc_train, xnode_eval,
                                                  xnode_train)
-    return {"xnode_eval": xnode_eval.KERNEL, "xnode_train": xnode_train.KERNEL,
+    return {"xnode_eval": xnode_eval.LAUNCHES,
+            "xnode_train": xnode_train.PATH_LAUNCHES,
             "xnode_udu_fwd": xnode_train.FWD_KERNEL,
             "xnode_udu_fwd_store": xnode_train.FWD_STORE_KERNEL,
-            "xnode_udu_bwd": xnode_train.BWD_KERNEL,
+            "xnode_udu_bwd": xnode_train.BWD_LAUNCHES,
             "disc_fwd": disc_train.FWD_KERNEL,
             "disc_bwd": disc_train.BWD_KERNEL}
 
@@ -1839,6 +1925,664 @@ def multi_gpu(kernels, work_root: str, b_hist, card: str) -> dict:
             "wall_s": t_ranks}
 
 
+def chunk_launches_want(n: int, c, chunks: int) -> dict:
+    """:func:`train_launches_want` with #3-#5 in ``chunks`` tangent
+    chunks: #2 once an iteration, #3 once and #4 and #5 ``n1`` times a
+    chunk."""
+    want = train_launches_want(n, c)
+    for name in ("xnode_udu_fwd", "xnode_udu_fwd_store", "xnode_udu_bwd"):
+        want[name] *= chunks
+    return want
+
+
+def check_variants(label: str, launches, want: dict) -> None:
+    """Each variant's launches (``{kernel: {variant: count}}``)."""
+    for name, counts in want.items():
+        if launches.variants[name] != counts:
+            raise AssertionError(f"{label}: {name} launched by variant "
+                                 f"{launches.variants[name]}, expected "
+                                 f"{counts}")
+
+
+def wide_cube(kernels, work: str, pts, card: str) -> dict:
+    """Phase 2s: ``configs/cube_pde.yaml`` with :data:`WIDE` (the widest
+    primal the JAX package's Pallas #5 takes at d = 5), seed 0,
+    ``train_until(0.01, WIDE_MAX_ITERS)``: the launches of 2b an
+    iteration, #5 all in its global-accumulator variant (its 46,337
+    floats of accumulator do not fit beside the block), the least rel-L2
+    under ``WIDE_BEST_LIMIT``; then the kept weights served through #1
+    at 2a's points: finite and within ``WIDE_SERVE_FACTOR`` times the
+    least training rel-L2."""
+    from xnode_wan_tpu_torch import (Hypercube, NODEWANSolver,
+                                     evaluate_points, load_params,
+                                     load_problem, rel_err)
+    from xnode_wan_tpu_torch.ops.kernels import xnode_train
+
+    cfg = load_params(CONFIG).replace(seed=SEED, **WIDE)
+    problem = load_problem("Ex4_1_funcs", dim=cfg.dim)
+    solver = NODEWANSolver(cfg, problem, work_dir=work)
+    net = xnode_train.flat_net(solver.state.u_params)
+    route = xnode_train.kernel_route(net.dims(), cfg.dim, cfg.solver)
+    print(f"wide cube {WIDE}: {net.packed().numel()} weights, kernels "
+          f"{route}")
+    if not route.bwd.global_acc or route.d_chunk != cfg.dim:
+        raise AssertionError(f"the wide cube routes {route}")
+    zero_launches(kernels)
+    hist = solver.train_until(TRAIN_TOL, WIDE_MAX_ITERS)
+    torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    n = check_until("wide cube (2s)", hist, launches, cfg)
+    check_variants("wide cube (2s)", launches, {
+        "xnode_train": {"registers": n, "tile": 0},
+        "xnode_udu_bwd": {"shared": 0, "global": cfg.n1 * n}})
+    rel = [float(r) for r in hist["rel_err"]]
+    best = min(rel)
+    hit = next((i for i, r in enumerate(rel) if r < TRAIN_TOL), None)
+    print(f"wide cube: {n} outer iterations, least rel-L2 {best:.6f}, last "
+          f"{rel[-1]:.6f}, "
+          + (f"1% reached at iteration {hit}" if hit is not None
+             else "1% not reached")
+          + f", in {hist['wall_train_s']:.3f} s (train_until wall clock, "
+          f"{card}); launches {launches}, by variant {launches.variants}")
+    if not best < WIDE_BEST_LIMIT:
+        raise AssertionError(f"the wide cube's least rel-L2 {best} >= "
+                             f"{WIDE_BEST_LIMIT} in {n} iterations")
+    cube = Hypercube(cfg.shape_param, cfg.dim, cfg.T0, cfg.T, cfg.N_t)
+    zero_launches(kernels)
+    with torch.no_grad():
+        u = evaluate_points(solver.best_u_params, pts, problem, cfg)
+    torch.cuda.synchronize()
+    serve = read_launches(kernels)
+    served = float(rel_err(u, problem.u_sol(pts),
+                           torch.ones_like(u, dtype=torch.bool), cube.V(),
+                           cfg.p))
+    print(f"wide cube served at {pts.shape[0]} points through #1: rel-L2 "
+          f"{served:.6f} (limit {WIDE_SERVE_FACTOR} x {best:.6f}); "
+          f"{serve.variants['xnode_eval']}")
+    check_served("the wide cube (2s)", serve)
+    if not (bool(torch.isfinite(u).all())
+            and served < WIDE_SERVE_FACTOR * best):
+        raise AssertionError(f"the wide cube serves at rel-L2 {served}")
+    return {"hist": hist, "launches": launches, "serve_launches": serve,
+            "best": best, "hit": hit, "served": served, "solver": solver,
+            "route": route}
+
+
+def d100_fourier(kernels, work: str, card: str) -> dict:
+    """Phase 2t: ``configs/cube_pde.yaml`` at :data:`D100` (d = 100, F =
+    300), seed 0, ``N_r = N_b = 4,000``, ``D100_ITERS`` iterations of
+    ``train_until``: #1/#2 in their path-tile variant (F + 1 + H is past
+    their register kernels' cap), #3-#5 in tangent chunks; every rel-L2
+    and weight finite (``loss_u`` is not, as in the JAX package: the
+    square of the interior term's integral, which carries the cube's
+    volume 2^100, overflows f32), the least rel-L2 under the first, exact
+    launches by variant;
+    then 65,536 points served through #1's path-tile variant, finite."""
+    from xnode_wan_tpu_torch import (Hypercube, NODEWANSolver,
+                                     evaluate_points, load_params,
+                                     load_problem, rel_err)
+    from xnode_wan_tpu_torch.ops.kernels import xnode_train
+
+    cfg = load_params(CONFIG).replace(seed=SEED, **D100)
+    problem = load_problem("Ex4_1_funcs", dim=cfg.dim)
+    solver = NODEWANSolver(cfg, problem, work_dir=work)
+    net = xnode_train.flat_net(solver.state.u_params)
+    route = xnode_train.kernel_route(net.dims(), cfg.dim, cfg.solver)
+    chunks = cfg.dim // route.d_chunk
+    print(f"d={cfg.dim} cube with fourier_features 1 (F={net.F}): kernels "
+          f"{route}, {chunks} chunks")
+    if route.path != "tile" or chunks < 2:
+        raise AssertionError(f"the d=100 cube routes {route}")
+    cube = Hypercube(cfg.shape_param, cfg.dim, cfg.T0, cfg.T, cfg.N_t)
+    zero_launches(kernels)
+    hist = solver.train_until(TRAIN_TOL, D100_ITERS)
+    torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    n = hist["iterations_run"]
+    rel = [float(r) for r in hist["rel_err"]]
+    want = chunk_launches_want(n, cfg, chunks)
+    bwd = "global" if route.bwd.global_acc else "shared"
+    print(f"d={cfg.dim} cube: {n} outer iterations, rel-L2 {rel[0]:.6f} -> "
+          f"least {min(rel):.6f}, last {rel[-1]:.6f}, in "
+          f"{hist['wall_train_s']:.3f} s (train_until wall clock, {card}); "
+          f"launches {launches}, by variant {launches.variants}")
+    # loss_u is inf here as in the JAX package: the interior term's
+    # log(I^2) takes I with the cube's volume 2^100 (1.3e30), whose square
+    # overflows f32; the rel-L2 and the weights stay finite
+    weights_ok = all(bool(torch.isfinite(p).all())
+                     for net_ in (solver.state.u_params,
+                                  solver.state.v_params)
+                     for p in net_.parameters())
+    print(f"  loss_u finite at {sum(map(math.isfinite, hist['loss_u']))} "
+          f"of {n} iterations (domain volume {cube.V():.4g}); weights "
+          f"finite: {weights_ok}")
+    if not (len(rel) == n == D100_ITERS and weights_ok
+            and all(map(math.isfinite, rel))):
+        raise AssertionError(f"the d=100 cube: {n} iterations, or a "
+                             "non-finite rel-L2 or weight")
+    if launches != want:
+        raise AssertionError(f"the d=100 cube: launches {launches}, "
+                             f"expected {want}")
+    check_variants("the d=100 cube (2t)", launches, {
+        "xnode_train": {"registers": 0, "tile": n},
+        "xnode_udu_bwd": {"shared": 0, "global": 0, bwd: want[
+            "xnode_udu_bwd"]}})
+    if not min(rel) < rel[0]:
+        raise AssertionError(f"the d=100 cube's least rel-L2 {min(rel)} is "
+                             f"not under its first {rel[0]}")
+    g = torch.Generator(device=solver.device).manual_seed(SEED)
+    pts = torch.rand((SERVE_POINTS, cfg.dim + 1), generator=g,
+                     device=solver.device)
+    pts[:, 1:] = cube.bot + pts[:, 1:] * (cube.top - cube.bot)
+    pts[:, 0] = cfg.T0 + pts[:, 0] * (cfg.T - cfg.T0)
+    zero_launches(kernels)
+    with torch.no_grad():
+        t = time.perf_counter()
+        u = evaluate_points(solver.state.u_params, pts, problem, cfg)
+        torch.cuda.synchronize()
+        t_serve = time.perf_counter() - t
+    serve = read_launches(kernels)
+    served = float(rel_err(u, problem.u_sol(pts),
+                           torch.ones_like(u, dtype=torch.bool), cube.V(),
+                           cfg.p))
+    print(f"d={cfg.dim} cube served at {SERVE_POINTS} points through #1's "
+          f"path-tile variant in {1e3 * t_serve:.3f} ms (first call): "
+          f"rel-L2 {served:.6f}; {serve.variants['xnode_eval']}")
+    if serve.variants["xnode_eval"] != {"registers": 0, "tile": 1}:
+        raise AssertionError("serving the d=100 cube did not launch #1's "
+                             "path-tile variant once")
+    if u.shape != (SERVE_POINTS,) or not bool(torch.isfinite(u).all()):
+        raise AssertionError("the d=100 cube serves non-finite values")
+    return {"hist": hist, "launches": launches, "serve_launches": serve,
+            "served": served, "solver": solver, "route": route,
+            "chunks": chunks, "pts": pts}
+
+
+def path_tile_direct(tnet, targs, c):
+    """#2's path-tile variant at any net, through its launch helper (the
+    wrapper takes it only past the register kernel's caps)."""
+    from xnode_wan_tpu_torch.ops.kernels import xnode_train
+    return xnode_train._path_tile_forward(
+        xnode_train.PATH_TILE_KERNEL, tnet, tnet.packed(), *targs, c.n_sub,
+        c.solver, xnode_train.grad_tile(tnet.dims(), 0, c.solver, False))
+
+
+def serve_tile_direct(tnet, targs, k_steps, c):
+    """#1's path-tile variant at any net, through its launch helper."""
+    from xnode_wan_tpu_torch.ops.kernels import xnode_eval, xnode_train
+    return xnode_eval._serve_tile(
+        tnet, tnet.packed(), *targs, k_steps, c.solver,
+        xnode_train.grad_tile(tnet.dims(), 0, c.solver, False))
+
+
+def variants_run(before: dict, counter) -> list:
+    """The variants of ``counter`` (a ``KernelVariants``) launched once
+    each since ``before`` (its :meth:`by_variant`), or more than once
+    (listed as often)."""
+    after = counter.by_variant()
+    return [v for v in after for _ in range(after[v] - before[v])]
+
+
+def d30_chunked(kernels, work: str, card: str) -> dict:
+    """Phase 2u: ``configs/cube_pde.yaml`` at :data:`D30` (d = 30, H = Hh
+    = 48, F = 90), seed 0, ``D30_ITERS`` iterations of ``train_until``:
+    #2 in its path-tile variant, #3-#5 in tangent chunks with #5's global
+    accumulator, exact launches by variant; every ``loss_u`` finite (the
+    interior term, which only the chunked #3-#5 compute, gives a
+    gradient at every iteration, unlike at 2t's volume), every rel-L2
+    finite and the least under the first."""
+    from xnode_wan_tpu_torch import NODEWANSolver, load_params, load_problem
+    from xnode_wan_tpu_torch.ops.kernels import xnode_train
+
+    cfg = load_params(CONFIG).replace(seed=SEED, **D30)
+    solver = NODEWANSolver(cfg, load_problem("Ex4_1_funcs", dim=cfg.dim),
+                           work_dir=work)
+    net = xnode_train.flat_net(solver.state.u_params)
+    route = xnode_train.kernel_route(net.dims(), cfg.dim, cfg.solver)
+    chunks = cfg.dim // route.d_chunk
+    print(f"d={cfg.dim} cube at H=Hh=48 with fourier_features 1 (F={net.F}):"
+          f" kernels {route}, {chunks} chunks")
+    if route.path != "tile" or chunks < 2 or not route.bwd.global_acc:
+        raise AssertionError(f"the d=30 cube routes {route}")
+    zero_launches(kernels)
+    hist = solver.train_until(TRAIN_TOL, D30_ITERS)
+    torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    n = hist["iterations_run"]
+    rel = [float(r) for r in hist["rel_err"]]
+    loss_u = [float(v) for v in hist["loss_u"]]
+    want = chunk_launches_want(n, cfg, chunks)
+    print(f"d={cfg.dim} cube: {n} outer iterations, rel-L2 {rel[0]:.6f} -> "
+          f"least {min(rel):.6f}, last {rel[-1]:.6f}, loss_u {loss_u[0]:.6g}"
+          f" -> {loss_u[-1]:.6g}, in {hist['wall_train_s']:.3f} s "
+          f"(train_until wall clock, {card}); launches {launches}, by "
+          f"variant {launches.variants}")
+    if not (len(rel) == n == D30_ITERS and all(map(math.isfinite, rel))
+            and all(map(math.isfinite, loss_u))):
+        raise AssertionError(f"the d=30 cube: {n} iterations, or a "
+                             "non-finite rel-L2 or loss_u")
+    if launches != want:
+        raise AssertionError(f"the d=30 cube: launches {launches}, "
+                             f"expected {want}")
+    check_variants("the d=30 cube (2u)", launches, {
+        "xnode_train": {"registers": 0, "tile": n},
+        "xnode_udu_bwd": {"shared": 0, "global": want["xnode_udu_bwd"]}})
+    if not min(rel) < rel[0]:
+        raise AssertionError(f"the d=30 cube's least rel-L2 {min(rel)} is "
+                             f"not under its first {rel[0]}")
+    return {"hist": hist, "launches": launches, "solver": solver,
+            "route": route, "chunks": chunks}
+
+
+def variant_checks(*, L, N, batch, batch20, cfg, cfg20, check_udu_near_kinks,
+                    cube, d, dev, errs, eval_args, hd, hu, in20, k_steps, net,
+                    net_tr, path_seed, problem, pts, tan_inputs, wide,
+                    xs) -> dict:
+    """Phase 3's checks of the kernel variants: #1/#2's path-tile
+    variant at 2t's net, at d = 5 with H = 96, Hh = 64 and (through its
+    launch helper, beside the register kernel) at the cube's; #5's global
+    accumulator at 2s's trained net, and bitwise equal to the shared one
+    at the same tile and grid; #3-#5 a tangent chunk at 2t's and 2u's
+    nets against their plain versions; #3-#5 in tangent chunks against
+    the full d. Takes the names of ``main`` these read; returns what
+    phase 4 times."""
+    from xnode_wan_tpu_torch import Hypercube, init_xnode
+    from xnode_wan_tpu_torch.models.xnode import spatial_features
+    from xnode_wan_tpu_torch.ops.kernels import (steppers, xnode_eval,
+                                                 xnode_train)
+    from xnode_wan_tpu_torch.ops.kernels.steppers import FlatNet
+    # the kernel variants: #1/#2's path-tile variant, #5's global
+    # accumulator, #3-#5 in tangent chunks
+    print("kernel variants vs plain, f32:")
+    from xnode_wan_tpu_torch.models.xnode import path_seed_fn
+    var_errs = {}
+
+    def note(key, err):
+        var_errs[key] = max(var_errs.get(key, 0.0), err)
+        return err
+
+    def path_inputs(b, prob, c):
+        """#2's ``(t0, dt, feats, seed)`` on a batch."""
+        xs_b = b.space[:, 0, :].contiguous()
+        t0_b, dt_b = xnode_train._prep_intervals(b.times, b.mask, b.t_start,
+                                                 c.n_sub)
+        return (t0_b.contiguous(), dt_b.contiguous(),
+                spatial_features(xs_b, c.fourier_features).contiguous(),
+                path_seed_fn(b, prob, c)(xs_b).contiguous())
+
+    def serve_inputs(p_pts, prob, c):
+        """#1's ``(feats, t, t_start, seed)`` at points, from T0."""
+        x_p = p_pts[:, 1:].contiguous()
+        t_s = torch.full_like(p_pts[:, 0], c.T0)
+        return (spatial_features(x_p, c.fourier_features).contiguous(),
+                p_pts[:, 0].contiguous(), t_s,
+                (prob.h(torch.cat([t_s[:, None], x_p], -1))
+                 / c.u_scale_eff).contiguous())
+
+    t0_main, dt_main = [a.contiguous() for a in xnode_train._prep_intervals(
+        batch.times, batch.mask, batch.t_start, cfg.n_sub)]
+    main_path = (t0_main, dt_main, xs, path_seed)
+    hsolver, wsolver = hd["solver"], wide["solver"]
+    t_cfg, wcfg = hsolver.cfg, wsolver.cfg
+    t_net = xnode_train.flat_net(hsolver.state.u_params)
+    wnet = xnode_train.flat_net(wsolver.state.u_params)
+    hcube = Hypercube(t_cfg.shape_param, t_cfg.dim, t_cfg.T0, t_cfg.T,
+                      t_cfg.N_t)
+    gv = torch.Generator(device=dev).manual_seed(15)
+    cfg96 = cfg.replace(u_hidden_dim=96, u_hidden_hidden_dim=64)
+    net96 = xnode_train.flat_net(init_xnode(cfg96, gv))
+    hk = max(t_cfg.min_steps, t_cfg.N_t) * t_cfg.n_sub
+    with torch.no_grad():
+        hb = hcube.interior(gv, t_cfg.N_r)
+        h_path = path_inputs(hb, hsolver.problem, t_cfg)
+        h_serve = serve_inputs(hd["pts"], hsolver.problem, t_cfg)
+        b96 = cube.interior(gv, cfg.N_r)
+        # the wrappers route 2t's net and H = 96 to the tile variant and
+        # the cube's net to the register kernel; the tile variant at the
+        # cube's net is launched through its helper
+        tiles = [
+            (f"2t's net (F={t_net.F}) N={t_cfg.N_r} L={t_cfg.N_t}",
+             t_net, h_path, t_cfg, "tile", False),
+            (f"d=5 H=96 Hh=64 (random weights) N={cfg.N_r}", net96,
+             path_inputs(b96, problem, cfg96), cfg96, "tile", False),
+            (f"the cube's net N={cfg.N_r}, launched directly", net,
+             main_path, cfg, "tile", True),
+            (f"the cube's net N={cfg.N_r}", net, main_path, cfg,
+             "registers", False)]
+        for label, tnet, targs, c, want_v, direct in tiles:
+            before = xnode_train.PATH_LAUNCHES.by_variant()
+            if direct:
+                got = path_tile_direct(tnet, targs, c)
+            else:
+                got = xnode_train.path_forward_cuda(tnet, *targs, c.n_sub,
+                                                    c.solver)
+            ran = variants_run(before, xnode_train.PATH_LAUNCHES)
+            if ran != [want_v]:
+                raise AssertionError(f"xnode_train {label}: ran {ran}, "
+                                     f"expected one {want_v} launch")
+            errs["xnode_train"] = max(errs["xnode_train"], note(
+                f"xnode_train {want_v}", compare(
+                    f"xnode_train {want_v} variant, {label}", got,
+                    xnode_train.path_forward_plain(tnet, *targs, c.n_sub,
+                                                   c.solver))))
+        serves = [
+            (f"2t's net M={SERVE_POINTS} k_steps={hk}", t_net, h_serve,
+             t_cfg, hk, False),
+            (f"d=5 H=96 Hh=64 M={SERVE_POINTS}", net96,
+             serve_inputs(pts, problem, cfg96), cfg96, k_steps, False),
+            (f"the cube's net M={SERVE_POINTS}, launched directly", net,
+             eval_args, cfg, k_steps, True)]
+        for label, tnet, targs, c, k, direct in serves:
+            before = xnode_eval.LAUNCHES.by_variant()
+            if direct:
+                got = serve_tile_direct(tnet, targs, k, c)
+            else:
+                got = xnode_eval.evaluate_cuda(tnet, *targs, k, c.solver)
+            ran = variants_run(before, xnode_eval.LAUNCHES)
+            if ran != ["tile"]:
+                raise AssertionError(f"xnode_eval {label}: ran {ran}, "
+                                     "expected one tile launch")
+            errs["xnode_eval"] = max(errs["xnode_eval"], note(
+                "xnode_eval tile", compare(
+                    f"xnode_eval tile variant, {label}", got,
+                    xnode_eval.evaluate_plain(tnet, *targs, k, c.solver))))
+
+        # #5's global accumulator at 2s's trained net (and #3/#4 there)
+        wb = cube.interior(gv, wcfg.N_r)
+        w_t0, w_dt = [a.contiguous() for a in xnode_train._prep_intervals(
+            wb.times, wb.mask, wb.t_start, wcfg.n_sub)]
+        w_in = [a.contiguous() for a in xnode_train.path_tangent_inputs(
+            wb, problem, wcfg)]
+        w_args = (w_t0, w_dt, *w_in)
+        before = xnode_train.BWD_GLOBAL_KERNEL.launches
+        check_udu_near_kinks(f"2s's trained net H=Hh=64 {wcfg.solver}", wnet,
+                             w_args, wcfg.n_sub, wcfg.solver, bitwise=True)
+        if xnode_train.BWD_GLOBAL_KERNEL.launches == before:
+            raise AssertionError("#5 at 2s's net did not take its global-"
+                                 "accumulator variant")
+        # #3-#5 a tangent chunk at the shapes 2t launches them (F = 300, a
+        # chunk of 50 of d = 100) and at 2u's trained net (F = 90, a chunk
+        # of 15 of d = 30, #5's global accumulator, twice, bitwise)
+        dc_t = hd["route"].d_chunk
+        h_tan = [a.contiguous() for a in xnode_train.path_tangent_inputs(
+            hb, hsolver.problem, t_cfg)]
+        h_chunk = (h_path[0], h_path[1], h_tan[0],
+                   h_tan[1][:, :dc_t].contiguous(), h_tan[2],
+                   h_tan[3][:, :dc_t].contiguous())
+        usolver = hu["solver"]
+        u_cfg, dc_u = usolver.cfg, hu["route"].d_chunk
+        ub_ = Hypercube(u_cfg.shape_param, u_cfg.dim, u_cfg.T0, u_cfg.T,
+                        u_cfg.N_t).interior(gv, u_cfg.N_r)
+        u_t0, u_dt = [a.contiguous() for a in xnode_train._prep_intervals(
+            ub_.times, ub_.mask, ub_.t_start, u_cfg.n_sub)]
+        u_tan = [a.contiguous() for a in xnode_train.path_tangent_inputs(
+            ub_, usolver.problem, u_cfg)]
+        u_chunk_args = (u_t0, u_dt, u_tan[0], u_tan[1][:, :dc_u].contiguous(),
+                        u_tan[2], u_tan[3][:, :dc_u].contiguous())
+        chunk_runs = [
+            (f"2t's net (F={t_net.F}), a chunk of {dc_t} of d={t_cfg.dim}",
+             t_net, h_chunk, t_cfg, False),
+            (f"2u's trained net (H=Hh=48, F=90), a chunk of {dc_u} of "
+             f"d={u_cfg.dim}", xnode_train.flat_net(usolver.state.u_params),
+             u_chunk_args, u_cfg, True)]
+        for label, cnet, cargs, c, bitwise in chunk_runs:
+            before = xnode_train.BWD_LAUNCHES.by_variant()
+            check_udu_near_kinks(label, cnet, cargs, c.n_sub, c.solver,
+                                 bitwise=bitwise)
+            ran = set(variants_run(before, xnode_train.BWD_LAUNCHES))
+            want_v = "global" if xnode_train.kernel_route(
+                cnet.dims(), c.dim, c.solver).bwd.global_acc else "shared"
+            if ran != {want_v}:
+                raise AssertionError(f"#5 at {label} ran {ran}, expected "
+                                     f"its {want_v} variant")
+
+        # how far the kernel and the plain f32 version each are from the
+        # plain version in f64 there (printed)
+        w_st = xnode_train.u_du_fwd_cuda(wnet, wnet.packed(), *w_args,
+                                         wcfg.n_sub, wcfg.solver, True)[2:]
+        cw = torch.Generator(device=dev).manual_seed(7)
+        w_ub = torch.randn(w_t0.shape, generator=cw, device=dev)
+        w_dub = torch.randn((*w_t0.shape, wcfg.dim), generator=cw,
+                            device=dev)
+        wnet64 = FlatNet([a.double() for a in wnet.flat], wnet.n_lift,
+                         wnet.n_field)
+        w64 = [a.double() for a in w_args]
+        g64 = xnode_train.u_du_bwd_plain(
+            wnet64, *w64, *xnode_train.u_du_fwd_plain(
+                wnet64, *w64, wcfg.n_sub, wcfg.solver, store=True)[2:],
+            w_ub.double(), w_dub.double(), wcfg.n_sub, wcfg.solver)
+        sizes = [a.numel() for a in wnet.flat]
+        for label, g in (("kernel", xnode_train.u_du_bwd_cuda(
+                wnet, wnet.packed(), *w_args, *w_st, w_ub, w_dub,
+                wcfg.n_sub, wcfg.solver)), ("plain f32",
+                xnode_train.u_du_bwd_plain(wnet, *w_args, *w_st, w_ub, w_dub,
+                                           wcfg.n_sub, wcfg.solver))):
+            worst = max(float((a.double() - b).abs().max() / b.abs().max())
+                        for a, b in zip(torch.split(g, sizes),
+                                        torch.split(g64, sizes)))
+            print(f"  xnode_udu_bwd at 2s's net: {label} vs the plain "
+                  f"version in f64, at most {worst:.3e} of each tensor's "
+                  "largest value")
+
+        # the same tile and grid with each accumulator: bitwise equal
+        gargs_v = (t0_main, dt_main, *tan_inputs)
+        stv = xnode_train.u_du_fwd_cuda(net_tr, net_tr.packed(), *gargs_v,
+                                         cfg.n_sub, cfg.solver,
+                                         store=True)[2:]
+        cgv = torch.Generator(device=dev).manual_seed(16)
+        ubv = torch.randn((N, L), generator=cgv, device=dev)
+        dubv = torch.randn((N, L, d), generator=cgv, device=dev)
+        tile_sh = xnode_train.grad_tile(net_tr.dims(), d, cfg.solver, True)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        grid = steppers.bwd_blocks(N, tile_sh.paths,
+                                   xnode_train.tile_smem_bytes(
+                                       net_tr.dims(), d, cfg.solver,
+                                       tile_sh.paths, True),
+                                   tile_sh.threads, sms)
+        tr_packed = net_tr.packed()
+
+        def launch(kernel):
+            """#5 through its launcher at this tile and grid."""
+            part = torch.empty((grid, tr_packed.numel()), device=dev)
+            grad = torch.empty((tr_packed.numel(),), device=dev)
+            kernel(dev, tr_packed.data_ptr(), tr_packed.numel(),
+                   *(a.data_ptr() for a in (*gargs_v, *stv, ubv, dubv,
+                                            part, grad)),
+                   N, L, d, *net_tr.dims(), cfg.n_sub,
+                   steppers.METHOD_IDS[cfg.solver], tile_sh.paths,
+                   tile_sh.threads, grid)
+            return grad
+
+        by_acc = [launch(k) for k in (xnode_train.BWD_KERNEL,
+                                      xnode_train.BWD_GLOBAL_KERNEL,
+                                      xnode_train.BWD_GLOBAL_KERNEL)]
+        if not (torch.equal(by_acc[0], by_acc[1])
+                and torch.equal(by_acc[1], by_acc[2])):
+            raise AssertionError("#5's global accumulator differs from the "
+                                 "shared one, or from itself")
+        print(f"  xnode_udu_bwd at the cube's trained net, {tile_sh.paths} "
+              f"paths a tile, {tile_sh.threads} threads, {grid} blocks: "
+              "the global accumulator bitwise equal to the shared one, and "
+              "to itself over two launches")
+
+    # #3-#5 in tangent chunks at the highdim_d20 geometry: u and du
+    # against the full-d kernels, and the weight gradients of a
+    # contraction through the autograd function
+    m20 = init_xnode(cfg20, gv)
+    c_u = torch.randn(batch20.times.shape, generator=gv, device=dev)
+    c_d = torch.randn((*batch20.times.shape, cfg20.dim), generator=gv,
+                      device=dev)
+    runs20 = {}
+    for dc in (D20_CHUNK, None):
+        before = (xnode_train.FWD_STORE_KERNEL.launches,
+                  xnode_train.BWD_LAUNCHES.launches)
+        u20, du20 = xnode_train.u_du_fused(
+            m20, *in20, batch20.times, batch20.mask, batch20.t_start,
+            n_sub=cfg20.n_sub, method=cfg20.solver,
+            scale=float(cfg20.u_scale_eff), d_chunk=dc)
+        g20s = torch.autograd.grad((u20 * c_u).sum() + (du20 * c_d).sum()
+                                   + (torch.tanh(u20) * du20[..., 0]).sum(),
+                                   list(m20.parameters()))
+        n_chunks = cfg20.dim // (dc or cfg20.dim)
+        if (xnode_train.FWD_STORE_KERNEL.launches - before[0],
+                xnode_train.BWD_LAUNCHES.launches - before[1]) != (
+                    n_chunks, n_chunks):
+            raise AssertionError(f"d_chunk={dc}: not {n_chunks} launches of "
+                                 "#4 and #5")
+        runs20[dc] = (u20.detach(), du20.detach(),
+                      torch.cat([g.reshape(-1) for g in g20s]))
+    (uc, duc, gc), (uf, duf, gf) = runs20[D20_CHUNK], runs20[None]
+    if not torch.equal(uc, uf):
+        raise AssertionError("u in tangent chunks differs from the full d")
+    note("chunked du", compare_scaled(
+        f"du, {cfg20.dim // D20_CHUNK} chunks of {D20_CHUNK} vs the full "
+        f"d={cfg20.dim} (bitwise: {torch.equal(duc, duf)})", duc, duf))
+    note("chunked grad", compare_scaled(
+        f"weight gradient, {cfg20.dim // D20_CHUNK} chunks of {D20_CHUNK} vs "
+        f"the full d={cfg20.dim}", gc, gf,
+        [p.numel() for p in m20.parameters()]))
+    print(f"  u in chunks of {D20_CHUNK} bitwise equal to the full d")
+    return dict(h_path=h_path, h_serve=h_serve, hk=hk, t_cfg=t_cfg,
+                t_net=t_net, h_chunk=h_chunk, u_cfg=u_cfg,
+                u_net=chunk_runs[1][1], u_chunk_args=u_chunk_args,
+                wcfg=wcfg, wnet=wnet, w_args=w_args, main_path=main_path,
+                var_errs=var_errs)
+
+
+def variant_times(*, card, cfg, cg, dev, hd, hu, method, net,
+                   phase_launches, work, h_path, h_serve, hk, t_cfg, t_net,
+                   h_chunk, u_cfg, u_net, u_chunk_args, wcfg, wnet, w_args,
+                   main_path) -> list:
+    """Phase 4's times of the kernel variants at their phases'
+    shapes, each with its bound and its launches there. Takes the names
+    of ``main`` and of :func:`variant_checks` these read."""
+    from xnode_wan_tpu_torch.ops.kernels import (steppers, xnode_eval,
+                                                 xnode_train)
+    with torch.no_grad():
+        # the kernel variants at their phases' shapes: the path-tile #1/#2
+        # (and #2's two variants at the cube's net), #5's global
+        # accumulator, #3-#5 a tangent chunk
+        def serve_work(tnet, m, k, method_):
+            once_, per_ = steppers.field_macs(tnet)
+            evals_ = steppers.EVALS_PER_STEP[method_]
+            flops = m * 2.0 * (steppers.lift_readout_macs(tnet) + once_
+                               + k * evals_ * per_)
+            return flops, 4.0 * (m * (tnet.F + 3) + tnet.packed().numel()
+                                 + m)
+
+        hm, hN, hL = t_cfg.solver, t_cfg.N_r, t_cfg.N_t
+        dc_t = hd["route"].d_chunk
+        h_packed = t_net.packed()
+        h_states = xnode_train.u_du_fwd_cuda(t_net, h_packed, *h_chunk,
+                                             t_cfg.n_sub, hm, True)[2:]
+        h_ub = torch.randn((hN, hL), generator=cg, device=dev)
+        h_dub = torch.randn((hN, hL, dc_t), generator=cg, device=dev)
+        w_packed = wnet.packed()
+        w_states = xnode_train.u_du_fwd_cuda(wnet, w_packed, *w_args,
+                                             wcfg.n_sub, wcfg.solver,
+                                             True)[2:]
+        w_ub = torch.randn((wcfg.N_r, wcfg.N_t), generator=cg, device=dev)
+        w_dub = torch.randn((wcfg.N_r, wcfg.N_t, wcfg.dim), generator=cg,
+                            device=dev)
+        h_work = path_work(t_net, steppers, hN, hL, dc_t, t_cfg.n_sub, hm)
+        dc_u, um = hu["route"].d_chunk, u_cfg.solver
+        u_packed = u_net.packed()
+        u_states = xnode_train.u_du_fwd_cuda(u_net, u_packed, *u_chunk_args,
+                                             u_cfg.n_sub, um, True)[2:]
+        u_ub = torch.randn((u_cfg.N_r, u_cfg.N_t), generator=cg, device=dev)
+        u_dub = torch.randn((u_cfg.N_r, u_cfg.N_t, dc_u), generator=cg,
+                            device=dev)
+        u_work = path_work(u_net, steppers, u_cfg.N_r, u_cfg.N_t, dc_u,
+                           u_cfg.n_sub, um)
+        w_work = path_work(wnet, steppers, wcfg.N_r, wcfg.N_t, wcfg.dim,
+                           wcfg.n_sub, wcfg.solver)
+        bwd_t = "global" if hd["route"].bwd.global_acc else "shared"
+        lv = {p: phase_launches[p].variants for p in ("2b", "2s", "2t",
+                                                      "2t serve")}
+        chunk_label = f"a chunk of {dc_t} of d={t_cfg.dim}"
+        variant_cases = [
+            ("xnode_train", "tile", "2t",
+             lambda: xnode_train.path_forward_cuda(t_net, *h_path,
+                                                   t_cfg.n_sub, hm),
+             lambda: xnode_train.path_forward_plain(t_net, *h_path,
+                                                    t_cfg.n_sub, hm),
+             h_work["xnode_train"], lv["2t"]["xnode_train"]["tile"], 20),
+            ("xnode_train", "tile", "2b's shapes",
+             lambda: path_tile_direct(net, main_path, cfg),
+             lambda: xnode_train.path_forward_plain(net, *main_path,
+                                                    cfg.n_sub, method),
+             work["xnode_train"], lv["2b"]["xnode_train"]["tile"], 20),
+            ("xnode_train", "registers", "2b's shapes",
+             lambda: xnode_train.path_forward_cuda(net, *main_path,
+                                                   cfg.n_sub, method),
+             lambda: xnode_train.path_forward_plain(net, *main_path,
+                                                    cfg.n_sub, method),
+             work["xnode_train"], lv["2b"]["xnode_train"]["registers"], 20),
+            ("xnode_eval", "tile", "2t serve",
+             lambda: xnode_eval.evaluate_cuda(t_net, *h_serve, hk, hm),
+             lambda: xnode_eval.evaluate_plain(t_net, *h_serve, hk, hm),
+             serve_work(t_net, SERVE_POINTS, hk, hm),
+             lv["2t serve"]["xnode_eval"]["tile"], 5),
+            ("xnode_udu_bwd", "global", "2s",
+             lambda: xnode_train.u_du_bwd_cuda(
+                 wnet, w_packed, *w_args, *w_states, w_ub, w_dub, wcfg.n_sub,
+                 wcfg.solver),
+             lambda: xnode_train.u_du_bwd_plain(
+                 wnet, *w_args, *w_states, w_ub, w_dub, wcfg.n_sub,
+                 wcfg.solver),
+             w_work["xnode_udu_bwd"], lv["2s"]["xnode_udu_bwd"]["global"],
+             3),
+            ("xnode_udu_fwd", chunk_label, "2t",
+             lambda: xnode_train.u_du_fwd_cuda(t_net, h_packed, *h_chunk,
+                                               t_cfg.n_sub, hm),
+             lambda: xnode_train.u_du_fwd_plain(t_net, *h_chunk,
+                                                t_cfg.n_sub, hm),
+             h_work["xnode_udu_fwd"], hd["launches"]["xnode_udu_fwd"], 3),
+            ("xnode_udu_fwd_store", chunk_label, "2t",
+             lambda: xnode_train.u_du_fwd_cuda(t_net, h_packed, *h_chunk,
+                                               t_cfg.n_sub, hm, True),
+             lambda: xnode_train.u_du_fwd_plain(t_net, *h_chunk,
+                                                t_cfg.n_sub, hm, True),
+             h_work["xnode_udu_fwd_store"],
+             hd["launches"]["xnode_udu_fwd_store"], 3),
+            ("xnode_udu_bwd", f"{bwd_t}, {chunk_label}", "2t",
+             lambda: xnode_train.u_du_bwd_cuda(
+                 t_net, h_packed, *h_chunk, *h_states, h_ub, h_dub,
+                 t_cfg.n_sub, hm),
+             lambda: xnode_train.u_du_bwd_plain(
+                 t_net, *h_chunk, *h_states, h_ub, h_dub, t_cfg.n_sub,
+                 hm),
+             h_work["xnode_udu_bwd"], hd["launches"]["xnode_udu_bwd"], 3),
+            ("xnode_udu_bwd", f"global, a chunk of {dc_u} of d={u_cfg.dim}",
+             "2u",
+             lambda: xnode_train.u_du_bwd_cuda(
+                 u_net, u_packed, *u_chunk_args, *u_states, u_ub, u_dub,
+                 u_cfg.n_sub, um),
+             lambda: xnode_train.u_du_bwd_plain(
+                 u_net, *u_chunk_args, *u_states, u_ub, u_dub, u_cfg.n_sub,
+                 um),
+             u_work["xnode_udu_bwd"],
+             hu["launches"].variants["xnode_udu_bwd"]["global"], 3)]
+        var_rows = []
+        print(f"kernel variants ({card}), kernel the median of 20 "
+              "CUDA-event runs, plain of the reps given:")
+        for name, variant, phase, kern, plain, wk, n_launch, p_reps in \
+                variant_cases:
+            ms = time_ms(kern)
+            plain_ms = time_ms(plain, reps=p_reps, warmup=1)
+            bound_ms, bound_by = bound(*wk)
+            print(f"  {name} {variant} at {phase}: kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, bound {1e3 * bound_ms:.2f} us "
+                  f"({bound_by}; {wk[0] / 1e9:.3f} GFLOP, {wk[1] / 1e6:.3f} "
+                  f"MB), {wk[0] / (ms * 1e-3) / 1e12:.3f} TFLOP/s, "
+                  f"{n_launch} launches there")
+            var_rows.append({"kernel": name, "variant": variant,
+                             "phase": phase, "launches": n_launch, "ms": ms,
+                             "plain_ms": plain_ms, "bound_ms": bound_ms,
+                             "bound_by": bound_by})
+    return var_rows
+
+
 def phase_done(name: str, t_start: float) -> float:
     now = time.perf_counter()
     print(f"phase {name}: {now - t_start:.3f} s")
@@ -1897,11 +2641,27 @@ def main(work_root: str) -> int:
         gcfg = load_params(os.path.join(ROOT, "configs", f"{name}.yaml"))
         shipped[name] = (gcfg, xnode_train.flat_net(
             init_xnode(gcfg, device="cpu")).dims())
-    fwd_widths = sorted({dims[:2] for _, dims in shipped.values()})
+    shipped_fwd = {dims[:2] for _, dims in shipped.values()}
+    # 2s's net (64, 64) is within #1/#2's caps: a library of its own
+    wide_fwd = (WIDE["u_hidden_dim"], WIDE["u_hidden_hidden_dim"])
     disc_widths = sorted({(g.v_hidden_dim,) for g, _ in shipped.values()})
+    # 2s's library spills and takes ptxas about 100 s: it builds in a
+    # thread of its own while phases 2a-2r run, and 2s waits for it
+    wide_build = {}
+
+    def build_wide():
+        t_w = time.perf_counter()
+        try:
+            _build.build([("xnode_fwd", wide_fwd)])
+        except Exception as exc:   # re-raised by 2s
+            wide_build["error"] = exc
+        wide_build["s"] = time.perf_counter() - t_w
+
+    wide_thread = threading.Thread(target=build_wide, daemon=True)
+    wide_thread.start()
     t = time.perf_counter()
     libs = _build.build([("xnode_grad", None)]
-                        + [("xnode_fwd", w) for w in fwd_widths]
+                        + [("xnode_fwd", w) for w in sorted(shipped_fwd)]
                         + [(src, w) for src in ("disc_fwd", "disc_train")
                            for w in disc_widths])
     print(f"build: {time.perf_counter() - t:.2f} s -> {_build.build_dir()}")
@@ -1912,7 +2672,7 @@ def main(work_root: str) -> int:
                     or "spill" in line):
                 print(f"  {name}: {line.strip()}")
         # the width-specialized kernels keep every per-thread array in
-        # registers: no stack, no spills
+        # registers at the shipped widths: no stack, no spills
         frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill "
                             r"stores, (\d+) bytes spill loads", log)
         if name.startswith(("xnode_fwd", "disc_fwd", "disc_train")) and (
@@ -1961,23 +2721,31 @@ def main(work_root: str) -> int:
               f"memory a block, {disc_train.BWD_THREADS} threads, "
               f"{regs[0] if regs else '?'} registers a thread")
     # the wrapper's shared-memory rule against the bytes the launchers of
-    # #3-#5 ask for, at every shipped config, method and listed tile
+    # #3-#5 ask for, at every shipped config and the nets of 2s, 2t and 2u,
+    # method and listed tile: #3/#4 (and at d = 0 #1/#2's path-tile
+    # variant), #5 and #5's global-accumulator variant
     smem_of = ctypes.CDLL(str(libs["xnode_grad"])).xnode_udu_smem_bytes
     smem_of.restype = ctypes.c_longlong
     smem_of.argtypes = [ctypes.c_int] * 9
+    geoms = dict(shipped)
+    for name, kw in (("2s", WIDE), ("2t", D100), ("2u", D30)):
+        gcfg = load_params(CONFIG).replace(**kw)
+        geoms[name] = (gcfg, xnode_train.flat_net(
+            init_xnode(gcfg, device="cpu")).dims())
     n_geom = 0
-    for shipped_name, (gcfg, dims) in shipped.items():
+    for shipped_name, (gcfg, dims) in geoms.items():
         for method, mid in steppers.METHOD_IDS.items():
             for tile in (1, 2, 4, 8, 16):
-                for backward in (False, True):
-                    want = smem_of(int(backward), tile, gcfg.dim, *dims, mid)
-                    got = xnode_train.tile_smem_bytes(dims, gcfg.dim, method,
-                                                      tile, backward)
+                for variant, d_t in ((0, gcfg.dim), (0, 0), (1, gcfg.dim),
+                                     (2, gcfg.dim)):
+                    want = smem_of(variant, tile, d_t, *dims, mid)
+                    got = xnode_train.tile_smem_bytes(
+                        dims, d_t, method, tile, variant > 0, variant == 2)
                     if got != want:
                         raise AssertionError(
                             f"tile_smem_bytes {shipped_name} {method} "
-                            f"tile={tile} backward={backward}: {got} bytes, "
-                            f"the kernel asks for {want}")
+                            f"tile={tile} d={d_t} variant={variant}: {got} "
+                            f"bytes, the kernel asks for {want}")
                     n_geom += 1
     print(f"  xnode_grad: tile_smem_bytes equals the launchers' shared "
           f"bytes at {n_geom} geometries")
@@ -2058,7 +2826,7 @@ def main(work_root: str) -> int:
                              f"{iters} iterations")
     if not all(map(lambda v: v == v, hist["loss_u"])):
         raise AssertionError("training produced a non-finite loss_u")
-    train_launches = dict(launches)
+    train_launches = Launches(launches, launches.variants)
     launches["xnode_eval"] = serve_launches["xnode_eval"]
     trained = solver.state.u_params
     t_phase = phase_done("2b", t_phase)
@@ -2142,7 +2910,7 @@ def main(work_root: str) -> int:
             raise AssertionError(f"resumed launches {resumed_launches}, "
                                  f"expected {want}")
 
-        xnode_eval.KERNEL.launches = 0
+        zero_launches(kernels)
         u_resumed = resumed.predict(pts)
         torch.cuda.synchronize()
         rel_resumed = float(rel_err(u_resumed, problem.u_sol(pts), ones,
@@ -2152,15 +2920,16 @@ def main(work_root: str) -> int:
             dtype=torch.float32)
         with torch.no_grad():
             u_best = evaluate_points(best, pts, problem, cfg)
+        torch.cuda.synchronize()
+        c_serve = read_launches(kernels)
         rel_best = float(rel_err(u_best, problem.u_sol(pts), ones, cube.V(),
                                  cfg.p))
         print(f"served the resumed primal on {SERVE_POINTS} points: rel-L2 "
-              f"{rel_resumed:.6f} ({xnode_eval.KERNEL.launches} launches of "
-              f"#1); best weights through load_reference_state_dict: rel-L2 "
-              f"{rel_best:.6f}")
-        if xnode_eval.KERNEL.launches != 2:
-            raise AssertionError("serving the resumed primal and the best "
-                                 "weights did not launch kernel #1")
+              f"{rel_resumed:.6f} (#1 by variant "
+              f"{c_serve.variants['xnode_eval']}); best weights through "
+              f"load_reference_state_dict: rel-L2 {rel_best:.6f}")
+        check_served("the resumed primal and the best weights (2c)", c_serve,
+                     2)
         if not rel_resumed < REL_L2_LIMIT:
             raise AssertionError(f"resumed primal serves at rel-L2 "
                                  f"{rel_resumed} >= {REL_L2_LIMIT}")
@@ -2171,7 +2940,7 @@ def main(work_root: str) -> int:
         launches[name] = cli_launches[name]
     phase_launches = {"2a": serve_launches, "2b": train_launches,
                       "2c": cli_launches, "2c resume": resumed_launches,
-                      "2c serve": {"xnode_eval": 2}}
+                      "2c serve": c_serve}
     t_phase = phase_done("2c", t_phase)
 
     # 2d. training the shrinking cone ---------------------------------------
@@ -2199,22 +2968,22 @@ def main(work_root: str) -> int:
     if not all(map(lambda v: v == v, chist["loss_u"])):
         raise AssertionError("cone training produced a non-finite loss_u")
     cpts = inside_points(cone, SERVE_POINTS, gen, cone.r)
-    xnode_eval.KERNEL.launches = 0
+    zero_launches(kernels)
     u_cone = csolver.predict(cpts)
     torch.cuda.synchronize()
+    cone_serve = read_launches(kernels)
     rel_cone = float(rel_err(u_cone, cproblem.u_sol(cpts),
                              torch.ones_like(u_cone, dtype=torch.bool),
                              cone.V(), ccfg.p))
     print(f"served the trained cone primal through predict at "
           f"{SERVE_POINTS} points inside the cone: rel-L2 {rel_cone:.6f} "
-          f"({xnode_eval.KERNEL.launches} launch of #1)")
-    if xnode_eval.KERNEL.launches != 1:
-        raise AssertionError("serving the cone did not launch kernel #1 once")
+          f"(#1 by variant {cone_serve.variants['xnode_eval']})")
+    check_served("the cone (2d)", cone_serve)
     if u_cone.shape != (SERVE_POINTS,) or not rel_cone < CONE_SERVE_LIMIT:
         raise AssertionError(f"the cone serves at rel-L2 {rel_cone} >= "
                              f"{CONE_SERVE_LIMIT}")
     phase_launches["2d"] = cone_launches
-    phase_launches["2d serve"] = {"xnode_eval": 1}
+    phase_launches["2d serve"] = cone_serve
     t_phase = phase_done("2d", t_phase)
 
     # 2e. the hourglass through the command line, fused_v -------------------
@@ -2281,11 +3050,11 @@ def main(work_root: str) -> int:
                                  f"{hg_res_launches}")
     hpts = inside_points(hg, SERVE_POINTS, gen, hg.r * (hg.T - hg.T0))
     h_entry, h_from_h = hg.entry(hpts)
-    xnode_eval.KERNEL.launches = 0
+    zero_launches(kernels)
     u_hg = hresumed.predict(hpts)
     torch.cuda.synchronize()
-    if xnode_eval.KERNEL.launches != 1:
-        raise AssertionError("serving the hourglass did not launch kernel #1")
+    hg_serve = read_launches(kernels)
+    check_served("the resumed hourglass (2e)", hg_serve)
     with torch.no_grad():
         u_hg_scan = evaluate_points(hresumed.state.u_params, hpts, hproblem,
                                     hresumed.cfg.replace(use_pallas=False),
@@ -2305,7 +3074,7 @@ def main(work_root: str) -> int:
         u_hg, u_hg_scan))
     phase_launches["2e"] = hg_launches
     phase_launches["2e resume"] = hg_res_launches
-    phase_launches["2e serve"] = {"xnode_eval": 1}
+    phase_launches["2e serve"] = hg_serve
     t_phase = phase_done("2e", t_phase)
 
     # 2f. the hourglass to 1% with the drop_lr recipe ---------------------
@@ -2313,7 +3082,7 @@ def main(work_root: str) -> int:
                                  card)
     errs["xnode_eval"] = max(errs["xnode_eval"], hg_until["err"])
     phase_launches["2f"] = hg_until["launches"]
-    phase_launches["2f serve"] = {"xnode_eval": 1}
+    phase_launches["2f serve"] = hg_until["serve_launches"]
     t_phase = phase_done("2f", t_phase)
 
     # 2g. paper example 4.3 at d=20 ---------------------------------------
@@ -2329,7 +3098,7 @@ def main(work_root: str) -> int:
     # 2i. ensemble: 4 at d = 20 -------------------------------------------
     ens = ensemble_d20(kernels, os.path.join(work_root, "2i"), dev, card)
     phase_launches["2i"] = ens["launches"]
-    phase_launches["2i serve"] = {"xnode_eval": 1}
+    phase_launches["2i serve"] = ens["serve_launches"]
     t_phase = phase_done("2i", t_phase)
 
     # 2j. the WAN primal, and through the command line with fused_v ---------
@@ -2376,7 +3145,8 @@ def main(work_root: str) -> int:
     for r, res in enumerate(mg["ranks"]):
         for name in ("step", "until", "fused_v", "serve", "ensemble",
                      "tangent"):
-            phase_launches[f"2r rank {r} {name}"] = res[name]["launches"]
+            phase_launches[f"2r rank {r} {name}"] = Launches(
+                res[name]["launches"], res[name]["variants"])
     print(json.dumps({"slice14": {
         "chunked": {k: chunked[k] for k in ("iterations", "rel_err", "run",
                                             "wall_s", "syncs", "step_ms",
@@ -2392,6 +3162,53 @@ def main(work_root: str) -> int:
                       "nccl_bitwise": mg["nccl_bitwise"]},
         "card": card}}))
     t_phase = phase_done("2r", t_phase)
+
+    # 2s. the wide cube, #5 with its accumulator in global memory -----------
+    wide_thread.join()
+    if "error" in wide_build:
+        raise wide_build["error"]
+    wide_name = _build.lib_name("xnode_fwd", wide_fwd)
+    log = (_build.build_dir() / f"{wide_name}.log").read_text()
+    print(f"{wide_name} built in {wide_build['s']:.2f} s beside phases "
+          "2a-2r: " + "; ".join(line.strip() for line in log.splitlines()
+                                if "registers" in line or "spill" in line))
+    wide = wide_cube(kernels, os.path.join(work_root, "2s"), pts, card)
+    phase_launches["2s"] = wide["launches"]
+    phase_launches["2s serve"] = wide["serve_launches"]
+    t_phase = phase_done("2s", t_phase)
+
+    # 2t. d = 100 with its Fourier bank: the path-tile #1/#2, chunked #3-#5 --
+    hd = d100_fourier(kernels, os.path.join(work_root, "2t"), card)
+    phase_launches["2t"] = hd["launches"]
+    phase_launches["2t serve"] = hd["serve_launches"]
+    t_phase = phase_done("2t", t_phase)
+
+    # 2u. d = 30 at H = Hh = 48: chunked #3-#5 drive the training ----------
+    hu = d30_chunked(kernels, os.path.join(work_root, "2u"), card)
+    phase_launches["2u"] = hu["launches"]
+    print(json.dumps({"wide_nets": {
+        "wide_cube": {"iterations": wide["hist"]["iterations_run"],
+                      "least_rel_err": wide["best"],
+                      "rel_err_final": wide["hist"]["rel_err_final"],
+                      "one_percent_at": wide["hit"],
+                      "served_rel_err": wide["served"],
+                      "wall_train_s": wide["hist"]["wall_train_s"],
+                      "route": wide["route"]._asdict()},
+        "d100_fourier": {"iterations": hd["hist"]["iterations_run"],
+                         "rel_err": [float(r)
+                                     for r in hd["hist"]["rel_err"]],
+                         "served_rel_err": hd["served"],
+                         "wall_train_s": hd["hist"]["wall_train_s"],
+                         "chunks": hd["chunks"],
+                         "route": hd["route"]._asdict()},
+        "d30_chunked": {"iterations": hu["hist"]["iterations_run"],
+                        "rel_err": [float(r) for r in hu["hist"]["rel_err"]],
+                        "loss_u": [float(v) for v in hu["hist"]["loss_u"]],
+                        "wall_train_s": hu["hist"]["wall_train_s"],
+                        "chunks": hu["chunks"],
+                        "route": hu["route"]._asdict()},
+        "card": card}}))
+    t_phase = phase_done("2u", t_phase)
 
     # 3. each kernel against its plain version on the card -----------------
     net = xnode_train.flat_net(model)
@@ -2832,6 +3649,14 @@ def main(work_root: str) -> int:
               f"I {float(first[1]):.6g}, norm {float(first[2]):.6g} over "
               f"{groups} exit groups; values and input gradients of two "
               "evaluations bitwise equal")
+
+    checked = variant_checks(
+        L=L, N=N, batch=batch, batch20=batch20, cfg=cfg, cfg20=cfg20,
+        cube=cube, check_udu_near_kinks=check_udu_near_kinks, d=d, dev=dev,
+        errs=errs, eval_args=eval_args, hd=hd, hu=hu, in20=in20,
+        k_steps=k_steps,
+        net=net, net_tr=net_tr, path_seed=path_seed, problem=problem,
+        pts=pts, tan_inputs=tan_inputs, wide=wide, xs=xs)
     t_phase = phase_done("3", t_phase)
 
     # 4. times at the main path's shapes ------------------------------------
@@ -2943,6 +3768,23 @@ def main(work_root: str) -> int:
                 "phases": {p: c[name] for p, c in phase_launches.items()
                            if c.get(name)},
             })
+
+        var_errs = checked.pop("var_errs")
+        var_rows = variant_times(card=card, cfg=cfg, cg=cg, dev=dev, hd=hd,
+                                 hu=hu,
+                                 method=method, net=net,
+                                 phase_launches=phase_launches, work=work,
+                                 **checked)
+        for row in rows:
+            row["variants"] = {
+                p: c.variants[row["name"]] for p, c in phase_launches.items()
+                if c.get(row["name"]) and row["name"] in getattr(
+                    c, "variants", {})}
+            row["variant_times"] = [
+                {k: v for k, v in vr.items() if k != "kernel"}
+                for vr in var_rows if vr["kernel"] == row["name"]]
+        print(json.dumps({"kernel_variants": {
+            "errs": var_errs, "times": var_rows, "card": card}}))
     kernel_ms = {row["name"]: row["ms"] for row in rows}
     t_phase = phase_done("4", t_phase)
 

@@ -246,6 +246,75 @@ def test_u_du_fused_values_and_grads_match_pallas(extra):
         assert_grad_close(tl.bias.grad.numpy(), np.asarray(jl["b"]))
 
 
+def test_u_du_fused_in_tangent_chunks_matches_pallas_chunks():
+    # d = 4 in two launches of two directions (JAX's d_chunk): u, du and
+    # the weight gradient against the JAX package's chunked kernels in
+    # interpret mode, and against the port's own full-d call
+    jcfg, tcfg, jparams, tparams = shared_params(15, dim=4)
+    jb, tb = batch_pair(BASE["N_r"], BASE["N_t"], 4, seed=16)
+    jp, tp = jload_problem("Ex4_1_funcs"), load_problem("Ex4_1_funcs")
+    rng = np.random.default_rng(17)
+    cu = rng.normal(size=(BASE["N_r"], BASE["N_t"])).astype(np.float32)
+    cd = rng.normal(size=(BASE["N_r"], BASE["N_t"], 4)).astype(np.float32)
+
+    def contraction(u, du, lib):
+        return ((u * lib.asarray(cu)).sum() + (du * lib.asarray(cd)).sum()
+                + (lib.tanh(u) * du[..., 3]).sum())
+
+    with jax.default_matmul_precision("highest"):
+        ju, jdu = jtrain.fused_from_batch(jparams, jb, jp, jcfg,
+                                          interpret=True, d_chunk=2)
+        jgrad = jax.grad(lambda p: contraction(
+            *jtrain.fused_from_batch(p, jb, jp, jcfg, interpret=True,
+                                     d_chunk=2), jnp))(jparams)
+    inputs = xnode_train.path_tangent_inputs(tb, tp, tcfg)
+
+    def port(d_chunk):
+        return xnode_train.u_du_fused(
+            tparams, *inputs, tb.times, tb.mask, tb.t_start,
+            n_sub=tcfg.n_sub, method=tcfg.solver,
+            scale=float(tcfg.u_scale_eff), d_chunk=d_chunk)
+
+    tu, tdu = port(2)
+    np.testing.assert_allclose(tu.detach().numpy(), np.asarray(ju), **TOL)
+    np.testing.assert_allclose(tdu.detach().numpy(), np.asarray(jdu), **TOL)
+    contraction(tu, tdu, torch).backward()
+    layers = [*tparams.lift, *tparams.field, tparams.readout]
+    chunked = [a.grad.clone() for a in tparams.parameters()]
+    for tl, jl in zip(layers, [*jgrad["lift"], *jgrad["field"],
+                               jgrad["readout"]]):
+        assert_grad_close(tl.weight.grad.numpy(), np.asarray(jl["w"]).T)
+        assert_grad_close(tl.bias.grad.numpy(), np.asarray(jl["b"]))
+    tparams.zero_grad()
+    fu, fdu = port(None)
+    torch.testing.assert_close(tu, fu, rtol=0, atol=0)
+    torch.testing.assert_close(tdu, fdu, **TOL)
+    contraction(fu, fdu, torch).backward()
+    for a, g in zip(tparams.parameters(), chunked):
+        assert_grad_close(g.numpy(), a.grad.numpy())
+
+
+@pytest.mark.parametrize("d_chunk", [3, 5, -1])
+def test_d_chunk_must_divide_d(d_chunk):
+    # as in the JAX package: a chunk that does not divide d raises
+    _, tcfg, jparams, tparams = shared_params(18, dim=4)
+    jb, tb = batch_pair(5, BASE["N_t"], 4, seed=19)
+    jp, tp = jload_problem("Ex4_1_funcs"), load_problem("Ex4_1_funcs")
+    inputs = xnode_train.path_tangent_inputs(tb, tp, tcfg)
+    with pytest.raises(ValueError, match=f"d_chunk={d_chunk} must divide "
+                       "d=4"):
+        xnode_train.u_du_fused(tparams, *inputs, tb.times, tb.mask,
+                               tb.t_start, n_sub=1, method="midpoint",
+                               scale=1.0, d_chunk=d_chunk)
+    if d_chunk > 0:
+        jinputs = (jnp.zeros((5, 4)), jnp.zeros((5, 4, 4)), jnp.zeros(5),
+                   jnp.zeros((5, 4)), jb.times, jb.mask, jb.t_start)
+        with pytest.raises(ValueError, match=f"d_chunk={d_chunk} must "
+                           "divide d=4"):
+            jtrain.u_du_fused(jparams, *jinputs, n_sub=1, method="midpoint",
+                              scale=1.0, interpret=True, d_chunk=d_chunk)
+
+
 @pytest.mark.parametrize("domain,dim,problem,ff", [
     ("Hypercube", 5, "Ex4_1_funcs", 1), ("NSphere_THourglass", 3,
                                          "Ex4_1_funcs", 0),
@@ -330,7 +399,9 @@ def cuda_signature(symbol):
 
 @pytest.mark.parametrize("kernel", [xnode_train.FWD_KERNEL,
                                     xnode_train.FWD_STORE_KERNEL,
-                                    xnode_train.BWD_KERNEL],
+                                    xnode_train.BWD_KERNEL,
+                                    xnode_train.BWD_GLOBAL_KERNEL,
+                                    xnode_train.PATH_TILE_KERNEL],
                          ids=lambda k: k.symbol)
 def test_grad_ctypes_argtypes_match_c_signature(kernel):
     assert kernel.source == "xnode_grad"
@@ -390,8 +461,9 @@ def test_grad_tile_rule_fits_shipped_configs(name, method):
     cfg, net = shipped_dims(name)
     dims = net.dims()
     for backward in (False, True):
-        tile, threads = xnode_train.grad_tile(dims, cfg.dim, method,
-                                              backward)
+        tile, threads, global_acc = xnode_train.grad_tile(dims, cfg.dim,
+                                                          method, backward)
+        assert not global_acc  # the shipped nets keep #5's shared variant
         smem = xnode_train.tile_smem_bytes(dims, cfg.dim, method, tile,
                                            backward)
         assert 0 < smem <= 232448
@@ -423,16 +495,17 @@ def test_grad_tile_rule_picks_the_swept_shapes(name, fwd, bwd):
     # own solver, as timed by the tile sweep on the card
     cfg, net = shipped_dims(name)
     assert xnode_train.grad_tile(net.dims(), cfg.dim, cfg.solver,
-                                 False) == fwd
+                                 False) == xnode_train.GradTile(*fwd)
     assert xnode_train.grad_tile(net.dims(), cfg.dim, cfg.solver,
-                                 True) == bwd
+                                 True) == xnode_train.GradTile(*bwd)
 
 
 @pytest.mark.parametrize("n_paths", [1, 7, 4000, 4001])
 def test_bwd_tile_walk_covers_every_path_once(n_paths):
     cfg, net = shipped_dims("cube_pde")
     dims = net.dims()
-    tile, threads = xnode_train.grad_tile(dims, cfg.dim, cfg.solver, True)
+    tile, threads, _ = xnode_train.grad_tile(dims, cfg.dim, cfg.solver,
+                                             True)
     smem = xnode_train.tile_smem_bytes(dims, cfg.dim, cfg.solver, tile, True)
     blocks = xnode_train.bwd_blocks(n_paths, tile, smem, threads, sms=132)
     assert 1 <= blocks <= -(-n_paths // tile)

@@ -157,6 +157,59 @@ def test_u_forward_fused_plain_variants_match_pallas(extra):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+def no_tangents(n, F):
+    return torch.zeros((n, 0, F)), torch.zeros((n, 0))
+
+
+@pytest.mark.parametrize("entry", ["metric", "serving"])
+def test_tangentless_twin_matches_fwd_only_and_xnode_eval(entry):
+    # the plain version of #1/#2's tile variant: #3's forward with d = 0,
+    # against the JAX package's _fwd_only_kernel (the metric, masked paths
+    # with t_start > 0, midpoint) and its serving kernel (one interval from
+    # t_start a point, dt = (t - t_start) / k_steps, rk4), interpret mode
+    from xnode_wan_tpu_torch.models.xnode import path_seed_fn, spatial_features
+    jcfg, tcfg, jparams, tparams = shared(seed=7, fourier_features=1,
+                                          solver="midpoint")
+    net = xnode_train.flat_net(tparams)
+    if entry == "metric":
+        jb, tb = batch_pair(17, 6, masked=True, seed=8)
+        jp, tp = jload_problem("cube_pde"), load_problem("cube_pde")
+        want = jtrain.u_forward_fused(jparams, jb, jp, jcfg, interpret=True)
+        xs = tb.space[:, 0, :]
+        t0, dt = xnode_train._prep_intervals(tb.times, tb.mask, tb.t_start,
+                                             tcfg.n_sub)
+        feats, seed = spatial_features(xs, 1), path_seed_fn(tb, tp, tcfg)(xs)
+        u, du = xnode_train.u_du_fwd_plain(
+            net, t0, dt, feats, no_tangents(17, net.F)[0], seed,
+            no_tangents(17, net.F)[1], tcfg.n_sub, "midpoint")
+        got = u * float(tcfg.u_scale_eff)
+        assert du.shape == (17, 6, 0)
+        torch.testing.assert_close(u, xnode_train.path_forward_plain(
+            net, t0, dt, feats, seed, tcfg.n_sub, "midpoint"),
+            rtol=1e-6, atol=1e-6)
+    else:
+        rng = np.random.default_rng(9)
+        m, k = 23, 5
+        pts = np.concatenate([rng.uniform(0.3, 1, (m, 1)),
+                              rng.uniform(-1, 1, (m, 3))], -1).astype(
+                                  np.float32)
+        seed = rng.normal(size=m).astype(np.float32)
+        t_start = rng.uniform(0, 0.3, m).astype(np.float32)
+        feats = np.array(jfeatures(jnp.asarray(pts[:, 1:]), 1))
+        want = jeval.fused_evaluate(jparams, jnp.asarray(pts),
+                                    jnp.asarray(seed), k,
+                                    t_start=jnp.asarray(t_start),
+                                    feats=jnp.asarray(feats), method="rk4",
+                                    interpret=True)
+        t, ts = torch.as_tensor(pts[:, 0]), torch.as_tensor(t_start)
+        u, _ = xnode_train.u_du_fwd_plain(
+            net, ts[:, None], ((t - ts) / k)[:, None], torch.as_tensor(feats),
+            no_tangents(m, net.F)[0], torch.as_tensor(seed),
+            no_tangents(m, net.F)[1], k, "rk4")
+        got = u[:, 0]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 @pytest.mark.parametrize("n_sub", [1, 2])
 def test_prep_intervals_matches_jax(n_sub):
     rng = np.random.default_rng(n_sub)
@@ -317,3 +370,26 @@ def test_build_dir_keyed_on_sources():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     with open(os.path.join(REPO, ".gitignore")) as fh:
         assert "xnode_wan_tpu_torch/_build/" in fh.read().split()
+
+
+def test_kernel_variants_count_their_launches_together():
+    # #1's register kernel and path-tile variant count as one kernel
+    lv = xnode_eval.LAUNCHES
+    kept = lv.by_variant()
+    try:
+        xnode_eval.KERNEL.launches, xnode_eval.TILE_KERNEL.launches = 2, 3
+        assert lv.launches == 5
+        assert lv.by_variant() == {"registers": 2, "tile": 3}
+        lv.launches = 0
+        assert lv.by_variant() == {"registers": 0, "tile": 0}
+        with pytest.raises(ValueError, match="reset to 0"):
+            lv.launches = 1
+    finally:
+        xnode_eval.KERNEL.launches = kept["registers"]
+        xnode_eval.TILE_KERNEL.launches = kept["tile"]
+    assert xnode_train.PATH_LAUNCHES.variants == {
+        "registers": xnode_train.KERNEL,
+        "tile": xnode_train.PATH_TILE_KERNEL}
+    assert xnode_train.BWD_LAUNCHES.variants == {
+        "shared": xnode_train.BWD_KERNEL,
+        "global": xnode_train.BWD_GLOBAL_KERNEL}

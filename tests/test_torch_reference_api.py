@@ -91,6 +91,46 @@ def test_from_reference_matches_jax(tmp_path):
         jax.config.update("jax_enable_x64", prior)
 
 
+def test_l_norm_reference_api_matches_jax(tmp_path):
+    # the reference-signature L^p norm (error and solution) on the same
+    # weights and a masked batch, f64 to 1e-9
+    from xnode_wan_tpu.utils.metrics import l_norm_reference_api as jl_norm
+    from xnode_wan_tpu_torch.utils.metrics import l_norm_reference_api
+    prior = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    try:
+        params = dict(SMALL, x64=True)
+        jfuncs, tfuncs = reference_funcs(jnp), reference_funcs(torch)
+        js = JSolver.from_reference(params, *jfuncs[:6], device=None,
+                                    path=str(tmp_path / "jax"),
+                                    func_u_sol=jfuncs[6], p=2)
+        ts = NODEWANSolver.from_reference(params, *tfuncs[:6], device="cpu",
+                                          path=str(tmp_path / "torch"),
+                                          func_u_sol=tfuncs[6], p=2)
+        tree = jax.tree.map(np.asarray, js.state.u_params)
+        ts.members[0].u_params = params_from_jax(tree, device="cpu",
+                                                 dtype=torch.float64)
+        rng = np.random.default_rng(1)
+        n, L = 11, 6
+        times = np.sort(rng.uniform(0, 1, (n, L)), axis=1)
+        x = np.concatenate(
+            [times[:, :, None],
+             np.broadcast_to(rng.uniform(-1, 1, (n, 1, 2)), (n, L, 2))], -1)
+        arrays = [np.ascontiguousarray(x), rng.uniform(size=(n, L)) < 0.7,
+                  np.zeros(n), np.ones(n, bool)]
+        jb = jsampling.PathBatch(*map(jnp.asarray, arrays))
+        tb = PathBatch(*map(torch.as_tensor, arrays))
+        for error in (True, False):
+            want = jl_norm(jb, js.u_net, 2, js.func_u_sol, 4.0, n,
+                           error=error)
+            got = l_norm_reference_api(tb, ts.u_net, 2, ts.func_u_sol, 4.0,
+                                       n, error=error)
+            assert got.dtype == torch.float64
+            np.testing.assert_allclose(float(got), float(want), rtol=1e-9)
+    finally:
+        jax.config.update("jax_enable_x64", prior)
+
+
 def test_reference_stop_gets_fresh_points_and_stops_there(tmp_path):
     seen = []
 

@@ -275,3 +275,59 @@ def test_solver_defaults_to_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         NODEWANSolver(SolverConfig(**STEP), load_problem("cube_pde", 2))
+
+
+@pytest.mark.parametrize("entry", ["train_until", "train_chunked"])
+def test_debug_nans_raises_at_the_poisoned_iteration(entry, tmp_path):
+    # two clean iterations, then a NaN put into the adversary: the next
+    # iteration's loss and updated weights are not finite, and debug_nans
+    # names it from the metrics' host copy (each iteration's in
+    # train_until, one a chunk in train_chunked)
+    solver = NODEWANSolver(SolverConfig(**dict(STEP, debug_nans=True)),
+                           load_problem("cube_pde", 2), device="cpu",
+                           work_dir=str(tmp_path))
+    if entry == "train_until":
+        hist = solver.train_until(1e-9, 2)
+        assert all(np.isfinite(hist["loss_u"]))
+    else:
+        m = solver.train_chunked(2, chunk=2, log=False)
+        assert "weights_nan" not in m and np.isfinite(m["loss_u"])
+    with torch.no_grad():
+        next(solver.state.v_params.parameters()).fill_(float("nan"))
+    with pytest.raises(FloatingPointError, match="outer iteration 2 gave "
+                       r"NaN \(.*loss_u.*weights\)"):
+        if entry == "train_until":
+            solver.train_until(1e-9, 3)
+        else:
+            solver.train_chunked(4, chunk=4, log=False)
+
+
+def test_debug_nans_off_lets_non_finite_values_through(tmp_path):
+    solver = NODEWANSolver(SolverConfig(**STEP), load_problem("cube_pde", 2),
+                           device="cpu", work_dir=str(tmp_path))
+    with torch.no_grad():
+        next(solver.state.v_params.parameters()).fill_(float("nan"))
+    m = solver._to_host(solver._outer_step())
+    assert "weights_nan" not in m and not np.isfinite(m["loss_u"])
+
+
+def test_debug_nans_lets_inf_through_as_jax_debug_nans_does(tmp_path):
+    # jax_debug_nans raises on NaN only: an inf loss (the interior term's
+    # I^2 overflows f32 on a cube of volume 2^100) trains on, a NaN in a
+    # metric or in the weights raises, naming its iteration
+    solver = NODEWANSolver(SolverConfig(**dict(STEP, debug_nans=True)),
+                           load_problem("cube_pde", 2), device="cpu",
+                           work_dir=str(tmp_path))
+    inf, nan = float("inf"), float("nan")
+    rows = [{"loss_u": inf, "rel_err": 0.5, "weights_nan": 0.0},
+            {"loss_u": -inf, "rel_err": 0.4}]
+    solver._check_nans(rows, 6)
+    assert all("weights_nan" not in m for m in rows)
+    with pytest.raises(FloatingPointError,
+                       match=r"outer iteration 8 gave NaN \(rel_err\)"):
+        solver._check_nans([{"loss_u": inf, "rel_err": 0.5},
+                            {"loss_u": inf, "rel_err": 0.5},
+                            {"loss_u": inf, "rel_err": nan}], 6)
+    with pytest.raises(FloatingPointError,
+                       match=r"outer iteration 6 gave NaN \(weights\)"):
+        solver._check_nans([{"loss_u": inf, "weights_nan": 1.0}], 6)

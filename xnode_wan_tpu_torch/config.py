@@ -4,9 +4,16 @@ Same YAML key set, defaults, coercions and validation as the JAX
 package's ``xnode_wan_tpu/config.py``: a flat reference-style params dict
 is parsed by name into a frozen dataclass, and unknown keys are rejected.
 Every shipped config loads and the trainer (``training.py``) acts on the
-training fields; the JAX package's compiler knobs (``fused_chunk``,
-``compile_cache``, ``scan_unroll``, ``window_target_s``, ``debug_nans``)
-are read and unused.
+training fields, ``debug_nans`` among them (a ``FloatingPointError`` at
+the first outer iteration with a NaN loss, metric or weight). The
+JAX package's compiler knobs (``compile_cache``, ``scan_unroll``,
+``window_target_s``) are read and unused, and so are ``fused_chunk`` and
+``fused_chunk_max``: in the JAX package they let the u side run the
+Pallas kernels in tangent chunks instead of its XLA route, at most
+``fused_chunk_max`` of them. The port has no XLA route to prefer, so it
+needs no opt-in: its u side runs kernels #3-#5 in the largest tangent
+chunk that fits whenever the full d does not
+(``ops/kernels/xnode_train.py::u_chunk``).
 """
 
 from __future__ import annotations

@@ -5,6 +5,15 @@
 //   #3 _fwd_kernel        -> xnode_udu_fwd_launch        (u, du)
 //   #4 _fwd_store_kernel  -> xnode_udu_fwd_store_launch  (u, du, hs, hts)
 //   #5 _bwd_kernel        -> xnode_udu_bwd_launch        (weight cotangents)
+//                            xnode_udu_bwd_global_launch (the same, with the
+//                            gradient accumulator in global memory)
+//
+// and, for nets past the register kernels' caps (xnode_fwd.cu: a width
+// above 64 or a field input above 128), the tangentless path forward of
+// #2 (_fwd_only_kernel) and of serving #1 (xnode_eval.py::_kernel):
+// xnode_path_tile_launch, #3's body with d = 0 (no tangent rows), its
+// weights read from global memory, so no width has a cap. Serving maps a
+// point to a path of one interval from t_start with n_sub = k_steps.
 //
 // Bounds on an H100 SXM (67 TFLOP/s FP32 without tensor cores, 3.35 TB/s)
 // at the d=5 main path (N = 4,000, L = 20, midpoint, n_sub = 1, H = 20,
@@ -59,6 +68,14 @@
 // xnode_udu_reduce_kernel sums the rows in a fixed order, so two launches
 // give bitwise equal gradients.
 //
+// Where round4(n_params) floats of accumulator do not fit beside the rest of
+// the block (H = Hh = 64 at d = 5: 185 KB), the GACC variant accumulates
+// straight into the block's own row of `partial` in global memory: the same
+// owner thread adds the same sums in the same order, and the __syncthreads
+// that order the shared accumulator's phases also order these writes, so
+// the result is bitwise that of the shared variant at the same tile,
+// threads and grid.
+//
 // FP32 FMAs throughout: TF32 tensor cores keep about three digits, which
 // the kernel-against-plain limit (2e-4 of each tensor's largest value)
 // does not allow; a 3xTF32 split was not tried.
@@ -112,22 +129,24 @@ __host__ __device__ inline int xg_stages(int method) {
 // [width][S]; the primal row index of every row (R ints) follows `total`.
 struct XgLayout {
   int S, R;
-  int acc, fe, cf, sd, ub, t0, dt;    // acc: #5's gradient accumulator
+  int acc, fe, cf, sd, ub, t0, dt;    // acc: #5's shared accumulator (-1: GACC)
   int hs, hb, hb0, kb, yb;            // [H][S]: #5's start state, cotangents
   int st, ys, k, accu, he, hcur, fld;  // state, stage inputs, stage, sum, end
   int stage;                          // #5's cp.async staging (16-byte aligned)
   int total;
 };
 
-__host__ __device__ inline XgLayout xg_layout(bool bwd, int P, int d, int H,
-                                              int Hh, int F, int n_lift,
-                                              int n_field, int method,
-                                              int n_params) {
+__host__ __device__ inline XgLayout xg_layout(bool bwd, bool gacc, int P,
+                                              int d, int H, int Hh, int F,
+                                              int n_lift, int n_field,
+                                              int method, int n_params) {
   XgLayout y;
   y.R = P * (1 + d);
   const int S = y.S = xg_stride(y.R), ns = xg_stages(method);
   int o = 0;
-  y.acc = o;  o += bwd ? xg_round4(n_params) : 0;
+  const bool shared_acc = bwd && !gacc;
+  y.acc = shared_acc ? o : -1;
+  o += shared_acc ? xg_round4(n_params) : 0;
   y.fe = o;   o += F * S;
   y.cf = o;   o += Hh * S;
   y.sd = o;   o += S;
@@ -554,8 +573,8 @@ xnode_udu_fwd_kernel(const float* __restrict__ params, int n_params,
                      int n_field, int n_sub, int method, int P) {
   extern __shared__ __align__(16) float smem[];
   const XgNet n = xg_net(params, H, Hh, F, n_lift, n_field);
-  const XgLayout y = xg_layout(false, P, d, H, Hh, F, n_lift, n_field,
-                               method, n_params);
+  const XgLayout y = xg_layout(false, false, P, d, H, Hh, F, n_lift,
+                               n_field, method, n_params);
   XgTile g;
   g.P = P;
   g.d = d;
@@ -746,6 +765,7 @@ __device__ __forceinline__ void xg_prefetch(
   __pipeline_commit();
 }
 
+template <bool GACC>
 __global__ void __launch_bounds__(XG_MAX_THREADS, 1)
 xnode_udu_bwd_kernel(const float* __restrict__ params, int n_params,
                      const float* __restrict__ t0,
@@ -763,8 +783,8 @@ xnode_udu_bwd_kernel(const float* __restrict__ params, int n_params,
                      int n_field, int n_sub, int method, int P, int vec) {
   extern __shared__ __align__(16) float smem[];
   const XgNet n = xg_net(params, H, Hh, F, n_lift, n_field);
-  const XgLayout y = xg_layout(true, P, d, H, Hh, F, n_lift, n_field, method,
-                               n_params);
+  const XgLayout y = xg_layout(true, GACC, P, d, H, Hh, F, n_lift, n_field,
+                               method, n_params);
   XgTile g;
   g.P = P;
   g.d = d;
@@ -773,7 +793,7 @@ xnode_udu_bwd_kernel(const float* __restrict__ params, int n_params,
   int* prim = reinterpret_cast<int*>(smem + y.total);
   g.prim = prim;
   const int S = g.S, R = g.R, HS_ = H * S;
-  float* acc = smem + y.acc;
+  float* acc = GACC ? partial + (size_t)blockIdx.x * n_params : smem + y.acc;
   float *FE = smem + y.fe, *CF = smem + y.cf, *SD = smem + y.sd,
         *UB = smem + y.ub, *T0 = smem + y.t0, *DT = smem + y.dt,
         *ST = smem + y.stage;
@@ -876,6 +896,7 @@ xnode_udu_bwd_kernel(const float* __restrict__ params, int n_params,
     xg_outer(acc, 1, cur, H, SD, 1, R, S);
     xg_rowsum(acc + H, cur, H, g);
   }
+  if (GACC) return;  // the row is already in partial
   __syncthreads();
   for (int i = threadIdx.x; i < n_params; i += blockDim.x)
     partial[(size_t)blockIdx.x * n_params + i] = acc[i];
@@ -899,7 +920,7 @@ __global__ void xnode_udu_reduce_kernel(const float* __restrict__ partial,
 static cudaError_t xg_checks(int device, int n_params, int N, int L, int d,
                              int H, int Hh, int F, int n_lift, int n_field,
                              int n_sub, int method, int tile, int threads) {
-  if (N < 0 || L < 0 || d < 1 || n_sub < 1 || H < 1 || Hh < 1 || F < 0 ||
+  if (N < 0 || L < 0 || d < 0 || n_sub < 1 || H < 1 || Hh < 1 || F < 0 ||
       n_lift < 1 || n_field < 2 || method < XN_EULER || method > XN_RK4 ||
       n_params != xn_n_params(H, Hh, F, n_lift, n_field) || tile < 1 ||
       threads < 32 || threads % 32 != 0 || threads > XG_MAX_THREADS)
@@ -915,14 +936,14 @@ static cudaError_t xg_allow_smem(const void* kernel, size_t smem) {
                               (int)smem);
 }
 
-// Shared bytes of one block of #3/#4 (backward 0) or #5 (backward 1) at
-// this geometry: what the launchers ask for.
+// Shared bytes of one block of #3/#4 (backward 0), #5 (backward 1) or #5's
+// GACC variant (backward 2) at this geometry: what the launchers ask for.
 extern "C" long long xnode_udu_smem_bytes(int backward, int tile, int d,
                                           int H, int Hh, int F, int n_lift,
                                           int n_field, int method) {
   return (long long)xg_smem_bytes(
-      xg_layout(backward != 0, tile, d, H, Hh, F, n_lift, n_field, method,
-                xn_n_params(H, Hh, F, n_lift, n_field)));
+      xg_layout(backward != 0, backward == 2, tile, d, H, Hh, F, n_lift,
+                n_field, method, xn_n_params(H, Hh, F, n_lift, n_field)));
 }
 
 template <bool STORE>
@@ -937,7 +958,7 @@ static int xg_udu_fwd(int device, void* stream, const float* params,
                             n_field, n_sub, method, tile, threads);
   if (e != cudaSuccess) return (int)e;
   const size_t smem = xg_smem_bytes(xg_layout(
-      false, tile, d, H, Hh, F, n_lift, n_field, method, n_params));
+      false, false, tile, d, H, Hh, F, n_lift, n_field, method, n_params));
   e = xg_allow_smem((const void*)xnode_udu_fwd_kernel<STORE>, smem);
   if (e != cudaSuccess) return (int)e;
   if (N == 0 || L == 0) return 0;
@@ -978,6 +999,56 @@ extern "C" int xnode_udu_fwd_store_launch(
                           threads);
 }
 
+// The tangentless path forward (#2, and #1 with one interval a point) for
+// nets past xnode_fwd.cu's caps: #3's kernel with d = 0, u [N, L] only.
+// tile, threads: xnode_train.py :: grad_tile at d = 0.
+extern "C" int xnode_path_tile_launch(int device, void* stream,
+                                      const float* params, int n_params,
+                                      const float* t0, const float* dt,
+                                      const float* feats, const float* seed,
+                                      float* u, int N, int L, int H, int Hh,
+                                      int F, int n_lift, int n_field,
+                                      int n_sub, int method, int tile,
+                                      int threads) {
+  return xg_udu_fwd<false>(device, stream, params, n_params, t0, dt, feats,
+                           nullptr, seed, nullptr, u, nullptr, nullptr,
+                           nullptr, N, L, 0, H, Hh, F, n_lift, n_field,
+                           n_sub, method, tile, threads);
+}
+
+template <bool GACC>
+static int xg_udu_bwd(int device, void* stream, const float* params,
+                      int n_params, const float* t0, const float* dt,
+                      const float* feats, const float* dfeats,
+                      const float* seed, const float* dseed, const float* hs,
+                      const float* hts, const float* ub, const float* dub,
+                      float* partial, float* grad, int N, int L, int d, int H,
+                      int Hh, int F, int n_lift, int n_field, int n_sub,
+                      int method, int tile, int threads, int blocks) {
+  cudaError_t e = xg_checks(device, n_params, N, L, d, H, Hh, F, n_lift,
+                            n_field, n_sub, method, tile, threads);
+  if (e != cudaSuccess || blocks < 1 || d < 1)
+    return (int)(e != cudaSuccess ? e : cudaErrorInvalidValue);
+  const size_t smem = xg_smem_bytes(xg_layout(
+      true, GACC, tile, d, H, Hh, F, n_lift, n_field, method, n_params));
+  e = xg_allow_smem((const void*)xnode_udu_bwd_kernel<GACC>, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (N == 0 || L == 0)
+    return (int)cudaMemsetAsync(grad, 0, sizeof(float) * (size_t)n_params,
+                                (cudaStream_t)stream);
+  // 16-byte copies of the states need H a multiple of 4 and aligned rows
+  const int vec = H % 4 == 0 && (size_t)hs % 16 == 0 && (size_t)hts % 16 == 0;
+  xnode_udu_bwd_kernel<GACC><<<blocks, threads, smem, (cudaStream_t)stream>>>(
+      params, n_params, t0, dt, feats, dfeats, seed, dseed, hs, hts, ub, dub,
+      partial, N, L, d, H, Hh, F, n_lift, n_field, n_sub, method, tile, vec);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  xnode_udu_reduce_kernel<<<(n_params + 255) / 256, 256, 0,
+                            (cudaStream_t)stream>>>(partial, grad, blocks,
+                                                    n_params);
+  return (int)cudaGetLastError();
+}
+
 // tile, threads: as for the forward (xnode_train.py :: grad_tile); blocks:
 // the persistent grid, one partial row each (partial holds blocks x
 // n_params floats).
@@ -989,26 +1060,24 @@ extern "C" int xnode_udu_bwd_launch(
     float* partial, float* grad, int N, int L, int d, int H, int Hh, int F,
     int n_lift, int n_field, int n_sub, int method, int tile, int threads,
     int blocks) {
-  cudaError_t e = xg_checks(device, n_params, N, L, d, H, Hh, F, n_lift,
-                            n_field, n_sub, method, tile, threads);
-  if (e != cudaSuccess || blocks < 1)
-    return (int)(e != cudaSuccess ? e : cudaErrorInvalidValue);
-  const size_t smem = xg_smem_bytes(xg_layout(
-      true, tile, d, H, Hh, F, n_lift, n_field, method, n_params));
-  e = xg_allow_smem((const void*)xnode_udu_bwd_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  if (N == 0 || L == 0)
-    return (int)cudaMemsetAsync(grad, 0, sizeof(float) * (size_t)n_params,
-                                (cudaStream_t)stream);
-  // 16-byte copies of the states need H a multiple of 4 and aligned rows
-  const int vec = H % 4 == 0 && (size_t)hs % 16 == 0 && (size_t)hts % 16 == 0;
-  xnode_udu_bwd_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      params, n_params, t0, dt, feats, dfeats, seed, dseed, hs, hts, ub, dub,
-      partial, N, L, d, H, Hh, F, n_lift, n_field, n_sub, method, tile, vec);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  xnode_udu_reduce_kernel<<<(n_params + 255) / 256, 256, 0,
-                            (cudaStream_t)stream>>>(partial, grad, blocks,
-                                                    n_params);
-  return (int)cudaGetLastError();
+  return xg_udu_bwd<false>(device, stream, params, n_params, t0, dt, feats,
+                           dfeats, seed, dseed, hs, hts, ub, dub, partial,
+                           grad, N, L, d, H, Hh, F, n_lift, n_field, n_sub,
+                           method, tile, threads, blocks);
+}
+
+// The GACC variant: the same arguments; each block accumulates in its row
+// of partial, so its shared memory holds no accumulator.
+extern "C" int xnode_udu_bwd_global_launch(
+    int device, void* stream, const float* params, int n_params,
+    const float* t0, const float* dt, const float* feats,
+    const float* dfeats, const float* seed, const float* dseed,
+    const float* hs, const float* hts, const float* ub, const float* dub,
+    float* partial, float* grad, int N, int L, int d, int H, int Hh, int F,
+    int n_lift, int n_field, int n_sub, int method, int tile, int threads,
+    int blocks) {
+  return xg_udu_bwd<true>(device, stream, params, n_params, t0, dt, feats,
+                          dfeats, seed, dseed, hs, hts, ub, dub, partial,
+                          grad, N, L, d, H, Hh, F, n_lift, n_field, n_sub,
+                          method, tile, threads, blocks);
 }

@@ -170,3 +170,26 @@ class CudaKernel:
             msg = lib.xn_error_string(err).decode()
             raise RuntimeError(f"{self.symbol} failed: CUDA error {err} ({msg})")
         self.launches += 1
+
+
+class KernelVariants:
+    """One kernel's launch count over the variants it is built as
+    (``{name: CudaKernel}``): ``launches`` is their sum, and setting it to
+    0 zeroes each; :meth:`by_variant` gives each variant's count."""
+
+    def __init__(self, variants: Dict[str, CudaKernel]):
+        self.variants = dict(variants)
+
+    @property
+    def launches(self) -> int:
+        return sum(k.launches for k in self.variants.values())
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        if n != 0:
+            raise ValueError("a kernel's variants are reset to 0 together")
+        for k in self.variants.values():
+            k.launches = 0
+
+    def by_variant(self) -> Dict[str, int]:
+        return {name: k.launches for name, k in self.variants.items()}

@@ -20,8 +20,9 @@ import torch
 FUSED_KERNEL_METHODS = ("euler", "midpoint", "heun", "rk4")
 METHOD_IDS = {m: i for i, m in enumerate(FUSED_KERNEL_METHODS)}
 
-# Compile-time caps of csrc/steppers.cuh, the shared memory one block may
-# use on Hopper (232,448 bytes), and that of one SM.
+# Compile-time caps of csrc/steppers.cuh (#1/#2's register kernels; past
+# them the path-tile variant serves), the shared memory one block may use
+# on Hopper (232,448 bytes), and that of one SM.
 MAX_WIDTH = 64
 MAX_FIELD_IN = 128
 MAX_SMEM_BYTES = 232448
@@ -104,19 +105,37 @@ class FlatNet:
         return self.H, self.Hh, self.F, self.n_lift, self.n_field
 
     def check_caps(self) -> None:
-        """Raise when the kernels' compile-time caps do not cover this net."""
-        if self.H > MAX_WIDTH or self.Hh > MAX_WIDTH:
-            raise ValueError(
-                f"hidden widths H={self.H}, Hh={self.Hh} exceed the CUDA "
-                f"kernels' cap of {MAX_WIDTH}")
-        if self.F + 1 + self.H > MAX_FIELD_IN:
-            raise ValueError(
-                f"field input width {self.F + 1 + self.H} exceeds the CUDA "
-                f"kernels' cap of {MAX_FIELD_IN}")
-        n_bytes = 4 * sum(a.numel() for a in self.flat)
-        if n_bytes > MAX_SMEM_BYTES:
-            raise ValueError(f"{n_bytes} bytes of weights do not fit one "
-                             f"block's shared memory ({MAX_SMEM_BYTES})")
+        """:func:`check_caps` of this net's shapes."""
+        check_caps(self.dims())
+
+
+def check_caps(dims) -> None:
+    """Raise when the register kernels of ``csrc/xnode_fwd.cu`` (#1/#2)
+    do not take a net ``(H, Hh, F, n_lift, n_field)``: a width above their
+    compile-time cap, or a staged weight copy (:func:`staged_floats`)
+    above one block's shared memory. The wrappers take the path-tile
+    variant there (:func:`register_fits` selects)."""
+    H, Hh, F, n_lift, n_field = dims
+    if H > MAX_WIDTH or Hh > MAX_WIDTH:
+        raise ValueError(f"hidden widths H={H}, Hh={Hh} exceed the CUDA "
+                         f"kernels' cap of {MAX_WIDTH}")
+    if F + 1 + H > MAX_FIELD_IN:
+        raise ValueError(f"field input width {F + 1 + H} exceeds the CUDA "
+                         f"kernels' cap of {MAX_FIELD_IN}")
+    n_bytes = 4 * staged_floats(H, Hh, n_lift, n_field)
+    if n_bytes > MAX_SMEM_BYTES:
+        raise ValueError(f"{n_bytes} bytes of staged weights do not fit "
+                         f"one block's shared memory ({MAX_SMEM_BYTES})")
+
+
+def register_fits(dims) -> bool:
+    """Whether #1/#2 take their register kernels (:func:`check_caps`
+    passes) rather than the path-tile variant."""
+    try:
+        check_caps(dims)
+    except ValueError:
+        return False
+    return True
 
 
 def _pad4(n: int) -> int:

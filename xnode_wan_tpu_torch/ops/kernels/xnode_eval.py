@@ -16,6 +16,14 @@ t_start) / k_steps`` and writes one value. The TPU kernel's
 feature-major 128-lane layout and its VMEM block picker are not carried
 over: here the point axis is the thread axis.
 
+Past the register kernel's caps (a width above 64, a field input above
+128, or staged weights above one block's shared memory; the choice is
+``xnode_train.kernel_route``'s) serving takes the path-tile variant
+(``xnode_path_tile_launch`` in ``csrc/xnode_grad.cu``, the body of #2's
+variant) with the serving mapping of ``kServe``: each point is a path of
+one interval from ``t_start``, with ``dt = (t - t_start) / k_steps`` and
+``n_sub = k_steps``. :data:`LAUNCHES` counts both variants.
+
 Bound on an H100 SXM (67 TFLOP/s FP32 without tensor cores, 3.35 TB/s):
 at M = 65,536 points, 20 midpoint steps and the d=5 width, the field
 takes 1,110 multiply-adds per evaluation after the hoisted feature
@@ -34,11 +42,14 @@ import ctypes
 
 import torch
 
-from xnode_wan_tpu_torch.ops.kernels._build import CudaKernel
+from xnode_wan_tpu_torch.ops.kernels._build import CudaKernel, KernelVariants
 from xnode_wan_tpu_torch.ops.kernels.steppers import (METHOD_IDS, FlatNet,
                                                       require_cuda_f32,
                                                       rk_step)
-from xnode_wan_tpu_torch.ops.kernels.xnode_train import flat_net
+from xnode_wan_tpu_torch.ops.kernels.xnode_train import (TILE_ARGS,
+                                                         _path_tile_forward,
+                                                         flat_net,
+                                                         kernel_route)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
@@ -46,6 +57,9 @@ KERNEL = CudaKernel(
     [_P, _I,                  # packed weights, count
      _P, _P, _P, _P, _P,      # feats, t, t_start, seed, out
      _I, _I, _I, _I, _I, _I, _I, _I])  # M H Hh F n_lift n_field k_steps method
+# #1 past the caps: the path-tile body, counted apart from #2's launches
+TILE_KERNEL = CudaKernel("xnode_grad", "xnode_path_tile_launch", TILE_ARGS)
+LAUNCHES = KernelVariants({"registers": KERNEL, "tile": TILE_KERNEL})
 
 
 def evaluate_plain(net: FlatNet, feats, t, t_start, seed, k_steps: int,
@@ -65,26 +79,49 @@ def evaluate_plain(net: FlatNet, feats, t, t_start, seed, k_steps: int,
 
 def evaluate_cuda(net: FlatNet, feats, t, t_start, seed, k_steps: int,
                   method: str, packed=None) -> torch.Tensor:
-    """Launch ``csrc/xnode_fwd.cu`` (serving) on PyTorch's current
-    stream, from the library built for the net's widths."""
+    """Launch serving on PyTorch's current stream, in the variant
+    ``xnode_train.kernel_route`` picks: ``csrc/xnode_fwd.cu`` from the
+    library built for the net's widths, else the path-tile variant
+    (:func:`_serve_tile`)."""
     if method not in METHOD_IDS:
         rk_step(method, None, None, None, None)  # raises the shared error
     if k_steps < 1:
         raise ValueError(f"k_steps must be >= 1, got {k_steps}")
-    net.check_caps()
+    route = kernel_route(net.dims(), 0, method)
     if packed is None:
         packed = net.packed()
+    if route.path == "tile":
+        return _serve_tile(net, packed, feats, t, t_start, seed, k_steps,
+                           method, route.path_tile)
     dev = require_cuda_f32([packed, feats, t, t_start, seed])
     M = t.shape[0]
     H, Hh, F, n_lift, n_field = net.dims()
-    if feats.shape != (M, F) or t_start.shape != (M,) or seed.shape != (M,):
-        raise ValueError("shape mismatch: feats [M, F], t/t_start/seed [M]")
+    _serve_shapes(net, feats, t, t_start, seed)
     out = torch.empty((M,), dtype=torch.float32, device=dev)
     KERNEL(dev, packed.data_ptr(), packed.numel(), feats.data_ptr(),
            t.data_ptr(), t_start.data_ptr(), seed.data_ptr(), out.data_ptr(),
            M, H, Hh, F, n_lift, n_field, k_steps, METHOD_IDS[method],
            widths=(H, Hh))
     return out
+
+
+def _serve_shapes(net: FlatNet, feats, t, t_start, seed) -> None:
+    M = t.shape[0]
+    if feats.shape != (M, net.F) or t_start.shape != (M,) or seed.shape != (M,):
+        raise ValueError("shape mismatch: feats [M, F], t/t_start/seed [M]")
+
+
+def _serve_tile(net: FlatNet, packed, feats, t, t_start, seed, k_steps: int,
+                method: str, tile) -> torch.Tensor:
+    """Serving on the path-tile body at ``tile``, counted on
+    :data:`TILE_KERNEL`, with the mapping of ``kServe``: each point is a
+    path of one interval from ``t_start``, ``k_steps`` substeps of ``dt =
+    (t - t_start) / k_steps``."""
+    _serve_shapes(net, feats, t, t_start, seed)
+    t0 = t_start[:, None].contiguous()
+    dt = ((t - t_start) / k_steps)[:, None].contiguous()
+    return _path_tile_forward(TILE_KERNEL, net, packed, t0, dt, feats, seed,
+                              k_steps, method, tile)[:, 0]
 
 
 def fused_evaluate(params, pts: torch.Tensor, seed: torch.Tensor,

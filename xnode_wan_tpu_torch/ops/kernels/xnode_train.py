@@ -16,8 +16,12 @@ hand-derived adjoint. Replaces ``_fwd_kernel`` (#3), ``_fwd_store_kernel``
 ``csrc/xnode_grad.cu`` (design and bounds in its header); plain versions
 :func:`u_du_fwd_plain` and :func:`u_du_bwd_plain`.
 
-Kernel #2: ``csrc/xnode_fwd.cu::xnode_fwd_kernel<false>`` through
-``xnode_path_fwd_launch``, the body it shares with serving (#1), built
+Kernel #2 comes in two variants, chosen from the net's shapes before
+any launch (:func:`kernel_route`, the one place where every variant,
+block and tangent chunk of #1-#5 is chosen). Within the caps of
+``csrc/steppers.cuh`` (H, Hh <= 64, F + 1 + H <= 128, the staged weights
+in one block's shared memory): ``csrc/xnode_fwd.cu::xnode_fwd_kernel<false>``
+through ``xnode_path_fwd_launch``, the body it shares with serving (#1), built
 once per width pair (H, Hh) so that each thread's state, RK stages and
 activations live in registers. One thread per path, one warp a block. A
 block stages the weights in shared memory (2,372 floats at the d=5
@@ -26,7 +30,18 @@ the feature columns of field layer 0 once, then walks the L intervals
 with n_sub RK substeps each and writes ``u`` after every interval.
 Masked samples come with ``dt = 0`` from :func:`_prep_intervals`, so
 their interval is the identity and the kernel needs no branch on the
-mask.
+mask. Past the caps: the path-tile body of #3 with d = 0 (no tangent
+rows), ``xnode_path_tile_launch`` in ``csrc/xnode_grad.cu``, which reads
+its weights from global memory and so takes any width
+(:data:`PATH_LAUNCHES` counts both variants).
+
+Kernel #5 also has two variants (:func:`grad_tile`): its gradient
+accumulator in shared memory, or, where that does not fit beside the rest
+of the block (H = Hh = 64 at d = 5), in the block's row of the partial
+sums in global memory (``xnode_udu_bwd_global_launch``), bitwise equal to
+the first at the same tile and grid. Where no tile of #3-#5 fits at the
+full d, :func:`fused_from_batch` runs them in tangent chunks
+(:func:`u_chunk`, the port of the JAX package's ``d_chunk``).
 
 Bound on an H100 SXM (67 TFLOP/s FP32 without tensor cores, 3.35 TB/s):
 at the d=5 metric batch (N = 4,000, L = 20, midpoint, n_sub = 1) the work
@@ -42,17 +57,19 @@ lanes a path is the next step.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Tuple
+import functools
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
-from xnode_wan_tpu_torch.ops.kernels._build import CudaKernel
+from xnode_wan_tpu_torch.ops.kernels._build import CudaKernel, KernelVariants
 from xnode_wan_tpu_torch.ops.kernels.steppers import (MAX_SMEM_BYTES,
                                                       METHOD_IDS, RK_TABLES,
                                                       FlatNet, bwd_blocks,
                                                       field_fwd_tan,
                                                       interval_tan,
                                                       mlp_relu_fwd_tan,
+                                                      register_fits,
                                                       require_cuda_f32,
                                                       rk_step)
 
@@ -73,6 +90,20 @@ FWD_STORE_KERNEL = CudaKernel("xnode_grad", "xnode_udu_fwd_store_launch",
 # kernel #5: hs, hts, ub, dub, partial, grad; paths per tile, threads, blocks
 BWD_KERNEL = CudaKernel("xnode_grad", "xnode_udu_bwd_launch",
                         _PATH + [_P] * 6 + _GEOM + [_I, _I, _I])
+# #5 with its accumulator in partial (the same arguments)
+BWD_GLOBAL_KERNEL = CudaKernel("xnode_grad", "xnode_udu_bwd_global_launch",
+                               BWD_KERNEL.argtypes)
+# the tangentless path forward on the path-tile body (#2 past the caps):
+# weights, count, t0, dt, feats, seed, u; N L H Hh F n_lift n_field n_sub
+# method; paths per tile, threads
+TILE_ARGS = [_P, _I, _P, _P, _P, _P, _P] + [_I] * 11
+PATH_TILE_KERNEL = CudaKernel("xnode_grad", "xnode_path_tile_launch",
+                              TILE_ARGS)
+# launches of #2 and of #5, each over its variants
+PATH_LAUNCHES = KernelVariants({"registers": KERNEL,
+                                "tile": PATH_TILE_KERNEL})
+BWD_LAUNCHES = KernelVariants({"shared": BWD_KERNEL,
+                               "global": BWD_GLOBAL_KERNEL})
 MAX_THREADS = 256             # XG_MAX_THREADS
 # Paths per tile, largest first; the threads of a block follow from the
 # tile (block_threads). From the tile sweep (tile_sweep.py) on an H100:
@@ -135,23 +166,51 @@ def path_forward_plain(net: FlatNet, t0, dt, feats, seed, n_sub: int,
 
 def path_forward_cuda(net: FlatNet, t0, dt, feats, seed, n_sub: int,
                       method: str, packed=None) -> torch.Tensor:
-    """Launch ``csrc/xnode_fwd.cu`` (path forward) on PyTorch's
-    current stream, from the library built for the net's widths."""
+    """Launch the path forward on PyTorch's current stream, in the variant
+    :func:`kernel_route` picks: the register kernel of
+    ``csrc/xnode_fwd.cu`` (from the library built for the net's widths),
+    else the path-tile body of ``csrc/xnode_grad.cu``."""
     if method not in METHOD_IDS:
         rk_step(method, None, None, None, None)  # raises the shared error
-    net.check_caps()
+    route = kernel_route(net.dims(), 0, method)
     if packed is None:
         packed = net.packed()
+    if route.path == "tile":
+        return _path_tile_forward(PATH_TILE_KERNEL, net, packed, t0, dt,
+                                  feats, seed, n_sub, method, route.path_tile)
     dev = require_cuda_f32([packed, t0, dt, feats, seed])
     N, L = t0.shape
     H, Hh, F, n_lift, n_field = net.dims()
-    if dt.shape != (N, L) or feats.shape != (N, F) or seed.shape != (N,):
-        raise ValueError("shape mismatch: t0/dt [N, L], feats [N, F], seed [N]")
+    _path_shapes(net, t0, dt, feats, seed)
     u = torch.empty((N, L), dtype=torch.float32, device=dev)
     KERNEL(dev, packed.data_ptr(), packed.numel(), t0.data_ptr(),
-           dt.data_ptr(), feats.data_ptr(), seed.data_ptr(), u.data_ptr(),
-           N, L, H, Hh, F, n_lift, n_field, n_sub, METHOD_IDS[method],
+           dt.data_ptr(), feats.data_ptr(), seed.data_ptr(), u.data_ptr(), N,
+           L, H, Hh, F, n_lift, n_field, n_sub, METHOD_IDS[method],
            widths=(H, Hh))
+    return u
+
+
+def _path_shapes(net: FlatNet, t0, dt, feats, seed) -> None:
+    N, L = t0.shape
+    if dt.shape != (N, L) or feats.shape != (N, net.F) or seed.shape != (N,):
+        raise ValueError("shape mismatch: t0/dt [N, L], feats [N, F], seed [N]")
+
+
+def _path_tile_forward(kernel: CudaKernel, net: FlatNet, packed, t0, dt,
+                       feats, seed, n_sub: int, method: str,
+                       tile: GradTile) -> torch.Tensor:
+    """``u [N, L]`` from the path-tile body (#3's forward with d = 0) at
+    ``tile``, launched through ``kernel``, the counter of the kernel it
+    serves as: :data:`PATH_TILE_KERNEL` for #2, ``xnode_eval.TILE_KERNEL``
+    for #1."""
+    dev = require_cuda_f32([packed, t0, dt, feats, seed])
+    _path_shapes(net, t0, dt, feats, seed)
+    N, L = t0.shape
+    u = torch.empty((N, L), dtype=torch.float32, device=dev)
+    kernel(dev, packed.data_ptr(), packed.numel(), t0.data_ptr(),
+           dt.data_ptr(), feats.data_ptr(), seed.data_ptr(), u.data_ptr(), N,
+           L, *net.dims(), n_sub, METHOD_IDS[method], tile.paths,
+           tile.threads)
     return u
 
 
@@ -200,7 +259,8 @@ def u_du_fwd_plain(net: FlatNet, t0, dt, feats, dfeats, seed, dseed,
                    n_sub: int, method: str, store: bool = False):
     """Plain version of kernels #3 / #4: ``u [N, L]`` and ``du [N, L, d]``
     before scaling; with ``store`` also the interval start states ``hs
-    [L, N, H]`` and ``hts [L, N, d, H]``."""
+    [L, N, H]`` and ``hts [L, N, d, H]``. With d = 0 (``dfeats [N, 0,
+    F]``, ``dseed [N, 0]``) it is the tangentless path forward."""
     h, ht = mlp_relu_fwd_tan(net.lift, seed[:, None], dseed[:, :, None])
     wr, br = net.readout_layer
     us, dus, hs, hts = [], [], [], []
@@ -395,10 +455,11 @@ def u_du_bwd_plain(net: FlatNet, t0, dt, feats, dfeats, seed, dseed, hs,
     return torch.cat([a.reshape(-1) for a in g])
 
 
-def _grad_checks(net: FlatNet, method: str, args) -> torch.device:
+def _grad_checks(net: FlatNet, method: str, args):
+    """The route of a launch of #3-#5 (:func:`_udu_route`), chosen from
+    the shapes before the device is checked, and the inputs' device."""
     if method not in METHOD_IDS:
         rk_step(method, None, None, None, None)  # raises the shared error
-    dev = require_cuda_f32(list(args))
     t0, dt, feats, dfeats, seed, dseed = args[1:7]
     N, L = t0.shape
     d = dseed.shape[1] if dseed.dim() == 2 else -1
@@ -406,7 +467,8 @@ def _grad_checks(net: FlatNet, method: str, args) -> torch.device:
             or dfeats.shape != (N, d, net.F) or dseed.shape != (N, d)):
         raise ValueError("shape mismatch: t0/dt [N, L], feats [N, F], "
                          "dfeats [N, d, F], seed [N], dseed [N, d]")
-    return dev
+    route = _udu_route(net, d, method)
+    return route, require_cuda_f32(list(args))
 
 
 def n_params_of(dims) -> int:
@@ -419,17 +481,19 @@ def n_params_of(dims) -> int:
 
 
 def tile_smem_bytes(dims, d: int, method: str, tile: int,
-                    backward: bool) -> int:
+                    backward: bool, global_acc: bool = False) -> int:
     """Shared memory of one block of kernel #3/#4 (``backward`` false) or
     #5 for ``tile`` paths (``xg_layout`` in ``csrc/xnode_grad.cu``). Rows:
     ``R = tile (1 + d)``, each buffer ``[width][S]`` with ``S`` the rows
-    rounded up to a multiple of 4 whose quarter is odd.
+    rounded up to a multiple of 4 whose quarter is odd. With d = 0 it is
+    the path-tile variant of #1/#2.
 
     Forward: features, their field-layer-0 product, seeds, times, the
     state, a stage input, a stage, the stage sum and two field buffers.
-    Backward: the gradient accumulator, the same inputs plus the readout
-    cotangents, the start state and four cotangent buffers, the stage
-    inputs, stage, sum, end and substep start, every field layer's
+    Backward: the gradient accumulator (not with ``global_acc``, #5's
+    variant that keeps it in global memory), the same inputs plus the
+    readout cotangents, the start state and four cotangent buffers, the
+    stage inputs, stage, sum, end and substep start, every field layer's
     activation for every RK stage (or the lift's, after the walk), and the
     ``cp.async`` staging of one interval. The rows' primal indices (ints)
     come last."""
@@ -446,7 +510,9 @@ def tile_smem_bytes(dims, d: int, method: str, tile: int,
     if not backward:
         floats += 4 * H * S + 2 * Hh * S
     else:
-        floats += round4(n_params_of(dims)) + S + 5 * H * S
+        if not global_acc:
+            floats += round4(n_params_of(dims))
+        floats += S + 5 * H * S
         walk = (ns + 3) * H * S + (ns * n_field + 2) * Hh * S
         floats += max(walk, (n_lift + 1) * H * S) + R * H + R + 2 * tile
     return 4 * floats + 4 * R
@@ -466,18 +532,98 @@ def block_threads(tile: int, d: int, Hh: int, backward: bool) -> int:
     return threads
 
 
-def grad_tile(dims, d: int, method: str, backward: bool) -> Tuple[int, int]:
-    """``(paths per tile, threads a block)`` of kernel #3/#4 or #5: the
-    first tile of :data:`FWD_TILES` / :data:`BWD_TILES` (largest first)
-    whose block fits one block's shared memory, with its
-    :func:`block_threads`. Raises where none fits."""
-    for tile in (BWD_TILES if backward else FWD_TILES):
-        if tile_smem_bytes(dims, d, method, tile, backward) <= MAX_SMEM_BYTES:
-            return tile, block_threads(tile, d, dims[1], backward)
-    kernel = "#5" if backward else "#3/#4"
+class GradTile(NamedTuple):
+    """The block shape of kernel #3/#4 or #5 (:func:`grad_tile`):
+    ``paths`` a tile, ``threads`` a block, and for #5 whether its
+    accumulator is in global memory (``global_acc``)."""
+    paths: int
+    threads: int
+    global_acc: bool = False
+
+
+def grad_tile(dims, d: int, method: str, backward: bool) -> GradTile:
+    """The block of kernel #3/#4 (``backward`` false; with d = 0 the
+    path-tile variant of #1/#2) or #5: the first tile of
+    :data:`FWD_TILES` / :data:`BWD_TILES` (largest first) whose block fits
+    one block's shared memory, with its :func:`block_threads`. #5 takes
+    its shared accumulator at the first tile where that fits, else its
+    global-accumulator variant at the first tile where the rest of the
+    block fits. Raises where nothing fits at one path a tile."""
+    tiles = BWD_TILES if backward else FWD_TILES
+    variants = (False, True) if backward else (False,)
+    for global_acc in variants:
+        for tile in tiles:
+            if (tile_smem_bytes(dims, d, method, tile, backward, global_acc)
+                    <= MAX_SMEM_BYTES):
+                return GradTile(tile, block_threads(tile, d, dims[1],
+                                                    backward), global_acc)
+    kernel = "#5" if backward else "#3/#4" if d else "#1/#2"
     raise ValueError(f"the net {dims} with d={d}, {method}, does not fit "
                      f"kernel {kernel}'s shared memory ({MAX_SMEM_BYTES} "
                      "bytes) at one path a tile")
+
+
+def u_chunk(dims, d: int, method: str) -> int:
+    """Tangent directions a launch of #3-#5 carries: ``d`` where the
+    full-d tiles fit, else the largest divisor of ``d`` whose #3/#4 and #5
+    tiles fit (the JAX package's ``fused_chunk`` rule, ``d_chunk``).
+    Raises, naming the bound, where one path with one direction does not
+    fit one block's shared memory."""
+    for dc in range(d, 0, -1):
+        if d % dc:
+            continue
+        try:
+            grad_tile(dims, dc, method, False)
+            grad_tile(dims, dc, method, True)
+        except ValueError:
+            continue
+        return dc
+    raise ValueError(f"the net {dims}, {method}: one path with one tangent "
+                     f"direction does not fit kernels #3-#5's shared memory "
+                     f"({MAX_SMEM_BYTES} bytes a block; "
+                     f"#3/#4 {tile_smem_bytes(dims, 1, method, 1, False)}, "
+                     f"#5 {tile_smem_bytes(dims, 1, method, 1, True, True)} "
+                     "bytes)")
+
+
+class KernelRoute(NamedTuple):
+    """What the wrappers launch for one net on the card
+    (:func:`kernel_route`)."""
+    path: str                      # #1/#2: "registers" or "tile"
+    path_tile: Optional[GradTile]  # the tile variant's block, else None
+    d_chunk: int                   # tangent directions a launch of #3-#5
+    fwd: Optional[GradTile]        # #3/#4 at d_chunk (None with d = 0)
+    bwd: Optional[GradTile]        # #5 at d_chunk (global_acc: its variant)
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_route(dims, d: int, method: str) -> KernelRoute:
+    """The variants and blocks of #1-#5 for a net ``(H, Hh, F, n_lift,
+    n_field)`` with ``d`` spatial tangents (0 for #1/#2 alone): the one
+    place where the wrappers choose them, from the shapes, before any
+    launch. Raises where one path and one direction do not fit
+    (:func:`u_chunk`)."""
+    registers = register_fits(dims)
+    path = ("registers" if registers else "tile",
+            None if registers else grad_tile(dims, 0, method, False))
+    if d == 0:
+        return KernelRoute(*path, 0, None, None)
+    dc = u_chunk(dims, d, method)
+    return KernelRoute(*path, dc, grad_tile(dims, dc, method, False),
+                       grad_tile(dims, dc, method, True))
+
+
+def _udu_route(net: FlatNet, d: int, method: str) -> KernelRoute:
+    """:func:`kernel_route` for a launch of #3-#5 with ``d`` directions,
+    which must fit it whole."""
+    if d < 1:
+        raise ValueError(f"kernels #3-#5 take d >= 1 directions, got {d}")
+    route = kernel_route(net.dims(), d, method)
+    if route.d_chunk != d:
+        raise ValueError(f"kernels #3-#5 take at most {route.d_chunk} of "
+                         f"d={d} directions a launch at the net {net.dims()}"
+                         f", {method}: pass d_chunk to u_du_fused")
+    return route
 
 
 def u_du_fwd_cuda(net: FlatNet, packed, t0, dt, feats, dfeats, seed, dseed,
@@ -485,18 +631,18 @@ def u_du_fwd_cuda(net: FlatNet, packed, t0, dt, feats, dfeats, seed, dseed,
     """Launch kernel #3, or #4 with ``store``, on PyTorch's current
     stream. Same outputs as :func:`u_du_fwd_plain`."""
     args = (packed, t0, dt, feats, dfeats, seed, dseed)
-    dev = _grad_checks(net, method, args)
+    route, dev = _grad_checks(net, method, args)
     N, L = t0.shape
     d = dseed.shape[1]
     H, Hh, F, n_lift, n_field = net.dims()
-    tile, threads = grad_tile(net.dims(), d, method, False)
+    tile = route.fwd
     f32 = dict(dtype=torch.float32, device=dev)
     u = torch.empty((N, L), **f32)
     du = torch.empty((N, L, d), **f32)
     ptrs = [a.data_ptr() for a in args]
     ptrs.insert(1, packed.numel())
     geom = (N, L, d, H, Hh, F, n_lift, n_field, n_sub, METHOD_IDS[method],
-            tile, threads)
+            tile.paths, tile.threads)
     if not store:
         FWD_KERNEL(dev, *ptrs, u.data_ptr(), du.data_ptr(), *geom)
         return u, du
@@ -510,10 +656,11 @@ def u_du_fwd_cuda(net: FlatNet, packed, t0, dt, feats, dfeats, seed, dseed,
 def u_du_bwd_cuda(net: FlatNet, packed, t0, dt, feats, dfeats, seed, dseed,
                   hs, hts, ub, dub, n_sub: int,
                   method: str) -> torch.Tensor:
-    """Launch kernel #5 and its fixed-order reduce on PyTorch's current
-    stream; same result as :func:`u_du_bwd_plain`."""
+    """Launch kernel #5, in the variant :func:`kernel_route` picks, and its
+    fixed-order reduce on PyTorch's current stream; same result as
+    :func:`u_du_bwd_plain`."""
     args = (packed, t0, dt, feats, dfeats, seed, dseed)
-    dev = _grad_checks(net, method, args)
+    route, dev = _grad_checks(net, method, args)
     require_cuda_f32([hs, hts, ub, dub])
     N, L = t0.shape
     d = dseed.shape[1]
@@ -523,19 +670,21 @@ def u_du_bwd_cuda(net: FlatNet, packed, t0, dt, feats, dfeats, seed, dseed,
         raise ValueError("shape mismatch: hs [L, N, H], hts [L, N, d, H], "
                          "ub [N, L], dub [N, L, d]")
     n_params = packed.numel()
-    tile, threads = grad_tile(net.dims(), d, method, True)
+    tile = route.bwd
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = bwd_blocks(N, tile, tile_smem_bytes(net.dims(), d, method, tile,
-                                                 True), threads, sms)
+    blocks = bwd_blocks(N, tile.paths, tile_smem_bytes(
+        net.dims(), d, method, tile.paths, True, tile.global_acc),
+        tile.threads, sms)
     partial = torch.empty((blocks, n_params), dtype=torch.float32,
                           device=dev)
     grad = torch.empty((n_params,), dtype=torch.float32, device=dev)
     ptrs = [a.data_ptr() for a in args]
     ptrs.insert(1, n_params)
-    BWD_KERNEL(dev, *ptrs, hs.data_ptr(), hts.data_ptr(), ub.data_ptr(),
-               dub.data_ptr(), partial.data_ptr(), grad.data_ptr(), N, L, d,
-               H, Hh, F, n_lift, n_field, n_sub, METHOD_IDS[method], tile,
-               threads, blocks)
+    kernel = BWD_GLOBAL_KERNEL if tile.global_acc else BWD_KERNEL
+    kernel(dev, *ptrs, hs.data_ptr(), hts.data_ptr(), ub.data_ptr(),
+           dub.data_ptr(), partial.data_ptr(), grad.data_ptr(), N, L, d, H,
+           Hh, F, n_lift, n_field, n_sub, METHOD_IDS[method], tile.paths,
+           tile.threads, blocks)
     return grad
 
 
@@ -581,7 +730,8 @@ class UDuFused(torch.autograd.Function):
 
 
 def u_du_fused(params, feats, dfeats, seed, dseed, times, mask, t_start, *,
-               n_sub: int, method: str, scale: float
+               n_sub: int, method: str, scale: float,
+               d_chunk: Optional[int] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused ``(u [N, L], grad_x u [N, L, d])`` with a weight gradient.
 
@@ -590,16 +740,36 @@ def u_du_fused(params, feats, dfeats, seed, dseed, times, mask, t_start, *,
     the seed and its spatial gradient, already divided by ``scale``. The
     outputs are multiplied by ``scale``. Same contract as the JAX
     package's ``u_du_fused`` (``:713-801``).
+
+    ``d_chunk``: carry this many tangent directions a launch (it must
+    divide d; :func:`kernel_route` picks it): ``d / d_chunk`` launches of
+    #3/#4 (and of #5 in the backward) on ``dfeats[:, lo:lo + d_chunk]``
+    and ``dseed[:, lo:lo + d_chunk]``. ``u`` is the first chunk's, so its
+    cotangent flows once, and the later chunks' ``u`` get a zero
+    cotangent: the weight gradients summed over the chunks are exact.
     """
+    d = dfeats.shape[1]
+    dc = d if not d_chunk else int(d_chunk)
+    if dc != d and (dc < 1 or dc > d or d % dc):
+        raise ValueError(f"d_chunk={dc} must divide d={d}")
     net = flat_net(params)
     packed = live_packed(params)
     store = torch.is_grad_enabled() and packed.requires_grad
     if not store:
         packed = packed.detach()
     t0, dt = _prep_intervals(times.float(), mask, t_start.float(), n_sub)
-    data = [a.detach().float().contiguous()
-            for a in (t0, dt, feats, dfeats, seed, dseed)]
-    u, du = UDuFused.apply(packed, net, *data, n_sub, method, store)
+    t0, dt, feats, dfeats, seed, dseed = [
+        a.detach().float().contiguous()
+        for a in (t0, dt, feats, dfeats, seed, dseed)]
+    u, dus = None, []
+    for lo in range(0, d, dc):
+        chunk = [a[:, lo:lo + dc].contiguous() if dc != d else a
+                 for a in (dfeats, dseed)]
+        u_c, du_c = UDuFused.apply(packed, net, t0, dt, feats, chunk[0],
+                                   seed, chunk[1], n_sub, method, store)
+        u = u_c if u is None else u
+        dus.append(du_c)
+    du = dus[0] if len(dus) == 1 else torch.cat(dus, dim=-1)
     return u * scale, du * scale
 
 
@@ -633,8 +803,14 @@ def path_tangent_inputs(batch, problem, cfg):
 
 def fused_from_batch(params, batch, problem, cfg):
     """:func:`u_du_fused` on a path batch (:func:`path_tangent_inputs`); a
-    drop-in for ``ops/weak_form.py::u_with_spatial_grad``."""
+    drop-in for ``ops/weak_form.py::u_with_spatial_grad``. On the card in
+    the tangent chunks of :func:`kernel_route` (the full d where its
+    tiles fit); on CPU tensors, whose plain versions have no shared-memory
+    bound, at the full d."""
+    d = batch.space.shape[-1]
+    dc = (kernel_route(flat_net(params).dims(), d, cfg.solver).d_chunk
+          if batch.space.is_cuda else d)
     return u_du_fused(params, *path_tangent_inputs(batch, problem, cfg),
                       batch.times, batch.mask, batch.t_start,
                       n_sub=cfg.n_sub, method=cfg.solver,
-                      scale=float(cfg.u_scale_eff))
+                      scale=float(cfg.u_scale_eff), d_chunk=dc)

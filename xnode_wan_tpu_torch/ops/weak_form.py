@@ -370,6 +370,8 @@ def make_losses(problem, domain, cfg: SolverConfig, u_apply: Callable,
 
     def u_side(u_params, batch):
         if use_fused:
+            # in tangent chunks where #3-#5's full-d tiles do not fit
+            # (JAX's fused_chunk rule, without its opt-in: no XLA route)
             from xnode_wan_tpu_torch.ops.kernels.xnode_train import \
                 fused_from_batch
             return fused_from_batch(u_params, batch, problem, cfg)

@@ -105,6 +105,9 @@ from xnode_wan_tpu_torch.utils.metrics import l_norm, rel_err
 from xnode_wan_tpu_torch.utils.viz import proj, slice_points
 
 STALL_ACTIONS = ("none", "drop_lr", "reinit_v", "restart")
+# debug_nans: the metric that flags a NaN in the updated weights (taken
+# out of the host's rows before they are logged)
+WEIGHTS_NAN = "weights_nan"
 
 # primal family -> (init, apply on a path batch, evaluate at points), as
 # the JAX package's table (xnode_wan_tpu/training.py:50-55)
@@ -510,9 +513,19 @@ class NODEWANSolver:
         :meth:`_ensemble_step`); with one it advances that state alone, in
         place."""
         if state is None and self.cfg.ensemble > 1:
-            return self._ensemble_step()
-        state = self.state if state is None else state
-        return self._step_on(state, *self._draw(state))
+            m = self._ensemble_step()
+            stepped = [self.members[k] for k in self._owned]
+        else:
+            state = self.state if state is None else state
+            m = self._step_on(state, *self._draw(state))
+            stepped = [state]
+        if self.cfg.debug_nans:
+            # on the device: the host checks it with the metrics' copy
+            m[WEIGHTS_NAN] = torch.stack([
+                torch.isnan(p).any() for st in stepped
+                for net in (st.u_params, st.v_params)
+                for p in net.parameters()]).any().to(m["loss_u"].dtype)
+        return m
 
     def _ensemble_step(self, draws: Optional[Sequence] = None
                        ) -> Dict[str, torch.Tensor]:
@@ -608,11 +621,33 @@ class NODEWANSolver:
         return broadcast(values, self._flat_group).tolist()
 
     def _to_host(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
-        """One device-to-host copy for all the step's scalars."""
+        """One device-to-host copy for all the step's scalars (checked
+        under ``debug_nans``, :meth:`_check_nans`)."""
         names = list(metrics)
         values = self._host_values(
             torch.stack([metrics[k].double() for k in names]))
-        return dict(zip(names, values))
+        m = dict(zip(names, values))
+        self._check_nans([m], self.state.step - 1)
+        return m
+
+    def _check_nans(self, rows: List[Dict[str, float]], first: int) -> None:
+        """``debug_nans`` (the JAX package's ``jax_debug_nans``, which
+        raises on NaN and lets inf through): raise ``FloatingPointError``
+        naming the first outer iteration (``first`` is that of
+        ``rows[0]``) whose loss or metrics, or whose updated weights (the
+        ``weights_nan`` flag :meth:`_outer_step` adds), hold a NaN. Reads
+        the host copy the metrics take anyway, so it adds no sync; the
+        flag is taken out of the rows."""
+        if not self.cfg.debug_nans:
+            return
+        for i, m in enumerate(rows):
+            weights_nan = m.pop(WEIGHTS_NAN, 0.0) != 0.0
+            bad = sorted(k for k, v in m.items() if math.isnan(v))
+            if bad or weights_nan:
+                what = ", ".join(bad + (["weights"] if weights_nan else []))
+                raise FloatingPointError(
+                    f"debug_nans: outer iteration {first + i} gave NaN "
+                    f"({what})")
 
     def _should_stop(self, m: Dict[str, float]) -> bool:
         thr = self.problem.stop_rel_err
@@ -751,12 +786,14 @@ class NODEWANSolver:
     def _chunk_rows(self, n: int):
         """:meth:`_run_chunk` with its metrics and best loss on the host:
         ``(one dict a iteration, best loss, best weights)``."""
+        first = self.state.step
         names, stacked, best_l, best_p = self._run_chunk(n)
         flat = self._host_values(torch.cat([stacked.reshape(-1),
                                             best_l.double()[None]]))
         k = len(names)
-        return ([dict(zip(names, flat[i * k:(i + 1) * k])) for i in range(n)],
-                flat[-1], best_p)
+        rows = [dict(zip(names, flat[i * k:(i + 1) * k])) for i in range(n)]
+        self._check_nans(rows, first)
+        return rows, flat[-1], best_p
 
     def _can_stop(self) -> bool:
         return self.problem.stop_rel_err is not None or self.stop is not None

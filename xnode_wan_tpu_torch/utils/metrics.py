@@ -33,3 +33,17 @@ def rel_err(u_vals: torch.Tensor, sol_vals: torch.Tensor, mask: torch.Tensor,
     return (l_norm(u_vals, sol_vals, mask, volume, p, group=group)
             / l_norm(u_vals, sol_vals, mask, volume, p, error=False,
                      group=group))
+
+
+def l_norm_reference_api(batch, u_apply_fn, p: float, func_u_sol, volume,
+                         n_r: int, error: bool = True) -> torch.Tensor:
+    """The reference's signature, ``L_norm(X, u_net, p, func_u_sol,
+    volume, N_r)`` (reference ``utils/auxillary_funcs.py:7-22``), over a
+    :class:`PathBatch` instead of ragged group lists: ``u_apply_fn(batch)``
+    gives u at every sample, and the mask weights the samples, so ``n_r``
+    (the reference's n_k / N_r weights) is not used. Port of the JAX
+    package's ``l_norm_reference_api``."""
+    del n_r
+    u_vals = u_apply_fn(batch)
+    return l_norm(u_vals, func_u_sol(batch.x), batch.mask, volume, p,
+                  error=error)
