@@ -9,15 +9,18 @@ which raises on failure:
 
 1. build every CUDA kernel from ``xnode_wan_tpu_torch/csrc`` (one ``nvcc``
    per library, all in parallel; #1/#2's ``xnode_fwd.cu`` once per (H, Hh)
-   pair of the shipped configs, #6's ``disc_fwd.cu`` and #7's
-   ``disc_train.cu`` once per shipped adversary width H) and print the
-   build time and ptxas usage; #1/#2, #6 and #7 must show no stack and no
+   pair of the shipped configs, the register #6's ``disc_fwd.cu`` once per
+   shipped adversary width H, ``xnode_grad.cu`` and ``disc_train.cu`` (#7
+   and the tile #6, every width at run time) once) and print the build
+   time and ptxas usage; #1/#2, #6 and #7 must show no stack and no
    spills; hold ``steppers.staged_floats`` against the staged copy #1/#2
-   ask for, ``disc_train.staged_floats`` against #6's and
-   ``disc_train.bwd_smem_bytes`` against #7's shared bytes (the d=5 and
-   the d=20 adversary, each tied and untied; #7's registers and shared
-   bytes a block printed), and the wrapper's shared-memory rule for #3-#5
-   against the bytes their launchers ask for;
+   ask for, ``disc_train.staged_floats`` against the register #6's (the
+   d=5 and the d=20 adversary, each tied and untied) and
+   ``disc_train.tile_smem_bytes`` against the bytes #7's two variants and
+   the tile #6 ask for at every tile (those adversaries, 2v's, 2w's and
+   phase 3's; the route, shared bytes and registers printed), and the
+   wrapper's shared-memory rule for #3-#5 against the bytes their
+   launchers ask for;
 2. the main paths at the d=5 width of ``configs/cube_pde.yaml``, then
    on the moving domains and at d = 20, each with every kernel launch
    counter zeroed just before and read just after (every solver writes
@@ -46,6 +49,8 @@ which raises on failure:
       continue the step count and the loss; the resumed primal is served
       through ``evaluate_points`` (kernel #1) under the rel-L2 limit of
       2a, and the best weights load with ``load_reference_state_dict``;
+      #6 launches only its register kernel and #7 only its shared
+      accumulator;
    d. the shrinking cone, ``configs/cone_pde.yaml`` (d = 3, the same
       widths, ``NSphere_TCone``, the per-exit-group objective):
       ``train_until(0.01, 300)`` from ``seed`` 0 on ``Ex4_1_funcs`` must
@@ -171,6 +176,17 @@ which raises on failure:
       chunks with #5's global accumulator, exact launches by variant,
       every ``loss_u`` finite (the chunked interior term drives the
       training), the least rel-L2 under the first;
+   v. the cube with a 256-wide adversary (``v_hidden_dim: 256``, tied,
+      ``fused_v: true``), seed 0: one outer step through #6/#7 against the
+      same step with the plain adversary from the same weights and batch
+      (1e-4 of each parameter tensor's largest value, 1e-5 on the
+      metrics), then 20 iterations of ``train_until``: #6 twice an
+      iteration in its tile variant, #7 once with its global accumulator
+      (neither the register #6's staged weights nor #7's shared
+      accumulator fit), #2-#5 as in b, every ``loss_u``, L2, rel-L2 and
+      weight finite, the least rel-L2 under the first;
+   w. the same at ``dim: 20`` with ``v_fourier_features: 3`` (F = 141):
+      the register #6 and the shared #7;
 
 3. each kernel against its plain PyTorch version on the same card
    inputs: #1 and #2 within ``rtol=2e-4, atol=2e-5`` on all four RK
@@ -214,13 +230,23 @@ which raises on failure:
    scaled limit), and #3-#5 against their plain versions, with the kink
    rule of the d=20 check, at a chunk of 2t's (50 of d = 100, F = 300)
    and of 2u's trained net (15 of d = 30, #5's global accumulator twice,
-   bitwise);
+   bitwise); #6's and #7's variants, by the kink rule of the d=20 check
+   (points within ``KINK_MARGIN`` of a relu kink of the adversary left
+   out, then all at ``KINK_RTOL``) at 80,000 points and at 80,001 and 37:
+   2v's and 2w's trained adversaries, JAX's widest at the shipped depth
+   (558 wide, tied), an untied 128-wide one and a 50-wide one 40 deep,
+   untied and tied (random weights), #7 twice each, bitwise; the tile #6
+   at the cube's trained adversary; #7's global accumulator bitwise equal
+   to the shared one at the cube's trained adversary at the same tile and
+   grid;
 4. CUDA-event times (median of 20 after warm-up) of each kernel and its
    plain version at the main path's shapes, beside the bound the card's
    published peaks put on the same work; and each kernel variant
    at its phase's shapes (the path-tile #1/#2 at 2t's, and both variants
    of #2 at the cube's net, #5's global accumulator at 2s's, #3-#5 a
-   chunk at 2t's, #5's global accumulator a chunk at 2u's), with its
+   chunk at 2t's, #5's global accumulator a chunk at 2u's; #6 and #7 at
+   2v's and 2w's trained adversaries and at the 558-wide one, the tile #6
+   and #7's global accumulator at the cube's trained one), with its
    bound and its launches there;
 5. CUDA-event times (median of 10) of the two serving entry points and
    the share of each that its kernel takes, of one training outer step
@@ -245,7 +271,8 @@ which raises on failure:
 
 Each phase prints its seconds. The line before the last is a JSON object
 with one entry per kernel (its launches on the main path, and by phase;
-for #1, #2 and #5 also by variant, and the times of the variants); the
+for #1, #2, #5, #6 and #7 also by variant, and the times of the
+variants); the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -370,6 +397,12 @@ PLOT_REL_LIMIT = 0.05
 # tests/test_torch_training.py::test_one_outer_step_matches_jax[f32_*]
 MG_MAX_ITERS = 300
 PARAM_RTOL, METRIC_RTOL = 1e-4, 1e-5
+# 2v/2w's step against the plain one: Adam's first step moves a parameter
+# by lr g / (|g| + eps), so where |g| is a small share of its tensor's
+# largest, f32 rounding of g (about 1e-7 of the largest) is a large share
+# of g and moves the step by up to lr; the parameters compared are those
+# whose |g| is at least this share of the largest, in both runs
+ADAM_GRAD_SHARE = 1e-4
 # 2s: the cube at u_hidden_dim = u_hidden_hidden_dim = 64, to the 1% stop
 # within 300 iterations, held to its least rel-L2; served within 2x that
 WIDE = dict(u_hidden_dim=64, u_hidden_hidden_dim=64)
@@ -387,6 +420,25 @@ D100_ITERS = 20
 D30 = dict(dim=30, u_hidden_dim=48, u_hidden_hidden_dim=48,
            fourier_features=1)
 D30_ITERS = 20
+# 2v: the cube with a 256-wide adversary through fused_v (the tile #6,
+# #7's global accumulator); 2w: the cube at d = 20 with the adversary's
+# Fourier bank at three frequencies (F = 1 + 20 * 7 = 141, past the 128
+# features the port took before: the register #6, the shared #7); 20
+# iterations of train_until each
+WIDE_V = dict(v_hidden_dim=256, fused_v=True)
+FOURIER_V = dict(dim=20, v_fourier_features=3, fused_v=True)
+ADV_ITERS = 20
+# phase 3: adversaries with random weights, so that their relus are live
+# (the trained ones' die): the cube's shape, the d=20 cube's with three
+# Fourier frequencies (F = 141, past the old 128), JAX's widest at the
+# shipped depth (12,284 of its 12,288 rows), an untied 128-wide one and a
+# deep one, untied and tied: (label, d, H, L, tied, v_fourier_features)
+ADV_NETS = (("cube's shape", 5, 50, 9, True, 0),
+            ("d=20, 3 frequencies", 20, 50, 9, True, 3),
+            ("widest tied", 5, 558, 9, True, 0),
+            ("untied", 5, 128, 9, False, 0),
+            ("deep untied", 5, 50, 40, False, 0),
+            ("deep tied", 5, 50, 40, True, 0))
 # phase 3: #3-#5 at the highdim_d20 geometry in chunks of this many
 # tangent directions, against the full d
 D20_CHUNK = 10
@@ -1772,8 +1824,8 @@ def member_params(solver, members) -> list:
 
 
 def kernel_table() -> dict:
-    """The seven kernels' launch counters by name; #1, #2 and #5 count
-    their variants together (``_build.KernelVariants``)."""
+    """The seven kernels' launch counters by name; #1, #2, #5, #6 and #7
+    count their variants together (``_build.KernelVariants``)."""
     from xnode_wan_tpu_torch.ops.kernels import (disc_train, xnode_eval,
                                                  xnode_train)
     return {"xnode_eval": xnode_eval.LAUNCHES,
@@ -1781,8 +1833,8 @@ def kernel_table() -> dict:
             "xnode_udu_fwd": xnode_train.FWD_KERNEL,
             "xnode_udu_fwd_store": xnode_train.FWD_STORE_KERNEL,
             "xnode_udu_bwd": xnode_train.BWD_LAUNCHES,
-            "disc_fwd": disc_train.FWD_KERNEL,
-            "disc_bwd": disc_train.BWD_KERNEL}
+            "disc_fwd": disc_train.FWD_LAUNCHES,
+            "disc_bwd": disc_train.BWD_LAUNCHES}
 
 
 def spawn(fn, nprocs: int, out_dir: str) -> None:
@@ -2172,6 +2224,146 @@ def d30_chunked(kernels, work: str, card: str) -> dict:
                              f"not under its first {rel[0]}")
     return {"hist": hist, "launches": launches, "solver": solver,
             "route": route, "chunks": chunks}
+
+
+def adv_launches_want(n: int, c, chunks: int, route) -> tuple:
+    """The launches of ``n`` ``fused_v`` outer iterations with #3-#5 in
+    ``chunks`` tangent chunks (:func:`chunk_launches_want`), #6 ``1 + n2``
+    and #7 ``n2`` times an iteration, and #6's and #7's launches by
+    variant for the adversary's ``disc_route``."""
+    want = chunk_launches_want(n, c, chunks)
+    want.update(disc_fwd=(1 + c.n2) * n, disc_bwd=c.n2 * n)
+    fwd = {"registers": 0, "tile": 0, route.fwd: want["disc_fwd"]}
+    bwd = {"shared": 0, "global": 0, route.bwd: want["disc_bwd"]}
+    return want, {"disc_fwd": fwd, "disc_bwd": bwd}
+
+
+def step_against_plain(label: str, fused, plain) -> tuple:
+    """After one outer step of each solver from the same weights and
+    batch: each gradient (Adam's first moment) within ``PARAM_RTOL`` of
+    its tensor's largest value, and each parameter too, except those whose
+    gradient is under ``ADAM_GRAD_SHARE`` of its tensor's largest in
+    either run (:data:`ADAM_GRAD_SHARE`). Returns the worst share and the
+    count of parameters beyond ``PARAM_RTOL`` that this leaves out."""
+    worst, n_eps = 0.0, 0
+    for net in ("u", "v"):
+        pairs = zip(getattr(fused.state, f"{net}_params").parameters(),
+                    getattr(plain.state, f"{net}_params").parameters())
+        for a, b in pairs:
+            ga = getattr(fused.state, f"opt_{net}").state[a]["exp_avg"]
+            gb_ = getattr(plain.state, f"opt_{net}").state[b]["exp_avg"]
+            worst = max(worst, close_f32(f"{label}: the fused_v step's "
+                                         "gradient", [ga], [gb_],
+                                         PARAM_RTOL))
+            floor = ADAM_GRAD_SHARE * float(gb_.abs().max())
+            keep = (ga.abs() >= floor) & (gb_.abs() >= floor)
+            scale = float(b.detach().abs().max()) or 1.0
+            off = (a - b).detach().abs() > PARAM_RTOL * scale
+            n_eps += int((off & ~keep).sum())
+            err = float(((a - b).detach().abs() * keep).max()) / scale
+            if not err <= PARAM_RTOL:
+                raise AssertionError(f"{label}: the fused_v step's parameter "
+                                     f"{tuple(a.shape)} {err:.3e} of its "
+                                     f"largest value > {PARAM_RTOL}")
+            worst = max(worst, err)
+    return worst, n_eps
+
+
+def fused_adversary(kernels, work: str, label: str, over: dict,
+                    variants: tuple, card: str) -> dict:
+    """Phases 2v and 2w: ``configs/cube_pde.yaml`` with ``over`` (which
+    sets ``fused_v``), seed 0. First one outer step through #6/#7 against
+    the same step with the plain adversary, from the same weights and
+    batch: every parameter within ``PARAM_RTOL`` of its tensor's largest
+    value, every metric within ``METRIC_RTOL``, #6 and #7 launched in the
+    ``variants`` (#6's, #7's) that ``disc_route`` picks and nothing else.
+    Then ``ADV_ITERS`` iterations of ``train_until``: every ``loss_u``,
+    L2 and rel-L2 finite, every weight finite, the least rel-L2 under the
+    first, the launches exact by variant."""
+    from xnode_wan_tpu_torch import NODEWANSolver, load_params, load_problem
+    from xnode_wan_tpu_torch.ops.kernels import disc_train, xnode_train
+
+    cfg = load_params(CONFIG).replace(seed=SEED, **over)
+    problem = load_problem("Ex4_1_funcs", dim=cfg.dim)
+    solvers = {fv: NODEWANSolver(cfg.replace(fused_v=fv), problem,
+                                 work_dir=os.path.join(work, str(fv)))
+               for fv in (True, False)}
+    geom = disc_train.geom_of(solvers[True].state.v_params, cfg.v_layers,
+                              cfg.tied_v)
+    route = disc_train.disc_route(geom)
+    u_route = xnode_train.kernel_route(xnode_train.flat_net(
+        solvers[True].state.u_params).dims(), cfg.dim, cfg.solver)
+    chunks = cfg.dim // u_route.d_chunk
+    print(f"{label}: adversary {geom} ({geom.n_params} weights), kernels "
+          f"{route}; primal kernels {u_route}")
+    if (route.fwd, route.bwd) != variants:
+        raise AssertionError(f"{label}: the adversary routes {route}, "
+                             f"expected {variants}")
+    if not all(torch.equal(a, b) for a, b in zip(
+            member_params(solvers[True], [0]),
+            member_params(solvers[False], [0]))):
+        raise AssertionError(f"{label}: the fused and plain solvers start "
+                             "from different weights")
+    metrics, step_launches = {}, {}
+    for fv, s in solvers.items():
+        zero_launches(kernels)
+        metrics[fv] = s._to_host(s._outer_step())
+        torch.cuda.synchronize()
+        step_launches[fv] = read_launches(kernels)
+    worst, n_eps = step_against_plain(label, solvers[True], solvers[False])
+    for k, v in metrics[False].items():
+        if not abs(metrics[True][k] - v) <= METRIC_RTOL * abs(v):
+            raise AssertionError(f"{label}: the fused_v step's {k} "
+                                 f"{metrics[True][k]} against the plain "
+                                 f"{v}")
+    want, want_var = adv_launches_want(1, cfg, chunks, route)
+    plain_want = dict(want, disc_fwd=0, disc_bwd=0)
+    if step_launches[True] != want or step_launches[False] != plain_want:
+        raise AssertionError(f"{label}: step launches fused "
+                             f"{step_launches[True]}, plain "
+                             f"{step_launches[False]}, expected {want}, "
+                             f"{plain_want}")
+    check_variants(f"{label}: the fused_v step", step_launches[True],
+                   want_var)
+    print(f"{label}: one fused_v outer step against the plain one from the "
+          f"same weights and batch: gradients and parameters within "
+          f"{worst:.3e} of each tensor's largest value ({n_eps} parameters "
+          f"beyond {PARAM_RTOL}, each at a gradient under "
+          f"{ADAM_GRAD_SHARE:g} of its tensor's largest, left out), "
+          f"metrics within {METRIC_RTOL}; #6 and #7 by variant "
+          f"{step_launches[True].variants['disc_fwd']}, "
+          f"{step_launches[True].variants['disc_bwd']}")
+    del solvers
+    solver = NODEWANSolver(cfg, problem,
+                           work_dir=os.path.join(work, "until"))
+    zero_launches(kernels)
+    hist = solver.train_until(TRAIN_TOL, ADV_ITERS)
+    torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    n = hist["iterations_run"]
+    rel = [float(r) for r in hist["rel_err"]]
+    print(f"{label}: {n} outer iterations, rel-L2 {rel[0]:.6f} -> least "
+          f"{min(rel):.6f}, last {rel[-1]:.6f}, loss_u "
+          f"{hist['loss_u'][0]:.6g} -> {hist['loss_u'][-1]:.6g}, in "
+          f"{hist['wall_train_s']:.3f} s (train_until wall clock, {card}); "
+          f"launches {launches}, by variant {launches.variants}")
+    finite = all(math.isfinite(float(v)) for k in ("loss_u", "L2", "rel_err")
+                 for v in hist[k])
+    weights = all(bool(torch.isfinite(p).all()) for p in
+                  member_params(solver, [0]))
+    if not (len(rel) == n == ADV_ITERS and finite and weights):
+        raise AssertionError(f"{label}: {n} iterations, or a non-finite "
+                             "loss_u, L2, rel-L2 or weight")
+    want, want_var = adv_launches_want(n, cfg, chunks, route)
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, expected {want}")
+    check_variants(label, launches, want_var)
+    if not min(rel) < rel[0]:
+        raise AssertionError(f"{label}: the least rel-L2 {min(rel)} is not "
+                             f"under the first {rel[0]}")
+    return {"hist": hist, "launches": launches, "solver": solver,
+            "route": route, "geom": geom, "step_rel": worst, "cfg": cfg,
+            "step_launches": step_launches[True]}
 
 
 def variant_checks(*, L, N, batch, batch20, cfg, cfg20, check_udu_near_kinks,
@@ -2583,6 +2775,240 @@ def variant_times(*, card, cfg, cg, dev, hd, hu, method, net,
     return var_rows
 
 
+def disc_margins(geom, packed, feats) -> torch.Tensor:
+    """Each point's smallest ``|a| / (|W| |x| + |b|)`` over the relu
+    pre-activations ``a_0 .. a_{L-1}`` of the adversary, in f64: where it
+    is tiny, two f32 orders of summation may put the point on either side
+    of a kink, and ``gin`` and #7's gradient jump there."""
+    pairs = geom.unpack(packed.double())
+    x = feats.double()
+    margin = torch.full((x.shape[0],), math.inf, dtype=torch.float64,
+                        device=x.device)
+    for i in range(geom.L):
+        w, b = pairs[0] if i == 0 else geom.hidden(pairs, i - 1)
+        a = x @ w.T + b
+        scale = (x.abs() @ w.abs().T + b.abs()).clamp_min(1e-300)
+        margin = torch.minimum(margin, (a.abs() / scale).min(1).values)
+        x = torch.relu(a)
+    return margin
+
+
+def check_adversary(label: str, geom, packed, feats, gen) -> dict:
+    """#6 and #7, in the variants ``disc_route`` picks, against their
+    plain versions on ``feats``: ``v`` within ``RTOL``/``ATOL``; ``gin``
+    and each weight-gradient tensor of #7 (seeded random cotangents)
+    within ``SCALED_RTOL`` of its largest value on the points at least
+    ``KINK_MARGIN`` from a relu kink (every point where none comes
+    nearer), and where some do, every point at ``KINK_RTOL``; #7 twice on
+    every point, bitwise. Returns the largest errors."""
+    from xnode_wan_tpu_torch.ops.kernels import disc_train
+
+    M = feats.shape[0]
+    vb = torch.randn((M,), generator=gen, device=feats.device)
+    gb = torch.randn((M, geom.F), generator=gen, device=feats.device)
+    sizes = [w.numel() for pair in geom.unpack(packed) for w in pair]
+    route = disc_train.disc_route(geom)
+    keep = disc_margins(geom, packed, feats) >= KINK_MARGIN
+    errs = {"disc_fwd": 0.0, "disc_bwd": 0.0}
+
+    def against_plain(lbl, idx, limit):
+        f, v_b, g_b = ((feats, vb, gb) if idx is None else
+                       (feats[idx].contiguous(), vb[idx].contiguous(),
+                        gb[idx].contiguous()))
+        v_k, g_k = disc_train.v_dv_fwd_cuda(packed, f, geom)
+        v_p, g_p = disc_train.v_dv_fwd_plain(packed, f, geom)
+        errs["disc_fwd"] = max(errs["disc_fwd"],
+                               compare(f"disc_fwd {route.fwd} v {lbl}", v_k,
+                                       v_p),
+                               compare_scaled(f"disc_fwd {route.fwd} gin "
+                                              f"{lbl}", g_k, g_p,
+                                              limit=limit))
+        grad = disc_train.v_dv_bwd_cuda(packed, f, v_b, g_b, geom)
+        errs["disc_bwd"] = max(errs["disc_bwd"], compare_scaled(
+            f"disc_bwd {route.bwd} {lbl}", grad,
+            disc_train.v_dv_bwd_plain(packed, f, v_b, g_b, geom), sizes,
+            limit=limit))
+        return grad
+
+    label = f"{label} {geom} M={M}"
+    if bool(keep.all()):
+        grad = against_plain(label, None, SCALED_RTOL)
+    else:
+        print(f"  {label}: {int((~keep).sum())} of {M} points come within "
+              f"{KINK_MARGIN} of a relu kink and are left out")
+        against_plain(f"{label}, {int(keep.sum())} points", keep,
+                      SCALED_RTOL)
+        grad = against_plain(f"{label}, all points", None, KINK_RTOL)
+    if not torch.equal(grad, disc_train.v_dv_bwd_cuda(packed, feats, vb, gb,
+                                                      geom)):
+        raise AssertionError(f"disc_bwd {route.bwd} {label}: two launches "
+                             "differ")
+    print(f"  disc_bwd {route.bwd} {label}, {route.bwd_tile}-point tiles: "
+          "two launches bitwise equal")
+    return errs
+
+
+def adversary_checks(*, cube, dev, hv, hw, vpts) -> dict:
+    """Phase 3's checks of #6's and #7's variants: 2v's and 2w's trained
+    adversaries and :data:`ADV_NETS` (random weights) at the main path's
+    80,000 points and at 80,001 and 37, by :func:`check_adversary`, each
+    net's launches counted; at the cube's shape (random weights), the tile
+    #6 against the plain version, and #7's global variant bitwise equal to
+    the shared one, the launcher called with each at the same tile and
+    grid. Returns the errors, the launches by net and what phase 4 times."""
+    from xnode_wan_tpu_torch import init_discriminator
+    from xnode_wan_tpu_torch.models.discriminator import disc_features
+    from xnode_wan_tpu_torch.ops.kernels import disc_train
+
+    print("adversary variants vs plain, f32:")
+    kernels = kernel_table()
+    gen = torch.Generator(device=dev).manual_seed(21)
+    M = vpts.shape[0]
+    c20 = hw["cfg"]
+    pts20 = torch.rand((M + 1, c20.dim + 1), generator=gen, device=dev)
+    pts20[:, 1:] = 2.0 * pts20[:, 1:] - 1.0
+    # one more interior point for the ragged count
+    pts5 = torch.cat([vpts, cube.interior(gen, 1).x[0, :1]])
+    cv = hv["cfg"]
+    nets = [("2v trained", hv["solver"].state.v_params, cv.v_layers,
+             cv.tied_v, cv.v_fourier_features, cv.dim),
+            ("2w trained", hw["solver"].state.v_params, c20.v_layers,
+             c20.tied_v, c20.v_fourier_features, c20.dim)]
+    for name, d, width, layers, tied, n_freq in ADV_NETS:
+        nets.append((f"{name}, random", init_discriminator(
+            d, width, layers, tied, n_freq, generator=gen, device=dev),
+            layers, tied, n_freq, d))
+    errs, timed, launches = {}, {}, {}
+    with torch.no_grad():
+        for name, vp, layers, tied, n_freq, d in nets:
+            geom = disc_train.geom_of(vp, layers, tied)
+            packed = disc_train.live_packed_disc(vp, layers, tied).detach()
+            base = {cv.dim: pts5, c20.dim: pts20}[d]
+            feats = disc_features(base, n_freq).contiguous()
+            zero_launches(kernels)
+            for m in (M, M + 1, 37):
+                e = check_adversary(name, geom, packed, feats[:m], gen)
+                for k, v in e.items():
+                    errs[k] = max(errs.get(k, 0.0), v)
+            launches[name] = read_launches(kernels)
+            timed[name] = (geom, packed, feats[:M].contiguous())
+        # the cube's shape: the tile #6, and #7's two accumulators at the
+        # shared one's tile and grid
+        geom, packed, feats = timed["cube's shape, random"]
+        route = disc_train.disc_route(geom)
+        tile = disc_train._largest_tile(geom, "tile")
+        zero_launches(kernels)
+        v_t, g_t = disc_train._fwd_tile(packed, feats, geom, tile, dev)
+        v_p, g_p = disc_train.v_dv_fwd_plain(packed, feats, geom)
+        errs["disc_fwd"] = max(errs.get("disc_fwd", 0.0), compare(
+            f"disc_fwd tile v at the cube's shape, {tile} points a "
+            f"block, M={M}", v_t, v_p), compare_scaled(
+            f"disc_fwd tile gin at the cube's shape, M={M}", g_t, g_p))
+        if not float(g_p.abs().max()) > 0.0:
+            raise AssertionError("the cube's shape, random: gin is 0, so "
+                                 "the checks cannot see the features")
+        vb = torch.randn((M,), generator=gen, device=dev)
+        gb = torch.randn((M, geom.F), generator=gen, device=dev)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        blocks = disc_train.bwd_grid(geom, "shared", route.bwd_tile, M, sms)
+        shared, glob = (disc_train._bwd(k, packed, feats, vb, gb, geom,
+                                        route.bwd_tile, blocks, dev)
+                        for k in (disc_train.BWD_KERNEL,
+                                  disc_train.BWD_GLOBAL_KERNEL))
+        if not torch.equal(shared, glob):
+            raise AssertionError("disc_bwd at the cube's shape: the global "
+                                 "accumulator differs from the shared one "
+                                 "at the same tile and grid")
+        print(f"  disc_bwd at the cube's shape, random, M={M}: the global "
+              f"accumulator bitwise equal to the shared one at "
+              f"{route.bwd_tile} points a tile and {blocks} blocks")
+        launches["cube's shape, tile #6 and #7 global"] = read_launches(
+            kernels)
+        timed["cube's shape"] = (geom, packed, feats, tile, blocks)
+    return {"errs": errs, "timed": timed, "launches": launches}
+
+
+def adversary_times(*, card, checked, phase_launches) -> list:
+    """Phase 4's times of #6's and #7's variants, each with its bound,
+    its plain version and its launches where its net ran: 2v's (the tile
+    #6, #7 global) and 2w's (the register #6, #7 shared at F = 141) at the
+    main path's 80,000 points with 2v's and 2w's launches; the widest
+    net's, the d=20 3-frequency net's and, at the cube's shape, the tile
+    #6 and #7 global (the latter at the shared one's tile and grid), with
+    phase 3's launches at that net."""
+    from xnode_wan_tpu_torch.ops.kernels import disc_train
+
+    p3 = checked["launches"]
+    gen = torch.Generator(device=checked["timed"]["cube's shape"][2].device)
+    gen.manual_seed(22)
+    rows = []
+    with torch.no_grad():
+        cases = []
+        for name, phase, lv in (
+                ("2v trained", "2v", phase_launches["2v"].variants),
+                ("2w trained", "2w", phase_launches["2w"].variants),
+                ("widest tied, random", "phase 3",
+                 p3["widest tied, random"].variants),
+                ("d=20, 3 frequencies, random", "phase 3",
+                 p3["d=20, 3 frequencies, random"].variants)):
+            geom, packed, feats = checked["timed"][name]
+            route = disc_train.disc_route(geom)
+            M = feats.shape[0]
+            vb = torch.randn((M,), generator=gen, device=feats.device)
+            gb = torch.randn((M, geom.F), generator=gen, device=feats.device)
+            work = disc_work(geom, M)
+            cases += [
+                ("disc_fwd", route.fwd, f"{phase}, {geom}",
+                 lambda p=packed, f=feats, g=geom:
+                 disc_train.v_dv_fwd_cuda(p, f, g),
+                 lambda p=packed, f=feats, g=geom:
+                 disc_train.v_dv_fwd_plain(p, f, g),
+                 work["disc_fwd"], lv["disc_fwd"][route.fwd]),
+                ("disc_bwd", route.bwd, f"{phase}, {geom}",
+                 lambda p=packed, f=feats, a=vb, b=gb, g=geom:
+                 disc_train.v_dv_bwd_cuda(p, f, a, b, g),
+                 lambda p=packed, f=feats, a=vb, b=gb, g=geom:
+                 disc_train.v_dv_bwd_plain(p, f, a, b, g),
+                 work["disc_bwd"], lv["disc_bwd"][route.bwd])]
+        geom, packed, feats, tile, blocks = checked["timed"]["cube's shape"]
+        lv = p3["cube's shape, tile #6 and #7 global"].variants
+        dev = feats.device
+        M = feats.shape[0]
+        vb = torch.randn((M,), generator=gen, device=dev)
+        gb = torch.randn((M, geom.F), generator=gen, device=dev)
+        work = disc_work(geom, M)
+        tile_b = disc_train.disc_route(geom).bwd_tile
+        cases += [
+            ("disc_fwd", "tile", f"phase 3, the cube's shape {geom}, {tile} "
+             "points a block",
+             lambda: disc_train._fwd_tile(packed, feats, geom, tile, dev),
+             lambda: disc_train.v_dv_fwd_plain(packed, feats, geom),
+             work["disc_fwd"], lv["disc_fwd"]["tile"]),
+            ("disc_bwd", "global", f"phase 3, the cube's shape {geom}, the "
+             f"shared one's {tile_b}-point tiles and {blocks} blocks",
+             lambda: disc_train._bwd(disc_train.BWD_GLOBAL_KERNEL, packed,
+                                     feats, vb, gb, geom, tile_b, blocks,
+                                     dev),
+             lambda: disc_train.v_dv_bwd_plain(packed, feats, vb, gb, geom),
+             work["disc_bwd"], lv["disc_bwd"]["global"])]
+        print(f"adversary variants ({card}), kernel the median of 20 "
+              "CUDA-event runs, plain of 5:")
+        for name, variant, phase, kern, plain, wk, n_launch in cases:
+            ms = time_ms(kern)
+            plain_ms = time_ms(plain, reps=5, warmup=1)
+            bound_ms, bound_by = bound(*wk)
+            print(f"  {name} {variant} at {phase}: kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, bound {1e3 * bound_ms:.2f} us "
+                  f"({bound_by}; {wk[0] / 1e9:.3f} GFLOP, {wk[1] / 1e6:.3f} "
+                  f"MB), {wk[0] / (ms * 1e-3) / 1e12:.3f} TFLOP/s, "
+                  f"{n_launch} launches there")
+            rows.append({"kernel": name, "variant": variant, "phase": phase,
+                         "launches": n_launch, "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by})
+    return rows
+
+
 def phase_done(name: str, t_start: float) -> float:
     now = time.perf_counter()
     print(f"phase {name}: {now - t_start:.3f} s")
@@ -2634,8 +3060,9 @@ def main(work_root: str) -> int:
 
     # 1. build ---------------------------------------------------------
     # #1/#2 (xnode_fwd.cu) get one library per (H, Hh) pair of the
-    # shipped configs, #6 (disc_fwd.cu) and #7 (disc_train.cu) one per
-    # adversary width; #3-#5 (xnode_grad.cu) one
+    # shipped configs, the register #6 (disc_fwd.cu) one per adversary
+    # width; #3-#5 (xnode_grad.cu) one, #7 and the tile #6 (disc_train.cu)
+    # one
     shipped = {}
     for name in ("cube_pde", "ex4_1_d10", "highdim_d20"):
         gcfg = load_params(os.path.join(ROOT, "configs", f"{name}.yaml"))
@@ -2660,10 +3087,9 @@ def main(work_root: str) -> int:
     wide_thread = threading.Thread(target=build_wide, daemon=True)
     wide_thread.start()
     t = time.perf_counter()
-    libs = _build.build([("xnode_grad", None)]
+    libs = _build.build([("xnode_grad", None), ("disc_train", None)]
                         + [("xnode_fwd", w) for w in sorted(shipped_fwd)]
-                        + [(src, w) for src in ("disc_fwd", "disc_train")
-                           for w in disc_widths])
+                        + [("disc_fwd", w) for w in disc_widths])
     print(f"build: {time.perf_counter() - t:.2f} s -> {_build.build_dir()}")
     for name in libs:
         log = (_build.build_dir() / f"{name}.log").read_text()
@@ -2672,7 +3098,8 @@ def main(work_root: str) -> int:
                     or "spill" in line):
                 print(f"  {name}: {line.strip()}")
         # the width-specialized kernels keep every per-thread array in
-        # registers at the shipped widths: no stack, no spills
+        # registers at the shipped widths, and the adversary's tile
+        # kernels theirs at any width: no stack, no spills
         frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill "
                             r"stores, (\d+) bytes spill loads", log)
         if name.startswith(("xnode_fwd", "disc_fwd", "disc_train")) and (
@@ -2703,23 +3130,40 @@ def main(work_root: str) -> int:
         print(f"  disc_fwd {name} {geom}: {got} staged floats; "
               f"{disc_train.fwd_smem_bytes(geom)} bytes of shared memory a "
               "block with the sign words and slots")
-        # #7: the tile's shared bytes in Python against the launcher's
-        bwd_name = _build.lib_name("disc_train", (geom.H,))
-        smem_of = ctypes.CDLL(str(libs[bwd_name])).disc_bwd_smem_bytes
-        smem_of.restype = ctypes.c_longlong
-        tile = disc_train.bwd_tile(geom)
-        got = smem_of(geom.F, geom.H, geom.L, int(tied), tile)
-        if got != disc_train.bwd_smem_bytes(geom, tile):
-            raise AssertionError(f"disc_train.bwd_smem_bytes {name} {geom}: "
-                                 f"the launcher asks for {got} bytes")
-        log = (_build.build_dir() / f"{bwd_name}.log").read_text()
-        regs = [re.search(r"Used (\d+) registers", c).group(1)
-                for c in log.split("Compiling entry function")[1:]
-                if "disc_bwd_kernel" in c.splitlines()[0]]
-        print(f"  disc_train {name} {geom}: {tile} points a tile, rows of "
-              f"{disc_train.bwd_stride(tile)} floats, {got} bytes of shared "
-              f"memory a block, {disc_train.BWD_THREADS} threads, "
-              f"{regs[0] if regs else '?'} registers a thread")
+    # #7's variants and the tile #6: the tile's shared bytes in Python
+    # against the launcher's, at the shipped adversaries, 2v's and 2w's
+    # and phase 3's, every variant and tile
+    smem_of = ctypes.CDLL(str(libs["disc_train"])).disc_tile_smem_bytes
+    smem_of.restype = ctypes.c_longlong
+    smem_of.argtypes = [ctypes.c_int] * 6
+    adv_geoms = {disc_train.DiscGeom(
+        g.v_fourier_features * 2 * g.dim + g.dim + 1, g.v_hidden_dim,
+        g.v_layers, tied) for g, _ in shipped.values() for tied in (0, 1)}
+    for over in (WIDE_V, FOURIER_V):
+        g = load_params(CONFIG).replace(**over)
+        adv_geoms.add(disc_train.DiscGeom(
+            g.v_fourier_features * 2 * g.dim + g.dim + 1, g.v_hidden_dim,
+            g.v_layers, int(g.tied_v)))
+    adv_geoms |= {disc_train.DiscGeom(d * (2 * nf + 1) + 1, H, L, int(t))
+                  for _, d, H, L, t, nf in ADV_NETS}
+    for geom in sorted(adv_geoms):
+        for variant, vid in disc_train.VARIANT_IDS.items():
+            for tile in disc_train.TILES:
+                got = smem_of(vid, geom.F, geom.H, geom.L, geom.tied, tile)
+                if got != disc_train.tile_smem_bytes(geom, variant, tile):
+                    raise AssertionError(
+                        f"disc_train.tile_smem_bytes {geom} {variant} "
+                        f"tile={tile}: the launcher asks for {got} bytes")
+        route = disc_train.disc_route(geom)
+        print(f"  disc_train {geom}: {route}, #7 "
+              f"{disc_train.tile_smem_bytes(geom, route.bwd, route.bwd_tile)}"
+              " bytes of shared memory a block, "
+              f"{disc_train.BWD_THREADS} threads")
+    log = (_build.build_dir() / "disc_train.log").read_text()
+    for c in log.split("Compiling entry function")[1:]:
+        regs = re.search(r"Used (\d+) registers", c)
+        print(f"  disc_train {c.splitlines()[0].strip()}: "
+              f"{regs.group(1) if regs else '?'} registers a thread")
     # the wrapper's shared-memory rule against the bytes the launchers of
     # #3-#5 ask for, at every shipped config and the nets of 2s, 2t and 2u,
     # method and listed tile: #3/#4 (and at d = 0 #1/#2's path-tile
@@ -2936,6 +3380,10 @@ def main(work_root: str) -> int:
         if u_best.shape != (SERVE_POINTS,) or not bool(
                 torch.isfinite(u_best).all()):
             raise AssertionError("the best weights serve non-finite values")
+    # the shipped adversary keeps the register #6 and the shared #7
+    check_variants("command line (2c)", cli_launches, {
+        "disc_fwd": {"registers": cli_launches["disc_fwd"], "tile": 0},
+        "disc_bwd": {"shared": cli_launches["disc_bwd"], "global": 0}})
     for name in ("disc_fwd", "disc_bwd"):
         launches[name] = cli_launches[name]
     phase_launches = {"2a": serve_launches, "2b": train_launches,
@@ -3209,6 +3657,30 @@ def main(work_root: str) -> int:
                         "route": hu["route"]._asdict()},
         "card": card}}))
     t_phase = phase_done("2u", t_phase)
+
+    # 2v. a 256-wide adversary: the tile #6 and #7's global accumulator --
+    hv = fused_adversary(kernels, os.path.join(work_root, "2v"),
+                         "the 256-wide adversary (2v)", WIDE_V,
+                         ("tile", "global"), card)
+    phase_launches["2v"] = hv["launches"]
+    phase_launches["2v step"] = hv["step_launches"]
+    t_phase = phase_done("2v", t_phase)
+
+    # 2w. d = 20 with the adversary's Fourier bank at 3 frequencies -------
+    hw = fused_adversary(kernels, os.path.join(work_root, "2w"),
+                         "the 141-feature adversary (2w)", FOURIER_V,
+                         ("registers", "shared"), card)
+    phase_launches["2w"] = hw["launches"]
+    phase_launches["2w step"] = hw["step_launches"]
+    print(json.dumps({"wide_adversaries": {
+        name: {"geom": h["geom"]._asdict(), "route": h["route"]._asdict(),
+               "step_param_rel": h["step_rel"],
+               "iterations": h["hist"]["iterations_run"],
+               "rel_err": [float(r) for r in h["hist"]["rel_err"]],
+               "loss_u": [float(v) for v in h["hist"]["loss_u"]],
+               "wall_train_s": h["hist"]["wall_train_s"]}
+        for name, h in (("2v", hv), ("2w", hw))}, "card": card}))
+    t_phase = phase_done("2w", t_phase)
 
     # 3. each kernel against its plain version on the card -----------------
     net = xnode_train.flat_net(model)
@@ -3499,7 +3971,8 @@ def main(work_root: str) -> int:
             if not torch.equal(g_bwd, disc_train.v_dv_bwd_cuda(
                     dpacked, dfeats, vb, gb, geom)):
                 raise AssertionError(f"disc_bwd {label}: two launches differ")
-            print(f"  disc_bwd {label}, {disc_train.bwd_tile(geom)}-point "
+            print(f"  disc_bwd {label}, "
+                  f"{disc_train.disc_route(geom).bwd_tile}-point "
                   "tiles: two launches bitwise equal")
         # #6 and #7 at point counts one past a whole number of blocks (and
         # of #7's tiles) and under one block: the trained adversary, and
@@ -3657,6 +4130,8 @@ def main(work_root: str) -> int:
         k_steps=k_steps,
         net=net, net_tr=net_tr, path_seed=path_seed, problem=problem,
         pts=pts, tan_inputs=tan_inputs, wide=wide, xs=xs)
+    adv_checked = adversary_checks(cube=cube, dev=dev, hv=hv, hw=hw,
+                                   vpts=vpts)
     t_phase = phase_done("3", t_phase)
 
     # 4. times at the main path's shapes ------------------------------------
@@ -3769,12 +4244,16 @@ def main(work_root: str) -> int:
                            if c.get(name)},
             })
 
-        var_errs = checked.pop("var_errs")
+        var_errs = dict(checked.pop("var_errs"),
+                        **{f"{k} variants": v
+                           for k, v in adv_checked["errs"].items()})
         var_rows = variant_times(card=card, cfg=cfg, cg=cg, dev=dev, hd=hd,
                                  hu=hu,
                                  method=method, net=net,
                                  phase_launches=phase_launches, work=work,
                                  **checked)
+        var_rows += adversary_times(card=card, checked=adv_checked,
+                                    phase_launches=phase_launches)
         for row in rows:
             row["variants"] = {
                 p: c.variants[row["name"]] for p, c in phase_launches.items()

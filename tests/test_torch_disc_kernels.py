@@ -1,5 +1,5 @@
-"""The adversary's kernels of the port (#6 in ``csrc/disc_fwd.cu``, #7 in
-``csrc/disc_train.cu``)
+"""The adversary's kernels of the port (#6 in ``csrc/disc_fwd.cu`` and
+``csrc/disc_train.cu``, #7 in ``csrc/disc_train.cu``)
 through their plain versions: against the JAX package's Pallas kernels in
 interpret mode, the hand-derived backward against double-backward
 autograd, the fused adversary side against the JAX one, and the host side
@@ -41,11 +41,11 @@ DIM, H, L, M = 3, 10, 3, 200
 CASES = [(True, 0), (False, 0), (True, 1), (True, 2), (False, 1)]
 
 
-def shared_disc(tied, n_freq, seed):
+def shared_disc(tied, n_freq, seed, width=H, layers=L):
     """One discriminator for both packages, biases made non-zero so the
     relu masks split."""
     tree = jax.tree.map(np.asarray, jinit_discriminator(
-        jax.random.PRNGKey(seed), DIM, H, L, tied, n_freq))
+        jax.random.PRNGKey(seed), DIM, width, layers, tied, n_freq))
     rng = np.random.default_rng(seed)
     hidden = [tree["hidden"]] if tied else tree["hidden"]
     for layer in [tree["inp"], *hidden, tree["out"]]:
@@ -133,12 +133,18 @@ def test_bwd_plain_matches_double_backward_f64(tied):
     torch.testing.assert_close(gin_p, gin.detach(), rtol=1e-12, atol=1e-12)
 
 
-@pytest.mark.parametrize("tied,n_freq", [(True, 0), (False, 0), (True, 1)])
-def test_v_phi_grads_fused_matches_jax(tied, n_freq):
+@pytest.mark.parametrize(
+    "tied,n_freq,width,layers",
+    [(True, 0, H, L), (False, 0, H, L), (True, 1, H, L), (True, 21, 72, 2)],
+    ids=["True-0", "False-0", "True-1", "True-21-H72-L2"])
+def test_v_phi_grads_fused_matches_jax(tied, n_freq, width, layers):
     # the fused adversary side: values and the weight gradients of the
-    # contraction of tests/test_fused_disc.py
-    jparams, tparams = shared_disc(tied, n_freq, seed=7)
-    kw = dict(dim=DIM, v_layers=L, v_hidden_dim=H, tied_v=tied,
+    # contraction of tests/test_fused_disc.py; the last case is past the
+    # register #6's width cap and 128 features (H = 72, F = 1 + 3 (1 + 2
+    # 21) = 130), with the weights carried over from JAX
+    jparams, tparams = shared_disc(tied, n_freq, seed=7, width=width,
+                                   layers=layers)
+    kw = dict(dim=DIM, v_layers=layers, v_hidden_dim=width, tied_v=tied,
               v_fourier_features=n_freq, N_t=5, fused_v=True)
     jcfg, tcfg = JConfig(**kw), SolverConfig(**kw)
     jdom = make_domain("Hypercube", (-1.0, 1.0), DIM, 0.0, 1.0, 5)
@@ -154,11 +160,14 @@ def test_v_phi_grads_fused_matches_jax(tied, n_freq):
                 + (lib.tanh(phi) * dphi[..., 0]).sum())
 
     with jax.default_matmul_precision("highest"):
-        jout = jv_phi_grads_fused(jparams, jnp.asarray(x), jdom.func_w, jcfg,
-                                  interpret=True)
-        jgrads = jax.grad(lambda p: contraction(*jv_phi_grads_fused(
-            p, jnp.asarray(x), jdom.func_w, jcfg, interpret=True),
-            jnp))(jparams)
+        # one compiled program: the contraction's gradient is the vjp of
+        # its own gradient in the outputs
+        def jax_side(p):
+            out, vjp = jax.vjp(lambda q: jv_phi_grads_fused(
+                q, jnp.asarray(x), jdom.func_w, jcfg, interpret=True), p)
+            return out, vjp(jax.grad(lambda o: contraction(*o, jnp))(out))[0]
+
+        jout, jgrads = jax.jit(jax_side)(jparams)
     tout = weak_form.v_phi_grads_fused(tparams, torch.as_tensor(x),
                                        tdom.func_w, tcfg)
     for got, want, atol in zip(tout, jout, (5e-6, 5e-6, 5e-5)):
@@ -193,30 +202,37 @@ def test_fused_v_side_matches_plain_side():
 
 
 def test_over_cap_v_side_plain_on_cpu_raises_elsewhere():
-    # fused_v with a discriminator wider than the kernels' caps: CPU
-    # tensors take the plain side, any other device is refused by name
-    cfg = SolverConfig(dim=DIM, v_layers=2, v_hidden_dim=65, N_t=5,
+    # fused_v with a discriminator past the JAX package's Pallas bound (F
+    # + H (2 L + 4) + 2 = 4 + 32 * 404 + 2 rows > 12,288), where JAX takes
+    # its XLA side: CPU tensors take the plain side, any other device is
+    # refused by name
+    width, layers = 32, 200
+    cfg = SolverConfig(dim=DIM, v_layers=layers, v_hidden_dim=width, N_t=5,
                        fused_v=True)
     dom = Hypercube((-1.0, 1.0), DIM, 0.0, 1.0, 5)
-    tparams = init_discriminator(DIM, 65, 2, True, 0, device="cpu")
-    assert not disc_train.v_fused_fits(tparams, 2, True)
+    tparams = init_discriminator(DIM, width, layers, True, 0, device="cpu")
+    assert not disc_train.v_fused_fits(tparams, layers, True)
+    pfits = {"inp": {"w": np.zeros((DIM + 1, 1))},
+             "out": {"w": np.zeros((width, 1))}}
+    assert not jdisc.v_fused_fits(pfits, DIM + 1, layers, True)
 
     def v_apply(p, pts):
         from xnode_wan_tpu_torch.models.discriminator import \
             apply_discriminator
-        return apply_discriminator(p, pts, 2, True, 0)
+        return apply_discriminator(p, pts, layers, True, 0)
 
     v_side = weak_form.make_losses(None, dom, cfg, None, v_apply).v_side
     x = torch.as_tensor(sample_points(40, seed=15).reshape(8, 5, DIM + 1))
-    counts = [disc_train.FWD_KERNEL.launches, disc_train.BWD_KERNEL.launches]
+    counts = [disc_train.FWD_LAUNCHES.launches,
+              disc_train.BWD_LAUNCHES.launches]
     got = v_side(tparams, SimpleNamespace(x=x))
     want = weak_form.v_phi_and_grads(v_apply, tparams, x, dom.func_w)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    with pytest.raises(ValueError, match="caps.*v_hidden_dim <= 64"):
+    with pytest.raises(ValueError, match="domain.*12934 rows, at most 12288"):
         v_side(tparams, SimpleNamespace(x=x.to("meta")))
-    assert counts == [disc_train.FWD_KERNEL.launches,
-                      disc_train.BWD_KERNEL.launches]
+    assert counts == [disc_train.FWD_LAUNCHES.launches,
+                      disc_train.BWD_LAUNCHES.launches]
 
 
 def test_fused_v_gate():
@@ -252,17 +268,21 @@ def cuda_signature(source, symbol):
 
 
 @pytest.mark.parametrize("kernel", [disc_train.FWD_KERNEL,
-                                    disc_train.BWD_KERNEL],
+                                    disc_train.BWD_KERNEL,
+                                    disc_train.FWD_TILE_KERNEL,
+                                    disc_train.BWD_GLOBAL_KERNEL],
                          ids=lambda k: k.symbol)
 def test_disc_ctypes_argtypes_match_c_signature(kernel):
-    # #6 has a source of its own, built once per width; #7 stays in
-    # disc_train.cu. Each block size is a compile-time constant of its
-    # source, mirrored in the wrapper for the grid rule.
+    # the register #6 has a source of its own, built once per width; #7's
+    # two variants and the tile #6 are in disc_train.cu, built once. Each
+    # block size is a compile-time constant of its source, mirrored in the
+    # wrapper for the grid rule.
+    bwd = ("disc_train", "XD_BWD_THREADS", disc_train.BWD_THREADS)
     source, define, threads = {
         "disc_fwd_launch": ("disc_fwd", "XD_FWD_THREADS",
                             disc_train.FWD_THREADS),
-        "disc_bwd_launch": ("disc_train", "XD_BWD_THREADS",
-                            disc_train.BWD_THREADS)}[kernel.symbol]
+        "disc_bwd_launch": bwd, "disc_bwd_global_launch": bwd,
+        "disc_tile_fwd_launch": bwd}[kernel.symbol]
     assert kernel.source == source
     assert source in _build.KERNEL_SOURCES
     params = cuda_signature(source, kernel.symbol)
@@ -274,31 +294,55 @@ def test_disc_ctypes_argtypes_match_c_signature(kernel):
     assert re.findall(r"#define " + define + r" (\d+)", text) == [str(threads)]
 
 
+def test_disc_kernel_variants_count_together():
+    # #6's register and tile variants, and #7's two accumulators, each
+    # count as one kernel, read by variant
+    assert disc_train.FWD_LAUNCHES.variants == {
+        "registers": disc_train.FWD_KERNEL,
+        "tile": disc_train.FWD_TILE_KERNEL}
+    assert disc_train.BWD_LAUNCHES.variants == {
+        "shared": disc_train.BWD_KERNEL,
+        "global": disc_train.BWD_GLOBAL_KERNEL}
+    kept = [k.launches for k in disc_train.BWD_LAUNCHES.variants.values()]
+    try:
+        disc_train.BWD_KERNEL.launches = 2
+        disc_train.BWD_GLOBAL_KERNEL.launches = 3
+        assert disc_train.BWD_LAUNCHES.launches == 5
+        assert disc_train.BWD_LAUNCHES.by_variant() == {"shared": 2,
+                                                        "global": 3}
+    finally:
+        disc_train.BWD_KERNEL.launches, disc_train.BWD_GLOBAL_KERNEL.launches \
+            = kept
+
+
 def test_disc_cuda_wrappers_reject_cpu_tensors():
     _, tparams = shared_disc(True, 0, seed=13)
     geom = disc_train.geom_of(tparams, L, True)
     packed = torch.cat([a.reshape(-1) for a in disc_train.flat_disc(
         tparams, L, True)])
     feats = torch.as_tensor(sample_points(9, seed=14))
-    counts = [disc_train.FWD_KERNEL.launches, disc_train.BWD_KERNEL.launches]
+    counts = [disc_train.FWD_LAUNCHES.launches,
+              disc_train.BWD_LAUNCHES.launches]
     with pytest.raises(ValueError, match="CUDA device"):
         disc_train.v_dv_fwd_cuda(packed, feats, geom)
     with pytest.raises(ValueError, match="CUDA device"):
         disc_train.v_dv_bwd_cuda(packed, feats, torch.zeros(9),
                                  torch.zeros(9, geom.F), geom)
-    with pytest.raises(ValueError, match="caps"):
-        disc_train.v_dv_fwd_cuda(packed, feats, geom._replace(H=65))
+    # past the Pallas bound: 4 + 10 (2 * 2000 + 4) + 2 rows
+    with pytest.raises(ValueError, match="domain.*40046 rows"):
+        disc_train.v_dv_fwd_cuda(packed, feats, geom._replace(L=2000))
     with pytest.raises(ValueError, match="no disc kernel"):
         disc_train.VDvFused.apply(packed.to("meta"), geom, feats.to("meta"))
-    assert counts == [disc_train.FWD_KERNEL.launches,
-                      disc_train.BWD_KERNEL.launches]
+    assert counts == [disc_train.FWD_LAUNCHES.launches,
+                      disc_train.BWD_LAUNCHES.launches]
 
 
 def test_fits_gate_and_tiles():
-    # the shipped d=5 and d=20 adversaries fit, tied or not (#7 takes
-    # 32-point tiles for the tied d=5 net, 16 for the untied d=5 and the
-    # tied d=20 ones, 8 for the untied d=20 one); test_fused_disc.py::
-    # test_fits_gate's absurd geometry does not
+    # the shipped d=5 and d=20 adversaries take the register #6 and the
+    # shared #7, tied or not (#7 takes 32-point tiles for the tied d=5 net,
+    # 16 for the untied d=5 and the tied d=20 ones, 8 for the untied d=20
+    # one); test_fused_disc.py::test_fits_gate's absurd geometry is past
+    # the Pallas bound
     for name, tiles in (("cube_pde", (32, 16)), ("highdim_d20", (16, 8))):
         cfg = load_params(os.path.join(REPO, "configs", f"{name}.yaml"))
         for tied, tile in zip((True, False), tiles):
@@ -307,29 +351,49 @@ def test_fits_gate_and_tiles():
                                    device="cpu")
             assert disc_train.v_fused_fits(p, cfg.v_layers, tied), name
             geom = disc_train.geom_of(p, cfg.v_layers, tied)
-            assert disc_train.bwd_tile(geom) == tile
+            assert disc_train.disc_route(geom) == ("registers", 0, "shared",
+                                                   tile)
     # by hand: 2 (L + 1) H + 2 H + 2 F + 1 rows of tile + 4 floats (tile
     # floats at 8 points), then the n_params accumulator
     geom = disc_train.DiscGeom(F=6, H=50, L=9, tied=True)
     assert geom.n_params == 2951
-    assert disc_train.bwd_smem_bytes(geom, 32) == 4 * (2951 + 36 * 1113)
-    assert disc_train.bwd_smem_bytes(geom, 32) == 172076
+    smem = disc_train.tile_smem_bytes
+    assert smem(geom, "shared", 32) == 4 * (2951 + 36 * 1113)
+    assert smem(geom, "shared", 32) == 172076
     d20 = disc_train.DiscGeom(F=61, H=64, L=9, tied=False)
     assert d20.n_params == 41473
-    assert disc_train.bwd_smem_bytes(d20, 8) == 4 * (41473 + 8 * 1531)
-    assert disc_train.bwd_smem_bytes(d20, 8) == 214884
-    assert disc_train.bwd_smem_bytes(d20, 16) > 232448
+    assert smem(d20, "shared", 8) == 4 * (41473 + 8 * 1531)
+    assert smem(d20, "shared", 8) == 214884
+    assert smem(d20, "shared", 16) > 232448
     big = init_discriminator(50, 400, 40, False, 4, device="cpu")
     assert not disc_train.v_fused_fits(big, 40, False)
-    with pytest.raises(ValueError, match="shared memory"):
-        disc_train.bwd_tile(disc_train.DiscGeom(F=128, H=64, L=32,
-                                                tied=False))
+    with pytest.raises(ValueError, match="domain"):
+        disc_train.disc_route(disc_train.geom_of(big, 40, False))
+    # past the old caps (F = 128, L = 32): its 141,441 weights fit no
+    # shared accumulator and its staged copy no register #6 block, so the
+    # tile #6 at 16 points and #7's global accumulator at 8
+    wide = disc_train.DiscGeom(F=128, H=64, L=32, tied=False)
+    assert smem(wide, "shared", 4) > 232448
+    assert disc_train.disc_route(wide) == ("tile", 16, "global", 8)
 
 
 @pytest.mark.parametrize("source", ["disc_fwd", "disc_train"])
 def test_disc_fwd_nvcc_command_per_width(source):
-    # kernels #6 and #7 are built once per adversary width, with
-    # -DXD_H=<H>
+    # the register #6 is built once per adversary width, with -DXD_H=<H>;
+    # disc_train.cu (#7, the tile #6) once, with every width at run time
+    if source == "disc_train":
+        lib = _build.library_path(source)
+        assert lib.name == "libdisc_train.so"
+        assert lib.parent == _build.build_dir()
+        cmd = _build.nvcc_command(source, None, lib)
+        assert cmd[-1] == str(_build.CSRC / "disc_train.cu")
+        assert not any(a.startswith("-D") for a in cmd)
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert "--use_fast_math" not in cmd
+        for widths in ((50,), (50, 10)):
+            with pytest.raises(ValueError, match="width"):
+                _build.nvcc_command(source, widths, "lib.so")
+        return
     libs = [_build.library_path(source, (H,)) for H in (50, 64)]
     assert [p.name for p in libs] == [f"lib{source}_H50.so",
                                       f"lib{source}_H64.so"]

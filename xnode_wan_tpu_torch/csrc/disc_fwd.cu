@@ -4,6 +4,11 @@
 //
 //   #6 _v_fwd_kernel -> disc_fwd_launch  (v [M], gin [M, F])
 //
+// This is #6's register variant, for adversaries up to 64 wide whose staged
+// copy fits a block; disc_train.cu's disc_tile_fwd_launch takes every other
+// net the JAX package's Pallas kernels take (ops/kernels/disc_train.py ::
+// disc_route).
+//
 // Network and packing: disc_net.cuh. Built once per adversary width:
 // nvcc -DXD_H=<H> (ops/kernels/_build.py), so the per-thread vector in
 // registers has a compile-time size and is touched only by fully unrolled

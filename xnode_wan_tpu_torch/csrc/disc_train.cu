@@ -1,61 +1,75 @@
-// Adversary kernel #7: the weight cotangents of the discriminator's value
-// and input gradient, the backward of ops/kernels/disc_train.py ::
-// VDvFused. It replaces, in the JAX package's ops/pallas/disc_train.py,
+// Adversary kernels on tiles of points: #7, the weight cotangents of the
+// discriminator's value and input gradient (the backward of
+// ops/kernels/disc_train.py :: VDvFused), and the tile variant of #6, its
+// value and input gradient (the forward). They replace, in the JAX
+// package's ops/pallas/disc_train.py,
 //
-//   #7 _v_bwd_kernel -> disc_bwd_launch  (weight cotangents, summed over M)
+//   #7 _v_bwd_kernel -> disc_bwd_launch         (accumulator in shared memory)
+//                       disc_bwd_global_launch  (accumulator in its block's
+//                                                row of `partial`)
+//   #6 _v_fwd_kernel -> disc_tile_fwd_launch    (v [M], gin [M, F]; the
+//                       register kernel of disc_fwd.cu takes the nets up to
+//                       64 wide whose staged weights fit a block)
 //
-// The forward, #6 (disc_fwd_launch), is in disc_fwd.cu; the network and its
-// packing are in disc_net.cuh. Built once per adversary width: nvcc
-// -DXD_H=<H> (ops/kernels/_build.py), so every loop over a layer's outputs
-// and every register micro-tile has a compile-time size. The feature width
-// F, the depth L and `tied` stay runtime values.
+// The network and its packing are in disc_net.cuh. Built ONCE, with the
+// width H, the feature width F, the depth L and `tied` all runtime values:
+// no loop over a layer is unrolled by its width, so one library takes every
+// width the JAX package's Pallas kernels take (ops/kernels/disc_train.py ::
+// disc_route picks the variant and the tile from the shapes).
 //
 // Bound on an H100 SXM (67 TFLOP/s FP32 without tensor cores, 3.35 TB/s)
-// at the d=5 main path (F = 6, H = 50, L = 9, tied, M = 80,000): about
+// at the d=5 main path (F = 6, H = 50, L = 9, tied, M = 80,000): #7 about
 // 136,650 multiply-adds a point (21.9 GFLOP, 0.33 ms) against 4.2 MB: bound
 // by operations. No tensor cores: TF32 would break the f32 parity with the
 // plain version at about 1e-3.
 //
-// Design: an MLP over a batch. A block takes a TILE of P points (32, 16 or
-// 8: the largest whose buffers fit, ops/kernels/disc_train.py :: bwd_tile)
-// and works layer by layer on the tile with all of its vectors in shared
-// memory, feature-major [width][S], S = P + 4 floats (P when P = 8, where
-// the pad would not fit): rows start on 16 bytes and 8 rows spaced by an
-// odd count fall on distinct banks. Stages:
+// Design: an MLP over a batch. A block takes a TILE of P points (32, 16, 8
+// or 4: the largest whose buffers fit) and works layer by layer on the tile
+// with all of its vectors in shared memory, feature-major [width][S], S =
+// P + 4 floats (P below 16 points, where the pad would not fit): rows start
+// on 16 bytes and 8 rows spaced by an odd count fall on distinct banks.
+// Stages:
 //   1. the forward, keeping relu(a_0) .. relu(a_{L-1}) and a_L (a relu
 //      output is > 0 exactly where its input is, so it serves as the mask);
-//   2. the sweep: y = tanh(a_L) in place of a_L, and every G_0 .. G_L;
-//   3. the sweep's reverse (it ran last), i = 0..L-1, each product masked
-//      at its output by the next layer's sign, then the output layer (the
-//      second-order tanh term);
-//   4. the forward's reverse, i = L-1..0.
+//   2. the sweep: y = tanh(a_L) in place of a_L, and G_L .. G_0 (#7 keeps
+//      every G_i; #6 takes v from y, keeps two G buffers and ends with gin =
+//      W0^T G_0);
+//   3. (#7) the sweep's reverse (it ran last), i = 0..L-1, each product
+//      masked at its output by the next layer's sign, then the output layer
+//      (the second-order tanh term);
+//   4. (#7) the forward's reverse, i = L-1..0.
 // Every matrix product of a step goes through REGISTER MICRO-TILES:
 //   - xd_dense: a thread computes 2 outputs x 4 consecutive points. Per
 //     input it loads the 2 weights (__ldg: the packed buffer stays in
-//     device memory and L1; at an even H as one 8-byte load, or one per
-//     two inputs) and one float4 of the tile, so each weight feeds 4 FMAs
-//     and each activation 2 (2 loads for 8 FMAs). The input loop takes 8
-//     inputs a step, their loads first, and the step loop is not unrolled
-//     (#pragma unroll 1), so ptxas cannot hoist loads across steps: kernel
-//     #6 spilled where it could. Each output sums its inputs in index
-//     order and adds its bias last, as the plain version does (a bias
-//     added first moves points across a relu kink);
-//   - xd_outer, a layer's weight cotangent: a thread owns XD_OR x XD_OC
-//     entries and, per four points, loads XD_OR + XD_OC float4s of the two
-//     factors for 4 XD_OR XD_OC FMAs, summing the points in order; it then
-//     adds its sums to the block's accumulator in shared memory. An entry
-//     has exactly one owner in a step, so there are no atomics.
-// The block walks its tiles in a fixed order, writes its accumulator as
-// one partial, and disc_reduce_kernel sums the partials over blocks in a
-// fixed order: the result does not depend on scheduling, and two launches
-// are bitwise equal.
-// The weights stay in device memory, so an untied net at d=5 (93 KB of
-// weights) still fits a block with its accumulator.
-#include "disc_net.cuh"
+//     device memory and L1; one 8-byte load where the pair is adjacent and
+//     the paired dimension even, or one per two inputs) and one float4 of
+//     the tile, so each weight feeds 4 FMAs and each activation 2. The
+//     input loop takes 8 inputs a step, their loads first, and the step
+//     loop is not unrolled (#pragma unroll 1), so ptxas cannot hoist loads
+//     across steps. Each output sums its inputs in index order and adds its
+//     bias last, as the plain version does (a bias added first moves points
+//     across a relu kink);
+//   - xd_outer, a layer's weight cotangent: a thread owns R x XD_OC entries
+//     (R = 2 up to 50 wide, else 4) and, per four points, loads R + XD_OC
+//     float4s of the two factors for 4 R XD_OC FMAs, summing the points in
+//     order; it then adds its sums to the block's accumulator. An entry has
+//     exactly one owner in a step, so there are no atomics.
+// The block walks its tiles in a fixed order. With the accumulator in
+// shared memory it writes it as one partial at the end; with the global
+// variant (nets whose n_params floats do not fit beside the tile) the same
+// owners add into the block's own row of `partial` in the same order, the
+// __syncthreads that order the shared phases ordering these writes too, and
+// the features and gb are read from global memory instead of staged. So the
+// two variants are bitwise equal at the same tile and grid, and
+// disc_reduce_kernel sums the partials over blocks in a fixed order: the
+// result does not depend on scheduling, and two launches are bitwise equal.
+// The global variant keeps 2 (L + 1) H + 2 H + 1 floats a point, at most
+// the JAX package's VMEM rows (F + H (2L + 4) + 2 <= 12,288), so 4 points
+// fit a block (196,608 bytes) wherever the Pallas kernels run; the tile #6
+// keeps (L + 2) H + F, at most 12,283 at 4 points.
+#include <type_traits>
 
-#ifndef XD_H
-#error "build with -DXD_H=<adversary width>"
-#endif
+#include "disc_net.cuh"
 
 // Threads of a block (ops/kernels/disc_train.py :: BWD_THREADS)
 #define XD_BWD_THREADS 256
@@ -63,54 +77,101 @@
 #define XD_DR 2
 #define XD_DC 4
 constexpr int XD_KU = 8;
-// xd_outer's micro-tile: XD_OR rows x XD_OC columns of a weight matrix,
-// about 256 of them over an H x H layer; XD_OC odd (bank spread above)
-constexpr int XD_OR = XD_H > 50 ? 4 : 2;
+// xd_outer's micro-tile: R rows x XD_OC columns of a weight matrix; XD_OC
+// odd (bank spread above)
 constexpr int XD_OC = 5;
+
+// The variants, as disc_tile_smem_bytes numbers them
+// (ops/kernels/disc_train.py :: VARIANT_IDS)
+enum XdVariant { XD_BWD_SHARED = 0, XD_BWD_GLOBAL = 1, XD_FWD_TILE = 2 };
 
 // Row stride of the tile's buffers for P points (P a multiple of 4).
 __host__ __device__ constexpr int xd_bwd_stride(int P) {
   return P >= 16 ? P + 4 : P;
 }
 
-// Shared memory of one #7 block (ops/kernels/disc_train.py ::
-// bwd_smem_bytes): the tile's rows, then the block's accumulator.
-__host__ inline size_t xd_bwd_smem(int F, int H, int L, int n_params,
-                                   int P) {
-  const size_t rows = 2 * (size_t)(L + 1) * H + 2 * H + 2 * F + 1;
-  return sizeof(float) * ((size_t)n_params + (size_t)xd_bwd_stride(P) * rows);
+// Rows of a block's tile buffers: #7's A_0..A_L, G_0..G_L, two cotangent
+// buffers and vb, plus the features and gb where they are staged (the
+// shared variant); the tile #6's A_0..A_L, a second sweep buffer and the
+// features (then gin).
+__host__ inline size_t xd_tile_rows(int variant, int F, int H, int L) {
+  if (variant == XD_FWD_TILE) return (size_t)(L + 2) * H + F;
+  const size_t rows = 2 * (size_t)(L + 1) * H + 2 * (size_t)H + 1;
+  return variant == XD_BWD_SHARED ? rows + 2 * (size_t)F : rows;
 }
 
-enum XdEpilogue { XD_BIAS, XD_BIAS_RELU, XD_MASK, XD_NONE };
-// Where weight (o, k) of a product is: XD_W_F, W [H, K = F] row-major;
-// XD_W_H, W [H, H] row-major; XD_WT_H, its transpose, W(o, k) = W[k, o].
-enum XdLayout { XD_W_F, XD_W_H, XD_WT_H };
+// Shared memory of one block (ops/kernels/disc_train.py ::
+// tile_smem_bytes): the tile's rows, then the shared variant's
+// accumulator.
+__host__ inline size_t xd_tile_smem(int variant, int F, int H, int L,
+                                    int n_params, int P) {
+  return sizeof(float) *
+         ((variant == XD_BWD_SHARED ? (size_t)n_params : 0) +
+          (size_t)xd_bwd_stride(P) * xd_tile_rows(variant, F, H, L));
+}
 
-// c[u][r] = W(o0 + r, k + u) for r < XD_DR (a row past H reads row H - 1
-// and is not stored), u < U. At an even H the two rows of XD_WT_H, or two
-// consecutive k of a row of XD_W_H, are one 8-byte load (the packed layers
-// start at even offsets).
+// Rows [k][p] of the tile's P points staged in shared memory at stride S.
+struct XdStaged {
+  const float* rows;
+  int S;
+  static __device__ __forceinline__ XdStaged make(const float* staged, int S,
+                                                  const float*, int, int) {
+    return {staged, S};
+  }
+  __device__ __forceinline__ float4 load4(int k, int p) const {
+    return *reinterpret_cast<const float4*>(rows + k * S + p);
+  }
+};
+
+// The same rows read from a point-major [M, F] array in global memory:
+// row k of point p is pts[p * F + k], zero past the tile's n live points.
+struct XdPoints {
+  const float* pts;
+  int F, n;
+  static __device__ __forceinline__ XdPoints make(const float*, int,
+                                                  const float* pts, int F,
+                                                  int n) {
+    return {pts, F, n};
+  }
+  __device__ __forceinline__ float at(int k, int p) const {
+    return p < n ? __ldg(pts + (size_t)p * F + k) : 0.f;
+  }
+  __device__ __forceinline__ float4 load4(int k, int p) const {
+    return make_float4(at(k, p), at(k, p + 1), at(k, p + 2), at(k, p + 3));
+  }
+};
+
+enum XdEpilogue { XD_BIAS, XD_BIAS_RELU, XD_MASK, XD_NONE };
+// Where weight (o, k) of a product of O outputs and K inputs is: XD_ROWS,
+// W [O, K] row-major (W0, W_h); XD_COLS, the transpose of W [K, O]
+// row-major (W_h^T, W0^T): W(o, k) = W[k O + o].
+enum XdLayout { XD_ROWS, XD_COLS };
+
+// c[u][r] = W(o0 + r, k + u) for r < XD_DR (a row past O reads row O - 1
+// and is not stored), u < U. Two rows of XD_COLS at an even O, or two
+// consecutive k of a row of XD_ROWS at an even K, are one 8-byte load (the
+// packed layers start at even offsets where that dimension is even).
 template <int LAYOUT, int U>
 __device__ __forceinline__ void xd_weights(float (&c)[U][XD_DR],
                                            const float* __restrict__ W,
-                                           int o0, int k, int K) {
-  constexpr int H = XD_H;
+                                           int o0, int k, int O, int K) {
   static_assert(XD_DR == 2, "the 8-byte loads pair two rows");
-  if (LAYOUT == XD_WT_H && H % 2 == 0) {
+  if (LAYOUT == XD_COLS && O % 2 == 0) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const float2 w =
-          __ldg(reinterpret_cast<const float2*>(W + (k + u) * H + o0));
+          __ldg(reinterpret_cast<const float2*>(W + (k + u) * O + o0));
       c[u][0] = w.x;
       c[u][1] = w.y;
     }
-  } else if (LAYOUT == XD_W_H && H % 2 == 0 && U % 2 == 0) {
+  } else if (LAYOUT == XD_ROWS && K % 2 == 0 && U % 2 == 0) {
 #pragma unroll
     for (int r = 0; r < XD_DR; ++r) {
+      const int o = min(o0 + r, O - 1);
 #pragma unroll
       for (int u = 0; u < U; u += 2) {
-        const float2 w = __ldg(
-            reinterpret_cast<const float2*>(W + (o0 + r) * H + k + u));
+        const float2 w =
+            __ldg(reinterpret_cast<const float2*>(W + o * K + k + u));
         c[u][r] = w.x;
         c[u + 1][r] = w.y;
       }
@@ -120,9 +181,9 @@ __device__ __forceinline__ void xd_weights(float (&c)[U][XD_DR],
     for (int u = 0; u < U; ++u) {
 #pragma unroll
       for (int r = 0; r < XD_DR; ++r) {
-        const int o = min(o0 + r, H - 1);
-        c[u][r] = __ldg(W + (LAYOUT == XD_WT_H ? (k + u) * H + o
-                             : o * (LAYOUT == XD_W_H ? H : K) + k + u));
+        const int o = min(o0 + r, O - 1);
+        c[u][r] = __ldg(W + (LAYOUT == XD_COLS ? (k + u) * O + o
+                                               : o * K + k + u));
       }
     }
   }
@@ -145,49 +206,46 @@ __device__ __forceinline__ void xd_fma(float (&s)[XD_DR][XD_DC],
   }
 }
 
-// out[o][p] = epilogue(sum_{k < K} W(o, k) in[k][p]) for o < XD_H and the
-// tile's P points (K = F for XD_W_F, else H). Epilogues: + b[o] (then
-// relu), or keep the sum where mask[o][p] > 0. The input loop takes XD_KU
-// inputs a step (their loads first), and is not unrolled further.
-template <int EPI, int LAYOUT>
+// out[o][p] = epilogue(sum_{k < K} W(o, k) in[k][p]) for o < O and the
+// tile's P points. Epilogues: + b[o] (then relu), or keep the sum where
+// mask[o][p] > 0. The input loop takes XD_KU inputs a step (their loads
+// first), and is not unrolled further.
+template <int EPI, int LAYOUT, class In>
 __device__ __forceinline__ void xd_dense(float* out,
                                          const float* __restrict__ W,
-                                         const float* __restrict__ b,
-                                         const float* in, const float* mask,
-                                         int K, int P, int S) {
-  constexpr int H = XD_H, R = XD_DR, NRB = (H + R - 1) / R;
-  if (LAYOUT != XD_W_F) K = H;
-  const int npb = P / XD_DC;
-  for (int t = threadIdx.x; t < NRB * npb; t += blockDim.x) {
+                                         const float* __restrict__ b, In in,
+                                         const float* mask, int O, int K,
+                                         int P, int S) {
+  constexpr int R = XD_DR;
+  const int nrb = (O + R - 1) / R, npb = P / XD_DC;
+  for (int t = threadIdx.x; t < nrb * npb; t += blockDim.x) {
     const int rb = t / npb, p0 = (t - rb * npb) * XD_DC, o0 = rb * R;
     float s[R][XD_DC];
 #pragma unroll
     for (int r = 0; r < R; ++r)
 #pragma unroll
       for (int c = 0; c < XD_DC; ++c) s[r][c] = 0.f;
-    const float* x = in + p0;
     int k = 0;
 #pragma unroll 1
     for (; k + XD_KU <= K; k += XD_KU) {
       float4 v[XD_KU];
       float c[XD_KU][R];
 #pragma unroll
-      for (int u = 0; u < XD_KU; ++u)
-        v[u] = *reinterpret_cast<const float4*>(x + (k + u) * S);
-      xd_weights<LAYOUT, XD_KU>(c, W, o0, k, K);
+      for (int u = 0; u < XD_KU; ++u) v[u] = in.load4(k + u, p0);
+      xd_weights<LAYOUT, XD_KU>(c, W, o0, k, O, K);
       xd_fma<XD_KU>(s, c, v);
     }
 #pragma unroll 1
     for (; k < K; ++k) {
-      float4 v[1] = {*reinterpret_cast<const float4*>(x + k * S)};
+      float4 v[1] = {in.load4(k, p0)};
       float c[1][R];
-      xd_weights<LAYOUT, 1>(c, W, o0, k, K);
+      xd_weights<LAYOUT, 1>(c, W, o0, k, O, K);
       xd_fma<1>(s, c, v);
     }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int o = o0 + r;
-      if (o >= H) continue;
+      if (o >= O) continue;
       float4 y = make_float4(s[r][0], s[r][1], s[r][2], s[r][3]);
       if (EPI == XD_BIAS || EPI == XD_BIAS_RELU) {
         const float bo = __ldg(b + o);
@@ -207,19 +265,19 @@ __device__ __forceinline__ void xd_dense(float* out,
   }
 }
 
-// acc[j * K + k] += sum_p X[j][p] Y[k][p] for j < XD_H, k < K over the
-// tile's P points in order; with BIAS also accb[j] += sum_p X[j][p] (by
-// the owners of column block 0).
-template <bool BIAS>
+// acc[j * K + k] += sum_p X[j][p] Y[k][p] for j < H, k < K over the tile's
+// P points in order (X staged at stride S); with BIAS also accb[j] += sum_p
+// X[j][p] (by the owners of column block 0).
+template <bool BIAS, int R, class In>
 __device__ __forceinline__ void xd_outer(float* acc, float* accb,
-                                         const float* X, const float* Y,
-                                         int K, int P, int S) {
-  constexpr int H = XD_H, R = XD_OR, C = XD_OC, NJB = (H + R - 1) / R;
-  const int nkb = (K + C - 1) / C;
-  for (int t = threadIdx.x; t < NJB * nkb; t += blockDim.x) {
+                                         const float* X, In Y, int H, int K,
+                                         int P, int S) {
+  constexpr int C = XD_OC;
+  const int njb = (H + R - 1) / R, nkb = (K + C - 1) / C;
+  for (int t = threadIdx.x; t < njb * nkb; t += blockDim.x) {
     const int jb = t / nkb, kb = t - jb * nkb;
     const float* x[R];
-    const float* y[C];
+    int y[C];
     float s[R][C], sb[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -229,7 +287,7 @@ __device__ __forceinline__ void xd_outer(float* acc, float* accb,
       for (int c = 0; c < C; ++c) s[r][c] = 0.f;
     }
 #pragma unroll
-    for (int c = 0; c < C; ++c) y[c] = Y + min(kb * C + c, K - 1) * S;
+    for (int c = 0; c < C; ++c) y[c] = min(kb * C + c, K - 1);
 #pragma unroll 2
     for (int p = 0; p < P; p += 4) {
       float4 xv[R], yv[C];
@@ -237,8 +295,7 @@ __device__ __forceinline__ void xd_outer(float* acc, float* accb,
       for (int r = 0; r < R; ++r)
         xv[r] = *reinterpret_cast<const float4*>(x[r] + p);
 #pragma unroll
-      for (int c = 0; c < C; ++c)
-        yv[c] = *reinterpret_cast<const float4*>(y[c] + p);
+      for (int c = 0; c < C; ++c) yv[c] = Y.load4(y[c], p);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
 #pragma unroll
@@ -266,14 +323,56 @@ __device__ __forceinline__ void xd_outer(float* acc, float* accb,
   }
 }
 
+// 1. the forward on a tile: A_i = relu(a_i) for i < L, A_L = a_L (A_i at
+// A + i H S), from the features z.
+template <class In>
+__device__ __forceinline__ void xd_tile_forward(float* A,
+                                                const float* params, In z,
+                                                int F, int H, int L,
+                                                int tied, int P, int S) {
+  const int HS = H * S;
+  xd_dense<XD_BIAS_RELU, XD_ROWS>(A, params, params + H * F, z, nullptr, H,
+                                  F, P, S);
+  __syncthreads();
+  for (int i = 0; i < L; ++i) {
+    const float* W = params + xd_hidden_off(F, H, i, tied);
+    const XdStaged in{A + i * HS, S};
+    if (i + 1 < L)
+      xd_dense<XD_BIAS_RELU, XD_ROWS>(A + (i + 1) * HS, W, W + H * H, in,
+                                      nullptr, H, H, P, S);
+    else
+      xd_dense<XD_BIAS, XD_ROWS>(A + L * HS, W, W + H * H, in, nullptr, H,
+                                 H, P, S);
+    __syncthreads();
+  }
+}
+
+// 2. the sweep from G_L at G(L): G(i) = [a_i > 0] (W_h^T G(i + 1)) for i =
+// L-1 .. 0, masked by A_i.
+template <class Where>
+__device__ __forceinline__ void xd_tile_sweep(Where G, const float* params,
+                                              const float* A, int F, int H,
+                                              int L, int tied, int P,
+                                              int S) {
+  for (int i = L - 1; i >= 0; --i) {
+    xd_dense<XD_MASK, XD_COLS>(G(i), params + xd_hidden_off(F, H, i, tied),
+                               nullptr, XdStaged{G(i + 1), S},
+                               A + i * H * S, H, H, P, S);
+    __syncthreads();
+  }
+}
+
+// Kernel #7. GACC: the accumulator in the block's row of partial, the
+// features and gb read from global memory; else both in shared memory.
+template <int R, bool GACC>
 __global__ void __launch_bounds__(XD_BWD_THREADS, 1)
 disc_bwd_kernel(const float* __restrict__ params, int n_params,
                 const float* __restrict__ feats,  // [M, F]
                 const float* __restrict__ vb,     // [M]
                 const float* __restrict__ gb,     // [M, F]
                 float* __restrict__ partial,      // [gridDim.x, n_params]
-                int M, int F, int L, int tied, int P) {
-  constexpr int H = XD_H;
+                int M, int F, int H, int L, int tied, int P) {
+  using In = typename std::conditional<GACC, XdPoints, XdStaged>::type;
   extern __shared__ float4 sw4[];
   const int S = xd_bwd_stride(P);
   const int HS = H * S;
@@ -281,47 +380,39 @@ disc_bwd_kernel(const float* __restrict__ params, int n_params,
   float* const G = A + (L + 1) * HS;               // G_0..G_L
   float* const T0 = G + (L + 1) * HS;              // two cotangent buffers
   float* const T1 = T0 + HS;
-  float* const Z = T1 + HS;                        // [F][S]
-  float* const GB = Z + F * S;                     // [F][S]
-  float* const VB = GB + F * S;                    // [S]
-  float* const acc = VB + S;                       // [n_params]
+  float* const Z = T1 + HS;                        // [F][S] when staged
+  float* const GB = Z + (GACC ? 0 : F * S);        // [F][S] when staged
+  float* const VB = GB + (GACC ? 0 : F * S);       // [S]
+  float* const acc =
+      GACC ? partial + (size_t)blockIdx.x * n_params : VB + S;  // [n_params]
   for (int i = threadIdx.x; i < n_params; i += blockDim.x) acc[i] = 0.f;
 
   const float* W0 = params;
-  const float* b0 = params + H * F;
   const int oo = xd_out_off(F, H, L, tied);
   const float* wo = params + oo;
   float* const Y = A + L * HS;  // a_L, then y = tanh(a_L)
   const int n_tiles = (M + P - 1) / P;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int m0 = tile * P;
+    const int m0 = tile * P, n = min(P, M - m0);
     float* cur = T0;
     float* nxt = T1;
     __syncthreads();  // the previous tile's last reads are done
-    for (int idx = threadIdx.x; idx < F * P; idx += blockDim.x) {
-      const int p = idx / F, f = idx - p * F;  // consecutive threads: one row
-      const int m = m0 + p;
-      const bool live = m < M;
-      Z[f * S + p] = live ? feats[(size_t)m * F + f] : 0.f;
-      GB[f * S + p] = live ? gb[(size_t)m * F + f] : 0.f;
+    if (!GACC) {
+      for (int idx = threadIdx.x; idx < F * P; idx += blockDim.x) {
+        const int p = idx / F, f = idx - p * F;  // consecutive threads: a row
+        const bool live = p < n;
+        Z[f * S + p] = live ? feats[(size_t)(m0 + p) * F + f] : 0.f;
+        GB[f * S + p] = live ? gb[(size_t)(m0 + p) * F + f] : 0.f;
+      }
     }
     for (int p = threadIdx.x; p < P; p += blockDim.x)
-      VB[p] = m0 + p < M ? vb[m0 + p] : 0.f;
+      VB[p] = p < n ? vb[m0 + p] : 0.f;
     __syncthreads();
+    const In z = In::make(Z, S, feats + (size_t)m0 * F, F, n);
+    const In gbt = In::make(GB, S, gb + (size_t)m0 * F, F, n);
 
     // 1. forward: A_i = relu(a_i) for i < L, A_L = a_L
-    xd_dense<XD_BIAS_RELU, XD_W_F>(A, W0, b0, Z, nullptr, F, P, S);
-    __syncthreads();
-    for (int i = 0; i < L; ++i) {
-      const float* W = params + xd_hidden_off(F, H, i, tied);
-      if (i + 1 < L)
-        xd_dense<XD_BIAS_RELU, XD_W_H>(A + (i + 1) * HS, W, W + H * H,
-                                       A + i * HS, nullptr, H, P, S);
-      else
-        xd_dense<XD_BIAS, XD_W_H>(Y, W, W + H * H, A + i * HS, nullptr, H, P,
-                                  S);
-      __syncthreads();
-    }
+    xd_tile_forward(A, params, z, F, H, L, tied, P, S);
     // 2. sweep: y = tanh(a_L), G_L = w_o (1 - y^2),
     // G_i = [a_i > 0] (W_h^T G_{i+1})
     for (int idx = threadIdx.x; idx < H * P; idx += blockDim.x) {
@@ -331,28 +422,25 @@ disc_bwd_kernel(const float* __restrict__ params, int n_params,
       G[L * HS + j * S + p] = __ldg(wo + j) * (1.f - y * y);
     }
     __syncthreads();
-    for (int i = L - 1; i >= 0; --i) {
-      xd_dense<XD_MASK, XD_WT_H>(G + i * HS,
-                                 params + xd_hidden_off(F, H, i, tied),
-                                 nullptr, G + (i + 1) * HS, A + i * HS, H, P,
-                                 S);
-      __syncthreads();
-    }
+    xd_tile_sweep([=](int i) { return G + i * HS; }, params, A, F, H, L,
+                  tied, P, S);
     // 3. the sweep's reverse: tbar_0 = [a_0 > 0] (W0 gb), dW0 += g_0 gb^T;
     // then per layer dW_h += g_{i+1} tbar_i^T and tbar_{i+1} = [a_{i+1} >
     // 0] (W_h tbar_i), unmasked at the last layer: gbar_L
-    xd_dense<XD_MASK, XD_W_F>(cur, W0, nullptr, GB, A, F, P, S);
-    xd_outer<false>(acc, nullptr, G, GB, F, P, S);
+    xd_dense<XD_MASK, XD_ROWS>(cur, W0, nullptr, gbt, A, H, F, P, S);
+    xd_outer<false, R>(acc, nullptr, G, gbt, H, F, P, S);
     __syncthreads();
     for (int i = 0; i < L; ++i) {
       const int off = xd_hidden_off(F, H, i, tied);
-      xd_outer<false>(acc + off, nullptr, G + (i + 1) * HS, cur, H, P, S);
+      const XdStaged in{cur, S};
+      xd_outer<false, R>(acc + off, nullptr, G + (i + 1) * HS, in, H, H, P,
+                         S);
       if (i + 1 < L)
-        xd_dense<XD_MASK, XD_W_H>(nxt, params + off, nullptr, cur,
-                                  A + (i + 1) * HS, H, P, S);
+        xd_dense<XD_MASK, XD_ROWS>(nxt, params + off, nullptr, in,
+                                   A + (i + 1) * HS, H, H, P, S);
       else
-        xd_dense<XD_NONE, XD_W_H>(nxt, params + off, nullptr, cur, nullptr,
-                                  H, P, S);
+        xd_dense<XD_NONE, XD_ROWS>(nxt, params + off, nullptr, in, nullptr,
+                                   H, H, P, S);
       __syncthreads();
       float* t = cur; cur = nxt; nxt = t;
     }
@@ -384,17 +472,72 @@ disc_bwd_kernel(const float* __restrict__ params, int n_params,
     // abar = [a_i > 0] (W_h^T abar)
     for (int i = L - 1; i >= 0; --i) {
       const int off = xd_hidden_off(F, H, i, tied);
-      xd_outer<true>(acc + off, acc + off + H * H, cur, A + i * HS, H, P, S);
-      xd_dense<XD_MASK, XD_WT_H>(nxt, params + off, nullptr, cur, A + i * HS,
-                                 H, P, S);
+      xd_outer<true, R>(acc + off, acc + off + H * H, cur,
+                        XdStaged{A + i * HS, S}, H, H, P, S);
+      xd_dense<XD_MASK, XD_COLS>(nxt, params + off, nullptr,
+                                 XdStaged{cur, S}, A + i * HS, H, H, P, S);
       __syncthreads();
       float* t = cur; cur = nxt; nxt = t;
     }
-    xd_outer<true>(acc, acc + H * F, cur, Z, F, P, S);
+    xd_outer<true, R>(acc, acc + H * F, cur, z, H, F, P, S);
   }
+  if (GACC) return;  // the row is already in partial
   __syncthreads();
   for (int i = threadIdx.x; i < n_params; i += blockDim.x)
     partial[(size_t)blockIdx.x * n_params + i] = acc[i];
+}
+
+// The tile variant of kernel #6: one tile of P points a block, stages 1-2
+// of #7, then v = w_o . y + b_o and gin = W0^T G_0.
+__global__ void __launch_bounds__(XD_BWD_THREADS, 1)
+disc_tile_fwd_kernel(const float* __restrict__ params,
+                     const float* __restrict__ feats,  // [M, F]
+                     float* __restrict__ v,            // [M]
+                     float* __restrict__ gin,          // [M, F]
+                     int M, int F, int H, int L, int tied, int P) {
+  extern __shared__ float4 sw4[];
+  const int S = xd_bwd_stride(P);
+  const int HS = H * S;
+  float* const A = reinterpret_cast<float*>(sw4);  // A_0..A_L, each [H][S]
+  float* const E = A + (L + 1) * HS;               // the sweep's other buffer
+  float* const Z = E + HS;                         // [F][S]: z, then gin
+  float* const Y = A + L * HS;                     // a_L, y, then G_L
+  const float* wo = params + xd_out_off(F, H, L, tied);
+  const int m0 = blockIdx.x * P, n = min(P, M - m0);
+  for (int idx = threadIdx.x; idx < F * P; idx += blockDim.x) {
+    const int p = idx / F, f = idx - p * F;  // consecutive threads: a row
+    Z[f * S + p] = p < n ? feats[(size_t)(m0 + p) * F + f] : 0.f;
+  }
+  __syncthreads();
+  xd_tile_forward(A, params, XdStaged{Z, S}, F, H, L, tied, P, S);
+  for (int idx = threadIdx.x; idx < H * P; idx += blockDim.x) {
+    const int j = idx / P, p = idx - j * P;
+    Y[j * S + p] = tanhf(Y[j * S + p]);
+  }
+  __syncthreads();
+  // v: the output unit's inputs in order, then its bias
+  for (int p = threadIdx.x; p < n; p += blockDim.x) {
+    float val = 0.f;
+    for (int j = 0; j < H; ++j) val = fmaf(__ldg(wo + j), Y[j * S + p], val);
+    v[m0 + p] = val + __ldg(wo + H);
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < H * P; idx += blockDim.x) {
+    const int j = idx / P, p = idx - j * P;
+    const float y = Y[j * S + p];
+    Y[j * S + p] = __ldg(wo + j) * (1.f - y * y);
+  }
+  __syncthreads();
+  // G_i alternates between E (L - i odd) and Y (L - i even)
+  xd_tile_sweep([=](int i) { return (L - i) % 2 ? E : Y; }, params, A, F, H,
+                L, tied, P, S);
+  xd_dense<XD_NONE, XD_COLS>(Z, params, nullptr, XdStaged{L % 2 ? E : Y, S},
+                             nullptr, F, H, P, S);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < F * n; idx += blockDim.x) {
+    const int p = idx / F, f = idx - p * F;
+    gin[(size_t)(m0 + p) * F + f] = Z[f * S + p];
+  }
 }
 
 // grad[i] = sum over blocks b, in order, of partial[b, i].
@@ -408,42 +551,103 @@ __global__ void disc_reduce_kernel(const float* __restrict__ partial,
   grad[i] = s;
 }
 
-// Bytes of shared memory a block asks for (disc_train.py's bwd_smem_bytes
-// is its twin; chip_smoke.py holds the two together).
-extern "C" long long disc_bwd_smem_bytes(int F, int H, int L, int tied,
-                                         int tile) {
-  return (long long)xd_bwd_smem(F, H, L, xd_n_params(F, H, L, tied), tile);
+// Host side
+
+// Bytes of shared memory a block of `variant` asks for (disc_train.py's
+// tile_smem_bytes is its twin; chip_smoke.py holds the two together).
+extern "C" long long disc_tile_smem_bytes(int variant, int F, int H, int L,
+                                          int tied, int tile) {
+  return (long long)xd_tile_smem(variant, F, H, L, xd_n_params(F, H, L, tied),
+                                 tile);
+}
+
+static bool xd_tile_ok(int tile) {
+  return tile >= 4 && tile <= 32 && tile % 4 == 0;
+}
+
+template <bool GACC>
+static int xd_bwd_launch(int device, void* stream, const float* params,
+                         int n_params, const float* feats, const float* vb,
+                         const float* gb, float* partial, float* grad, int M,
+                         int F, int H, int L, int tied, int tile,
+                         int blocks) {
+  if (M < 0 || !xd_caps_ok(F, H, L, tied, n_params) ||
+      reinterpret_cast<size_t>(params) % 8 != 0 || !xd_tile_ok(tile) ||
+      blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = xd_tile_smem(GACC ? XD_BWD_GLOBAL : XD_BWD_SHARED, F,
+                                   H, L, n_params, tile);
+  const void* kernel = H > 50 ? (const void*)disc_bwd_kernel<4, GACC>
+                              : (const void*)disc_bwd_kernel<2, GACC>;
+  e = xd_allow_smem(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (M == 0)
+    return (int)cudaMemsetAsync(grad, 0, sizeof(float) * (size_t)n_params,
+                                (cudaStream_t)stream);
+  if (H > 50)
+    disc_bwd_kernel<4, GACC><<<blocks, XD_BWD_THREADS, smem,
+                               (cudaStream_t)stream>>>(
+        params, n_params, feats, vb, gb, partial, M, F, H, L, tied, tile);
+  else
+    disc_bwd_kernel<2, GACC><<<blocks, XD_BWD_THREADS, smem,
+                               (cudaStream_t)stream>>>(
+        params, n_params, feats, vb, gb, partial, M, F, H, L, tied, tile);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  disc_reduce_kernel<<<(n_params + 255) / 256, 256, 0,
+                       (cudaStream_t)stream>>>(partial, grad, blocks,
+                                               n_params);
+  return (int)cudaGetLastError();
 }
 
 // tile: points per tile (a multiple of 4, at most 32); blocks: the grid of
 // XD_BWD_THREADS-thread blocks, one partial row each (partial holds blocks
-// x n_params floats).
-// params must sit on 8 bytes (xd_weights' paired loads).
+// x n_params floats). params must sit on 8 bytes (xd_weights' paired
+// loads).
 extern "C" int disc_bwd_launch(int device, void* stream, const float* params,
                                int n_params, const float* feats,
                                const float* vb, const float* gb,
                                float* partial, float* grad, int M, int F,
                                int H, int L, int tied, int tile,
                                int blocks) {
-  if (M < 0 || H != XD_H || !xd_caps_ok(F, H, L, tied, n_params) ||
-      reinterpret_cast<size_t>(params) % 8 != 0 ||
-      tile < 4 || tile > 32 || tile % 4 != 0 || blocks < 1)
+  return xd_bwd_launch<false>(device, stream, params, n_params, feats, vb, gb,
+                              partial, grad, M, F, H, L, tied, tile, blocks);
+}
+
+// The same with the accumulator in the block's row of partial, so its
+// shared memory holds no accumulator and no features.
+extern "C" int disc_bwd_global_launch(int device, void* stream,
+                                      const float* params, int n_params,
+                                      const float* feats, const float* vb,
+                                      const float* gb, float* partial,
+                                      float* grad, int M, int F, int H,
+                                      int L, int tied, int tile,
+                                      int blocks) {
+  return xd_bwd_launch<true>(device, stream, params, n_params, feats, vb, gb,
+                             partial, grad, M, F, H, L, tied, tile, blocks);
+}
+
+// The tile #6: ceil(M / tile) blocks of XD_BWD_THREADS threads. params must
+// sit on 8 bytes.
+extern "C" int disc_tile_fwd_launch(int device, void* stream,
+                                    const float* params, int n_params,
+                                    const float* feats, float* v, float* gin,
+                                    int M, int F, int H, int L, int tied,
+                                    int tile) {
+  if (M < 0 || !xd_caps_ok(F, H, L, tied, n_params) ||
+      reinterpret_cast<size_t>(params) % 8 != 0 || !xd_tile_ok(tile))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = xd_bwd_smem(F, H, L, n_params, tile);
-  e = xd_allow_smem((const void*)disc_bwd_kernel, smem);
+  const size_t smem = xd_tile_smem(XD_FWD_TILE, F, H, L, n_params, tile);
+  e = xd_allow_smem((const void*)disc_tile_fwd_kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  if (M == 0)
-    return (int)cudaMemsetAsync(grad, 0, sizeof(float) * (size_t)n_params,
-                                (cudaStream_t)stream);
-  disc_bwd_kernel<<<blocks, XD_BWD_THREADS, smem, (cudaStream_t)stream>>>(
-      params, n_params, feats, vb, gb, partial, M, F, L, tied, tile);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  disc_reduce_kernel<<<(n_params + 255) / 256, 256, 0,
-                       (cudaStream_t)stream>>>(partial, grad, blocks,
-                                               n_params);
+  if (M == 0) return 0;
+  disc_tile_fwd_kernel<<<(M + tile - 1) / tile, XD_BWD_THREADS, smem,
+                         (cudaStream_t)stream>>>(params, feats, v, gin, M, F,
+                                                 H, L, tied, tile);
   return (int)cudaGetLastError();
 }
 

@@ -5,10 +5,11 @@ shared library with a plain C interface and loaded with ``ctypes``; no
 PyTorch headers are involved, so a build takes seconds. A source listed in
 ``WIDTH_SOURCES`` is compiled once per tuple of widths, one define each:
 ``xnode_fwd`` per XNODE width pair (H, Hh), with ``-DXN_H=<H>
--DXN_HH=<Hh>``, into ``libxnode_fwd_H<H>_Hh<Hh>.so``, and ``disc_fwd`` and
-``disc_train`` per adversary width H, with ``-DXD_H=<H>``, into
-``libdisc_fwd_H<H>.so`` and ``libdisc_train_H<H>.so``: their kernels size
-their per-thread arrays and register tiles by those widths. Libraries go into
+-DXN_HH=<Hh>``, into ``libxnode_fwd_H<H>_Hh<Hh>.so``, and ``disc_fwd`` per
+adversary width H, with ``-DXD_H=<H>``, into ``libdisc_fwd_H<H>.so``: their
+register kernels size their per-thread arrays by those widths. Every other
+source (``xnode_grad``, ``disc_train``) takes its widths at run time and is
+built once. Libraries go into
 ``xnode_wan_tpu_torch/_build/<hash of the sources and flags>/`` (listed in
 ``.gitignore``), so an edited source is rebuilt and an unchanged one is
 reused. :func:`build` starts one ``nvcc`` per missing library, all at
@@ -39,8 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNEL_SOURCES = ("xnode_fwd", "xnode_grad", "disc_fwd", "disc_train")
 # Width-specialized sources: (define, tag in the library name) per width
 WIDTH_SOURCES = {"xnode_fwd": (("XN_H", "H"), ("XN_HH", "Hh")),
-                 "disc_fwd": (("XD_H", "H"),),
-                 "disc_train": (("XD_H", "H"),)}
+                 "disc_fwd": (("XD_H", "H"),)}
 
 Widths = Optional[Tuple[int, ...]]
 

@@ -2,30 +2,42 @@
 input gradient, and the weight cotangents of both. Port of
 ``xnode_wan_tpu/ops/pallas/disc_train.py`` (the ``fused_v: true`` path).
 
-**Kernel #6** (:func:`v_dv_fwd_cuda`, ``csrc/disc_fwd.cu::
-disc_fwd_kernel``) replaces ``_v_fwd_kernel``: for features ``z [F]`` per
-point, the forward ``a0 = W0 z + b0``, ``a_{i+1} = W_h relu(a_i) + b_h``
-(``i < L = v_layers``), ``y = tanh(a_L)``, ``v = w_o . y + b_o``, then one
-reverse sweep ``g_L = w_o (1 - y^2)``, ``g_i = [a_i > 0] (W_h^T g_{i+1})``,
-``gin = W0^T g_0``: ``v [M]`` and ``dv/dz [M, F]``. It is built once per
-adversary width ``H`` (``libdisc_fwd_H<H>.so``), one thread per point over
-a block's copy of the weights staged by columns (:func:`staged_floats`).
+**Kernel #6** (:func:`v_dv_fwd_cuda`) replaces ``_v_fwd_kernel``: for
+features ``z [F]`` per point, the forward ``a0 = W0 z + b0``, ``a_{i+1} =
+W_h relu(a_i) + b_h`` (``i < L = v_layers``), ``y = tanh(a_L)``, ``v = w_o
+. y + b_o``, then one reverse sweep ``g_L = w_o (1 - y^2)``, ``g_i = [a_i >
+0] (W_h^T g_{i+1})``, ``gin = W0^T g_0``: ``v [M]`` and ``dv/dz [M, F]``.
+Two variants: ``registers`` (``csrc/disc_fwd.cu::disc_fwd_kernel``), built
+once per adversary width ``H`` (``libdisc_fwd_H<H>.so``), one thread per
+point over a block's copy of the weights staged by columns
+(:func:`staged_floats`), for nets up to :data:`REG_MAX_WIDTH` wide whose
+copy fits; and ``tile`` (``csrc/disc_train.cu::disc_tile_fwd_kernel``),
+#7's forward and sweep on a tile of points with the weights read through
+the read-only cache, for every other net.
 
 **Kernel #7** (:func:`v_dv_bwd_cuda`, ``csrc/disc_train.cu::
-disc_bwd_kernel``) replaces
-``_v_bwd_kernel``: the gradient of ``sum(v vb) + sum(gin gb)`` in the
-packed weights, second-order terms included, summed over the points. The
-Pallas kernel takes it from ``jax.vjp`` of the whole function; here the
-adjoint is derived by hand (:func:`v_dv_bwd_plain` writes it as batched
-tensor math, the kernel per tile of points). It is built once per
-adversary width ``H`` (``libdisc_train_H<H>.so``). A block of
-:data:`BWD_THREADS` threads walks tiles of :func:`bwd_tile` points with
-every layer's vectors in shared memory (rows of :func:`bwd_stride`
-floats); each matrix product runs as register micro-tiles (2 outputs x 4
-points a thread, one float4 of the tile and two weights per input), each
-weight cotangent as micro-tiles of owned entries, summed over the tile's
-points in order; one partial per block, summed over blocks in a fixed
-order, so two launches are bitwise equal.
+disc_bwd_kernel``) replaces ``_v_bwd_kernel``: the gradient of ``sum(v
+vb) + sum(gin gb)`` in the packed weights, second-order terms included,
+summed over the points. The Pallas kernel takes it from ``jax.vjp`` of the
+whole function; here the adjoint is derived by hand (:func:`v_dv_bwd_plain`
+writes it as batched tensor math, the kernel per tile of points). A block
+of :data:`BWD_THREADS` threads walks tiles of points with every layer's
+vectors in shared memory (rows of :func:`bwd_stride` floats); each matrix
+product runs as register micro-tiles (2 outputs x 4 points a thread, one
+float4 of the tile and two weights per input), each weight cotangent as
+micro-tiles of owned entries, summed over the tile's points in order. Its
+accumulator sits in shared memory (``shared``), or, where the net's
+weights do not fit beside the tile, in the block's own row of ``partial``
+(``global``, ``disc_bwd_global_launch``: the same owners in the same order,
+so the two are bitwise equal at the same tile and grid); the partials are
+summed over blocks in a fixed order, so two launches are bitwise equal.
+``csrc/disc_train.cu`` is built once, with every width a runtime value
+(``libdisc_train.so``).
+
+:func:`disc_route` picks the variants and tiles from the shapes before any
+launch, for every net the JAX package runs through its Pallas kernels
+(its ``v_fused_fits``: ``F + H (2 v_layers + 4) + 2 <= 12,288``); past
+that bound it raises, as the JAX package takes its XLA side there.
 
 :class:`VDvFused` is the autograd function (forward #6, backward #7), and
 :func:`v_dv_fused` the drop-in for ``(v, grad v)`` that
@@ -46,33 +58,54 @@ Both are bound by operations. Design notes in the ``.cu`` headers.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import List, NamedTuple, Tuple
 
 import torch
 
 from xnode_wan_tpu_torch.models.discriminator import disc_features
-from xnode_wan_tpu_torch.ops.kernels._build import CudaKernel
+from xnode_wan_tpu_torch.ops.kernels._build import CudaKernel, KernelVariants
 from xnode_wan_tpu_torch.ops.kernels.steppers import (MAX_SMEM_BYTES,
                                                       _pad4, bwd_blocks,
                                                       require_cuda_f32)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# kernel #6: packed weights, count, feats, v, gin; M F H v_layers tied
+# kernel #6 in registers: packed weights, count, feats, v, gin; M F H
+# v_layers tied
 FWD_KERNEL = CudaKernel("disc_fwd", "disc_fwd_launch",
                         [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I])
+# kernel #6 on tiles: the same, then points per tile
+FWD_TILE_KERNEL = CudaKernel("disc_train", "disc_tile_fwd_launch",
+                             FWD_KERNEL.argtypes + [_I])
 # kernel #7: packed weights, count, feats, vb, gb, partial, grad;
 # M F H v_layers tied, points per tile, blocks
 BWD_KERNEL = CudaKernel("disc_train", "disc_bwd_launch",
                         [_P, _I, _P, _P, _P, _P, _P] + [_I] * 7)
+# #7 with its accumulator in partial (the same arguments)
+BWD_GLOBAL_KERNEL = CudaKernel("disc_train", "disc_bwd_global_launch",
+                               BWD_KERNEL.argtypes)
+# launches of #6 and of #7, each over its variants
+FWD_LAUNCHES = KernelVariants({"registers": FWD_KERNEL,
+                               "tile": FWD_TILE_KERNEL})
+BWD_LAUNCHES = KernelVariants({"shared": BWD_KERNEL,
+                               "global": BWD_GLOBAL_KERNEL})
 
-# Compile-time constants of csrc/disc_net.cuh, disc_fwd.cu, disc_train.cu
-MAX_WIDTH = 64        # XD_MAX_WIDTH: v_hidden_dim
-MAX_FEATS = 128       # XD_MAX_FEATS: feature width F
-MAX_LAYERS = 32       # XD_MAX_LAYERS: v_layers
-FWD_THREADS = 128     # XD_FWD_THREADS: a kernel-#6 block, one point each
-BWD_TILES = (32, 16, 8)  # points per tile of kernel #7, largest first
-BWD_THREADS = 256     # XD_BWD_THREADS: a kernel-#7 block
+# Constants of csrc/disc_fwd.cu and disc_train.cu
+FWD_THREADS = 128     # XD_FWD_THREADS: a register #6 block, one point each
+BWD_THREADS = 256     # XD_BWD_THREADS: a block of #7 or of the tile #6
+TILES = (32, 16, 8, 4)  # points a tile of #7 and the tile #6, largest first
+# The register #6 holds a vector of H floats a thread: up to 64 wide, as
+# #1/#2's register kernels (wider spills)
+REG_MAX_WIDTH = 64
+# The JAX package's v_fused_fits: its backward's VMEM rows, F + H (2L + 4)
+# + 2, times 128 points x 4 bytes x 2 within 12 MiB
+JAX_MAX_ROWS = 12 * 2 ** 20 // (128 * 4 * 2)
+# Bytes of #7's partial rows ([blocks, n_params]) a launch may take: the
+# grid shrinks below one block an SM for the widest untied nets
+PARTIAL_BYTES = 2 ** 28
+# disc_tile_smem_bytes's variant numbers (XdVariant)
+VARIANT_IDS = {"shared": 0, "global": 1, "tile": 2}
 
 
 class DiscGeom(NamedTuple):
@@ -224,7 +257,7 @@ def v_dv_bwd_plain(packed: torch.Tensor, feats: torch.Tensor,
 
 
 def staged_floats(geom: DiscGeom) -> int:
-    """Floats of kernel #6's staged copy of the weights, twin of
+    """Floats of the register #6's staged copy of the weights, twin of
     ``xd_staged_floats`` in ``csrc/disc_fwd.cu``: each layer ``W [out,
     in]`` by columns at a stride of ``out`` rounded up to four floats,
     then ``b`` padded the same; layer 0, the hidden layer (once when
@@ -236,81 +269,141 @@ def staged_floats(geom: DiscGeom) -> int:
 
 
 def fwd_smem_bytes(geom: DiscGeom) -> int:
-    """Shared memory of one kernel-#6 block (``xd_fwd_smem``): the staged
-    copy, then for each thread its relu sign words, ``ceil(H / 32)`` a
-    layer, and its slot of ``H`` floats."""
+    """Shared memory of one block of the register #6 (``xd_fwd_smem``):
+    the staged copy, then for each thread its relu sign words, ``ceil(H /
+    32)`` a layer, and its slot of ``H`` floats."""
     return 4 * (staged_floats(geom)
                 + (geom.L * -(-geom.H // 32) + geom.H) * FWD_THREADS)
 
 
 def bwd_stride(tile: int) -> int:
-    """Floats a row of kernel #7's tile buffers takes for ``tile`` points
-    (``xd_bwd_stride``): ``tile + 4``, so that rows start on 16 bytes and
-    eight rows an odd count apart fall on distinct banks; ``tile`` itself
-    below 16 points, where the pad would not fit the untied d=20 net."""
+    """Floats a row of the tile buffers (#7, the tile #6) takes for
+    ``tile`` points (``xd_bwd_stride``): ``tile + 4``, so that rows start
+    on 16 bytes and eight rows an odd count apart fall on distinct banks;
+    ``tile`` itself below 16 points, where the pad would not fit the
+    untied d=20 net."""
     return tile + 4 if tile >= 16 else tile
 
 
-def bwd_smem_bytes(geom: DiscGeom, tile: int) -> int:
-    """Shared memory of one kernel-#7 block (``xd_bwd_smem`` in the
-    ``.cu``): each layer's activations and sweep vectors, two cotangent
-    buffers, features, ``gb`` and ``vb`` for ``tile`` points, rows of
-    :func:`bwd_stride` floats, then the block's gradient accumulator."""
+def tile_rows(geom: DiscGeom, variant: str) -> int:
+    """Rows of a block's tile buffers (``xd_tile_rows``): #7's
+    activations and sweep vectors of each layer, two cotangent buffers and
+    ``vb``, plus the features and ``gb`` where the ``shared`` variant stages
+    them; the ``tile`` #6's activations, a second sweep buffer and the
+    features (then ``gin``)."""
     F, H, L = geom.F, geom.H, geom.L
-    rows = 2 * (L + 1) * H + 2 * H + 2 * F + 1
-    return 4 * (geom.n_params + bwd_stride(tile) * rows)
+    if variant == "tile":
+        return (L + 2) * H + F
+    rows = 2 * (L + 1) * H + 2 * H + 1
+    return rows + 2 * F if variant == "shared" else rows
 
 
-def bwd_tile(geom: DiscGeom) -> int:
-    """Points per tile of kernel #7: the largest of :data:`BWD_TILES` whose
-    block fits shared memory."""
-    for tile in BWD_TILES:
-        if bwd_smem_bytes(geom, tile) <= MAX_SMEM_BYTES:
-            return tile
-    raise ValueError(f"the discriminator {geom} does not fit kernel #7's "
-                     f"shared memory at {BWD_TILES[-1]} points a tile")
+def tile_smem_bytes(geom: DiscGeom, variant: str, tile: int) -> int:
+    """Shared memory of one block of ``variant`` (``"shared"`` or
+    ``"global"`` #7, ``"tile"`` #6) at ``tile`` points, twin of
+    ``xd_tile_smem`` in ``csrc/disc_train.cu``: the tile's rows of
+    :func:`bwd_stride` floats, then the ``shared`` variant's gradient
+    accumulator."""
+    acc = geom.n_params if variant == "shared" else 0
+    return 4 * (acc + bwd_stride(tile) * tile_rows(geom, variant))
 
 
-def _geom_fits(geom: DiscGeom) -> bool:
-    return (1 <= geom.H <= MAX_WIDTH and 1 <= geom.F <= MAX_FEATS
-            and 1 <= geom.L <= MAX_LAYERS
-            and fwd_smem_bytes(geom) <= MAX_SMEM_BYTES
-            and bwd_smem_bytes(geom, BWD_TILES[-1]) <= MAX_SMEM_BYTES)
+def jax_rows(geom: DiscGeom) -> int:
+    """The rows a point takes in the JAX package's backward, which its
+    ``v_fused_fits`` bounds by :data:`JAX_MAX_ROWS`."""
+    return geom.F + geom.H * (2 * geom.L + 4) + 2
+
+
+class DiscRoute(NamedTuple):
+    """What the wrappers launch for one discriminator on the card
+    (:func:`disc_route`)."""
+    fwd: str        # #6: "registers" or "tile"
+    fwd_tile: int   # points a block of the tile #6 (0 with registers)
+    bwd: str        # #7's accumulator: "shared" or "global"
+    bwd_tile: int   # points a tile of #7
+
+
+def _largest_tile(geom: DiscGeom, variant: str) -> int:
+    return next((t for t in TILES
+                 if tile_smem_bytes(geom, variant, t) <= MAX_SMEM_BYTES), 0)
+
+
+@functools.lru_cache(maxsize=None)
+def disc_route(geom: DiscGeom) -> DiscRoute:
+    """The variants and tiles of #6 and #7 for ``geom``: the one place
+    where the wrappers choose them, from the shapes, before any launch.
+    #6 in registers up to :data:`REG_MAX_WIDTH` wide where its staged
+    weights fit a block, else on tiles; #7 with its accumulator in shared
+    memory where it fits beside a tile, else in ``partial``; each at the
+    largest of :data:`TILES` that fits. Raises, naming the bound, past the
+    JAX package's Pallas domain (its ``v_fused_fits``)."""
+    F, H, L = geom.F, geom.H, geom.L
+    if min(F, H, L) < 1 or jax_rows(geom) > JAX_MAX_ROWS:
+        raise ValueError(
+            f"the discriminator {geom} is past the fused kernels' domain "
+            f"(v_fused_fits, the JAX package's Pallas bound): F + "
+            f"v_hidden_dim (2 v_layers + 4) + 2 = {jax_rows(geom)} rows, "
+            f"at most {JAX_MAX_ROWS}")
+    if H <= REG_MAX_WIDTH and fwd_smem_bytes(geom) <= MAX_SMEM_BYTES:
+        fwd = ("registers", 0)
+    else:
+        fwd = ("tile", _largest_tile(geom, "tile"))
+    shared = _largest_tile(geom, "shared")
+    bwd = ("shared", shared) if shared else ("global",
+                                             _largest_tile(geom, "global"))
+    if not (fwd[0] == "registers" or fwd[1]) or not bwd[1]:
+        raise ValueError(f"the discriminator {geom} does not fit kernels "
+                         f"#6/#7 at {TILES[-1]} points a tile")
+    return DiscRoute(*fwd, *bwd)
 
 
 def v_fused_fits(params, v_layers: int, tied: bool) -> bool:
-    """Whether kernels #6 and #7 take this discriminator: widths under the
-    compile-time caps, #6's staged weights with its sign words and #7's
-    smallest tile in one block's shared memory. Decided from shapes,
-    before any launch."""
-    return _geom_fits(geom_of(params, v_layers, tied))
+    """Whether kernels #6 and #7 take this discriminator: wherever the JAX
+    package runs its Pallas kernels (:func:`disc_route`). Decided from
+    shapes, before any launch."""
+    try:
+        disc_route(geom_of(params, v_layers, tied))
+    except ValueError:
+        return False
+    return True
 
 
-def check_fits(geom: DiscGeom) -> None:
-    """Raise, naming the caps, unless kernels #6 and #7 take ``geom``."""
-    if not _geom_fits(geom):
-        raise ValueError(
-            f"the discriminator {geom} exceeds the CUDA kernels' caps "
-            f"(v_fused_fits): v_hidden_dim <= {MAX_WIDTH}, feature width <= "
-            f"{MAX_FEATS}, v_layers <= {MAX_LAYERS}, and kernel #6's staged "
-            f"weights and #7's {BWD_TILES[-1]}-point tile each within "
-            f"{MAX_SMEM_BYTES} bytes of shared memory")
+def bwd_grid(geom: DiscGeom, variant: str, tile: int, M: int,
+             sms: int) -> int:
+    """#7's persistent grid (``steppers.bwd_blocks``), at most
+    :data:`PARTIAL_BYTES` of partial rows."""
+    blocks = bwd_blocks(M, tile, tile_smem_bytes(geom, variant, tile),
+                        BWD_THREADS, sms)
+    return max(1, min(blocks, PARTIAL_BYTES // (4 * geom.n_params)))
 
 
-def _checks(packed, feats, geom: DiscGeom) -> torch.device:
-    check_fits(geom)
+def _checks(packed, feats, geom: DiscGeom):
+    route = disc_route(geom)
     dev = require_cuda_f32([packed, feats])
     if packed.shape != (geom.n_params,) or feats.dim() != 2 \
             or feats.shape[1] != geom.F:
         raise ValueError(f"shape mismatch: packed [{geom.n_params}], feats "
                          f"[M, {geom.F}]")
-    return dev
+    return route, dev
+
+
+def _fwd_tile(packed, feats, geom: DiscGeom, tile: int, dev):
+    """Launch the tile #6 at ``tile`` points a block."""
+    M = feats.shape[0]
+    v = torch.empty((M,), dtype=torch.float32, device=dev)
+    gin = torch.empty((M, geom.F), dtype=torch.float32, device=dev)
+    FWD_TILE_KERNEL(dev, packed.data_ptr(), packed.numel(), feats.data_ptr(),
+                    v.data_ptr(), gin.data_ptr(), M, geom.F, geom.H, geom.L,
+                    int(geom.tied), tile)
+    return v, gin
 
 
 def v_dv_fwd_cuda(packed, feats, geom: DiscGeom):
-    """Launch kernel #6, from the library built for ``geom.H``, on
+    """Launch kernel #6, in the variant :func:`disc_route` picks, on
     PyTorch's current stream; same outputs as :func:`v_dv_fwd_plain`."""
-    dev = _checks(packed, feats, geom)
+    route, dev = _checks(packed, feats, geom)
+    if route.fwd == "tile":
+        return _fwd_tile(packed, feats, geom, route.fwd_tile, dev)
     M = feats.shape[0]
     v = torch.empty((M,), dtype=torch.float32, device=dev)
     gin = torch.empty((M, geom.F), dtype=torch.float32, device=dev)
@@ -320,26 +413,34 @@ def v_dv_fwd_cuda(packed, feats, geom: DiscGeom):
     return v, gin
 
 
+def _bwd(kernel, packed, feats, vb, gb, geom: DiscGeom, tile: int,
+         blocks: int, dev) -> torch.Tensor:
+    """Launch ``kernel`` (#7's shared or global variant) at ``tile``
+    points a tile on ``blocks`` blocks, and its fixed-order reduce."""
+    partial = torch.empty((blocks, geom.n_params), dtype=torch.float32,
+                          device=dev)
+    grad = torch.empty((geom.n_params,), dtype=torch.float32, device=dev)
+    kernel(dev, packed.data_ptr(), packed.numel(), feats.data_ptr(),
+           vb.data_ptr(), gb.data_ptr(), partial.data_ptr(), grad.data_ptr(),
+           feats.shape[0], geom.F, geom.H, geom.L, int(geom.tied), tile,
+           blocks)
+    return grad
+
+
 def v_dv_bwd_cuda(packed, feats, vb, gb, geom: DiscGeom) -> torch.Tensor:
-    """Launch kernel #7, from the library built for ``geom.H``, and its
+    """Launch kernel #7, in the variant :func:`disc_route` picks, and its
     fixed-order reduce on PyTorch's current stream; same result as
     :func:`v_dv_bwd_plain`."""
-    dev = _checks(packed, feats, geom)
+    route, dev = _checks(packed, feats, geom)
     require_cuda_f32([vb, gb])
     M = feats.shape[0]
     if vb.shape != (M,) or gb.shape != (M, geom.F):
         raise ValueError("shape mismatch: vb [M], gb [M, F]")
-    tile = bwd_tile(geom)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = bwd_blocks(M, tile, bwd_smem_bytes(geom, tile), BWD_THREADS, sms)
-    partial = torch.empty((blocks, geom.n_params), dtype=torch.float32,
-                          device=dev)
-    grad = torch.empty((geom.n_params,), dtype=torch.float32, device=dev)
-    BWD_KERNEL(dev, packed.data_ptr(), packed.numel(), feats.data_ptr(),
-               vb.data_ptr(), gb.data_ptr(), partial.data_ptr(),
-               grad.data_ptr(), M, geom.F, geom.H, geom.L, int(geom.tied),
-               tile, blocks, widths=(geom.H,))
-    return grad
+    blocks = bwd_grid(geom, route.bwd, route.bwd_tile, M, sms)
+    kernel = BWD_GLOBAL_KERNEL if route.bwd == "global" else BWD_KERNEL
+    return _bwd(kernel, packed, feats, vb, gb, geom, route.bwd_tile, blocks,
+                dev)
 
 
 class VDvFused(torch.autograd.Function):

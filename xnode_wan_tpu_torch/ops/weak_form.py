@@ -38,7 +38,7 @@ import torch
 from xnode_wan_tpu_torch.config import SolverConfig
 from xnode_wan_tpu_torch.models.xnode import apply_xnode_with_spatial_grad
 from xnode_wan_tpu_torch.ops.coefficients import diffusion_term, drift_term
-from xnode_wan_tpu_torch.ops.kernels.disc_train import (check_fits, geom_of,
+from xnode_wan_tpu_torch.ops.kernels.disc_train import (disc_route, geom_of,
                                                         v_dv_fused,
                                                         v_fused_fits)
 from xnode_wan_tpu_torch.ops.kernels.steppers import FUSED_KERNEL_METHODS
@@ -82,9 +82,10 @@ def fused_v_gate(cfg: SolverConfig) -> bool:
     ``fused_grad``, as in the JAX package (``weak_form.py:401-402``)
     without its TPU term. No mesh term: the adversary reads no tangent of
     u, and a rank of any mesh runs it on its own rows. ``make_losses``
-    also asks ``v_fused_fits`` of the discriminator's shapes: over the
-    kernels' caps CPU tensors take the plain side, and any other device
-    raises."""
+    also asks ``v_fused_fits`` of the discriminator's shapes: past the
+    JAX package's Pallas bound (``F + v_hidden_dim (2 v_layers + 4) + 2 <=
+    12,288``, ``disc_train.disc_route``) CPU tensors take the plain side,
+    and any other device raises."""
     return cfg.fused_v and cfg.fused_grad and not cfg.x64
 
 
@@ -385,9 +386,9 @@ def make_losses(problem, domain, cfg: SolverConfig, u_apply: Callable,
         if use_fused_v:
             if v_fused_fits(v_params, cfg.v_layers, cfg.tied_v):
                 return v_phi_grads_fused(v_params, v_pts, domain.func_w, cfg)
-            # over the caps only CPU tensors take the plain side
+            # past the Pallas bound only CPU tensors take the plain side
             if v_pts.device.type != "cpu":
-                check_fits(geom_of(v_params, cfg.v_layers, cfg.tied_v))
+                disc_route(geom_of(v_params, cfg.v_layers, cfg.tied_v))
         return v_phi_and_grads(v_apply, v_params, v_pts, domain.func_w)
 
     # the hypercube's paths all share one exit group: the grouped

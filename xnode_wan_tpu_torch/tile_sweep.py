@@ -19,6 +19,14 @@ writes every row to ``--out``. Needs a CUDA card and ``nvcc``.
 place of the sweep. It needs nothing of the package but the wrappers
 and the sampling, so a copy of this file in an older checkout's package
 times that checkout's kernels on the same card and configs.
+
+``--adversary`` times the adversary kernels #6 and #7 instead, through
+their wrappers (``v_dv_fwd_cuda``, ``v_dv_bwd_cuda``: the variant and
+tile they choose), at each config's discriminator (random weights from
+seed 0, ``tied_v`` and ``v_fourier_features`` from the config) on
+``N_r * N_t`` random points, each held against its plain version; like
+``--rule``, a copy of this file in an older checkout times that
+checkout's kernels.
 """
 
 from __future__ import annotations
@@ -178,6 +186,43 @@ def sweep_config(name: str, tiles, threads, reps: int, card: str,
     return rows
 
 
+def adversary_config(name: str, reps: int, card: str) -> dict:
+    from xnode_wan_tpu_torch import init_discriminator, load_params
+    from xnode_wan_tpu_torch.models.discriminator import disc_features
+    from xnode_wan_tpu_torch.ops.kernels import disc_train as dt
+
+    dev = torch.device("cuda", 0)
+    cfg = load_params(os.path.join(ROOT, "configs", f"{name}.yaml"))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    L, tied = cfg.v_layers, cfg.tied_v
+    vp = init_discriminator(cfg.dim, cfg.v_hidden_dim, L, tied,
+                            cfg.v_fourier_features, generator=gen, device=dev)
+    geom = dt.geom_of(vp, L, tied)
+    packed = dt.live_packed_disc(vp, L, tied).detach()
+    M = cfg.N_r * cfg.N_t
+    pts = torch.rand((M, cfg.dim + 1), generator=gen, device=dev)
+    pts[:, 1:] = 2.0 * pts[:, 1:] - 1.0
+    feats = disc_features(pts, cfg.v_fourier_features).contiguous()
+    vb = torch.randn((M,), generator=gen, device=dev)
+    gb = torch.randn((M, geom.F), generator=gen, device=dev)
+    row = {"config": name, "geom": list(geom), "points": M, "card": card}
+    with torch.no_grad():
+        for kernel, run, plain in (
+                ("disc_fwd", lambda: dt.v_dv_fwd_cuda(packed, feats, geom),
+                 lambda: dt.v_dv_fwd_plain(packed, feats, geom)),
+                ("disc_bwd",
+                 lambda: dt.v_dv_bwd_cuda(packed, feats, vb, gb, geom),
+                 lambda: dt.v_dv_bwd_plain(packed, feats, vb, gb, geom))):
+            got, want = run(), plain()
+            if kernel == "disc_fwd":
+                err = max(_scaled_err(g, w) for g, w in zip(got, want))
+            else:
+                err = _scaled_err(got, want)
+            row[kernel] = {"ms": _time_ms(run, reps), "max_rel_err": err}
+    print(json.dumps(row), flush=True)
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--configs", nargs="+", default=["cube_pde"])
@@ -187,6 +232,9 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--rule", action="store_true",
                     help="time the wrappers' own tile choice only")
+    ap.add_argument("--adversary", action="store_true",
+                    help="time kernels #6 and #7 at each config's "
+                         "discriminator instead")
     ap.add_argument("--f64", action="store_true",
                     help="also hold the plain f32 version and the kernels "
                          "against the plain version in f64")
@@ -204,15 +252,19 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(card)
-    _build.build([("xnode_grad", None)])
-    log = _build.build_dir() / "xnode_grad.log"
-    for line in log.read_text().splitlines():
-        if "Compiling" in line or "registers" in line or "stack" in line:
-            print(f"  ptxas: {line.strip()}")
-    rows = []
-    for name in args.configs:
-        rows += sweep_config(name, args.tiles, args.threads, args.reps, card,
-                             args.f64, args.rule)
+    if args.adversary:
+        rows = [adversary_config(name, args.reps, card)
+                for name in args.configs]
+    else:
+        _build.build([("xnode_grad", None)])
+        log = _build.build_dir() / "xnode_grad.log"
+        for line in log.read_text().splitlines():
+            if "Compiling" in line or "registers" in line or "stack" in line:
+                print(f"  ptxas: {line.strip()}")
+        rows = []
+        for name in args.configs:
+            rows += sweep_config(name, args.tiles, args.threads, args.reps,
+                                 card, args.f64, args.rule)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as fh:
         json.dump(rows, fh, indent=1)
