@@ -97,20 +97,21 @@ which raises on failure:
       every kernel launched 4x a single member's count an iteration,
       ``best_member`` and ``rel_err_worst`` printed; the best member
       served through ``predict`` at 65,536 points under 2a's limit;
-   j. the WAN primal (``primal: wan``, the plain adversary), seed 0, 500
-      iterations (cut from JAX's 7,015 to 1%): every value finite, the
-      least rel-L2 under 0.05, no kernel launched; then the command line
+   j. the WAN primal (``primal: wan``, the plain adversary), seed 0,
+      ``train_until(0.05, 500)`` (cut from JAX's 7,015 to 1%): every value
+      finite, the rel-L2 under 0.05 within 500 iterations, no kernel
+      launched; then the command line
       with ``primal: wan`` and ``fused_v: true``, 20 iterations and
       ``--resume --iterations 3``: a record an iteration, the step and
       loss continuing, #6 twice and #7 once an iteration, #1-#5 never;
    k. the f64 reference-parity lane (``x64``, ``s1_raw_v``,
       ``independent_uv``, ``init_all_rows``; ``benchmarks/run_parity.py``)
-      on the cube, seed 0, cut to ``train_until(0.01, 60)``: the least
-      rel-L2 under 0.05, with no kernel launched;
+      on the cube, seed 0, ``train_until(0.05, 60)``: the rel-L2 under
+      0.05 within 60 iterations, with no kernel launched;
    l. the adaptive integrator at full width: ``configs/cube_pde.yaml`` with
       ``solver: dopri5`` and ``ode_max_steps: 16`` (JAX's ``d5_dopri5``
-      scenario), seed 0, cut to ``train_until(0.01, 20)``: every value
-      finite, the least rel-L2 under 0.15, no kernel launched (the
+      scenario), seed 0, ``train_until(0.15, 20)``: every value finite,
+      the rel-L2 under 0.15 within 20 iterations, no kernel launched (the
       adaptive solvers close the fused gate); then the command line with
       ``fused_v: true`` for 3 iterations and ``--resume --iterations 1``:
       #6 twice and #7 once an iteration and nothing else, the step and
@@ -124,7 +125,7 @@ which raises on failure:
       Hh = 10, 3 layers, alpha 1e5): ``adams`` for 14 iterations to a
       final rel-L2 under 0.3, and ``bosh3``, ``adaptive_heun``,
       ``fehlberg2``, ``dopri8``, ``explicit_adams`` and ``fixed_adams``
-      for 3 iterations each: finite, no kernel launched;
+      for 2 iterations each: finite, no kernel launched;
    n. the continuous adjoint (``apply_xnode_adjoint``) on a 4,000-path d=5
       midpoint batch: its forward bitwise equal to ``apply_xnode``'s
       without remat, its parameter gradient within 2e-2 (relative, in
@@ -158,8 +159,9 @@ which raises on failure:
    s. the wide cube: ``configs/cube_pde.yaml`` with ``u_hidden_dim`` =
       ``u_hidden_hidden_dim`` = 64 (the widest primal the JAX package's
       Pallas #5 takes at d = 5), seed 0, ``train_until(0.01, 300)``:
-      launches of b an iteration, #5 all in its global-accumulator
-      variant, the least rel-L2 under 0.05 and the iteration of the 1%
+      launches of b an iteration, #5 all in its cluster variant (two
+      blocks a cluster, each with half the units and half the
+      accumulator), the least rel-L2 under 0.05 and the iteration of the 1%
       stop printed if it fired; the result served through #1 at 65,536
       points, finite and within 2x the least training rel-L2;
    t. the cube at d = 100 with ``fourier_features: 1`` (F = 300), seed
@@ -173,7 +175,7 @@ which raises on failure:
    u. the cube at d = 30 with ``u_hidden_dim = u_hidden_hidden_dim = 48``
       and ``fourier_features: 1`` (F = 90), seed 0, 20 iterations of
       ``train_until``: #2 in its path-tile variant, #3-#5 in tangent
-      chunks with #5's global accumulator, exact launches by variant,
+      chunks with #5's cluster variant, exact launches by variant,
       every ``loss_u`` finite (the chunked interior term drives the
       training), the least rel-L2 under the first;
    v. the cube with a 256-wide adversary (``v_hidden_dim: 256``, tied,
@@ -222,14 +224,23 @@ which raises on failure:
    computed twice on the same card inputs, compared bitwise; the
    kernel variants: #1 and #2's path-tile variant at 2t's net and
    at d = 5 with H = 96, Hh = 64 (and both variants at the cube's net),
-   #5's global-accumulator variant at 2s's trained net (twice, bitwise)
-   and bitwise equal to the shared one at the cube's trained net with
-   the launcher called with each at the same tile and grid, and #3-#5 in
+   #5's cluster variant at 2s's trained net and, at random weights (live
+   relus), at its shape and at 2u's chunk (15 of d = 30, F = 90), each
+   at N_r, N_r + 1 and 37 paths, twice, bitwise, by the kink rule of the
+   d=20 check (the paths at least ``KINK_MARGIN`` from a kink against the
+   plain version, all of them at ``KINK_RTOL``); at the random ones #5's
+   global variant against the plain version by the same all-path rule
+   and the cluster variant against it on all paths (their FP32 forwards
+   sum in the same order); #5's global variant at 2s's trained net by
+   the kink rule; #5's global
+   accumulator bitwise equal to the shared
+   one at the cube's trained net with the launcher called with each at
+   the same tile and grid, and #3-#5 in
    tangent chunks of 10 at the ``highdim_d20`` geometry against the
    full-d kernels (u and du bitwise, the weight gradient within the
    scaled limit), and #3-#5 against their plain versions, with the kink
    rule of the d=20 check, at a chunk of 2t's (50 of d = 100, F = 300)
-   and of 2u's trained net (15 of d = 30, #5's global accumulator twice,
+   and of 2u's trained net (15 of d = 30, #5's cluster variant twice,
    bitwise); #6's and #7's variants, by the kink rule of the d=20 check
    (points within ``KINK_MARGIN`` of a relu kink of the adversary left
    out, then all at ``KINK_RTOL``) at 80,000 points and at 80,001 and 37:
@@ -239,16 +250,21 @@ which raises on failure:
    at the cube's trained adversary; #7's global accumulator bitwise equal
    to the shared one at the cube's trained adversary at the same tile and
    grid;
-4. CUDA-event times (median of 20 after warm-up) of each kernel and its
-   plain version at the main path's shapes, beside the bound the card's
-   published peaks put on the same work; and each kernel variant
+4. CUDA-event times (the kernel's median of 20 after warm-up, the plain
+   version's of 5) of each kernel and its plain version at the main
+   path's shapes, beside the bound the card's published peaks put on the
+   same work (FP32 outside the tensor cores; where #5's cluster variant
+   runs its VJP on the tensor cores in 3xTF32, those operations at the
+   TF32 rate over three); and each kernel variant
    at its phase's shapes (the path-tile #1/#2 at 2t's, and both variants
-   of #2 at the cube's net, #5's global accumulator at 2s's, #3-#5 a
-   chunk at 2t's, #5's global accumulator a chunk at 2u's; #6 and #7 at
+   of #2 at the cube's net, #5's cluster variant at 2s's and its global
+   accumulator there through its launcher, #3-#5 a chunk at 2t's, #5's
+   cluster variant and its global accumulator a chunk at 2u's; #6 and #7 at
    2v's and 2w's trained adversaries and at the 558-wide one, the tile #6
    and #7's global accumulator at the cube's trained one), with its
    bound and its launches there;
-5. CUDA-event times (median of 10) of the two serving entry points and
+5. CUDA-event times (median of 10; an outer step's, of ``STEP_REPS``)
+   of the two serving entry points and
    the share of each that its kernel takes, of one training outer step
    with the share of each kernel, of the plain boundary scan's forward
    and backward, and of the adversary side, and of one ``fused_v`` outer
@@ -257,7 +273,7 @@ which raises on failure:
    outer step with the share of the plain boundary scan, the
    per-exit-group objective, each of #2-#5, the kernels' tangent inputs
    and the adversary side, and its launches an iteration beside the
-   cube's; one d = 20 outer step (2g's solver, a median of 10) with the
+   cube's; one d = 20 outer step (2g's solver) with the
    same parts (medians of 5); one ensemble iteration of 2i (4 members at
    d = 20) beside one member's step, one WAN outer step (plain and
    ``fused_v``), one f64 parity-lane step, and a Halton draw beside an
@@ -341,7 +357,9 @@ ENSEMBLE_MAX_ITERS = 200
 ENSEMBLE_WINDOW = 100
 # 2j: the WAN primal, cut to 500 iterations (JAX: 1% in 7,015, least
 # rel-L2 0.0230 over its first 500; benchmarks/scenarios/wan_d5.json),
-# then 20 iterations of the command line with fused_v and a resume
+# run until its rel-L2 is under WAN_BEST_LIMIT (the port's is from
+# iteration 280), then 20 iterations of the command line with fused_v
+# and a resume
 WAN_RUN = os.path.join(ROOT, "benchmarks", "scenarios", "wan_d5.json")
 WAN_ITERS = 500
 WAN_BEST_LIMIT = 0.05
@@ -349,8 +367,9 @@ WAN_CLI_ITERS = 20
 # 2k: the f64 reference-parity lane (benchmarks/run_parity.py:48); JAX
 # reached 0.998% in 80 iterations on a CPU
 # (benchmarks/convergence_d5_parity.json), the port 1% in 113 on the H100;
-# cut to 60 iterations to make room for 2l-2n, held to its least rel-L2
-# (JAX's: 0.0149 by iteration 40, the port's 0.0299)
+# cut to 60 iterations to make room for 2l-2n, run until its rel-L2 is
+# under PARITY_BEST_LIMIT (JAX's: 0.0149 by iteration 40, the port's
+# 0.0299)
 PARITY_RUN = os.path.join(ROOT, "benchmarks", "convergence_d5_parity.json")
 PARITY_FLAGS = dict(x64=True, s1_raw_v=True, independent_uv=True,
                     init_all_rows=True)
@@ -358,7 +377,8 @@ PARITY_ITERS = 60
 PARITY_BEST_LIMIT = 0.05
 # 2l: the cube with solver: dopri5 (JAX's benchmarks/scenarios/d5_dopri5.json:
 # 1% in 118 iterations; 0.461, 0.148, 0.084 at iterations 0, 10, 20), cut
-# to 20 iterations (30 before phases 2o-2r) and held to its least rel-L2;
+# to 20 iterations (30 before phases 2o-2r), run until its rel-L2 is under
+# DOPRI5_BEST_LIMIT;
 # then the command line with fused_v for 3 iterations and a resume of 1
 # (5 and 2 before phases 2o-2r)
 DOPRI5_RUN = os.path.join(ROOT, "benchmarks", "scenarios", "d5_dopri5.json")
@@ -369,7 +389,8 @@ DOPRI5_RESUME_ITERS = 1
 # 2m: the other solvers at the size of the JAX package's on-chip test
 # (tests/test_tpu_hardware.py:218-228): adams cut from its 30 iterations
 # to 14 (before phases 2o-2r: 30, before 2s-2u: 20), to a final rel-L2
-# under 0.3 (its assertion), every other solver 3 iterations (5 before 2o-2r);
+# under 0.3 (its assertion), every other solver 2 iterations (5 before
+# 2o-2r, 3 before #5's cluster variant's phase-3 checks);
 # before them each adaptive method's f32 integration held against f64
 SOLVER_CFG = dict(dim=2, shape_param=(-1.0, 1.0), N_t=10, N_r=256, N_b=256,
                   u_hidden_dim=16, u_hidden_hidden_dim=10, u_layers=3,
@@ -379,7 +400,7 @@ ADAMS_ITERS = 14
 ADAMS_LIMIT = 0.3
 OTHER_SOLVERS = ("bosh3", "adaptive_heun", "fehlberg2", "dopri8",
                  "explicit_adams", "fixed_adams")
-OTHER_ITERS = 3
+OTHER_ITERS = 2
 F64_SCALED_TOL = 1e-3
 # 2n: the continuous adjoint's gradient against autograd through the scan
 # (the bound of tests/test_adjoint.py:77-90), and the peak memory of one
@@ -415,7 +436,7 @@ D100 = dict(dim=100, fourier_features=1)
 D100_ITERS = 20
 # 2u: the cube at d = 30 with H = Hh = 48 and its Fourier bank (F = 90):
 # 2t's route (the path-tile #2, #3-#5 in tangent chunks) with #5's
-# global accumulator, at a volume (2^30) where loss_u stays finite, so
+# cluster variant, at a volume (2^30) where loss_u stays finite, so
 # that the chunked interior term drives the training; 20 iterations
 D30 = dict(dim=30, u_hidden_dim=48, u_hidden_hidden_dim=48,
            fourier_features=1)
@@ -468,7 +489,11 @@ KINK_RTOL = 2e-3
 SEED = 0
 # NVIDIA H100 SXM data sheet: FP32 without tensor cores, HBM3 rate.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12      # on the tensor cores, dense
 PEAK_BYTES_PER_S = 3.35e12
+# CUDA-event runs of an outer step in phase 5 (10 before #5's cluster
+# variant's phase-3 checks), after one warm-up run
+STEP_REPS = 5
 
 
 def card_line() -> str:
@@ -495,8 +520,15 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(flops: float, n_bytes: float):
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, n_bytes / PEAK_BYTES_PER_S
+def bound(flops: float, n_bytes: float, flops_3xtf32: float = 0.0):
+    """The least time (ms) for ``flops`` FP32 operations and ``n_bytes``
+    moved, and which of the two bounds it. ``flops_3xtf32`` are operations
+    that the kernel runs on the tensor cores in 3xTF32: three TF32
+    products each, at the TF32 rate; the FP32 units and the tensor cores
+    work side by side, so the operations take the longer of the two."""
+    t_ops = max(flops / PEAK_FP32_FLOPS,
+                3.0 * flops_3xtf32 / PEAK_TF32_FLOPS)
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -568,6 +600,10 @@ def path_work(net, steppers, N, L, d, n_sub, method):
         # a linear layer is two products (input cotangent, weight
         # gradient), so about 3x the forward's operations
         "xnode_udu_bwd": (3.0 * joint, inputs + states + outputs + n_w),
+        # #5's cluster variant: the recompute in FP32, the two products of
+        # the reverse walk on the tensor cores in 3xTF32
+        "xnode_udu_bwd cluster": (joint, inputs + states + outputs + n_w,
+                                  2.0 * joint),
     }
 
 
@@ -939,8 +975,9 @@ def ensemble_d20(kernels, work: str, dev, card: str) -> dict:
 
 def wan_runs(kernels, work_root: str, cli_main, card: str) -> dict:
     """Phase 2j: ``configs/cube_pde.yaml`` with ``primal: wan`` (plain
-    adversary), seed 0, ``train_until(0.01, WAN_ITERS)``: every value
-    finite, the least rel-L2 under ``WAN_BEST_LIMIT``, no kernel launched;
+    adversary), seed 0, ``train_until(WAN_BEST_LIMIT, WAN_ITERS)``: every
+    value finite, the rel-L2 under ``WAN_BEST_LIMIT`` within ``WAN_ITERS``
+    iterations, no kernel launched;
     then the command line with ``primal: wan`` and ``fused_v: true`` for
     ``WAN_CLI_ITERS`` iterations and ``--resume --iterations 3``: a record
     an iteration, the step and loss continuing, #6 twice and #7 once an
@@ -951,7 +988,7 @@ def wan_runs(kernels, work_root: str, cli_main, card: str) -> dict:
     solver = NODEWANSolver(cfg, load_problem("Ex4_1_funcs", dim=cfg.dim),
                            work_dir=os.path.join(work_root, "2j"))
     zero_launches(kernels)
-    hist = solver.train_until(TRAIN_TOL, WAN_ITERS)
+    hist = solver.train_until(WAN_BEST_LIMIT, WAN_ITERS)
     torch.cuda.synchronize()
     launches = read_launches(kernels)
     with open(WAN_RUN) as fh:
@@ -961,8 +998,8 @@ def wan_runs(kernels, work_root: str, cli_main, card: str) -> dict:
     print(f"WAN primal: {n} outer iterations, least rel-L2 {best:.6f}, last "
           f"{hist['rel_err_final']:.6f}, in {hist['wall_train_s']:.3f} s "
           f"(train_until wall clock, {card}); JAX: least "
-          f"{min(ref['rel_err_every_10'][:WAN_ITERS // 10]):.6f} over its "
-          f"first {WAN_ITERS} (every 10th), 1% in {ref['iterations_run']}; "
+          f"{min(ref['rel_err_every_10'][:-(-n // 10)]):.6f} over its "
+          f"first {n} (every 10th), 1% in {ref['iterations_run']}; "
           f"launches {launches}")
     every_10("WAN", hist["rel_err"], ref["rel_err_every_10"])
     if not (len(hist["rel_err"]) == n and all(
@@ -1039,16 +1076,16 @@ def parity_lane(kernels, work: str, card: str) -> dict:
     """Phase 2k: the f64 reference-parity lane, ``configs/cube_pde.yaml``
     with the four flags of ``benchmarks/run_parity.py`` (``x64``,
     ``s1_raw_v``, ``independent_uv``, ``init_all_rows``), seed 0,
-    ``train_until(0.01, PARITY_ITERS)``: the least rel-L2 under
-    ``PARITY_BEST_LIMIT``, and no kernel launched (x64 closes both
-    gates)."""
+    ``train_until(PARITY_BEST_LIMIT, PARITY_ITERS)``: the rel-L2 under
+    ``PARITY_BEST_LIMIT`` within ``PARITY_ITERS`` iterations, and no
+    kernel launched (x64 closes both gates)."""
     from xnode_wan_tpu_torch import NODEWANSolver, load_params, load_problem
 
     cfg = load_params(CONFIG).replace(seed=SEED, **PARITY_FLAGS)
     solver = NODEWANSolver(cfg, load_problem("Ex4_1_funcs", dim=cfg.dim),
                            work_dir=work)
     zero_launches(kernels)
-    hist = solver.train_until(TRAIN_TOL, PARITY_ITERS)
+    hist = solver.train_until(PARITY_BEST_LIMIT, PARITY_ITERS)
     torch.cuda.synchronize()
     launches = read_launches(kernels)
     with open(PARITY_RUN) as fh:
@@ -1076,8 +1113,9 @@ def parity_lane(kernels, work: str, card: str) -> dict:
 def dopri5_cube(kernels, work_root: str, cli_main, pts, card: str) -> dict:
     """Phase 2l: ``configs/cube_pde.yaml`` with ``solver: dopri5`` and
     ``ode_max_steps: 16`` (JAX's ``d5_dopri5`` scenario), seed 0,
-    ``train_until(0.01, DOPRI5_ITERS)``: every value finite, the least
-    rel-L2 under ``DOPRI5_BEST_LIMIT``, no kernel launched (the adaptive
+    ``train_until(DOPRI5_BEST_LIMIT, DOPRI5_ITERS)``: every value finite,
+    the rel-L2 under ``DOPRI5_BEST_LIMIT`` within ``DOPRI5_ITERS``
+    iterations, no kernel launched (the adaptive
     solvers close the fused gate); then the command line with ``fused_v:
     true`` for ``DOPRI5_CLI_ITERS`` iterations and ``--resume --iterations
     DOPRI5_RESUME_ITERS``: #6 twice and #7 once an iteration and nothing
@@ -1092,7 +1130,7 @@ def dopri5_cube(kernels, work_root: str, cli_main, pts, card: str) -> dict:
     solver = NODEWANSolver(cfg, load_problem("Ex4_1_funcs", dim=cfg.dim),
                            work_dir=os.path.join(work_root, "2l"))
     zero_launches(kernels)
-    hist = solver.train_until(TRAIN_TOL, DOPRI5_ITERS)
+    hist = solver.train_until(DOPRI5_BEST_LIMIT, DOPRI5_ITERS)
     torch.cuda.synchronize()
     launches = read_launches(kernels)
     with open(DOPRI5_RUN) as fh:
@@ -1382,7 +1420,7 @@ def integrator_steps(solver, dop, others, work_root: str, card: str):
     2m's last three iterations, by the host clock its log keeps);
     the cube's midpoint step with ``remat_scan`` on (2b's ``solver``) and
     off (a solver with the same weights), in turns on, off, off, on,
-    medians of 10."""
+    medians of ``STEP_REPS``."""
     from xnode_wan_tpu_torch import NODEWANSolver, apply_xnode
     from xnode_wan_tpu_torch.ops import weak_form
 
@@ -1420,10 +1458,10 @@ def integrator_steps(solver, dop, others, work_root: str, card: str):
                             work_dir=os.path.join(work_root, "5_remat"))
     rsolver.state.u_params.load_state_dict(solver.state.u_params.state_dict())
     rsolver.state.v_params.load_state_dict(solver.state.v_params.state_dict())
-    remat_runs = [time_ms(lambda: solver._outer_step(), reps=10, warmup=2),
-                  time_ms(lambda: rsolver._outer_step(), reps=10, warmup=2),
-                  time_ms(lambda: rsolver._outer_step(), reps=10),
-                  time_ms(lambda: solver._outer_step(), reps=10)]
+    remat_runs = [time_ms(lambda: solver._outer_step(), STEP_REPS, 1),
+                  time_ms(lambda: rsolver._outer_step(), STEP_REPS, 1),
+                  time_ms(lambda: rsolver._outer_step(), STEP_REPS),
+                  time_ms(lambda: solver._outer_step(), STEP_REPS)]
     remat_on_ms = statistics.mean(remat_runs[::3])
     remat_off_ms = statistics.mean(remat_runs[1:3])
     print(f"dopri5 outer step ({card}), one run: {dop_step_ms:.4f} ms; "
@@ -1433,7 +1471,7 @@ def integrator_steps(solver, dop, others, work_root: str, card: str):
     print(f"adams outer step at d=2, N_r={asolver.cfg.N_r} ({card}), median "
           f"of 2m's last 3 iterations: {adams_step_ms:.4f} ms")
     print(f"cube midpoint outer step ({card}), remat_scan on, off, off, on, "
-          f"medians of 10 {remat_runs}: on {remat_on_ms:.4f} ms, off "
+          f"medians of {STEP_REPS} {remat_runs}: on {remat_on_ms:.4f} ms, off "
           f"{remat_off_ms:.4f} ms")
     return {"dopri5_step_ms": dop_step_ms, "dopri5_parts_ms": dop_parts,
             "adams_step_ms": adams_step_ms,
@@ -2000,8 +2038,8 @@ def wide_cube(kernels, work: str, pts, card: str) -> dict:
     """Phase 2s: ``configs/cube_pde.yaml`` with :data:`WIDE` (the widest
     primal the JAX package's Pallas #5 takes at d = 5), seed 0,
     ``train_until(0.01, WIDE_MAX_ITERS)``: the launches of 2b an
-    iteration, #5 all in its global-accumulator variant (its 46,337
-    floats of accumulator do not fit beside the block), the least rel-L2
+    iteration, #5 all in its cluster variant (its 46,337 floats of
+    accumulator do not fit beside the block), the least rel-L2
     under ``WIDE_BEST_LIMIT``; then the kept weights served through #1
     at 2a's points: finite and within ``WIDE_SERVE_FACTOR`` times the
     least training rel-L2."""
@@ -2017,7 +2055,7 @@ def wide_cube(kernels, work: str, pts, card: str) -> dict:
     route = xnode_train.kernel_route(net.dims(), cfg.dim, cfg.solver)
     print(f"wide cube {WIDE}: {net.packed().numel()} weights, kernels "
           f"{route}")
-    if not route.bwd.global_acc or route.d_chunk != cfg.dim:
+    if route.bwd.variant != "cluster" or route.d_chunk != cfg.dim:
         raise AssertionError(f"the wide cube routes {route}")
     zero_launches(kernels)
     hist = solver.train_until(TRAIN_TOL, WIDE_MAX_ITERS)
@@ -2026,7 +2064,8 @@ def wide_cube(kernels, work: str, pts, card: str) -> dict:
     n = check_until("wide cube (2s)", hist, launches, cfg)
     check_variants("wide cube (2s)", launches, {
         "xnode_train": {"registers": n, "tile": 0},
-        "xnode_udu_bwd": {"shared": 0, "global": cfg.n1 * n}})
+        "xnode_udu_bwd": {"shared": 0, "cluster": cfg.n1 * n,
+                          "global": 0}})
     rel = [float(r) for r in hist["rel_err"]]
     best = min(rel)
     hit = next((i for i, r in enumerate(rel) if r < TRAIN_TOL), None)
@@ -2093,7 +2132,7 @@ def d100_fourier(kernels, work: str, card: str) -> dict:
     n = hist["iterations_run"]
     rel = [float(r) for r in hist["rel_err"]]
     want = chunk_launches_want(n, cfg, chunks)
-    bwd = "global" if route.bwd.global_acc else "shared"
+    bwd = route.bwd.variant
     print(f"d={cfg.dim} cube: {n} outer iterations, rel-L2 {rel[0]:.6f} -> "
           f"least {min(rel):.6f}, last {rel[-1]:.6f}, in "
           f"{hist['wall_train_s']:.3f} s (train_until wall clock, {card}); "
@@ -2117,8 +2156,8 @@ def d100_fourier(kernels, work: str, card: str) -> dict:
                              f"expected {want}")
     check_variants("the d=100 cube (2t)", launches, {
         "xnode_train": {"registers": 0, "tile": n},
-        "xnode_udu_bwd": {"shared": 0, "global": 0, bwd: want[
-            "xnode_udu_bwd"]}})
+        "xnode_udu_bwd": {"shared": 0, "cluster": 0, "global": 0,
+                          bwd: want["xnode_udu_bwd"]}})
     if not min(rel) < rel[0]:
         raise AssertionError(f"the d=100 cube's least rel-L2 {min(rel)} is "
                              f"not under its first {rel[0]}")
@@ -2178,8 +2217,8 @@ def variants_run(before: dict, counter) -> list:
 def d30_chunked(kernels, work: str, card: str) -> dict:
     """Phase 2u: ``configs/cube_pde.yaml`` at :data:`D30` (d = 30, H = Hh
     = 48, F = 90), seed 0, ``D30_ITERS`` iterations of ``train_until``:
-    #2 in its path-tile variant, #3-#5 in tangent chunks with #5's global
-    accumulator, exact launches by variant; every ``loss_u`` finite (the
+    #2 in its path-tile variant, #3-#5 in tangent chunks with #5's
+    cluster variant, exact launches by variant; every ``loss_u`` finite (the
     interior term, which only the chunked #3-#5 compute, gives a
     gradient at every iteration, unlike at 2t's volume), every rel-L2
     finite and the least under the first."""
@@ -2194,7 +2233,8 @@ def d30_chunked(kernels, work: str, card: str) -> dict:
     chunks = cfg.dim // route.d_chunk
     print(f"d={cfg.dim} cube at H=Hh=48 with fourier_features 1 (F={net.F}):"
           f" kernels {route}, {chunks} chunks")
-    if route.path != "tile" or chunks < 2 or not route.bwd.global_acc:
+    if (route.path != "tile" or chunks < 2
+            or route.bwd.variant != "cluster"):
         raise AssertionError(f"the d=30 cube routes {route}")
     zero_launches(kernels)
     hist = solver.train_until(TRAIN_TOL, D30_ITERS)
@@ -2218,7 +2258,8 @@ def d30_chunked(kernels, work: str, card: str) -> dict:
                              f"expected {want}")
     check_variants("the d=30 cube (2u)", launches, {
         "xnode_train": {"registers": 0, "tile": n},
-        "xnode_udu_bwd": {"shared": 0, "global": want["xnode_udu_bwd"]}})
+        "xnode_udu_bwd": {"shared": 0, "cluster": want["xnode_udu_bwd"],
+                          "global": 0}})
     if not min(rel) < rel[0]:
         raise AssertionError(f"the d=30 cube's least rel-L2 {min(rel)} is "
                              f"not under its first {rel[0]}")
@@ -2366,15 +2407,58 @@ def fused_adversary(kernels, work: str, label: str, over: dict,
             "step_launches": step_launches[True]}
 
 
-def variant_checks(*, L, N, batch, batch20, cfg, cfg20, check_udu_near_kinks,
+def bwd_key(tile) -> str:
+    """:func:`path_work`'s key for #5 in ``tile``'s variant."""
+    return ("xnode_udu_bwd cluster" if tile.variant == "cluster"
+            else "xnode_udu_bwd")
+
+
+def global_tile(dims, d: int, method: str):
+    """#5's global-accumulator variant's block at a net: the tile its
+    route would take were the shared and cluster variants not there."""
+    from xnode_wan_tpu_torch.ops.kernels import steppers, xnode_train
+    for tile in xnode_train.BWD_TILES:
+        if (xnode_train.tile_smem_bytes(dims, d, method, tile, True,
+                                        "global")
+                <= steppers.MAX_SMEM_BYTES):
+            return xnode_train.GradTile(tile, xnode_train.block_threads(
+                tile, d, dims[1], True), "global")
+    raise AssertionError(f"#5's global variant does not fit {dims}, d={d}")
+
+
+def bwd_direct(tile, net, packed, args, states, ub, dub, n_sub, method):
+    """#5 through the launcher of ``tile``'s variant at that tile and its
+    persistent grid (the wrapper launches the route's variant only)."""
+    from xnode_wan_tpu_torch.ops.kernels import steppers, xnode_train
+    dev = args[0].device
+    N, L = args[0].shape
+    d = args[-1].shape[1]
+    grid = xnode_train.bwd_grid(net.dims(), N, d, method, tile, dev)
+    part = torch.empty((grid, packed.numel()), device=dev)
+    grad = torch.empty((packed.numel(),), device=dev)
+    kernel = xnode_train.BWD_LAUNCHES.variants[tile.variant]
+    extra = (tile.cluster,) if tile.variant == "cluster" else ()
+    kernel(dev, packed.data_ptr(), packed.numel(),
+           *(a.data_ptr() for a in (*args, *states, ub, dub, part, grad)),
+           N, L, d, *net.dims(), n_sub, steppers.METHOD_IDS[method],
+           tile.paths, tile.threads, grid, *extra)
+    return grad
+
+
+def variant_checks(*, L, N, batch, batch20, cfg, cfg20, check_udu,
+                    check_udu_near_kinks,
                     cube, d, dev, errs, eval_args, hd, hu, in20, k_steps, net,
                     net_tr, path_seed, problem, pts, tan_inputs, wide,
                     xs) -> dict:
     """Phase 3's checks of the kernel variants: #1/#2's path-tile
     variant at 2t's net, at d = 5 with H = 96, Hh = 64 and (through its
-    launch helper, beside the register kernel) at the cube's; #5's global
-    accumulator at 2s's trained net, and bitwise equal to the shared one
-    at the same tile and grid; #3-#5 a tangent chunk at 2t's and 2u's
+    launch helper, beside the register kernel) at the cube's; #5's cluster
+    variant at 2s's trained net, and at random weights at its shape and
+    at 2u's chunk (the global variant too), each at three path counts,
+    twice, bitwise, by the kink rule; #5's global variant at 2s's trained
+    net by the kink rule; #5's global
+    accumulator bitwise equal to the shared one at the same tile and
+    grid; #3-#5 a tangent chunk at 2t's and 2u's
     nets against their plain versions; #3-#5 in tangent chunks against
     the full d. Takes the names of ``main`` these read; returns what
     phase 4 times."""
@@ -2383,8 +2467,8 @@ def variant_checks(*, L, N, batch, batch20, cfg, cfg20, check_udu_near_kinks,
     from xnode_wan_tpu_torch.ops.kernels import (steppers, xnode_eval,
                                                  xnode_train)
     from xnode_wan_tpu_torch.ops.kernels.steppers import FlatNet
-    # the kernel variants: #1/#2's path-tile variant, #5's global
-    # accumulator, #3-#5 in tangent chunks
+    # the kernel variants: #1/#2's path-tile variant, #5's cluster and
+    # global variants, #3-#5 in tangent chunks
     print("kernel variants vs plain, f32:")
     from xnode_wan_tpu_torch.models.xnode import path_seed_fn
     var_errs = {}
@@ -2479,32 +2563,118 @@ def variant_checks(*, L, N, batch, batch20, cfg, cfg20, check_udu_near_kinks,
                     f"xnode_eval tile variant, {label}", got,
                     xnode_eval.evaluate_plain(tnet, *targs, k, c.solver))))
 
-        # #5's global accumulator at 2s's trained net (and #3/#4 there)
-        wb = cube.interior(gv, wcfg.N_r)
-        w_t0, w_dt = [a.contiguous() for a in xnode_train._prep_intervals(
-            wb.times, wb.mask, wb.t_start, wcfg.n_sub)]
-        w_in = [a.contiguous() for a in xnode_train.path_tangent_inputs(
-            wb, problem, wcfg)]
-        w_args = (w_t0, w_dt, *w_in)
-        before = xnode_train.BWD_GLOBAL_KERNEL.launches
-        check_udu_near_kinks(f"2s's trained net H=Hh=64 {wcfg.solver}", wnet,
-                             w_args, wcfg.n_sub, wcfg.solver, bitwise=True)
-        if xnode_train.BWD_GLOBAL_KERNEL.launches == before:
-            raise AssertionError("#5 at 2s's net did not take its global-"
-                                 "accumulator variant")
+        # #5's cluster variant (and #3/#4) at 2s's trained net, and at
+        # random weights (live relus) at its shape and at 2u's chunk (15 of
+        # d = 30, F = 90), each at N_r, N_r + 1 and 37 paths, #5 twice,
+        # bitwise
+        usolver = hu["solver"]
+        u_cfg, dc_u = usolver.cfg, hu["route"].d_chunk
+        u_dom = Hypercube(u_cfg.shape_param, u_cfg.dim, u_cfg.T0, u_cfg.T,
+                          u_cfg.N_t)
+
+        def udu_args(dom, prob, c, n_p, dc):
+            """#3-#5's inputs on ``n_p`` interior paths, the tangents cut
+            to their first ``dc`` directions."""
+            b = dom.interior(gv, n_p)
+            t0_b, dt_b = [a.contiguous() for a in xnode_train._prep_intervals(
+                b.times, b.mask, b.t_start, c.n_sub)]
+            tan = [a.contiguous() for a in xnode_train.path_tangent_inputs(
+                b, prob, c)]
+            return (t0_b, dt_b, tan[0], tan[1][:, :dc].contiguous(), tan[2],
+                    tan[3][:, :dc].contiguous())
+
+        def cluster_random(label, cnet, cargs, c):
+            """#5's cluster variant at random weights, by the kink rule:
+            the paths at least ``KINK_MARGIN`` from a relu kink against
+            the plain version (``check_udu``, #3/#4 too), all paths
+            against it at ``KINK_RTOL``, and the global variant, launched
+            directly, against it on all paths at ``KINK_RTOL`` too; the
+            cluster variant against the global one on all paths at
+            ``SCALED_RTOL`` (their forwards sum in the same order); twice,
+            bitwise. At random weights about 40% of the paths pass within
+            1e-5 of a kink, and at some of them the plain version's f32
+            order takes the other branch than the kernels' FP32 forward."""
+            c64 = FlatNet([a.double() for a in cnet.flat], cnet.n_lift,
+                          cnet.n_field)
+            t0_, dt_, feats_, _, seed_, dd = cargs
+            keep = xnode_train.relu_margins(
+                c64, t0_.double(), dt_.double(), feats_.double(),
+                seed_.double(), c.n_sub, c.solver) >= KINK_MARGIN
+            n_p = keep.numel()
+            print(f"  {label}: {int((~keep).sum())} of {n_p} paths come "
+                  f"within {KINK_MARGIN} of a relu kink")
+            check_udu(f"{label} N={int(keep.sum())}", cnet,
+                      [a[keep].contiguous() for a in cargs], c.n_sub,
+                      c.solver)
+            want = xnode_train.u_du_fwd_plain(cnet, *cargs, c.n_sub,
+                                              c.solver, store=True)
+            cgr = torch.Generator(device=dev).manual_seed(7)
+            ubr = torch.randn(t0_.shape, generator=cgr, device=dev)
+            dubr = torch.randn((*t0_.shape, dd.shape[1]), generator=cgr,
+                               device=dev)
+            packed_c = cnet.packed()
+            runs = [xnode_train.u_du_bwd_cuda(
+                cnet, packed_c, *cargs, *want[2:], ubr, dubr, c.n_sub,
+                c.solver) for _ in range(2)]
+            if not torch.equal(runs[0], runs[1]):
+                raise AssertionError(f"xnode_udu_bwd {label}: two launches "
+                                     "differ")
+            g_glob = bwd_direct(global_tile(cnet.dims(), dd.shape[1],
+                                            c.solver), cnet, packed_c,
+                                cargs, want[2:], ubr, dubr, c.n_sub,
+                                c.solver)
+            g_plain = xnode_train.u_du_bwd_plain(
+                cnet, *cargs, *want[2:], ubr, dubr, c.n_sub, c.solver)
+            sizes = [a.numel() for a in cnet.flat]
+            errs["xnode_udu_bwd"] = max(errs["xnode_udu_bwd"], note(
+                "xnode_udu_bwd cluster vs global", compare_scaled(
+                    f"xnode_udu_bwd cluster vs global {label}, all {n_p} "
+                    "paths", runs[0], g_glob, sizes)))
+            for name, g in (("cluster", runs[0]), ("global", g_glob)):
+                compare_scaled(f"xnode_udu_bwd {name} vs plain {label}, all "
+                               f"{n_p} paths", g, g_plain, sizes,
+                               limit=KINK_RTOL)
+            print(f"  xnode_udu_bwd {label}, all {n_p} paths: two launches "
+                  "bitwise equal")
+
+        cluster_nets = [
+            (f"2s's trained net H=Hh=64 {wcfg.solver}", wnet, wcfg, cube,
+             problem, wcfg.dim, False),
+            (f"H=Hh=64 d=5 {wcfg.solver} (random weights)",
+             xnode_train.flat_net(init_xnode(wcfg, gv)), wcfg, cube, problem,
+             wcfg.dim, True),
+            (f"H=Hh=48 F=90, a chunk of {dc_u} of d={u_cfg.dim} (random "
+             "weights)", xnode_train.flat_net(init_xnode(u_cfg, gv)), u_cfg,
+             u_dom, usolver.problem, dc_u, True)]
+        for label, cnet, c, dom, prob, dc, random in cluster_nets:
+            if xnode_train.kernel_route(cnet.dims(), c.dim,
+                                        c.solver).bwd.variant != "cluster":
+                raise AssertionError(f"#5 at {label} does not route to its "
+                                     "cluster variant")
+            for n_p in (c.N_r, c.N_r + 1, 37):
+                cargs = udu_args(dom, prob, c, n_p, dc)
+                if n_p == c.N_r and cnet is wnet:
+                    w_args = cargs
+                before = xnode_train.BWD_LAUNCHES.by_variant()
+                if random:
+                    cluster_random(f"{label} N={n_p}", cnet, cargs, c)
+                else:
+                    check_udu_near_kinks(label, cnet, cargs, c.n_sub,
+                                         c.solver, bitwise=True)
+                ran = set(variants_run(before, xnode_train.BWD_LAUNCHES))
+                if ran != ({"cluster", "global"} if random else {"cluster"}):
+                    raise AssertionError(f"#5 at {label}, N={n_p} ran {ran}"
+                                         ", expected its cluster variant")
         # #3-#5 a tangent chunk at the shapes 2t launches them (F = 300, a
         # chunk of 50 of d = 100) and at 2u's trained net (F = 90, a chunk
-        # of 15 of d = 30, #5's global accumulator, twice, bitwise)
+        # of 15 of d = 30, #5's cluster variant, twice, bitwise)
         dc_t = hd["route"].d_chunk
         h_tan = [a.contiguous() for a in xnode_train.path_tangent_inputs(
             hb, hsolver.problem, t_cfg)]
         h_chunk = (h_path[0], h_path[1], h_tan[0],
                    h_tan[1][:, :dc_t].contiguous(), h_tan[2],
                    h_tan[3][:, :dc_t].contiguous())
-        usolver = hu["solver"]
-        u_cfg, dc_u = usolver.cfg, hu["route"].d_chunk
-        ub_ = Hypercube(u_cfg.shape_param, u_cfg.dim, u_cfg.T0, u_cfg.T,
-                        u_cfg.N_t).interior(gv, u_cfg.N_r)
+        ub_ = u_dom.interior(gv, u_cfg.N_r)
         u_t0, u_dt = [a.contiguous() for a in xnode_train._prep_intervals(
             ub_.times, ub_.mask, ub_.t_start, u_cfg.n_sub)]
         u_tan = [a.contiguous() for a in xnode_train.path_tangent_inputs(
@@ -2522,33 +2692,58 @@ def variant_checks(*, L, N, batch, batch20, cfg, cfg20, check_udu_near_kinks,
             check_udu_near_kinks(label, cnet, cargs, c.n_sub, c.solver,
                                  bitwise=bitwise)
             ran = set(variants_run(before, xnode_train.BWD_LAUNCHES))
-            want_v = "global" if xnode_train.kernel_route(
-                cnet.dims(), c.dim, c.solver).bwd.global_acc else "shared"
+            want_v = xnode_train.kernel_route(cnet.dims(), c.dim,
+                                              c.solver).bwd.variant
             if ran != {want_v}:
                 raise AssertionError(f"#5 at {label} ran {ran}, expected "
                                      f"its {want_v} variant")
 
-        # how far the kernel and the plain f32 version each are from the
-        # plain version in f64 there (printed)
+        # #5's global variant at 2s's trained net, launched directly, by
+        # the kink rule: the paths at least KINK_MARGIN from a kink against
+        # the plain version at SCALED_RTOL, all of them at KINK_RTOL; then
+        # how far each variant and the plain f32 version are from the plain
+        # version in f64 there (printed)
         w_st = xnode_train.u_du_fwd_cuda(wnet, wnet.packed(), *w_args,
                                          wcfg.n_sub, wcfg.solver, True)[2:]
         cw = torch.Generator(device=dev).manual_seed(7)
-        w_ub = torch.randn(w_t0.shape, generator=cw, device=dev)
-        w_dub = torch.randn((*w_t0.shape, wcfg.dim), generator=cw,
+        w_ub = torch.randn(w_args[0].shape, generator=cw, device=dev)
+        w_dub = torch.randn((*w_args[0].shape, wcfg.dim), generator=cw,
                             device=dev)
         wnet64 = FlatNet([a.double() for a in wnet.flat], wnet.n_lift,
                          wnet.n_field)
         w64 = [a.double() for a in w_args]
+        sizes = [a.numel() for a in wnet.flat]
+        w_glob = global_tile(wnet.dims(), wcfg.dim, wcfg.solver)
+        keep_w = xnode_train.relu_margins(
+            wnet64, w64[0], w64[1], w64[2], w64[4], wcfg.n_sub,
+            wcfg.solver) >= KINK_MARGIN
+        kept = [a[keep_w].contiguous() for a in w_args]
+        kept_st = xnode_train.u_du_fwd_plain(wnet, *kept, wcfg.n_sub,
+                                             wcfg.solver, store=True)[2:]
+        kept_ub = (w_ub[keep_w].contiguous(), w_dub[keep_w].contiguous())
+        errs["xnode_udu_bwd"] = max(errs["xnode_udu_bwd"], note(
+            "xnode_udu_bwd global", compare_scaled(
+                f"xnode_udu_bwd global at 2s's trained net, launched "
+                f"directly, N={int(keep_w.sum())}", bwd_direct(
+                    w_glob, wnet, wnet.packed(), kept, kept_st, *kept_ub,
+                    wcfg.n_sub, wcfg.solver), xnode_train.u_du_bwd_plain(
+                    wnet, *kept, *kept_st, *kept_ub, wcfg.n_sub,
+                    wcfg.solver), sizes)))
+        g_plain = xnode_train.u_du_bwd_plain(wnet, *w_args, *w_st, w_ub,
+                                             w_dub, wcfg.n_sub, wcfg.solver)
+        g_glob = bwd_direct(w_glob, wnet, wnet.packed(), w_args, w_st, w_ub,
+                            w_dub, wcfg.n_sub, wcfg.solver)
+        compare_scaled(f"xnode_udu_bwd global at 2s's trained net, all "
+                       f"{keep_w.numel()} paths", g_glob, g_plain, sizes,
+                       limit=KINK_RTOL)
         g64 = xnode_train.u_du_bwd_plain(
             wnet64, *w64, *xnode_train.u_du_fwd_plain(
                 wnet64, *w64, wcfg.n_sub, wcfg.solver, store=True)[2:],
             w_ub.double(), w_dub.double(), wcfg.n_sub, wcfg.solver)
-        sizes = [a.numel() for a in wnet.flat]
         for label, g in (("kernel", xnode_train.u_du_bwd_cuda(
                 wnet, wnet.packed(), *w_args, *w_st, w_ub, w_dub,
-                wcfg.n_sub, wcfg.solver)), ("plain f32",
-                xnode_train.u_du_bwd_plain(wnet, *w_args, *w_st, w_ub, w_dub,
-                                           wcfg.n_sub, wcfg.solver))):
+                wcfg.n_sub, wcfg.solver)), ("global variant", g_glob),
+                ("plain f32", g_plain)):
             worst = max(float((a.double() - b).abs().max() / b.abs().max())
                         for a, b in zip(torch.split(g, sizes),
                                         torch.split(g64, sizes)))
@@ -2652,8 +2847,8 @@ def variant_times(*, card, cfg, cg, dev, hd, hu, method, net,
                                                  xnode_train)
     with torch.no_grad():
         # the kernel variants at their phases' shapes: the path-tile #1/#2
-        # (and #2's two variants at the cube's net), #5's global
-        # accumulator, #3-#5 a tangent chunk
+        # (and #2's two variants at the cube's net), #5's cluster variant
+        # and its global one, #3-#5 a tangent chunk
         def serve_work(tnet, m, k, method_):
             once_, per_ = steppers.field_macs(tnet)
             evals_ = steppers.EVALS_PER_STEP[method_]
@@ -2688,7 +2883,14 @@ def variant_times(*, card, cfg, cg, dev, hd, hu, method, net,
                            u_cfg.n_sub, um)
         w_work = path_work(wnet, steppers, wcfg.N_r, wcfg.N_t, wcfg.dim,
                            wcfg.n_sub, wcfg.solver)
-        bwd_t = "global" if hd["route"].bwd.global_acc else "shared"
+        bwd_t = hd["route"].bwd.variant
+        w_bwd = xnode_train.kernel_route(wnet.dims(), wcfg.dim,
+                                          wcfg.solver).bwd
+        u_bwd = hu["route"].bwd
+        # the global variant where the route takes the cluster one, through
+        # its launcher at its own tile and grid
+        w_glob = global_tile(wnet.dims(), wcfg.dim, wcfg.solver)
+        u_glob = global_tile(u_net.dims(), dc_u, um)
         lv = {p: phase_launches[p].variants for p in ("2b", "2s", "2t",
                                                       "2t serve")}
         chunk_label = f"a chunk of {dc_t} of d={t_cfg.dim}"
@@ -2715,15 +2917,25 @@ def variant_times(*, card, cfg, cg, dev, hd, hu, method, net,
              lambda: xnode_eval.evaluate_plain(t_net, *h_serve, hk, hm),
              serve_work(t_net, SERVE_POINTS, hk, hm),
              lv["2t serve"]["xnode_eval"]["tile"], 5),
-            ("xnode_udu_bwd", "global", "2s",
+            ("xnode_udu_bwd", f"{w_bwd.variant}, {w_bwd.cluster} blocks a "
+             f"cluster, {w_bwd.paths} paths a tile", "2s",
              lambda: xnode_train.u_du_bwd_cuda(
                  wnet, w_packed, *w_args, *w_states, w_ub, w_dub, wcfg.n_sub,
                  wcfg.solver),
              lambda: xnode_train.u_du_bwd_plain(
                  wnet, *w_args, *w_states, w_ub, w_dub, wcfg.n_sub,
                  wcfg.solver),
+             w_work[bwd_key(w_bwd)],
+             lv["2s"]["xnode_udu_bwd"][w_bwd.variant], 3),
+            ("xnode_udu_bwd", f"global, {w_glob.paths} paths a tile, "
+             "launched directly", "2s's shapes",
+             lambda: bwd_direct(w_glob, wnet, w_packed, w_args, w_states,
+                                w_ub, w_dub, wcfg.n_sub, wcfg.solver),
+             lambda: xnode_train.u_du_bwd_plain(
+                 wnet, *w_args, *w_states, w_ub, w_dub, wcfg.n_sub,
+                 wcfg.solver),
              w_work["xnode_udu_bwd"], lv["2s"]["xnode_udu_bwd"]["global"],
-             3),
+             1),
             ("xnode_udu_fwd", chunk_label, "2t",
              lambda: xnode_train.u_du_fwd_cuda(t_net, h_packed, *h_chunk,
                                                t_cfg.n_sub, hm),
@@ -2745,16 +2957,26 @@ def variant_times(*, card, cfg, cg, dev, hd, hu, method, net,
                  t_net, *h_chunk, *h_states, h_ub, h_dub, t_cfg.n_sub,
                  hm),
              h_work["xnode_udu_bwd"], hd["launches"]["xnode_udu_bwd"], 3),
-            ("xnode_udu_bwd", f"global, a chunk of {dc_u} of d={u_cfg.dim}",
-             "2u",
+            ("xnode_udu_bwd", f"{u_bwd.variant}, {u_bwd.cluster} blocks a "
+             f"cluster, {u_bwd.paths} paths a tile, a chunk of {dc_u} of "
+             f"d={u_cfg.dim}", "2u",
              lambda: xnode_train.u_du_bwd_cuda(
                  u_net, u_packed, *u_chunk_args, *u_states, u_ub, u_dub,
                  u_cfg.n_sub, um),
              lambda: xnode_train.u_du_bwd_plain(
                  u_net, *u_chunk_args, *u_states, u_ub, u_dub, u_cfg.n_sub,
                  um),
+             u_work[bwd_key(u_bwd)],
+             hu["launches"].variants["xnode_udu_bwd"][u_bwd.variant], 3),
+            ("xnode_udu_bwd", f"global, {u_glob.paths} paths a tile, a chunk "
+             f"of {dc_u} of d={u_cfg.dim}, launched directly", "2u's shapes",
+             lambda: bwd_direct(u_glob, u_net, u_packed, u_chunk_args,
+                                u_states, u_ub, u_dub, u_cfg.n_sub, um),
+             lambda: xnode_train.u_du_bwd_plain(
+                 u_net, *u_chunk_args, *u_states, u_ub, u_dub, u_cfg.n_sub,
+                 um),
              u_work["xnode_udu_bwd"],
-             hu["launches"].variants["xnode_udu_bwd"]["global"], 3)]
+             hu["launches"].variants["xnode_udu_bwd"]["global"], 1)]
         var_rows = []
         print(f"kernel variants ({card}), kernel the median of 20 "
               "CUDA-event runs, plain of the reps given:")
@@ -2763,10 +2985,14 @@ def variant_times(*, card, cfg, cg, dev, hd, hu, method, net,
             ms = time_ms(kern)
             plain_ms = time_ms(plain, reps=p_reps, warmup=1)
             bound_ms, bound_by = bound(*wk)
+            flops = wk[0] + sum(wk[2:])
+            tc = (f", {wk[2] / 1e9:.3f} of them on the tensor cores in "
+                  "3xTF32" if len(wk) > 2 else "")
             print(f"  {name} {variant} at {phase}: kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, bound {1e3 * bound_ms:.2f} us "
-                  f"({bound_by}; {wk[0] / 1e9:.3f} GFLOP, {wk[1] / 1e6:.3f} "
-                  f"MB), {wk[0] / (ms * 1e-3) / 1e12:.3f} TFLOP/s, "
+                  f"({bound_by}; {flops / 1e9:.3f} GFLOP{tc}, "
+                  f"{wk[1] / 1e6:.3f} MB), "
+                  f"{flops / (ms * 1e-3) / 1e12:.3f} TFLOP/s, "
                   f"{n_launch} launches there")
             var_rows.append({"kernel": name, "variant": variant,
                              "phase": phase, "launches": n_launch, "ms": ms,
@@ -3167,10 +3393,15 @@ def main(work_root: str) -> int:
     # the wrapper's shared-memory rule against the bytes the launchers of
     # #3-#5 ask for, at every shipped config and the nets of 2s, 2t and 2u,
     # method and listed tile: #3/#4 (and at d = 0 #1/#2's path-tile
-    # variant), #5 and #5's global-accumulator variant
-    smem_of = ctypes.CDLL(str(libs["xnode_grad"])).xnode_udu_smem_bytes
+    # variant), #5, #5's global-accumulator variant and its cluster
+    # variant at each cluster size
+    grad_lib = ctypes.CDLL(str(libs["xnode_grad"]))
+    smem_of = grad_lib.xnode_udu_smem_bytes
     smem_of.restype = ctypes.c_longlong
     smem_of.argtypes = [ctypes.c_int] * 9
+    cluster_smem_of = grad_lib.xnode_udu_cluster_smem_bytes
+    cluster_smem_of.restype = ctypes.c_longlong
+    cluster_smem_of.argtypes = [ctypes.c_int] * 9
     geoms = dict(shipped)
     for name, kw in (("2s", WIDE), ("2t", D100), ("2u", D30)):
         gcfg = load_params(CONFIG).replace(**kw)
@@ -3184,12 +3415,25 @@ def main(work_root: str) -> int:
                                      (2, gcfg.dim)):
                     want = smem_of(variant, tile, d_t, *dims, mid)
                     got = xnode_train.tile_smem_bytes(
-                        dims, d_t, method, tile, variant > 0, variant == 2)
+                        dims, d_t, method, tile, variant > 0,
+                        "global" if variant == 2 else "shared")
                     if got != want:
                         raise AssertionError(
                             f"tile_smem_bytes {shipped_name} {method} "
                             f"tile={tile} d={d_t} variant={variant}: {got} "
                             f"bytes, the kernel asks for {want}")
+                    n_geom += 1
+                for c_size in xnode_train.CLUSTERS:
+                    want = cluster_smem_of(c_size, tile, gcfg.dim, *dims,
+                                           mid)
+                    got = xnode_train.tile_smem_bytes(
+                        dims, gcfg.dim, method, tile, True, "cluster",
+                        c_size)
+                    if got != want:
+                        raise AssertionError(
+                            f"tile_smem_bytes {shipped_name} {method} "
+                            f"tile={tile} cluster={c_size}: {got} bytes, "
+                            f"the kernel asks for {want}")
                     n_geom += 1
     print(f"  xnode_grad: tile_smem_bytes equals the launchers' shared "
           f"bytes at {n_geom} geometries")
@@ -3611,7 +3855,7 @@ def main(work_root: str) -> int:
         "card": card}}))
     t_phase = phase_done("2r", t_phase)
 
-    # 2s. the wide cube, #5 with its accumulator in global memory -----------
+    # 2s. the wide cube, #5 on clusters of blocks ---------------------------
     wide_thread.join()
     if "error" in wide_build:
         raise wide_build["error"]
@@ -4125,7 +4369,8 @@ def main(work_root: str) -> int:
 
     checked = variant_checks(
         L=L, N=N, batch=batch, batch20=batch20, cfg=cfg, cfg20=cfg20,
-        cube=cube, check_udu_near_kinks=check_udu_near_kinks, d=d, dev=dev,
+        cube=cube, check_udu=check_udu,
+        check_udu_near_kinks=check_udu_near_kinks, d=d, dev=dev,
         errs=errs, eval_args=eval_args, hd=hd, hu=hu, in20=in20,
         k_steps=k_steps,
         net=net, net_tr=net_tr, path_seed=path_seed, problem=problem,
@@ -4223,11 +4468,11 @@ def main(work_root: str) -> int:
                          "xnode_wan_tpu/ops/pallas/disc_train.py:103"),
         }
         rows = []
-        print(f"times ({card}), median of 20 CUDA-event runs, {method}; "
-              f"#6 and #7 on {M_v} points, {vgeom}:")
+        print(f"times ({card}), kernel the median of 20 CUDA-event runs, "
+              f"plain of 5, {method}; #6 and #7 on {M_v} points, {vgeom}:")
         for name, (kern, plain) in timed.items():
             ms = time_ms(kern)
-            plain_ms = time_ms(plain)
+            plain_ms = time_ms(plain, reps=5, warmup=1)
             bound_ms, bound_by = bound(*work[name])
             print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"bound {1e3 * bound_ms:.2f} us ({bound_by}; "
@@ -4288,10 +4533,10 @@ def main(work_root: str) -> int:
     # plain and the fused_v step (the first command-line run's solver) are
     # timed in turns, plain, fused, fused, plain, since the host-bound
     # parts drift within a call
-    step_runs = [time_ms(lambda: solver._outer_step(), reps=10, warmup=2)]
-    fv_runs = [time_ms(lambda: fv_solver._outer_step(), reps=10, warmup=2)]
-    fv_runs.append(time_ms(lambda: fv_solver._outer_step(), reps=10))
-    step_runs.append(time_ms(lambda: solver._outer_step(), reps=10))
+    step_runs = [time_ms(lambda: solver._outer_step(), STEP_REPS, 1)]
+    fv_runs = [time_ms(lambda: fv_solver._outer_step(), STEP_REPS, 1)]
+    fv_runs.append(time_ms(lambda: fv_solver._outer_step(), STEP_REPS))
+    step_runs.append(time_ms(lambda: solver._outer_step(), STEP_REPS))
     step_ms, fv_step_ms = statistics.mean(step_runs), statistics.mean(fv_runs)
     sbatch, bbatch, _ = solver._sample(solver.state.generator)
     state = solver.state
@@ -4315,7 +4560,8 @@ def main(work_root: str) -> int:
                 "boundary scan forward": cfg.n1 * fwd_ms,
                 "boundary scan backward": cfg.n1 * bdry_bwd_ms,
                 "v_side": (1 + cfg.n2) * vside_ms}
-    print(f"training outer step ({card}), mean of two medians of 10 "
+    print(f"training outer step ({card}), mean of two medians of "
+          f"{STEP_REPS} "
           f"CUDA-event runs {step_runs}: {step_ms:.4f} ms; shares, from each "
           "part timed alone times its calls per step:")
     for name, ms in per_step.items():
@@ -4354,7 +4600,8 @@ def main(work_root: str) -> int:
                 time_ms(adv_fused, reps=10), time_ms(adv_plain, reps=10)]
     adv_plain_ms = statistics.mean(adv_runs[::3])
     adv_fused_ms = statistics.mean(adv_runs[1:3])
-    print(f"fused_v outer step ({card}), mean of two medians of 10 "
+    print(f"fused_v outer step ({card}), mean of two medians of "
+          f"{STEP_REPS} "
           f"CUDA-event runs {fv_runs}: {fv_step_ms:.4f} ms (plain step in "
           f"turns with it: {step_ms:.4f} ms)")
     for name, ms in fv_parts.items():
@@ -4378,7 +4625,7 @@ def main(work_root: str) -> int:
     # one cone outer step: the per-exit-group objective in place of the
     # pooled one, the boundary penalty at each boundary path's exit; each
     # part timed alone on the cone's shapes, times its calls per step
-    cone_step_ms = time_ms(lambda: csolver._outer_step(), reps=10, warmup=2)
+    cone_step_ms = time_ms(lambda: csolver._outer_step(), STEP_REPS, 1)
     cstate = csolver.state
     cone_parts, cb, cbb = step_parts(csolver, reps=20, scan_reps=10)
     with torch.no_grad():
@@ -4400,7 +4647,8 @@ def main(work_root: str) -> int:
         (ccfg.n1 + ccfg.n2) * time_ms(lambda: cone_objective(True), reps=10))
     pooled_ms = (ccfg.n1 + ccfg.n2) * time_ms(lambda: cone_objective(False),
                                               reps=10)
-    print(f"cone outer step ({card}), median of 10 CUDA-event runs: "
+    print(f"cone outer step ({card}), median of {STEP_REPS} CUDA-event "
+          "runs: "
           f"{cone_step_ms:.4f} ms (cube step: {step_ms:.4f} ms); shares, "
           "from each part timed alone times its calls per step:")
     for name, ms in cone_parts.items():
@@ -4438,11 +4686,12 @@ def main(work_root: str) -> int:
         "hourglass_wall_cli_s": t_hcli, "launches_per_iteration": per_iter}}))
 
     # one d=20 outer step (2g's solver, paper example 4.3 at the widths of
-    # configs/highdim_d20.yaml), a median of 10
+    # configs/highdim_d20.yaml)
     dsolver = d20["solver"]
-    d20_step_ms = time_ms(lambda: dsolver._outer_step(), reps=10, warmup=2)
+    d20_step_ms = time_ms(lambda: dsolver._outer_step(), STEP_REPS, 1)
     d20_parts = step_parts(dsolver, reps=5, scan_reps=5)[0]
-    print(f"d=20 outer step ({card}), median of 10 CUDA-event runs: "
+    print(f"d=20 outer step ({card}), median of {STEP_REPS} CUDA-event "
+          "runs: "
           f"{d20_step_ms:.4f} ms (cube step: {step_ms:.4f} ms, cone: "
           f"{cone_step_ms:.4f} ms); shares, from each part timed alone "
           "(median of 5) times its calls per step:")
@@ -4475,12 +4724,12 @@ def main(work_root: str) -> int:
     # command-line solver with fused_v), one f64 parity step, and a Halton
     # draw beside an i.i.d. one at the cube's N_r
     esolver, wsolver = ens["solver"], wan["solver"]
-    ens_ms = time_ms(lambda: esolver._outer_step(), reps=5, warmup=1)
+    ens_ms = time_ms(lambda: esolver._outer_step(), reps=3, warmup=1)
     member_ms = time_ms(lambda: esolver._outer_step(esolver.members[0]),
-                        reps=5, warmup=1)
-    wan_ms = time_ms(lambda: wsolver._outer_step(), reps=10, warmup=2)
-    wan_fv_ms = time_ms(lambda: wan["cli_solver"]._outer_step(), reps=10,
-                        warmup=2)
+                        reps=3, warmup=1)
+    wan_ms = time_ms(lambda: wsolver._outer_step(), STEP_REPS, 1)
+    wan_fv_ms = time_ms(lambda: wan["cli_solver"]._outer_step(), STEP_REPS,
+                        1)
     psolver = parity["solver"]
     parity_ms = time_ms(lambda: psolver._outer_step(), reps=3, warmup=1)
     qg = torch.Generator(device=dev).manual_seed(21)
@@ -4489,10 +4738,10 @@ def main(work_root: str) -> int:
              "iid interior": time_ms(lambda: icube.interior(qg, cfg.N_r)),
              "halton boundary": time_ms(lambda: hcube.boundary(qg, cfg.N_b)),
              "iid boundary": time_ms(lambda: icube.boundary(qg, cfg.N_b))}
-    print(f"ensemble iteration ({card}), 4 members at d=20, median of 5: "
+    print(f"ensemble iteration ({card}), 4 members at d=20, median of 3: "
           f"{ens_ms:.4f} ms; one member's outer step: {member_ms:.4f} ms "
           f"({ens_ms / member_ms:.2f}x)")
-    print(f"WAN outer step ({card}), median of 10: plain adversary "
+    print(f"WAN outer step ({card}), median of {STEP_REPS}: plain adversary "
           f"{wan_ms:.4f} ms, fused_v {wan_fv_ms:.4f} ms (XNODE cube step "
           f"{step_ms:.4f} ms); f64 parity-lane step, median of 3: "
           f"{parity_ms:.4f} ms")

@@ -401,6 +401,7 @@ def cuda_signature(symbol):
                                     xnode_train.FWD_STORE_KERNEL,
                                     xnode_train.BWD_KERNEL,
                                     xnode_train.BWD_GLOBAL_KERNEL,
+                                    xnode_train.BWD_CLUSTER_KERNEL,
                                     xnode_train.PATH_TILE_KERNEL],
                          ids=lambda k: k.symbol)
 def test_grad_ctypes_argtypes_match_c_signature(kernel):
@@ -461,9 +462,10 @@ def test_grad_tile_rule_fits_shipped_configs(name, method):
     cfg, net = shipped_dims(name)
     dims = net.dims()
     for backward in (False, True):
-        tile, threads, global_acc = xnode_train.grad_tile(dims, cfg.dim,
-                                                          method, backward)
-        assert not global_acc  # the shipped nets keep #5's shared variant
+        block = xnode_train.grad_tile(dims, cfg.dim, method, backward)
+        tile, threads = block.paths, block.threads
+        # the shipped nets keep #5's shared variant
+        assert block.variant == "shared" and block.cluster == 1
         smem = xnode_train.tile_smem_bytes(dims, cfg.dim, method, tile,
                                            backward)
         assert 0 < smem <= 232448
@@ -504,8 +506,8 @@ def test_grad_tile_rule_picks_the_swept_shapes(name, fwd, bwd):
 def test_bwd_tile_walk_covers_every_path_once(n_paths):
     cfg, net = shipped_dims("cube_pde")
     dims = net.dims()
-    tile, threads, _ = xnode_train.grad_tile(dims, cfg.dim, cfg.solver,
-                                             True)
+    block = xnode_train.grad_tile(dims, cfg.dim, cfg.solver, True)
+    tile, threads = block.paths, block.threads
     smem = xnode_train.tile_smem_bytes(dims, cfg.dim, cfg.solver, tile, True)
     blocks = xnode_train.bwd_blocks(n_paths, tile, smem, threads, sms=132)
     assert 1 <= blocks <= -(-n_paths // tile)
@@ -519,11 +521,18 @@ def test_bwd_tile_walk_covers_every_path_once(n_paths):
 
 
 def test_grad_tile_rule_raises_where_nothing_fits():
-    # H = Hh = 64, d = 50, rk4: not even one path a tile fits #5's block
+    # H = Hh = 64, rk4: at d = 50 one path a tile does not fit #5's block,
+    # but its slice of it fits a block of an 8-block cluster; at d = 60
+    # not even that, nor the global variant's block
     dims = (64, 64, 50, 3, 16)
-    with pytest.raises(ValueError, match="shared memory"):
-        xnode_train.grad_tile(dims, 50, "rk4", backward=True)
     assert xnode_train.tile_smem_bytes(dims, 50, "rk4", 1, True) > 232448
+    assert xnode_train.grad_tile(dims, 50, "rk4", backward=True) == (
+        xnode_train.GradTile(1, 128, "cluster", 8))
+    with pytest.raises(ValueError, match="shared memory"):
+        xnode_train.grad_tile(dims, 60, "rk4", backward=True)
+    assert xnode_train.tile_smem_bytes(dims, 60, "rk4", 1, True,
+                                       "global") > 232448
+    assert xnode_train.cluster_smem_bytes(dims, 60, "rk4", 1, 8) > 232448
 
 
 def test_grad_kernel_caps_cover_shipped_configs():

@@ -50,14 +50,27 @@ def one_path_fits(dims, method) -> bool:
     without its accumulator: the bound that remains."""
     return (xnode_train.tile_smem_bytes(dims, 1, method, 1, False)
             <= MAX_SMEM_BYTES
-            and xnode_train.tile_smem_bytes(dims, 1, method, 1, True, True)
-            <= MAX_SMEM_BYTES)
+            and xnode_train.tile_smem_bytes(dims, 1, method, 1, True,
+                                            "global") <= MAX_SMEM_BYTES)
 
 
 def fits(dims, d, method, tile, backward):
     return xnode_train.tile_smem_bytes(
-        dims, d, method, tile.paths, backward,
-        tile.global_acc) <= MAX_SMEM_BYTES
+        dims, d, method, tile.paths, backward, tile.variant,
+        tile.cluster) <= MAX_SMEM_BYTES
+
+
+def bwd_order(dims, d, method):
+    """#5's variant by the route's order: shared where its accumulator
+    fits beside one path, else the smallest cluster whose block fits one
+    path, else global."""
+    if xnode_train.tile_smem_bytes(dims, d, method, 1, True) <= MAX_SMEM_BYTES:
+        return "shared", 1
+    for c in xnode_train.CLUSTERS:
+        if (min(dims[0], dims[1]) >= c and xnode_train.cluster_smem_bytes(
+                dims, d, method, 1, c) <= MAX_SMEM_BYTES):
+            return "cluster", c
+    return "global", 1
 
 
 @pytest.mark.parametrize("d,H,Hh,ff", GRID,
@@ -86,32 +99,100 @@ def test_port_routes_every_net_the_jax_package_trains(d, H, Hh, ff):
         assert d % dc == 0
         assert fits(dims, dc, method, route.fwd, False)
         assert fits(dims, dc, method, route.bwd, True)
+        # #5: shared, then cluster, then global; the largest tile listed
+        # that fits the variant's block
+        bwd = route.bwd
+        assert (bwd.variant, bwd.cluster) == bwd_order(dims, dc, method)
+        if bwd.variant == "cluster":
+            larger = [t for t in xnode_train.CLUSTER_TILES if t > bwd.paths]
+            assert all(xnode_train.cluster_smem_bytes(
+                dims, dc, method, t, bwd.cluster) > MAX_SMEM_BYTES
+                for t in larger)
+            assert bwd.threads <= xnode_train.MAX_THREADS
         full = (xnode_train.tile_smem_bytes(dims, d, method, 1, False)
                 <= MAX_SMEM_BYTES
                 and xnode_train.tile_smem_bytes(dims, d, method, 1, True,
-                                                True) <= MAX_SMEM_BYTES)
+                                                "global") <= MAX_SMEM_BYTES)
         assert (dc == d) == full
-        # the largest such divisor
+        # the largest such divisor: at a larger one, #3/#4 has no tile, or
+        # one path does not fit one block of #5 without its accumulator
+        # (#5's cluster variant may fit there, and does not move the chunk)
         for larger in range(dc + 1, d + 1):
             if d % larger == 0:
-                with pytest.raises(ValueError):
-                    xnode_train.grad_tile(dims, larger, method, False)
-                    xnode_train.grad_tile(dims, larger, method, True)
+                if (xnode_train.tile_smem_bytes(dims, larger, method, 1,
+                                                False) <= MAX_SMEM_BYTES):
+                    assert xnode_train.tile_smem_bytes(
+                        dims, larger, method, 1, True,
+                        "global") > MAX_SMEM_BYTES
+                else:
+                    with pytest.raises(ValueError):
+                        xnode_train.grad_tile(dims, larger, method, False)
 
 
-def test_wide_cube_takes_kernel_5_with_its_accumulator_in_global_memory():
+def test_wide_cube_takes_kernel_5_on_a_cluster_of_blocks():
     # the cube at u_hidden_dim = u_hidden_hidden_dim = 64, d = 5: the
-    # accumulator (46,337 floats) does not fit beside the block, the rest
-    # does
+    # accumulator (46,337 floats) does not fit beside the block, so #5
+    # runs on clusters of two blocks, each with half the units, half the
+    # accumulator and its slice of a 4-path tile
     cfg, net = net_of(dim=5, u_hidden_dim=64, u_hidden_hidden_dim=64)
     dims = net.dims()
     assert xnode_train.n_params_of(dims) == 46337
     tile = xnode_train.grad_tile(dims, 5, cfg.solver, True)
-    assert tile.global_acc
+    assert tile == xnode_train.GradTile(4, 256, "cluster", 2)
+    assert tile.variant == "cluster"
     assert xnode_train.tile_smem_bytes(dims, 5, cfg.solver, 1,
                                        True) > MAX_SMEM_BYTES
     assert fits(dims, 5, cfg.solver, tile, True)
     assert xnode_train.kernel_route(dims, 5, cfg.solver).d_chunk == 5
+    assert xnode_train.kernel_route(dims, 5, cfg.solver).bwd == tile
+
+
+def test_d30_fourier_chunk_takes_kernel_5_on_a_cluster_of_blocks():
+    # 2u's net: d = 30, H = Hh = 48, F = 90; the chunk stays 15 (one path
+    # of 15 directions fits one block of #3/#4 and of #5's global
+    # variant, 30 does not), and #5 takes the cluster variant there
+    cfg, net = net_of(dim=30, u_hidden_dim=48, u_hidden_hidden_dim=48,
+                      fourier_features=1)
+    dims = net.dims()
+    assert net.F == 90
+    route = xnode_train.kernel_route(dims, 30, cfg.solver)
+    assert route.d_chunk == 15
+    assert route.bwd.variant == "cluster" and route.bwd.cluster == 2
+    assert fits(dims, 15, cfg.solver, route.bwd, True)
+    assert not fits(dims, 15, cfg.solver, route.bwd._replace(
+        paths=2 * route.bwd.paths), True)
+
+
+def test_wide_field_keeps_kernel_5_with_its_accumulator_in_global_memory():
+    # H = 64, Hh = 256 at d = 5: 2,014,724 bytes of accumulator, more than
+    # eight blocks' shared memory; the JAX package trains it at d_chunk 1,
+    # and #5 keeps its global variant there
+    cfg, net = net_of(dim=5, u_hidden_dim=64, u_hidden_hidden_dim=256)
+    dims = net.dims()
+    assert 4 * xnode_train.n_params_of(dims) == 2014724
+    assert all(xnode_train.cluster_acc_floats(dims, c) * 4 > MAX_SMEM_BYTES
+               for c in xnode_train.CLUSTERS)
+    route = xnode_train.kernel_route(dims, 5, cfg.solver)
+    assert route.d_chunk == 1
+    assert route.bwd == route.bwd._replace(variant="global", cluster=1)
+    assert fits(dims, 1, cfg.solver, route.bwd, True)
+
+
+UNIT_WIDTHS = sorted({w for pair in WIDTHS for w in pair}
+                     | {0, 1, 5, 7, 90, 300})
+
+
+@pytest.mark.parametrize("cluster", [2, 4, 8])
+def test_cluster_unit_slices_cover_every_unit_once(cluster):
+    # each layer's units split over a cluster's blocks: every unit in one
+    # block's slice, the slices in rank order, none wider than the layout's
+    # widest (the widths of every layer of the grid, the features too)
+    for width in UNIT_WIDTHS:
+        slices = xnode_train.unit_slices(width, cluster)
+        assert len(slices) == cluster
+        assert [u for s in slices for u in s] == list(range(width))
+        assert max(len(s) for s in slices) == -(-width // cluster)
+        assert max(len(s) for s in slices) - min(len(s) for s in slices) <= 1
 
 
 def test_d100_fourier_cube_runs_in_tangent_chunks_and_tile_variant():

@@ -392,4 +392,5 @@ def test_kernel_variants_count_their_launches_together():
         "tile": xnode_train.PATH_TILE_KERNEL}
     assert xnode_train.BWD_LAUNCHES.variants == {
         "shared": xnode_train.BWD_KERNEL,
+        "cluster": xnode_train.BWD_CLUSTER_KERNEL,
         "global": xnode_train.BWD_GLOBAL_KERNEL}

@@ -7,6 +7,9 @@
 //   #5 _bwd_kernel        -> xnode_udu_bwd_launch        (weight cotangents)
 //                            xnode_udu_bwd_global_launch (the same, with the
 //                            gradient accumulator in global memory)
+//                            xnode_udu_bwd_cluster_launch (the same on
+//                            thread-block clusters, the accumulator split
+//                            over their blocks: xnode_grad_cluster.cuh)
 //
 // and, for nets past the register kernels' caps (xnode_fwd.cu: a width
 // above 64 or a field input above 128), the tangentless path forward of
@@ -69,16 +72,20 @@
 // give bitwise equal gradients.
 //
 // Where round4(n_params) floats of accumulator do not fit beside the rest of
-// the block (H = Hh = 64 at d = 5: 185 KB), the GACC variant accumulates
-// straight into the block's own row of `partial` in global memory: the same
-// owner thread adds the same sums in the same order, and the __syncthreads
-// that order the shared accumulator's phases also order these writes, so
-// the result is bitwise that of the shared variant at the same tile,
-// threads and grid.
+// the block (H = Hh = 64 at d = 5: 185 KB), #5 runs on thread-block
+// clusters (xnode_grad_cluster.cuh); where not even a block's share on an
+// 8-block cluster fits (H = 64, Hh = 256 at d = 5: 1.9 MB), the GACC
+// variant accumulates straight into the block's own row of `partial` in
+// global memory: the same owner thread adds the same sums in the same
+// order, and the __syncthreads that order the shared accumulator's phases
+// also order these writes, so the result is bitwise that of the shared
+// variant at the same tile, threads and grid.
 //
-// FP32 FMAs throughout: TF32 tensor cores keep about three digits, which
-// the kernel-against-plain limit (2e-4 of each tensor's largest value)
-// does not allow; a 3xTF32 split was not tried.
+// The shared and global variants use FP32 FMAs throughout: TF32 tensor
+// cores keep about three digits, which the kernel-against-plain limit (2e-4
+// of each tensor's largest value) does not allow. The cluster variant runs
+// its VJP on the tensor cores with a 3xTF32 split, which stays within that
+// limit, and its forward recompute in FP32 FMAs.
 //
 // The tile helpers (xg_dense, xg_dense_t, xg_outer, xg_rowsum) do the jobs
 // of #7's xd_tile_* in disc_train.cu, which could not serve here as they
@@ -913,6 +920,8 @@ __global__ void xnode_udu_reduce_kernel(const float* __restrict__ partial,
   grad[i] = s;
 }
 
+#include "xnode_grad_cluster.cuh"
+
 // ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
@@ -944,6 +953,15 @@ extern "C" long long xnode_udu_smem_bytes(int backward, int tile, int d,
   return (long long)xg_smem_bytes(
       xg_layout(backward != 0, backward == 2, tile, d, H, Hh, F, n_lift,
                 n_field, method, xn_n_params(H, Hh, F, n_lift, n_field)));
+}
+
+// Shared bytes of one block of #5's cluster variant on clusters of C blocks.
+extern "C" long long xnode_udu_cluster_smem_bytes(int cluster, int tile, int d,
+                                                  int H, int Hh, int F,
+                                                  int n_lift, int n_field,
+                                                  int method) {
+  return (long long)xc_smem_bytes(
+      xc_layout(tile, d, H, Hh, F, n_lift, n_field, method, cluster));
 }
 
 template <bool STORE>
@@ -1080,4 +1098,88 @@ extern "C" int xnode_udu_bwd_global_launch(
                           dfeats, seed, dseed, hs, hts, ub, dub, partial,
                           grad, N, L, d, H, Hh, F, n_lift, n_field, n_sub,
                           method, tile, threads, blocks);
+}
+
+// #5's cluster variant: clusters of `cluster` blocks (2, 4 or 8), each
+// block owning a slice of every layer's units (xnode_grad_cluster.cuh).
+static cudaError_t xc_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                             int device, void* stream, int n_params, int N,
+                             int L, int d, int H, int Hh, int F, int n_lift,
+                             int n_field, int n_sub, int method, int tile,
+                             int threads, int clusters, int cluster) {
+  cudaError_t e = xg_checks(device, n_params, N, L, d, H, Hh, F, n_lift,
+                            n_field, n_sub, method, tile, threads);
+  if (e != cudaSuccess) return e;
+  if (d < 1 || clusters < 1 || cluster < 2 || cluster > XC_MAX_CLUSTER ||
+      H < cluster || Hh < cluster)
+    return cudaErrorInvalidValue;
+  const size_t smem = xc_smem_bytes(
+      xc_layout(tile, d, H, Hh, F, n_lift, n_field, method, cluster));
+  e = xg_allow_smem((const void*)xnode_udu_bwd_cluster_kernel, smem);
+  if (e != cudaSuccess) return e;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(clusters * cluster);
+  cfg->blockDim = dim3(threads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = (cudaStream_t)stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+// Clusters of this shape that the card runs at once (the persistent grid's
+// cap), or a negative CUDA error.
+extern "C" int xnode_udu_cluster_occupancy(int device, int d, int H, int Hh,
+                                           int F, int n_lift, int n_field,
+                                           int method, int tile, int threads,
+                                           int cluster) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t e = xc_config(&cfg, attr, device, nullptr,
+                            xn_n_params(H, Hh, F, n_lift, n_field), 1, 1, d,
+                            H, Hh, F, n_lift, n_field, 1, method, tile,
+                            threads, 1, cluster);
+  if (e != cudaSuccess) return -(int)e;
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(
+      &n, (const void*)xnode_udu_bwd_cluster_kernel, &cfg);
+  return e != cudaSuccess ? -(int)e : n;
+}
+
+// The arguments of xnode_udu_bwd_launch but the grid, given as `clusters`
+// clusters of `cluster` blocks (partial holds clusters x n_params floats).
+extern "C" int xnode_udu_bwd_cluster_launch(
+    int device, void* stream, const float* params, int n_params,
+    const float* t0, const float* dt, const float* feats,
+    const float* dfeats, const float* seed, const float* dseed,
+    const float* hs, const float* hts, const float* ub, const float* dub,
+    float* partial, float* grad, int N, int L, int d, int H, int Hh, int F,
+    int n_lift, int n_field, int n_sub, int method, int tile, int threads,
+    int clusters, int cluster) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t e = xc_config(&cfg, attr, device, stream, n_params, N, L, d, H,
+                            Hh, F, n_lift, n_field, n_sub, method, tile,
+                            threads, clusters, cluster);
+  if (e != cudaSuccess) return (int)e;
+  if (N == 0 || L == 0)
+    return (int)cudaMemsetAsync(grad, 0, sizeof(float) * (size_t)n_params,
+                                (cudaStream_t)stream);
+  // 16-byte copies of the block's units of the states: every slice a
+  // multiple of 4 wide, rows aligned
+  const int vec = H % (4 * cluster) == 0 && (size_t)hs % 16 == 0 &&
+                  (size_t)hts % 16 == 0;
+  e = cudaLaunchKernelEx(&cfg, xnode_udu_bwd_cluster_kernel, params,
+                         n_params, t0, dt, feats, dfeats, seed, dseed, hs,
+                         hts, ub, dub, partial, N, L, d, H, Hh, F, n_lift,
+                         n_field, n_sub, method, tile, vec, cluster);
+  if (e != cudaSuccess) return (int)e;
+  xnode_udu_reduce_kernel<<<(n_params + 255) / 256, 256, 0,
+                            (cudaStream_t)stream>>>(partial, grad, clusters,
+                                                    n_params);
+  return (int)cudaGetLastError();
 }

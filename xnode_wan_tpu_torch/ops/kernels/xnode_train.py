@@ -35,13 +35,17 @@ rows), ``xnode_path_tile_launch`` in ``csrc/xnode_grad.cu``, which reads
 its weights from global memory and so takes any width
 (:data:`PATH_LAUNCHES` counts both variants).
 
-Kernel #5 also has two variants (:func:`grad_tile`): its gradient
-accumulator in shared memory, or, where that does not fit beside the rest
-of the block (H = Hh = 64 at d = 5), in the block's row of the partial
-sums in global memory (``xnode_udu_bwd_global_launch``), bitwise equal to
-the first at the same tile and grid. Where no tile of #3-#5 fits at the
-full d, :func:`fused_from_batch` runs them in tangent chunks
-(:func:`u_chunk`, the port of the JAX package's ``d_chunk``).
+Kernel #5 has three variants (:func:`grad_tile`): its gradient
+accumulator in shared memory; where that does not fit beside the rest of
+the block (H = Hh = 64 at d = 5), on a thread-block cluster of 2, 4 or 8
+blocks that split every layer's units, and with them the tile's state and
+the accumulator (``xnode_udu_bwd_cluster_launch``,
+``csrc/xnode_grad_cluster.cuh``); where not even a block's share of the
+accumulator fits, in the block's row of the partial sums in global memory
+(``xnode_udu_bwd_global_launch``), bitwise equal to the first at the same
+tile and grid. Where no tile of #3-#5 fits one block at the full d,
+:func:`fused_from_batch` runs them in tangent chunks (:func:`u_chunk`, the
+port of the JAX package's ``d_chunk``).
 
 Bound on an H100 SXM (67 TFLOP/s FP32 without tensor cores, 3.35 TB/s):
 at the d=5 metric batch (N = 4,000, L = 20, midpoint, n_sub = 1) the work
@@ -93,6 +97,10 @@ BWD_KERNEL = CudaKernel("xnode_grad", "xnode_udu_bwd_launch",
 # #5 with its accumulator in partial (the same arguments)
 BWD_GLOBAL_KERNEL = CudaKernel("xnode_grad", "xnode_udu_bwd_global_launch",
                                BWD_KERNEL.argtypes)
+# #5 on thread-block clusters: the same arguments, the grid as a number of
+# clusters, then the blocks a cluster
+BWD_CLUSTER_KERNEL = CudaKernel("xnode_grad", "xnode_udu_bwd_cluster_launch",
+                                BWD_KERNEL.argtypes + [_I])
 # the tangentless path forward on the path-tile body (#2 past the caps):
 # weights, count, t0, dt, feats, seed, u; N L H Hh F n_lift n_field n_sub
 # method; paths per tile, threads
@@ -103,6 +111,7 @@ PATH_TILE_KERNEL = CudaKernel("xnode_grad", "xnode_path_tile_launch",
 PATH_LAUNCHES = KernelVariants({"registers": KERNEL,
                                 "tile": PATH_TILE_KERNEL})
 BWD_LAUNCHES = KernelVariants({"shared": BWD_KERNEL,
+                               "cluster": BWD_CLUSTER_KERNEL,
                                "global": BWD_GLOBAL_KERNEL})
 MAX_THREADS = 256             # XG_MAX_THREADS
 # Paths per tile, largest first; the threads of a block follow from the
@@ -112,6 +121,10 @@ MAX_THREADS = 256             # XG_MAX_THREADS
 # 256), and shapes within 8% of the fastest for ex4_1_d10
 FWD_TILES = (4, 2, 1)
 BWD_TILES = (8, 4, 1)
+# #5's cluster variant: blocks a cluster, smallest first, and paths a tile
+# (a cluster's), largest first
+CLUSTERS = (2, 4, 8)
+CLUSTER_TILES = (32, 16, 8, 4, 2, 1)
 
 
 def _live_params(params) -> List[torch.Tensor]:
@@ -481,7 +494,8 @@ def n_params_of(dims) -> int:
 
 
 def tile_smem_bytes(dims, d: int, method: str, tile: int,
-                    backward: bool, global_acc: bool = False) -> int:
+                    backward: bool, variant: str = "shared",
+                    cluster: int = 1) -> int:
     """Shared memory of one block of kernel #3/#4 (``backward`` false) or
     #5 for ``tile`` paths (``xg_layout`` in ``csrc/xnode_grad.cu``). Rows:
     ``R = tile (1 + d)``, each buffer ``[width][S]`` with ``S`` the rows
@@ -490,31 +504,109 @@ def tile_smem_bytes(dims, d: int, method: str, tile: int,
 
     Forward: features, their field-layer-0 product, seeds, times, the
     state, a stage input, a stage, the stage sum and two field buffers.
-    Backward: the gradient accumulator (not with ``global_acc``, #5's
-    variant that keeps it in global memory), the same inputs plus the
+    Backward: the gradient accumulator (not in the ``"global"``
+    ``variant`` of #5, which keeps it in global memory), the same inputs
+    plus the
     readout cotangents, the start state and four cotangent buffers, the
     stage inputs, stage, sum, end and substep start, every field layer's
     activation for every RK stage (or the lift's, after the walk), and the
     ``cp.async`` staging of one interval. The rows' primal indices (ints)
-    come last."""
+    come last. In the ``"cluster"`` variant, a block of #5 on clusters of
+    ``cluster`` blocks (:func:`cluster_smem_bytes`)."""
+    if variant not in BWD_LAUNCHES.variants:
+        raise ValueError(f"#5 has no variant {variant!r}")
+    if variant == "cluster":
+        return cluster_smem_bytes(dims, d, method, tile, cluster)
     H, Hh, F, n_lift, n_field = dims
     R = tile * (1 + d)
-    q = -(-R // 4)
-    S = 4 * (q if q % 2 else q + 1)
-
-    def round4(n):
-        return -(-n // 4) * 4
-
+    S = _row_stride(R)
     ns = len(RK_TABLES[method][0])
-    floats = (F + Hh + 1) * S + 2 * round4(tile)
+    floats = (F + Hh + 1) * S + 2 * _round4(tile)
     if not backward:
         floats += 4 * H * S + 2 * Hh * S
     else:
-        if not global_acc:
-            floats += round4(n_params_of(dims))
+        if variant == "shared":
+            floats += _round4(n_params_of(dims))
         floats += S + 5 * H * S
         walk = (ns + 3) * H * S + (ns * n_field + 2) * Hh * S
         floats += max(walk, (n_lift + 1) * H * S) + R * H + R + 2 * tile
+    return 4 * floats + 4 * R
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _ld_mod32(n: int, res: int) -> int:
+    """The smallest multiple of 4 at least ``n`` that is ``res`` mod 32
+    (``xc_ld``: a staged weight slice's row stride)."""
+    ld = _round4(n)
+    while ld % 32 != res:
+        ld += 4
+    return ld
+
+
+def _row_stride(R: int) -> int:
+    """``R`` rounded up to a multiple of 4 whose quarter is odd
+    (``xg_stride``)."""
+    q = -(-R // 4)
+    return 4 * (q if q % 2 else q + 1)
+
+
+def unit_slices(width: int, cluster: int) -> List[range]:
+    """The units of a layer ``width`` wide that each block of a cluster of
+    #5 owns (``xc_lo``): block ``c`` takes ``[width c // C, width (c + 1)
+    // C)``."""
+    return [range(width * c // cluster, width * (c + 1) // cluster)
+            for c in range(cluster)]
+
+
+def _widest(width: int, cluster: int) -> int:
+    return max(len(s) for s in unit_slices(width, cluster))
+
+
+def cluster_acc_floats(dims, cluster: int) -> int:
+    """Floats of one block's accumulator in #5's cluster variant
+    (``xc_acc``): the entries it owns of every layer, each weight by its
+    input column (the lift's first layer and the biases by output unit),
+    at the widest slice's widths, so that every block has one layout."""
+    H, Hh, F, n_lift, n_field = dims
+    mH, mHh, mF = (_widest(w, cluster) for w in (H, Hh, F))
+    return _round4(2 * mH + (n_lift - 1) * (H * mH + mH)
+                   + Hh * (mF + 1 + mH) + mHh
+                   + (n_field - 2) * (Hh * mHh + mHh)
+                   + H * mHh + mH + mH + 1)
+
+
+def cluster_smem_bytes(dims, d: int, method: str, tile: int,
+                       cluster: int) -> int:
+    """Shared memory of one block of #5's cluster variant on clusters of
+    ``cluster`` blocks for ``tile`` paths a cluster (``xc_layout`` in
+    ``csrc/xnode_grad_cluster.cuh``): two exchange buffers of the widest
+    layer for all rows, the block's accumulator, two buffers of a
+    product's weights (the block's rows or columns of a layer), its
+    units' biases, time column and lift and readout weights, the
+    features, seeds, readout cotangents and times of all rows, and the
+    block's slice of every other buffer of the shared variant (the field
+    layer 0's feature product, the start state, three cotangent buffers,
+    the stage inputs, stage, sum, end and substep start, every field
+    layer's activations for every RK stage but the tanh layer's output,
+    which the VJP recomputes, and a scratch buffer, or the lift's
+    activations after the walk), and its units of the ``cp.async``
+    staging."""
+    H, Hh, F, n_lift, n_field = dims
+    R = tile * (1 + d)
+    S = _row_stride(R)
+    ns = len(RK_TABLES[method][0])
+    mH, mHh = _widest(H, cluster), _widest(Hh, cluster)
+    floats = 2 * max(H, Hh) * S + cluster_acc_floats(dims, cluster)
+    m, Wx = max(mH, mHh), max(H, Hh)
+    floats += 2 * max(m * _ld_mod32(Wx, 4), Wx * _ld_mod32(m, 4))
+    floats += _round4((n_lift + 3) * mH + n_field * mHh)
+    floats += (F + mHh + 2) * S + 2 * _round4(tile) + 4 * mH * S
+    walk = (ns + 3) * mH * S + (ns * (n_field - 1) + 2) * mHh * S
+    floats += max(walk, n_lift * mH * S)
+    floats += R * _round4(mH) + R + 2 * tile
     return 4 * floats + 4 * R
 
 
@@ -534,56 +626,78 @@ def block_threads(tile: int, d: int, Hh: int, backward: bool) -> int:
 
 class GradTile(NamedTuple):
     """The block shape of kernel #3/#4 or #5 (:func:`grad_tile`):
-    ``paths`` a tile, ``threads`` a block, and for #5 whether its
-    accumulator is in global memory (``global_acc``)."""
+    ``paths`` a tile, ``threads`` a block, and for #5 its ``variant``
+    (``"shared"``, ``"cluster"`` or ``"global"``, where its accumulator
+    lives) and the blocks a thread-block cluster (``cluster``, 1 but in
+    the cluster variant, where ``paths`` is a cluster's tile)."""
     paths: int
     threads: int
-    global_acc: bool = False
+    variant: str = "shared"
+    cluster: int = 1
 
 
 def grad_tile(dims, d: int, method: str, backward: bool) -> GradTile:
     """The block of kernel #3/#4 (``backward`` false; with d = 0 the
     path-tile variant of #1/#2) or #5: the first tile of
     :data:`FWD_TILES` / :data:`BWD_TILES` (largest first) whose block fits
-    one block's shared memory, with its :func:`block_threads`. #5 takes
-    its shared accumulator at the first tile where that fits, else its
-    global-accumulator variant at the first tile where the rest of the
-    block fits. Raises where nothing fits at one path a tile."""
+    one block's shared memory, with its :func:`block_threads`. #5 takes,
+    in this order: its shared accumulator at the first tile where that
+    fits; else its cluster variant at the smallest of :data:`CLUSTERS` and
+    then the largest of :data:`CLUSTER_TILES` whose block fits, with the
+    threads of a block's slice of the field; else its global-accumulator
+    variant at the first tile where the rest of the block fits. Raises
+    where nothing fits at one path a tile."""
+    H, Hh = dims[0], dims[1]
     tiles = BWD_TILES if backward else FWD_TILES
-    variants = (False, True) if backward else (False,)
-    for global_acc in variants:
+    for tile in tiles:
+        if (tile_smem_bytes(dims, d, method, tile, backward)
+                <= MAX_SMEM_BYTES):
+            return GradTile(tile, block_threads(tile, d, Hh, backward))
+    if backward:
+        for cluster in CLUSTERS:
+            if min(H, Hh) < cluster:
+                continue
+            for tile in CLUSTER_TILES:
+                if (cluster_smem_bytes(dims, d, method, tile, cluster)
+                        <= MAX_SMEM_BYTES):
+                    return GradTile(tile, block_threads(
+                        tile, d, -(-Hh // cluster), True), "cluster",
+                        cluster)
         for tile in tiles:
-            if (tile_smem_bytes(dims, d, method, tile, backward, global_acc)
+            if (tile_smem_bytes(dims, d, method, tile, True, "global")
                     <= MAX_SMEM_BYTES):
-                return GradTile(tile, block_threads(tile, d, dims[1],
-                                                    backward), global_acc)
+                return GradTile(tile, block_threads(tile, d, Hh, True),
+                                "global")
     kernel = "#5" if backward else "#3/#4" if d else "#1/#2"
     raise ValueError(f"the net {dims} with d={d}, {method}, does not fit "
                      f"kernel {kernel}'s shared memory ({MAX_SMEM_BYTES} "
                      "bytes) at one path a tile")
 
 
+def _one_path_fits(dims, d: int, method: str) -> bool:
+    """One path with ``d`` directions fits one block of #3/#4 and of #5
+    without its accumulator (its global variant)."""
+    return (tile_smem_bytes(dims, d, method, 1, False) <= MAX_SMEM_BYTES
+            and tile_smem_bytes(dims, d, method, 1, True, "global")
+            <= MAX_SMEM_BYTES)
+
+
 def u_chunk(dims, d: int, method: str) -> int:
-    """Tangent directions a launch of #3-#5 carries: ``d`` where the
-    full-d tiles fit, else the largest divisor of ``d`` whose #3/#4 and #5
-    tiles fit (the JAX package's ``fused_chunk`` rule, ``d_chunk``).
-    Raises, naming the bound, where one path with one direction does not
-    fit one block's shared memory."""
+    """Tangent directions a launch of #3-#5 carries: ``d`` where one path
+    with the full d fits one block of #3/#4 and of #5 (without its
+    accumulator), else the largest divisor of ``d`` that does (the JAX
+    package's ``fused_chunk`` rule, ``d_chunk``); #5's cluster variant
+    does not move the chunk. Raises, naming the bound, where one path with
+    one direction does not fit one block's shared memory."""
     for dc in range(d, 0, -1):
-        if d % dc:
-            continue
-        try:
-            grad_tile(dims, dc, method, False)
-            grad_tile(dims, dc, method, True)
-        except ValueError:
-            continue
-        return dc
+        if d % dc == 0 and _one_path_fits(dims, dc, method):
+            return dc
+    fwd, bwd = (tile_smem_bytes(dims, 1, method, 1, False),
+                tile_smem_bytes(dims, 1, method, 1, True, "global"))
     raise ValueError(f"the net {dims}, {method}: one path with one tangent "
                      f"direction does not fit kernels #3-#5's shared memory "
-                     f"({MAX_SMEM_BYTES} bytes a block; "
-                     f"#3/#4 {tile_smem_bytes(dims, 1, method, 1, False)}, "
-                     f"#5 {tile_smem_bytes(dims, 1, method, 1, True, True)} "
-                     "bytes)")
+                     f"({MAX_SMEM_BYTES} bytes a block; #3/#4 {fwd}, #5 "
+                     f"{bwd} bytes)")
 
 
 class KernelRoute(NamedTuple):
@@ -593,7 +707,7 @@ class KernelRoute(NamedTuple):
     path_tile: Optional[GradTile]  # the tile variant's block, else None
     d_chunk: int                   # tangent directions a launch of #3-#5
     fwd: Optional[GradTile]        # #3/#4 at d_chunk (None with d = 0)
-    bwd: Optional[GradTile]        # #5 at d_chunk (global_acc: its variant)
+    bwd: Optional[GradTile]        # #5 at d_chunk, with its variant
 
 
 @functools.lru_cache(maxsize=None)
@@ -671,21 +785,53 @@ def u_du_bwd_cuda(net: FlatNet, packed, t0, dt, feats, dfeats, seed, dseed,
                          "ub [N, L], dub [N, L, d]")
     n_params = packed.numel()
     tile = route.bwd
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = bwd_blocks(N, tile.paths, tile_smem_bytes(
-        net.dims(), d, method, tile.paths, True, tile.global_acc),
-        tile.threads, sms)
-    partial = torch.empty((blocks, n_params), dtype=torch.float32,
-                          device=dev)
+    grid = bwd_grid(net.dims(), N, d, method, tile, dev)
+    partial = torch.empty((grid, n_params), dtype=torch.float32, device=dev)
     grad = torch.empty((n_params,), dtype=torch.float32, device=dev)
     ptrs = [a.data_ptr() for a in args]
     ptrs.insert(1, n_params)
-    kernel = BWD_GLOBAL_KERNEL if tile.global_acc else BWD_KERNEL
+    kernel = BWD_LAUNCHES.variants[tile.variant]
+    extra = (tile.cluster,) if tile.variant == "cluster" else ()
     kernel(dev, *ptrs, hs.data_ptr(), hts.data_ptr(), ub.data_ptr(),
            dub.data_ptr(), partial.data_ptr(), grad.data_ptr(), N, L, d, H,
            Hh, F, n_lift, n_field, n_sub, METHOD_IDS[method], tile.paths,
-           tile.threads, blocks)
+           tile.threads, grid, *extra)
     return grad
+
+
+def bwd_grid(dims, N: int, d: int, method: str, tile: GradTile,
+             dev: torch.device) -> int:
+    """The persistent grid of #5 at ``tile``, one partial row each: in
+    blocks (:func:`steppers.bwd_blocks`), or for the cluster variant in
+    clusters, as many as the card runs at once
+    (``cudaOccupancyMaxActiveClusters``) and at most one a tile."""
+    n_tiles = -(-N // tile.paths)
+    if tile.variant == "cluster":
+        return max(1, min(n_tiles, cluster_occupancy(
+            dev.index, dims, d, method, tile)))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return bwd_blocks(N, tile.paths, tile_smem_bytes(
+        dims, d, method, tile.paths, True, tile.variant), tile.threads,
+        sms)
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_occupancy(device: int, dims, d: int, method: str,
+                      tile: GradTile) -> int:
+    """Clusters of #5's cluster variant at ``tile`` that the card runs at
+    once (``xnode_udu_cluster_occupancy``); raises where it runs none."""
+    lib, _ = BWD_CLUSTER_KERNEL.load()
+    fn = lib.xnode_udu_cluster_occupancy
+    fn.argtypes = [ctypes.c_int] * 11
+    fn.restype = ctypes.c_int
+    n = fn(device, d, *dims, METHOD_IDS[method], tile.paths, tile.threads,
+           tile.cluster)
+    if n <= 0:
+        error = f" (CUDA error {-n})" if n < 0 else ""
+        raise RuntimeError(f"#5's cluster variant at {tile} for the net "
+                           f"{dims}, d={d}: the card runs no such "
+                           f"cluster{error}")
+    return n
 
 
 class UDuFused(torch.autograd.Function):

@@ -2,7 +2,8 @@
 (``csrc/xnode_grad.cu``) on one GPU.
 
     python -m xnode_wan_tpu_torch.tile_sweep [--configs cube_pde ...]
-        [--tiles 2 4 8 16] [--threads 64 128 256] [--rule] [--f64]
+        [--set key=value ...] [--tiles 2 4 8 16] [--threads 64 128 256]
+        [--rule [--cluster C ...] | --same-tile | --adversary] [--f64]
         [--out example_run/tile_sweep.json]
 
 For each config (``configs/<name>.yaml``; random weights from a seed, one
@@ -15,10 +16,35 @@ after warm-up. Prints ``ptxas``'s register and stack lines for the
 kernels first, the card's name and power limit beside the times, and
 writes every row to ``--out``. Needs a CUDA card and ``nvcc``.
 
+``--set key=value`` overrides fields of every config (a YAML value:
+``--set u_hidden_dim=64 u_hidden_hidden_dim=64`` is the 64/64 cube,
+``--set dim=30 u_hidden_dim=48 u_hidden_hidden_dim=48
+fourier_features=1`` the d=30 Fourier cube).
+
 ``--rule`` times each kernel once, at the wrappers' own tile choice, in
-place of the sweep. It needs nothing of the package but the wrappers
-and the sampling, so a copy of this file in an older checkout's package
-times that checkout's kernels on the same card and configs.
+place of the sweep, on the first tangent chunk the route takes
+(``kernel_route(...).d_chunk`` directions; the full d where it fits). It
+needs nothing of the package but the wrappers and the sampling, so a
+copy of this file in an older checkout's package times that checkout's
+kernels on the same card and configs:
+
+    mkdir -p example_run/parent && git archive HEAD~1 | tar -x -C example_run/parent
+    cp xnode_wan_tpu_torch/tile_sweep.py example_run/parent/xnode_wan_tpu_torch/
+    (cd example_run/parent && python -m xnode_wan_tpu_torch.tile_sweep --rule \
+        --set u_hidden_dim=64 u_hidden_hidden_dim=64)
+
+``--cluster C ...`` (with ``--rule``) times the rule once for each C,
+with #5's cluster variant held to clusters of C blocks at the largest
+tile that fits them: the rule's choice of the smallest C, timed against
+the others (``--set u_hidden_dim=64 u_hidden_hidden_dim=64 --cluster 2 4
+8``).
+
+``--same-tile`` times kernel #5 with its accumulator in shared memory
+against its variant with the accumulator in its block's row of
+``partial`` (``xnode_udu_bwd_global_launch``), both through their
+launchers at the same tile, threads and grid (the shared variant's: the
+wrappers' tile, or each of ``--tiles`` that fits), alternated shared,
+global, global, shared, and checks that the two are bitwise equal.
 
 ``--adversary`` times the adversary kernels #6 and #7 instead, through
 their wrappers (``v_dv_fwd_cuda``, ``v_dv_bwd_cuda``: the variant and
@@ -107,46 +133,146 @@ def f64_check(xt, net, args, want, ub, dub, gwant, n_sub, method):
     return out
 
 
-def sweep_config(name: str, tiles, threads, reps: int, card: str,
-                 f64: bool = False, rule: bool = False):
+def parse_sets(pairs) -> dict:
+    """``["key=value", ...]`` as config overrides, each value read as
+    YAML (``64``, ``true``, ``rk4``)."""
+    import yaml
+    out = {}
+    for pair in pairs or ():
+        key, sep, value = pair.partition("=")
+        if not sep or not key:
+            raise ValueError(f"--set takes key=value, got {pair!r}")
+        out[key] = yaml.safe_load(value)
+    return out
+
+
+def config_batch(name: str, sets: dict, chunk: bool):
+    """The net (random weights, seed 0), inputs and readout cotangents of
+    one config with ``sets`` applied: ``(cfg, net, args, want, ub, dub,
+    gwant)``, with ``want`` the plain #4's outputs and ``gwant`` the plain
+    #5's gradient. With ``chunk`` the tangent inputs are cut to the first
+    chunk of the route's ``d_chunk`` directions."""
     from xnode_wan_tpu_torch import (Hypercube, init_xnode, load_params,
                                      load_problem)
     from xnode_wan_tpu_torch.ops.kernels import xnode_train as xt
-    from xnode_wan_tpu_torch.ops.kernels.steppers import MAX_SMEM_BYTES
 
     dev = torch.device("cuda", 0)
     cfg = load_params(os.path.join(ROOT, "configs", f"{name}.yaml"))
+    cfg = cfg.replace(**sets) if sets else cfg
     gen = torch.Generator(device=dev).manual_seed(0)
     net = xt.flat_net(init_xnode(cfg, gen, device=dev))
     cube = Hypercube(cfg.shape_param, cfg.dim, cfg.T0, cfg.T, cfg.N_t)
     batch = cube.interior(gen, cfg.N_r)
     inputs = [a.contiguous() for a in xt.path_tangent_inputs(
         batch, load_problem("Ex4_1_funcs", dim=cfg.dim), cfg)]
+    d = cfg.dim
+    if chunk:
+        d = xt.kernel_route(net.dims(), cfg.dim, cfg.solver).d_chunk
+        inputs[1] = inputs[1][:, :d].contiguous()
+        inputs[3] = inputs[3][:, :d].contiguous()
     t0, dt = [a.contiguous() for a in xt._prep_intervals(
         batch.times, batch.mask, batch.t_start, cfg.n_sub)]
     args = (t0, dt, *inputs)
-    packed, n_sub, method = net.packed(), cfg.n_sub, cfg.solver
-    N, L, d = cfg.N_r, cfg.N_t, cfg.dim
+    N, L = cfg.N_r, cfg.N_t
     with torch.no_grad():
-        want = xt.u_du_fwd_plain(net, *args, n_sub, method, store=True)
+        want = xt.u_du_fwd_plain(net, *args, cfg.n_sub, cfg.solver,
+                                 store=True)
         ub = torch.randn((N, L), generator=gen, device=dev)
         dub = torch.randn((N, L, d), generator=gen, device=dev)
-        gwant = xt.u_du_bwd_plain(net, *args, *want[2:], ub, dub, n_sub,
-                                  method)
+        gwant = xt.u_du_bwd_plain(net, *args, *want[2:], ub, dub, cfg.n_sub,
+                                  cfg.solver)
+    return cfg, net, args, want, ub, dub, gwant
+
+
+def same_tile(name: str, sets: dict, tiles, reps: int, card: str) -> list:
+    """#5's shared and global accumulators at the same tile, threads and
+    grid, each through its launcher: times (alternated) and bitwise
+    equality."""
+    from xnode_wan_tpu_torch.ops.kernels import xnode_train as xt
+    from xnode_wan_tpu_torch.ops.kernels.steppers import (MAX_SMEM_BYTES,
+                                                          METHOD_IDS,
+                                                          bwd_blocks)
+
+    cfg, net, args, want, ub, dub, gwant = config_batch(name, sets, True)
+    dev = ub.device
+    dims, d, method = net.dims(), args[-1].shape[1], cfg.solver
+    N, L = ub.shape
+    packed = net.packed()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if tiles is None:
+        tiles = [xt.grad_tile(dims, d, method, True).paths]
+    rows = []
+    for tile in tiles:
+        smem = xt.tile_smem_bytes(dims, d, method, tile, True)
+        if smem > MAX_SMEM_BYTES:
+            continue
+        threads = xt.block_threads(tile, d, dims[1], True)
+        grid = bwd_blocks(N, tile, smem, threads, sms)
+
+        def launch(kernel):
+            part = torch.empty((grid, packed.numel()), device=dev)
+            grad = torch.empty((packed.numel(),), device=dev)
+            kernel(dev, packed.data_ptr(), packed.numel(),
+                   *(a.data_ptr() for a in (*args, *want[2:], ub, dub, part,
+                                            grad)),
+                   N, L, d, *dims, cfg.n_sub, METHOD_IDS[method], tile,
+                   threads, grid)
+            return grad
+
+        with torch.no_grad():
+            got = {k: launch(getattr(xt, k))
+                   for k in ("BWD_KERNEL", "BWD_GLOBAL_KERNEL")}
+            times = {k: [] for k in got}
+            for k in ("BWD_KERNEL", "BWD_GLOBAL_KERNEL", "BWD_GLOBAL_KERNEL",
+                      "BWD_KERNEL"):
+                times[k].append(_time_ms(lambda k=k: launch(getattr(xt, k)),
+                                         reps))
+        row = {"config": name, "set": sets, "dims": list(dims), "d": d,
+               "tile": tile, "threads": threads, "grid": grid,
+               "card": card,
+               "bitwise": bool(torch.equal(got["BWD_KERNEL"],
+                                           got["BWD_GLOBAL_KERNEL"])),
+               "max_rel_err": _scaled_err(got["BWD_KERNEL"], gwant),
+               "shared_ms": times["BWD_KERNEL"],
+               "global_ms": times["BWD_GLOBAL_KERNEL"]}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    return rows
+
+
+def sweep_config(name: str, tiles, threads, reps: int, card: str,
+                 f64: bool = False, rule: bool = False, sets=None,
+                 cluster=None):
+    from xnode_wan_tpu_torch.ops.kernels import xnode_train as xt
+    from xnode_wan_tpu_torch.ops.kernels.steppers import MAX_SMEM_BYTES
+
+    cfg, net, args, want, ub, dub, gwant = config_batch(name, sets, rule)
+    packed, n_sub, method = net.packed(), cfg.n_sub, cfg.solver
+    d = args[-1].shape[1]
     rows = []
     if f64:
         row = {"config": name, "card": card, "vs_f64": f64_check(
             xt, net, args, want, ub, dub, gwant, n_sub, method)}
         rows.append(row)
         print(json.dumps(row), flush=True)
-    kept = None if rule else (xt.FWD_TILES, xt.BWD_TILES, xt.block_threads)
+    kept = (xt.FWD_TILES, xt.BWD_TILES, xt.block_threads, xt.CLUSTERS)
     shapes = [("rule", None)] if rule else itertools.product(tiles, threads)
     try:
         for tile, thr in shapes:
-            row = {"config": name, "tile": tile, "threads": thr, "card": card}
-            if not rule:
+            row = {"config": name, "set": sets, "tile": tile,
+                   "threads": thr, "card": card}
+            if rule:
+                if cluster:
+                    xt.CLUSTERS = (cluster,)
+                    row["cluster"] = cluster
+            else:
                 xt.FWD_TILES = xt.BWD_TILES = (tile,)
                 xt.block_threads = lambda *_, thr=thr: thr
+            # the route is cached by shapes: taken anew for these rules
+            xt.kernel_route.cache_clear()
+            if rule:
+                route = xt.kernel_route(net.dims(), cfg.dim, method)
+                row.update(d_chunk=d, route=repr(route))
             for kernel, backward in (("xnode_udu_fwd", False),
                                      ("xnode_udu_fwd_store", False),
                                      ("xnode_udu_bwd", True)):
@@ -177,12 +303,12 @@ def sweep_config(name: str, tiles, threads, reps: int, card: str,
                     ms = _time_ms(run, reps)
                 row[kernel] = {"ms": ms, "smem": smem, "max_rel_err": err,
                                "bitwise_repeat": bitwise}
-            if len(row) > 4:
+            if any(k.startswith("xnode_") for k in row):
                 rows.append(row)
                 print(json.dumps(row), flush=True)
     finally:
-        if kept:
-            xt.FWD_TILES, xt.BWD_TILES, xt.block_threads = kept
+        xt.FWD_TILES, xt.BWD_TILES, xt.block_threads, xt.CLUSTERS = kept
+        xt.kernel_route.cache_clear()
     return rows
 
 
@@ -226,12 +352,22 @@ def adversary_config(name: str, reps: int, card: str) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--configs", nargs="+", default=["cube_pde"])
-    ap.add_argument("--tiles", nargs="+", type=int, default=[2, 4, 8, 16])
+    ap.add_argument("--set", nargs="+", default=[], metavar="KEY=VALUE",
+                    help="override these config fields (YAML values)")
+    ap.add_argument("--tiles", nargs="+", type=int, default=None,
+                    help="paths per tile (sweep default: 2 4 8 16; "
+                         "--same-tile default: the wrappers' tile)")
     ap.add_argument("--threads", nargs="+", type=int,
                     default=[64, 128, 256])
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--rule", action="store_true",
                     help="time the wrappers' own tile choice only")
+    ap.add_argument("--cluster", nargs="+", type=int, default=None,
+                    help="with --rule: time #5's cluster variant on "
+                         "clusters of each of these many blocks")
+    ap.add_argument("--same-tile", action="store_true",
+                    help="time #5's shared accumulator against its "
+                         "global one at the same tile and grid")
     ap.add_argument("--adversary", action="store_true",
                     help="time kernels #6 and #7 at each config's "
                          "discriminator instead")
@@ -241,6 +377,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=os.path.join(ROOT, "example_run",
                                                   "tile_sweep.json"))
     args = ap.parse_args(argv)
+    sets = parse_sets(args.set)
     if not torch.cuda.is_available():
         print("tile_sweep: no CUDA device", file=sys.stderr)
         return 1
@@ -263,8 +400,13 @@ def main(argv=None) -> int:
                 print(f"  ptxas: {line.strip()}")
         rows = []
         for name in args.configs:
-            rows += sweep_config(name, args.tiles, args.threads, args.reps,
-                                 card, args.f64, args.rule)
+            if args.same_tile:
+                rows += same_tile(name, sets, args.tiles, args.reps, card)
+            else:
+                for c in args.cluster or [None]:
+                    rows += sweep_config(name, args.tiles or [2, 4, 8, 16],
+                                         args.threads, args.reps, card,
+                                         args.f64, args.rule, sets, c)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as fh:
         json.dump(rows, fh, indent=1)
