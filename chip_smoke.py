@@ -16,9 +16,12 @@ which raises on failure:
    spills; hold ``steppers.staged_floats`` against the staged copy #1/#2
    ask for, ``disc_train.staged_floats`` against the register #6's (the
    d=5 and the d=20 adversary, each tied and untied) and
-   ``disc_train.tile_smem_bytes`` against the bytes #7's two variants and
-   the tile #6 ask for at every tile (those adversaries, 2v's, 2w's and
-   phase 3's; the route, shared bytes and registers printed), and the
+   ``disc_train.tile_smem_bytes`` against the bytes #7's shared and global
+   variants and the tile #6 ask for at every tile, and
+   ``disc_train.cluster_smem_bytes`` against #7's cluster variant's at
+   clusters of 2, 4 and 8 blocks and every tile (the tied nets) (those
+   adversaries, 2v's, 2w's and phase 3's; the route, shared bytes and
+   registers printed), and the
    wrapper's shared-memory rule for #3-#5 against the bytes their
    launchers ask for;
 2. the main paths at the d=5 width of ``configs/cube_pde.yaml``, then
@@ -183,9 +186,10 @@ which raises on failure:
       same step with the plain adversary from the same weights and batch
       (1e-4 of each parameter tensor's largest value, 1e-5 on the
       metrics), then 20 iterations of ``train_until``: #6 twice an
-      iteration in its tile variant, #7 once with its global accumulator
+      iteration in its tile variant, #7 once in its cluster variant
       (neither the register #6's staged weights nor #7's shared
-      accumulator fit), #2-#5 as in b, every ``loss_u``, L2, rel-L2 and
+      accumulator fit; clusters of 8 blocks, 16 points a tile, the hidden
+      weights resident), #2-#5 as in b, every ``loss_u``, L2, rel-L2 and
       weight finite, the least rel-L2 under the first;
    w. the same at ``dim: 20`` with ``v_fourier_features: 3`` (F = 141):
       the register #6 and the shared #7;
@@ -246,10 +250,11 @@ which raises on failure:
    out, then all at ``KINK_RTOL``) at 80,000 points and at 80,001 and 37:
    2v's and 2w's trained adversaries, JAX's widest at the shipped depth
    (558 wide, tied), an untied 128-wide one and a 50-wide one 40 deep,
-   untied and tied (random weights), #7 twice each, bitwise; the tile #6
-   at the cube's trained adversary; #7's global accumulator bitwise equal
-   to the shared one at the cube's trained adversary at the same tile and
-   grid;
+   untied and tied, and 2v's 256-wide tied shape (#7's cluster variant)
+   (random weights), #7 twice each, bitwise; the tile #6 at the cube's
+   trained
+   adversary; #7's global accumulator bitwise equal to the shared one at
+   the cube's trained adversary at the same tile and grid;
 4. CUDA-event times (the kernel's median of 20 after warm-up, the plain
    version's of 5) of each kernel and its plain version at the main
    path's shapes, beside the bound the card's published peaks put on the
@@ -260,9 +265,12 @@ which raises on failure:
    of #2 at the cube's net, #5's cluster variant at 2s's and its global
    accumulator there through its launcher, #3-#5 a chunk at 2t's, #5's
    cluster variant and its global accumulator a chunk at 2u's; #6 and #7 at
-   2v's and 2w's trained adversaries and at the 558-wide one, the tile #6
-   and #7's global accumulator at the cube's trained one), with its
-   bound and its launches there;
+   2v's and 2w's trained adversaries and at the 558-wide one, #7's global
+   accumulator at 2v's through its launcher beside its cluster variant
+   (whose bound takes the FP32 forward recompute at the FP32 rate and the
+   rest, in 3xTF32, at the TF32 rate over three), the tile #6 and #7's
+   global accumulator at the cube's trained one), with its bound and its
+   launches there;
 5. CUDA-event times (median of 10; an outer step's, of ``STEP_REPS``)
    of the two serving entry points and
    the share of each that its kernel takes, of one training outer step
@@ -442,7 +450,7 @@ D30 = dict(dim=30, u_hidden_dim=48, u_hidden_hidden_dim=48,
            fourier_features=1)
 D30_ITERS = 20
 # 2v: the cube with a 256-wide adversary through fused_v (the tile #6,
-# #7's global accumulator); 2w: the cube at d = 20 with the adversary's
+# #7's cluster variant); 2w: the cube at d = 20 with the adversary's
 # Fourier bank at three frequencies (F = 1 + 20 * 7 = 141, past the 128
 # features the port took before: the register #6, the shared #7); 20
 # iterations of train_until each
@@ -452,9 +460,11 @@ ADV_ITERS = 20
 # phase 3: adversaries with random weights, so that their relus are live
 # (the trained ones' die): the cube's shape, the d=20 cube's with three
 # Fourier frequencies (F = 141, past the old 128), JAX's widest at the
-# shipped depth (12,284 of its 12,288 rows), an untied 128-wide one and a
-# deep one, untied and tied: (label, d, H, L, tied, v_fourier_features)
+# shipped depth (12,284 of its 12,288 rows), an untied 128-wide one, a
+# deep one, untied and tied, and 2v's (#7's cluster variant): (label, d,
+# H, L, tied, v_fourier_features)
 ADV_NETS = (("cube's shape", 5, 50, 9, True, 0),
+            ("2v's shape", 5, 256, 9, True, 0),
             ("d=20, 3 frequencies", 20, 50, 9, True, 3),
             ("widest tied", 5, 558, 9, True, 0),
             ("untied", 5, 128, 9, False, 0),
@@ -494,6 +504,10 @@ PEAK_BYTES_PER_S = 3.35e12
 # CUDA-event runs of an outer step in phase 5 (10 before #5's cluster
 # variant's phase-3 checks), after one warm-up run
 STEP_REPS = 5
+# phase 4 times an adversary kernel over 5 runs (20 after 3 warm-ups
+# before #7's cluster variant's phase-3 checks) where its first launch
+# takes longer: the 558-wide net's global #7, about 1.3 s a launch
+SLOW_LAUNCH_MS = 500.0
 
 
 def card_line() -> str:
@@ -618,8 +632,12 @@ def disc_work(geom, M):
     sweep = L * H * H + F * H
     bwd = fwd + sweep + 3 * F * H + 4 * L * H * H + 2 * H
     n_w = 4.0 * geom.n_params
+    io = 4.0 * M * (2 * F + 1) + 2 * n_w
     return {"disc_fwd": (2.0 * M * (fwd + sweep), 4.0 * M * (2 * F + 1) + n_w),
-            "disc_bwd": (2.0 * M * bwd, 4.0 * M * (2 * F + 1) + 2 * n_w)}
+            "disc_bwd": (2.0 * M * bwd, io),
+            # #7's cluster variant: the forward recompute in FP32, the
+            # sweep, both reverses and the weight sums in 3xTF32
+            "disc_bwd cluster": (2.0 * M * fwd, io, 2.0 * M * (bwd - fwd))}
 
 
 def inside_points(domain, m: int, generator, radius: float) -> torch.Tensor:
@@ -2275,7 +2293,8 @@ def adv_launches_want(n: int, c, chunks: int, route) -> tuple:
     want = chunk_launches_want(n, c, chunks)
     want.update(disc_fwd=(1 + c.n2) * n, disc_bwd=c.n2 * n)
     fwd = {"registers": 0, "tile": 0, route.fwd: want["disc_fwd"]}
-    bwd = {"shared": 0, "global": 0, route.bwd: want["disc_bwd"]}
+    bwd = {"shared": 0, "cluster": 0, "global": 0,
+           route.bwd: want["disc_bwd"]}
     return want, {"disc_fwd": fwd, "disc_bwd": bwd}
 
 
@@ -3019,6 +3038,23 @@ def disc_margins(geom, packed, feats) -> torch.Tensor:
     return margin
 
 
+def disc_bwd_global(geom, dev):
+    """#7's global variant at its largest tile through its launcher,
+    whatever ``disc_route`` picks: ``(label, launch)``, with
+    ``launch(packed, feats, vb, gb)`` the gradient on the route's grid
+    rule for that many points."""
+    from xnode_wan_tpu_torch.ops.kernels import disc_train
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tile = disc_train._largest_tile(geom, "global")
+
+    def launch(packed, f, vb, gb):
+        blocks = disc_train.bwd_grid(geom, "global", tile, f.shape[0], sms)
+        return disc_train._bwd(disc_train.BWD_GLOBAL_KERNEL, packed, f, vb,
+                               gb, geom, tile, blocks, dev)
+    return f"global, {tile}-point tiles", launch
+
+
 def check_adversary(label: str, geom, packed, feats, gen) -> dict:
     """#6 and #7, in the variants ``disc_route`` picks, against their
     plain versions on ``feats``: ``v`` within ``RTOL``/``ATOL``; ``gin``
@@ -3036,6 +3072,7 @@ def check_adversary(label: str, geom, packed, feats, gen) -> dict:
     route = disc_train.disc_route(geom)
     keep = disc_margins(geom, packed, feats) >= KINK_MARGIN
     errs = {"disc_fwd": 0.0, "disc_bwd": 0.0}
+    variant = f"{route.bwd}, {route.bwd_tile}-point tiles"
 
     def against_plain(lbl, idx, limit):
         f, v_b, g_b = ((feats, vb, gb) if idx is None else
@@ -3043,15 +3080,12 @@ def check_adversary(label: str, geom, packed, feats, gen) -> dict:
                         gb[idx].contiguous()))
         v_k, g_k = disc_train.v_dv_fwd_cuda(packed, f, geom)
         v_p, g_p = disc_train.v_dv_fwd_plain(packed, f, geom)
-        errs["disc_fwd"] = max(errs["disc_fwd"],
-                               compare(f"disc_fwd {route.fwd} v {lbl}", v_k,
-                                       v_p),
-                               compare_scaled(f"disc_fwd {route.fwd} gin "
-                                              f"{lbl}", g_k, g_p,
-                                              limit=limit))
+        errs["disc_fwd"] = max(errs["disc_fwd"], compare(
+            f"disc_fwd {route.fwd} v {lbl}", v_k, v_p), compare_scaled(
+            f"disc_fwd {route.fwd} gin {lbl}", g_k, g_p, limit=limit))
         grad = disc_train.v_dv_bwd_cuda(packed, f, v_b, g_b, geom)
         errs["disc_bwd"] = max(errs["disc_bwd"], compare_scaled(
-            f"disc_bwd {route.bwd} {lbl}", grad,
+            f"disc_bwd {variant} {lbl}", grad,
             disc_train.v_dv_bwd_plain(packed, f, v_b, g_b, geom), sizes,
             limit=limit))
         return grad
@@ -3067,10 +3101,9 @@ def check_adversary(label: str, geom, packed, feats, gen) -> dict:
         grad = against_plain(f"{label}, all points", None, KINK_RTOL)
     if not torch.equal(grad, disc_train.v_dv_bwd_cuda(packed, feats, vb, gb,
                                                       geom)):
-        raise AssertionError(f"disc_bwd {route.bwd} {label}: two launches "
+        raise AssertionError(f"disc_bwd {variant} {label}: two launches "
                              "differ")
-    print(f"  disc_bwd {route.bwd} {label}, {route.bwd_tile}-point tiles: "
-          "two launches bitwise equal")
+    print(f"  disc_bwd {variant} {label}: two launches bitwise equal")
     return errs
 
 
@@ -3190,12 +3223,27 @@ def adversary_times(*, card, checked, phase_launches) -> list:
                  lambda p=packed, f=feats, g=geom:
                  disc_train.v_dv_fwd_plain(p, f, g),
                  work["disc_fwd"], lv["disc_fwd"][route.fwd]),
-                ("disc_bwd", route.bwd, f"{phase}, {geom}",
+                ("disc_bwd", route.bwd, f"{phase}, {geom}, {route}",
                  lambda p=packed, f=feats, a=vb, b=gb, g=geom:
                  disc_train.v_dv_bwd_cuda(p, f, a, b, g),
                  lambda p=packed, f=feats, a=vb, b=gb, g=geom:
                  disc_train.v_dv_bwd_plain(p, f, a, b, g),
-                 work["disc_bwd"], lv["disc_bwd"][route.bwd])]
+                 # the cluster variant's bound splits its FP32 forward
+                 # from its 3xTF32 rest
+                 work["disc_bwd cluster" if route.bwd == "cluster"
+                      else "disc_bwd"], lv["disc_bwd"][route.bwd])]
+            if name == "2v trained":
+                # the global variant, which 2v took before the cluster one,
+                # through its launcher beside it
+                label, launch = disc_bwd_global(geom, feats.device)
+                cases.append((
+                    "disc_bwd", "global", f"{phase}, {geom}, {label}, "
+                    "through its launcher",
+                    lambda p=packed, f=feats, a=vb, b=gb, fn=launch:
+                    fn(p, f, a, b),
+                    lambda p=packed, f=feats, a=vb, b=gb, g=geom:
+                    disc_train.v_dv_bwd_plain(p, f, a, b, g),
+                    work["disc_bwd"], 0))
         geom, packed, feats, tile, blocks = checked["timed"]["cube's shape"]
         lv = p3["cube's shape, tile #6 and #7 global"].variants
         dev = feats.device
@@ -3218,15 +3266,19 @@ def adversary_times(*, card, checked, phase_launches) -> list:
              lambda: disc_train.v_dv_bwd_plain(packed, feats, vb, gb, geom),
              work["disc_bwd"], lv["disc_bwd"]["global"])]
         print(f"adversary variants ({card}), kernel the median of 20 "
-              "CUDA-event runs, plain of 5:")
+              "CUDA-event runs (of 5 where a launch takes over "
+              f"{SLOW_LAUNCH_MS:g} ms), plain of 5:")
         for name, variant, phase, kern, plain, wk, n_launch in cases:
-            ms = time_ms(kern)
+            first = time_ms(kern, reps=1, warmup=0)
+            ms = (time_ms(kern, reps=5, warmup=0) if first > SLOW_LAUNCH_MS
+                  else time_ms(kern))
             plain_ms = time_ms(plain, reps=5, warmup=1)
             bound_ms, bound_by = bound(*wk)
+            flops = wk[0] + (wk[2] if len(wk) > 2 else 0.0)
             print(f"  {name} {variant} at {phase}: kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, bound {1e3 * bound_ms:.2f} us "
-                  f"({bound_by}; {wk[0] / 1e9:.3f} GFLOP, {wk[1] / 1e6:.3f} "
-                  f"MB), {wk[0] / (ms * 1e-3) / 1e12:.3f} TFLOP/s, "
+                  f"({bound_by}; {flops / 1e9:.3f} GFLOP, {wk[1] / 1e6:.3f} "
+                  f"MB), {flops / (ms * 1e-3) / 1e12:.3f} TFLOP/s, "
                   f"{n_launch} launches there")
             rows.append({"kernel": name, "variant": variant, "phase": phase,
                          "launches": n_launch, "ms": ms,
@@ -3358,10 +3410,15 @@ def main(work_root: str) -> int:
               "block with the sign words and slots")
     # #7's variants and the tile #6: the tile's shared bytes in Python
     # against the launcher's, at the shipped adversaries, 2v's and 2w's
-    # and phase 3's, every variant and tile
+    # and phase 3's, every variant and tile (#7's cluster variant at
+    # clusters of 2, 4 and 8 blocks, the tied nets)
     smem_of = ctypes.CDLL(str(libs["disc_train"])).disc_tile_smem_bytes
     smem_of.restype = ctypes.c_longlong
     smem_of.argtypes = [ctypes.c_int] * 6
+    cluster_smem_of = ctypes.CDLL(
+        str(libs["disc_train"])).disc_cluster_smem_bytes
+    cluster_smem_of.restype = ctypes.c_longlong
+    cluster_smem_of.argtypes = [ctypes.c_int] * 5
     adv_geoms = {disc_train.DiscGeom(
         g.v_fourier_features * 2 * g.dim + g.dim + 1, g.v_hidden_dim,
         g.v_layers, tied) for g, _ in shipped.values() for tied in (0, 1)}
@@ -3380,11 +3437,23 @@ def main(work_root: str) -> int:
                     raise AssertionError(
                         f"disc_train.tile_smem_bytes {geom} {variant} "
                         f"tile={tile}: the launcher asks for {got} bytes")
+        for cluster in (2, 4, 8) if geom.tied else ():
+            for tile in disc_train.TILES:
+                got = cluster_smem_of(geom.F, geom.H, geom.L, cluster, tile)
+                if got != disc_train.cluster_smem_bytes(geom, cluster, tile):
+                    raise AssertionError(
+                        f"disc_train.cluster_smem_bytes {geom} cluster="
+                        f"{cluster} tile={tile}: the launcher asks for {got} "
+                        "bytes")
         route = disc_train.disc_route(geom)
-        print(f"  disc_train {geom}: {route}, #7 "
-              f"{disc_train.tile_smem_bytes(geom, route.bwd, route.bwd_tile)}"
-              " bytes of shared memory a block, "
-              f"{disc_train.BWD_THREADS} threads")
+        smem = (disc_train.cluster_smem_bytes(geom, route.cluster,
+                                              route.bwd_tile)
+                if route.bwd == "cluster" else
+            disc_train.tile_smem_bytes(geom, route.bwd, route.bwd_tile))
+        threads = (disc_train.CLUSTER_THREADS if route.bwd == "cluster"
+                   else disc_train.BWD_THREADS)
+        print(f"  disc_train {geom}: {route}, #7 {smem} bytes of shared "
+              f"memory a block, {threads} threads")
     log = (_build.build_dir() / "disc_train.log").read_text()
     for c in log.split("Compiling entry function")[1:]:
         regs = re.search(r"Used (\d+) registers", c)
@@ -3627,7 +3696,8 @@ def main(work_root: str) -> int:
     # the shipped adversary keeps the register #6 and the shared #7
     check_variants("command line (2c)", cli_launches, {
         "disc_fwd": {"registers": cli_launches["disc_fwd"], "tile": 0},
-        "disc_bwd": {"shared": cli_launches["disc_bwd"], "global": 0}})
+        "disc_bwd": {"shared": cli_launches["disc_bwd"], "cluster": 0,
+                     "global": 0}})
     for name in ("disc_fwd", "disc_bwd"):
         launches[name] = cli_launches[name]
     phase_launches = {"2a": serve_launches, "2b": train_launches,
@@ -3902,10 +3972,10 @@ def main(work_root: str) -> int:
         "card": card}}))
     t_phase = phase_done("2u", t_phase)
 
-    # 2v. a 256-wide adversary: the tile #6 and #7's global accumulator --
+    # 2v. a 256-wide adversary: the tile #6 and #7's cluster variant -----
     hv = fused_adversary(kernels, os.path.join(work_root, "2v"),
                          "the 256-wide adversary (2v)", WIDE_V,
-                         ("tile", "global"), card)
+                         ("tile", "cluster"), card)
     phase_launches["2v"] = hv["launches"]
     phase_launches["2v step"] = hv["step_launches"]
     t_phase = phase_done("2v", t_phase)

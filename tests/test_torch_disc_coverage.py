@@ -72,17 +72,38 @@ def test_port_routes_every_adversary_the_jax_package_runs(F, tied):
                     geom, "tile", route.fwd_tile) <= MAX_SMEM_BYTES
                 assert (H > disc_train.REG_MAX_WIDTH
                         or disc_train.fwd_smem_bytes(geom) > MAX_SMEM_BYTES)
-            # #7: the shared accumulator wherever it fits, else the
-            # global one, each at the largest tile that fits
-            assert route.bwd in ("shared", "global")
-            assert disc_train.tile_smem_bytes(
-                geom, route.bwd, route.bwd_tile) <= MAX_SMEM_BYTES
+            # #7, in this order: the shared accumulator wherever it fits
+            # beside a tile; else thread-block clusters of CLUSTER blocks,
+            # for a tied net whose block (its hidden weights resident) fits
+            # at 16 points or more (cluster_choice); else the global
+            # accumulator. Each at the largest tile that fits
             shared_fits = disc_train.tile_smem_bytes(
                 geom, "shared", 4) <= MAX_SMEM_BYTES
-            assert (route.bwd == "shared") == shared_fits
-            larger = [t for t in disc_train.TILES if t > route.bwd_tile]
-            assert all(disc_train.tile_smem_bytes(geom, route.bwd, t)
-                       > MAX_SMEM_BYTES for t in larger)
+            clustered = disc_train.cluster_choice(geom)
+            want = ("shared" if shared_fits else
+                    "cluster" if clustered else "global")
+            assert route.bwd == want
+            C, min_tile = disc_train.CLUSTER, disc_train.CLUSTER_MIN_TILE
+            if route.bwd == "cluster":
+                tile = route.bwd_tile
+                assert clustered == (tile, C) and route.cluster == C <= H
+                assert tied and tile >= min_tile
+                assert disc_train.cluster_smem_bytes(geom, C, tile) \
+                    <= MAX_SMEM_BYTES
+                assert all(disc_train.cluster_smem_bytes(geom, C, t)
+                           > MAX_SMEM_BYTES
+                           for t in disc_train.TILES if t > tile)
+            elif not shared_fits:
+                # the global variant where no cluster takes the net
+                assert not tied or H < C or disc_train.cluster_smem_bytes(
+                    geom, C, min_tile) > MAX_SMEM_BYTES
+            if route.bwd != "cluster":
+                assert route.cluster == 1
+                assert disc_train.tile_smem_bytes(
+                    geom, route.bwd, route.bwd_tile) <= MAX_SMEM_BYTES
+                larger = [t for t in disc_train.TILES if t > route.bwd_tile]
+                assert all(disc_train.tile_smem_bytes(geom, route.bwd, t)
+                           > MAX_SMEM_BYTES for t in larger)
             # the global variant and the tile #6 fit 4 points wherever the
             # JAX package runs (at most its rows a point)
             assert disc_train.tile_rows(geom, "global") <= \
@@ -94,17 +115,20 @@ def test_port_routes_every_adversary_the_jax_package_runs(F, tied):
 
 
 @pytest.mark.parametrize("geom,route", [
-    (DiscGeom(6, 50, 9, True), ("registers", 0, "shared", 32)),
-    (DiscGeom(141, 50, 9, True), ("registers", 0, "shared", 16)),
-    (DiscGeom(6, 256, 9, True), ("tile", 16, "global", 8)),
-    (DiscGeom(6, 558, 9, True), ("tile", 8, "global", 4)),
-    (DiscGeom(6, 128, 9, False), ("tile", 32, "global", 16)),
-    (DiscGeom(6, 50, 40, False), ("tile", 16, "global", 8)),
-    (DiscGeom(6, 50, 40, True), ("registers", 0, "shared", 8)),
+    (DiscGeom(6, 50, 9, True), ("registers", 0, "shared", 32, 1)),
+    (DiscGeom(141, 50, 9, True), ("registers", 0, "shared", 16, 1)),
+    (DiscGeom(6, 256, 9, True), ("tile", 16, "cluster", 16, 8)),
+    (DiscGeom(6, 558, 9, True), ("tile", 8, "global", 4, 1)),
+    (DiscGeom(6, 128, 9, False), ("tile", 32, "global", 16, 1)),
+    (DiscGeom(6, 50, 40, False), ("tile", 16, "global", 8, 1)),
+    (DiscGeom(6, 50, 40, True), ("registers", 0, "shared", 8, 1)),
 ], ids=["cube", "d20-3freq", "256-tied", "558-tied", "128-untied",
         "deep-untied", "deep-tied"])
 def test_routes_of_the_chip_checks(geom, route):
-    # the nets that chip_smoke.py's phases 2v, 2w and 3 run
+    # the nets that chip_smoke.py's phases 2v, 2w and 3 run: 2v's 256-wide
+    # tied net on clusters of 8 blocks, 16 points a tile; the untied nets
+    # and the 558-wide one keep the global accumulator (no cluster variant
+    # for untied nets; the 558-wide block's weights do not fit)
     assert disc_train.disc_route(geom) == route
 
 
@@ -137,3 +161,112 @@ def test_tile_smem_hand_counts():
     # the largest block the global #7 can ask for inside JAX's domain: 4
     # points of 12,287 rows at most
     assert 16 * (disc_train.JAX_MAX_ROWS - 1) <= MAX_SMEM_BYTES
+
+
+def test_cluster_smem_hand_counts():
+    # #7's cluster variant at 2v's net on clusters of 8 blocks, 16 points
+    # (rows of S = 20 floats), the hidden weights resident: two exchange
+    # buffers of H rows, the block's 32 units of A_0..A_9, G_0..G_9 and two
+    # cotangent buffers, the features, gb and vb: (2 H + 2 (L + 1) 32 + 2 32
+    # + 2 F + 1) S; the accumulator: the hidden layer's 32 rows at a stride
+    # of 264 (256 rounded up to 8 mod 32) and its 32 biases, then W0's 32
+    # rows, b0, w_o and b_o, in all rounded up to 4; the split products'
+    # partial tiles, 16 warps x 128 floats x 2 tiles of 8 points; and the
+    # block's 32 rows and 32 columns of W_h at a stride of 260 (4 mod 32)
+    g = DiscGeom(6, 256, 9, True)
+    assert disc_train.hidden_acc_stride(256) == 264
+    assert disc_train.cluster_acc_floats(g, 8) == \
+        (32 * 264 + 32) + 32 * 6 + 32 + 32 + 1 + 3 == 8740
+    assert disc_train.cluster_smem_bytes(g, 8, 16) == 4 * (
+        (512 + 640 + 64 + 12 + 1) * 20 + 8740 + 16 * 128 * 2
+        + 2 * 32 * 260) == 216224 <= MAX_SMEM_BYTES
+    assert disc_train.cluster_smem_bytes(g, 8, 32) > MAX_SMEM_BYTES
+    assert disc_train.cluster_tile(g, 8) == 16
+    assert disc_train.cluster_choice(g) == (16, 8)
+    # clusters of 4 blocks: 64 units a block, whose weights and eighth of
+    # the accumulator leave no room for a tile
+    assert disc_train.cluster_tile(g, 4) == 0
+    # the 558-wide net: 70 units a block; their rows and columns of W_h
+    # alone take 2 x 70 x 580 floats, 324,800 bytes
+    w = DiscGeom(6, 558, 9, True)
+    assert disc_train.cluster_smem_bytes(w, 8, 4) > 4 * 2 * 70 * 580 \
+        > MAX_SMEM_BYTES
+    assert disc_train.cluster_tile(w, 8) == 0
+    assert disc_train.cluster_choice(w) is None
+
+
+def _jax_params(geom: DiscGeom):
+    """JAX-layout discriminator parameters (``w [in, out]``, ``b [out]``)
+    whose entries are their own ids, in layer order."""
+    shapes = ([(geom.F, geom.H)] + [(geom.H, geom.H)] * geom.n_hidden
+              + [(geom.H, 1)])
+    layers, nxt = [], 0
+    for fan_in, fan_out in shapes:
+        w = np.arange(nxt, nxt + fan_in * fan_out, dtype=np.float32)
+        nxt += w.size
+        b = np.arange(nxt, nxt + fan_out, dtype=np.float32)
+        nxt += b.size
+        layers.append({"w": w.reshape(fan_in, fan_out), "b": b})
+    return {"inp": layers[0],
+            "hidden": layers[1] if geom.tied else layers[1:-1],
+            "out": layers[-1]}
+
+
+@pytest.mark.parametrize("cluster", [2, 4, 8])
+def test_cluster_slices_and_owned_entries_cover_the_net_once(cluster):
+    # each layer's units split over a cluster's blocks, every unit in one
+    # block's slice in rank order; every entry of the packed gradient
+    # (_flatten_disc_t's order, the JAX package's) of a tied net owned by
+    # exactly one block, which owns the weights of its units' rows (W [out,
+    # in]), their biases and w_o, block 0 b_o too, each at a distinct place
+    # of its accumulator inside cluster_acc_floats
+    for H in WIDTHS:
+        if H < cluster:
+            continue
+        slices = disc_train.unit_slices(H, cluster)
+        assert [u for s in slices for u in s] == list(range(H))
+        assert max(len(s) for s in slices) == -(-H // cluster)
+        for L in (1, 2, 9):
+            geom = DiscGeom(6, H, L, True)
+            if not jax_fits(geom):
+                continue
+            packed = np.concatenate([a.reshape(-1) for a in (
+                jdisc._flatten_disc_t(_jax_params(geom), L, True))])
+            assert packed.size == geom.n_params
+            ids = packed.astype(np.int64)
+            # each id's output unit (w [in, out] row-major, then b)
+            unit = np.full(geom.n_params, -1)
+            off = 0
+            for fan_in, fan_out in ([(geom.F, H)]
+                                    + [(H, H)] * geom.n_hidden
+                                    + [(H, 1)]):
+                unit[off:off + fan_in * fan_out] = np.tile(
+                    np.arange(fan_out), fan_in)
+                unit[off + fan_in * fan_out:
+                     off + (fan_in + 1) * fan_out] = np.arange(fan_out)
+                off += (fan_in + 1) * fan_out
+            seen = np.zeros(geom.n_params, dtype=np.int64)
+            n_acc = disc_train.cluster_acc_floats(geom, cluster)
+            owned = disc_train.cluster_owned(geom, cluster)
+            for c, runs in enumerate(owned):
+                slots = np.zeros(n_acc, dtype=np.int64)
+                for a, p, length in runs:
+                    assert 0 <= a and a + length <= n_acc
+                    slots[a:a + length] += 1
+                    seen[ids[p:p + length]] += 1
+                    out = unit[ids[p:p + length]]
+                    # w_o's and b_o's output unit is 0: by input unit
+                    # or block 0
+                    if p >= geom.n_params - H - 1:
+                        assert (p + length <= geom.n_params - 1
+                                and list(range(p, p + length)) ==
+                                list(range(geom.n_params - H - 1
+                                           + slices[c].start,
+                                           geom.n_params - H - 1
+                                           + slices[c].stop))
+                                or (p, length, c) ==
+                                (geom.n_params - 1, 1, 0))
+                    else:
+                        assert set(out.tolist()) <= set(slices[c])
+                assert slots.max() <= 1
+            assert (seen == 1).all()

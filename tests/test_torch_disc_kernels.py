@@ -270,18 +270,21 @@ def cuda_signature(source, symbol):
 @pytest.mark.parametrize("kernel", [disc_train.FWD_KERNEL,
                                     disc_train.BWD_KERNEL,
                                     disc_train.FWD_TILE_KERNEL,
-                                    disc_train.BWD_GLOBAL_KERNEL],
+                                    disc_train.BWD_GLOBAL_KERNEL,
+                                    disc_train.BWD_CLUSTER_KERNEL],
                          ids=lambda k: k.symbol)
 def test_disc_ctypes_argtypes_match_c_signature(kernel):
     # the register #6 has a source of its own, built once per width; #7's
-    # two variants and the tile #6 are in disc_train.cu, built once. Each
-    # block size is a compile-time constant of its source, mirrored in the
+    # three variants and the tile #6 are in disc_train.cu (the cluster
+    # variant's kernel in disc_train_cluster.cuh), built once. Each block
+    # size is a compile-time constant of its source, mirrored in the
     # wrapper for the grid rule.
     bwd = ("disc_train", "XD_BWD_THREADS", disc_train.BWD_THREADS)
     source, define, threads = {
         "disc_fwd_launch": ("disc_fwd", "XD_FWD_THREADS",
                             disc_train.FWD_THREADS),
         "disc_bwd_launch": bwd, "disc_bwd_global_launch": bwd,
+        "disc_bwd_cluster_launch": bwd,
         "disc_tile_fwd_launch": bwd}[kernel.symbol]
     assert kernel.source == source
     assert source in _build.KERNEL_SOURCES
@@ -295,24 +298,46 @@ def test_disc_ctypes_argtypes_match_c_signature(kernel):
 
 
 def test_disc_kernel_variants_count_together():
-    # #6's register and tile variants, and #7's two accumulators, each
+    # #6's register and tile variants, and #7's three accumulators, each
     # count as one kernel, read by variant
     assert disc_train.FWD_LAUNCHES.variants == {
         "registers": disc_train.FWD_KERNEL,
         "tile": disc_train.FWD_TILE_KERNEL}
     assert disc_train.BWD_LAUNCHES.variants == {
         "shared": disc_train.BWD_KERNEL,
+        "cluster": disc_train.BWD_CLUSTER_KERNEL,
         "global": disc_train.BWD_GLOBAL_KERNEL}
-    kept = [k.launches for k in disc_train.BWD_LAUNCHES.variants.values()]
+    variants = disc_train.BWD_LAUNCHES.variants.values()
+    kept = [k.launches for k in variants]
     try:
-        disc_train.BWD_KERNEL.launches = 2
-        disc_train.BWD_GLOBAL_KERNEL.launches = 3
-        assert disc_train.BWD_LAUNCHES.launches == 5
-        assert disc_train.BWD_LAUNCHES.by_variant() == {"shared": 2,
-                                                        "global": 3}
+        for k, n in zip(variants, (2, 7, 3)):
+            k.launches = n
+        assert disc_train.BWD_LAUNCHES.launches == 12
+        assert disc_train.BWD_LAUNCHES.by_variant() == {
+            "shared": 2, "cluster": 7, "global": 3}
+        disc_train.BWD_LAUNCHES.launches = 0
+        assert disc_train.BWD_LAUNCHES.by_variant() == {
+            "shared": 0, "cluster": 0, "global": 0}
     finally:
-        disc_train.BWD_KERNEL.launches, disc_train.BWD_GLOBAL_KERNEL.launches \
-            = kept
+        for k, n in zip(variants, kept):
+            k.launches = n
+
+
+@pytest.mark.parametrize("symbol,ints", [
+    ("disc_tile_smem_bytes", 6), ("disc_cluster_smem_bytes", 5),
+    ("disc_cluster_occupancy", 6)])
+def test_disc_host_entry_points_take_ints(symbol, ints):
+    # the shared-memory rules' C twins (chip_smoke.py's phase 1 holds them
+    # against tile_smem_bytes and cluster_smem_bytes) and the cluster
+    # variant's occupancy (disc_train.cluster_occupancy) take only ints,
+    # as their callers declare them
+    text = (_build.CSRC / "disc_train.cu").read_text()
+    m = re.search(r'extern "C" (?:long long|int) ' + symbol + r"\((.*?)\)",
+                  text, re.S)
+    assert m, symbol
+    params = [p.strip() for p in m.group(1).split(",")]
+    assert len(params) == ints
+    assert all(p.startswith("int ") for p in params)
 
 
 def test_disc_cuda_wrappers_reject_cpu_tensors():
@@ -352,7 +377,7 @@ def test_fits_gate_and_tiles():
             assert disc_train.v_fused_fits(p, cfg.v_layers, tied), name
             geom = disc_train.geom_of(p, cfg.v_layers, tied)
             assert disc_train.disc_route(geom) == ("registers", 0, "shared",
-                                                   tile)
+                                                   tile, 1)
     # by hand: 2 (L + 1) H + 2 H + 2 F + 1 rows of tile + 4 floats (tile
     # floats at 8 points), then the n_params accumulator
     geom = disc_train.DiscGeom(F=6, H=50, L=9, tied=True)
@@ -371,10 +396,10 @@ def test_fits_gate_and_tiles():
         disc_train.disc_route(disc_train.geom_of(big, 40, False))
     # past the old caps (F = 128, L = 32): its 141,441 weights fit no
     # shared accumulator and its staged copy no register #6 block, so the
-    # tile #6 at 16 points and #7's global accumulator at 8
+    # tile #6 at 16 points and, untied, #7's global accumulator at 8
     wide = disc_train.DiscGeom(F=128, H=64, L=32, tied=False)
     assert smem(wide, "shared", 4) > 232448
-    assert disc_train.disc_route(wide) == ("tile", 16, "global", 8)
+    assert disc_train.disc_route(wide) == ("tile", 16, "global", 8, 1)
 
 
 @pytest.mark.parametrize("source", ["disc_fwd", "disc_train"])

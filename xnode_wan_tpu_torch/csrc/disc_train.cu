@@ -5,6 +5,10 @@
 // package's ops/pallas/disc_train.py,
 //
 //   #7 _v_bwd_kernel -> disc_bwd_launch         (accumulator in shared memory)
+//                       disc_bwd_cluster_launch (the same on thread-block
+//                                                clusters, the accumulator
+//                                                split over their blocks:
+//                                                disc_train_cluster.cuh)
 //                       disc_bwd_global_launch  (accumulator in its block's
 //                                                row of `partial`)
 //   #6 _v_fwd_kernel -> disc_tile_fwd_launch    (v [M], gin [M, F]; the
@@ -20,8 +24,12 @@
 // Bound on an H100 SXM (67 TFLOP/s FP32 without tensor cores, 3.35 TB/s)
 // at the d=5 main path (F = 6, H = 50, L = 9, tied, M = 80,000): #7 about
 // 136,650 multiply-adds a point (21.9 GFLOP, 0.33 ms) against 4.2 MB: bound
-// by operations. No tensor cores: TF32 would break the f32 parity with the
-// plain version at about 1e-3.
+// by operations. The shared and global variants and the tile #6 use no
+// tensor cores: TF32 alone would break the f32 parity with the plain
+// version at about 1e-3. The cluster variant runs its sweep, both reverses
+// and its weight sums on them in 3xTF32 (a TF32 value and a rest for each
+// operand, three products: about FP32 accuracy), and its forward recompute
+// in FP32 FMAs (disc_train_cluster.cuh).
 //
 // Design: an MLP over a batch. A block takes a TILE of P points (32, 16, 8
 // or 4: the largest whose buffers fit) and works layer by layer on the tile
@@ -551,6 +559,8 @@ __global__ void disc_reduce_kernel(const float* __restrict__ partial,
   grad[i] = s;
 }
 
+#include "disc_train_cluster.cuh"
+
 // Host side
 
 // Bytes of shared memory a block of `variant` asks for (disc_train.py's
@@ -648,6 +658,97 @@ extern "C" int disc_tile_fwd_launch(int device, void* stream,
   disc_tile_fwd_kernel<<<(M + tile - 1) / tile, XD_BWD_THREADS, smem,
                          (cudaStream_t)stream>>>(params, feats, v, gin, M, F,
                                                  H, L, tied, tile);
+  return (int)cudaGetLastError();
+}
+
+// #7's cluster variant: clusters of `cluster` blocks (2, 4 or 8), each
+// block owning a slice of every layer's units and keeping its rows and
+// columns of the (tied) hidden layer (disc_train_cluster.cuh).
+using XkKernel = void (*)(const float*, int, const float*, const float*,
+                          const float*, float*, int, int, int, int, int, int);
+
+static XkKernel xk_kernel(int tile) {
+  switch (xk_nb(tile)) {
+    case 1: return disc_bwd_cluster_kernel<1>;
+    case 2: return disc_bwd_cluster_kernel<2>;
+    default: return disc_bwd_cluster_kernel<4>;
+  }
+}
+
+static cudaError_t xk_config(cudaLaunchConfig_t* cfg,
+                             cudaLaunchAttribute* attr, int device,
+                             void* stream, int n_params, int M, int F, int H,
+                             int L, int tied, int tile, int clusters,
+                             int cluster) {
+  if (M < 0 || !xd_caps_ok(F, H, L, tied, n_params) || tied != 1 ||
+      !xd_tile_ok(tile) || clusters < 1 || cluster < 2 ||
+      cluster > XC_MAX_CLUSTER || H < cluster)
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  const size_t smem = xk_smem_bytes(xk_layout(F, H, L, cluster, tile));
+  e = xd_allow_smem((const void*)xk_kernel(tile), smem);
+  if (e != cudaSuccess) return e;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(clusters * cluster);
+  cfg->blockDim = dim3(XK_THREADS);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = (cudaStream_t)stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+// Bytes of shared memory a block of the cluster variant asks for, for a
+// tied net (disc_train.py's cluster_smem_bytes is its twin).
+extern "C" long long disc_cluster_smem_bytes(int F, int H, int L, int cluster,
+                                             int tile) {
+  return (long long)xk_smem_bytes(xk_layout(F, H, L, cluster, tile));
+}
+
+// Clusters of this shape that the card runs at once (the persistent grid's
+// cap), or a negative CUDA error.
+extern "C" int disc_cluster_occupancy(int device, int F, int H, int L,
+                                      int tile, int cluster) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t e = xk_config(&cfg, attr, device, nullptr,
+                            xd_n_params(F, H, L, 1), 1, F, H, L, 1, tile, 1,
+                            cluster);
+  if (e != cudaSuccess) return -(int)e;
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, (const void*)xk_kernel(tile), &cfg);
+  return e != cudaSuccess ? -(int)e : n;
+}
+
+// The arguments of disc_bwd_launch but the grid, given as `clusters`
+// clusters of `cluster` blocks (partial holds clusters x n_params floats);
+// the net must be tied.
+extern "C" int disc_bwd_cluster_launch(int device, void* stream,
+                                       const float* params, int n_params,
+                                       const float* feats, const float* vb,
+                                       const float* gb, float* partial,
+                                       float* grad, int M, int F, int H,
+                                       int L, int tied, int tile,
+                                       int clusters, int cluster) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t e = xk_config(&cfg, attr, device, stream, n_params, M, F, H, L,
+                            tied, tile, clusters, cluster);
+  if (e != cudaSuccess) return (int)e;
+  if (M == 0)
+    return (int)cudaMemsetAsync(grad, 0, sizeof(float) * (size_t)n_params,
+                                (cudaStream_t)stream);
+  e = cudaLaunchKernelEx(&cfg, xk_kernel(tile), params, n_params, feats, vb,
+                         gb, partial, M, F, H, L, tile, cluster);
+  if (e != cudaSuccess) return (int)e;
+  disc_reduce_kernel<<<(n_params + 255) / 256, 256, 0,
+                       (cudaStream_t)stream>>>(partial, grad, clusters,
+                                               n_params);
   return (int)cudaGetLastError();
 }
 

@@ -26,13 +26,22 @@ vectors in shared memory (rows of :func:`bwd_stride` floats); each matrix
 product runs as register micro-tiles (2 outputs x 4 points a thread, one
 float4 of the tile and two weights per input), each weight cotangent as
 micro-tiles of owned entries, summed over the tile's points in order. Its
-accumulator sits in shared memory (``shared``), or, where the net's
-weights do not fit beside the tile, in the block's own row of ``partial``
-(``global``, ``disc_bwd_global_launch``: the same owners in the same order,
-so the two are bitwise equal at the same tile and grid); the partials are
-summed over blocks in a fixed order, so two launches are bitwise equal.
-``csrc/disc_train.cu`` is built once, with every width a runtime value
-(``libdisc_train.so``).
+accumulator sits in shared memory (``shared``); where the net's weights do
+not fit beside the tile, it is split over the blocks of a thread-block
+cluster (``cluster``, ``disc_bwd_cluster_launch``,
+``csrc/disc_train_cluster.cuh``: 8 blocks walk a tile together, each
+owning a slice of every layer's units (:func:`unit_slices`), the weight
+cotangents of those units' rows (:func:`cluster_owned`) and, for the whole
+launch, its rows and columns of the tied hidden layer; inputs exchanged
+through distributed shared memory, the sweep, the reverses and the weight
+sums on the tensor cores in 3xTF32, the forward recompute in FP32; a
+tied net only, at 16 points a tile or more); and elsewhere in the
+block's own row of
+``partial`` (``global``, ``disc_bwd_global_launch``: the same owners in
+the same order as ``shared``, so the two are bitwise equal at the same
+tile and grid). The partials are summed over blocks (clusters) in a fixed
+order, so two launches are bitwise equal. ``csrc/disc_train.cu`` is built
+once, with every width a runtime value (``libdisc_train.so``).
 
 :func:`disc_route` picks the variants and tiles from the shapes before any
 launch, for every net the JAX package runs through its Pallas kernels
@@ -67,8 +76,10 @@ import torch
 from xnode_wan_tpu_torch.models.discriminator import disc_features
 from xnode_wan_tpu_torch.ops.kernels._build import CudaKernel, KernelVariants
 from xnode_wan_tpu_torch.ops.kernels.steppers import (MAX_SMEM_BYTES,
-                                                      _pad4, bwd_blocks,
-                                                      require_cuda_f32)
+                                                      _ld_mod32, _pad4,
+                                                      _widest, bwd_blocks,
+                                                      require_cuda_f32,
+                                                      unit_slices)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # kernel #6 in registers: packed weights, count, feats, v, gin; M F H
@@ -85,16 +96,27 @@ BWD_KERNEL = CudaKernel("disc_train", "disc_bwd_launch",
 # #7 with its accumulator in partial (the same arguments)
 BWD_GLOBAL_KERNEL = CudaKernel("disc_train", "disc_bwd_global_launch",
                                BWD_KERNEL.argtypes)
+# #7 on thread-block clusters: the same arguments, the grid as a number of
+# clusters, then the blocks a cluster
+BWD_CLUSTER_KERNEL = CudaKernel("disc_train", "disc_bwd_cluster_launch",
+                                BWD_KERNEL.argtypes + [_I])
 # launches of #6 and of #7, each over its variants
 FWD_LAUNCHES = KernelVariants({"registers": FWD_KERNEL,
                                "tile": FWD_TILE_KERNEL})
 BWD_LAUNCHES = KernelVariants({"shared": BWD_KERNEL,
+                               "cluster": BWD_CLUSTER_KERNEL,
                                "global": BWD_GLOBAL_KERNEL})
 
 # Constants of csrc/disc_fwd.cu and disc_train.cu
 FWD_THREADS = 128     # XD_FWD_THREADS: a register #6 block, one point each
 BWD_THREADS = 256     # XD_BWD_THREADS: a block of #7 or of the tile #6
+CLUSTER_THREADS = 512  # XK_THREADS: a block of #7's cluster variant
 TILES = (32, 16, 8, 4)  # points a tile of #7 and the tile #6, largest first
+# #7's cluster variant: blocks a cluster (a block's share of every buffer
+# shrinks with it, so 8 fits wherever 4 or 2 do), and its smallest tile (at
+# 8 points it was about as slow as the global variant at 2v's net)
+CLUSTER = 8
+CLUSTER_MIN_TILE = 16
 # The register #6 holds a vector of H floats a thread: up to 64 wide, as
 # #1/#2's register kernels (wider spills)
 REG_MAX_WIDTH = 64
@@ -308,6 +330,75 @@ def tile_smem_bytes(geom: DiscGeom, variant: str, tile: int) -> int:
     return 4 * (acc + bwd_stride(tile) * tile_rows(geom, variant))
 
 
+def cluster_acc_floats(geom: DiscGeom, cluster: int) -> int:
+    """Floats of one block's accumulator in #7's cluster variant, for a
+    tied net (in ``xk_layout``): the rows of its units of the hidden layer
+    (at a stride of :func:`hidden_acc_stride` floats) with their biases,
+    then of ``W0`` (on 16 bytes), their biases and ``w_o`` (and ``b_o``),
+    at the widest slice's count so that every block has one layout
+    (:func:`cluster_owned`)."""
+    mH = _widest(geom.H, cluster)
+    return _pad4(_pad4(mH * hidden_acc_stride(geom.H) + mH)
+                 + mH * geom.F + mH + mH + 1)
+
+
+def hidden_acc_stride(H: int) -> int:
+    """The row stride of the hidden layer's rows in a block's accumulator
+    of #7's cluster variant (``ldh``): ``H`` rounded up to 8 mod 32, so that
+    the eight row groups of a tensor-core tile's lanes fall on distinct
+    banks of shared memory."""
+    return _ld_mod32(H, 8)
+
+
+def split_tiles(tile: int) -> int:
+    """The 8-point tiles a warp of #7's cluster variant takes a product's
+    16 units by (``xk_nb``): 1, 2 or 4."""
+    return 1 if tile <= 8 else 2 if tile <= 16 else 4
+
+
+def cluster_smem_bytes(geom: DiscGeom, cluster: int, tile: int) -> int:
+    """Shared memory of one block of #7's cluster variant on clusters of
+    ``cluster`` blocks at ``tile`` points, for a tied net, twin of
+    ``xk_layout`` in ``csrc/disc_train_cluster.cuh``: two exchange buffers
+    of a whole layer, the block's slice of ``A_0 .. A_L``, ``G_0 .. G_L``
+    and two cotangent buffers, the features, ``gb`` and ``vb`` of every
+    point (every row of the tile :func:`bwd_stride` floats), its
+    accumulator, the split products' partial tiles (128 floats a warp and
+    8-point tile, :func:`split_tiles`), and its rows and columns of the
+    hidden layer, each row at :func:`steppers._ld_mod32` floats."""
+    F, H, L = geom.F, geom.H, geom.L
+    S, mH = bwd_stride(tile), _widest(H, cluster)
+    floats = (2 * H + 2 * (L + 1) * mH + 2 * mH + 2 * F + 1) * S
+    floats += (cluster_acc_floats(geom, cluster)
+               + CLUSTER_THREADS // 32 * 128 * split_tiles(tile)
+               + 2 * mH * _ld_mod32(H, 4))
+    return 4 * floats
+
+
+def cluster_owned(geom: DiscGeom, cluster: int) -> List[List[tuple]]:
+    """For each block of a cluster of #7 (a tied net), the weight
+    cotangents it owns as runs ``(offset in its accumulator, offset in the
+    packed gradient, length)`` (``xk_write_row``): the rows of its units
+    (:func:`unit_slices`) of ``W0`` and of the hidden layer, their biases
+    and ``w_o``; ``b_o`` is block 0's. Every entry of the packed gradient
+    has one owner."""
+    F, H = geom.F, geom.H
+    mH, ldh = _widest(H, cluster), hidden_acc_stride(H)
+    a_w0 = _pad4(mH * ldh + mH)
+    a_b0, a_wo = a_w0 + mH * F, a_w0 + mH * F + mH
+    off, out_off = F * H + H, F * H + H + H * H + H
+    owned = []
+    for c, units in enumerate(unit_slices(H, cluster)):
+        lo, n = units.start, len(units)
+        runs = [(a_w0, lo * F, n * F), (a_b0, H * F + lo, n)]
+        runs += [(j * ldh, off + (lo + j) * H, H) for j in range(n)]
+        runs += [(mH * ldh, off + H * H + lo, n), (a_wo, out_off + lo, n)]
+        if c == 0:
+            runs.append((a_wo + mH, out_off + H, 1))
+        owned.append(runs)
+    return owned
+
+
 def jax_rows(geom: DiscGeom) -> int:
     """The rows a point takes in the JAX package's backward, which its
     ``v_fused_fits`` bounds by :data:`JAX_MAX_ROWS`."""
@@ -319,8 +410,9 @@ class DiscRoute(NamedTuple):
     (:func:`disc_route`)."""
     fwd: str        # #6: "registers" or "tile"
     fwd_tile: int   # points a block of the tile #6 (0 with registers)
-    bwd: str        # #7's accumulator: "shared" or "global"
-    bwd_tile: int   # points a tile of #7
+    bwd: str        # #7's accumulator: "shared", "cluster" or "global"
+    bwd_tile: int   # points a tile of #7 (a cluster's in "cluster")
+    cluster: int = 1  # blocks a thread-block cluster of #7 ("cluster")
 
 
 def _largest_tile(geom: DiscGeom, variant: str) -> int:
@@ -328,15 +420,37 @@ def _largest_tile(geom: DiscGeom, variant: str) -> int:
                  if tile_smem_bytes(geom, variant, t) <= MAX_SMEM_BYTES), 0)
 
 
+def cluster_tile(geom: DiscGeom, cluster: int) -> int:
+    """The largest of :data:`TILES` at which a block of #7's cluster
+    variant fits on clusters of ``cluster`` blocks (a tied net); 0 where
+    none does."""
+    return next((t for t in TILES
+                 if cluster_smem_bytes(geom, cluster, t) <= MAX_SMEM_BYTES),
+                0)
+
+
+def cluster_choice(geom: DiscGeom):
+    """``(tile, cluster)`` of #7's cluster variant for ``geom``, where the
+    route takes it: a tied net at least :data:`CLUSTER` wide whose block
+    fits at :data:`CLUSTER_MIN_TILE` points or more, on clusters of
+    :data:`CLUSTER` blocks at its :func:`cluster_tile`; None elsewhere."""
+    if not geom.tied or geom.H < CLUSTER:
+        return None
+    tile = cluster_tile(geom, CLUSTER)
+    return (tile, CLUSTER) if tile >= CLUSTER_MIN_TILE else None
+
+
 @functools.lru_cache(maxsize=None)
 def disc_route(geom: DiscGeom) -> DiscRoute:
     """The variants and tiles of #6 and #7 for ``geom``: the one place
     where the wrappers choose them, from the shapes, before any launch.
     #6 in registers up to :data:`REG_MAX_WIDTH` wide where its staged
-    weights fit a block, else on tiles; #7 with its accumulator in shared
-    memory where it fits beside a tile, else in ``partial``; each at the
-    largest of :data:`TILES` that fits. Raises, naming the bound, past the
-    JAX package's Pallas domain (its ``v_fused_fits``)."""
+    weights fit a block, else on tiles, at the largest of :data:`TILES`
+    that fits. #7, in this order: with its accumulator in shared memory
+    where it fits beside a tile (at the largest tile that fits); else on
+    thread-block clusters (:func:`cluster_choice`); else in ``partial``,
+    at the largest tile that fits. Raises, naming the bound, past the JAX
+    package's Pallas domain (its ``v_fused_fits``)."""
     F, H, L = geom.F, geom.H, geom.L
     if min(F, H, L) < 1 or jax_rows(geom) > JAX_MAX_ROWS:
         raise ValueError(
@@ -349,8 +463,13 @@ def disc_route(geom: DiscGeom) -> DiscRoute:
     else:
         fwd = ("tile", _largest_tile(geom, "tile"))
     shared = _largest_tile(geom, "shared")
-    bwd = ("shared", shared) if shared else ("global",
-                                             _largest_tile(geom, "global"))
+    clustered = cluster_choice(geom)
+    if shared:
+        bwd = ("shared", shared)
+    elif clustered:
+        bwd = ("cluster", *clustered)
+    else:
+        bwd = ("global", _largest_tile(geom, "global"))
     if not (fwd[0] == "registers" or fwd[1]) or not bwd[1]:
         raise ValueError(f"the discriminator {geom} does not fit kernels "
                          f"#6/#7 at {TILES[-1]} points a tile")
@@ -368,13 +487,38 @@ def v_fused_fits(params, v_layers: int, tied: bool) -> bool:
     return True
 
 
-def bwd_grid(geom: DiscGeom, variant: str, tile: int, M: int,
-             sms: int) -> int:
-    """#7's persistent grid (``steppers.bwd_blocks``), at most
-    :data:`PARTIAL_BYTES` of partial rows."""
-    blocks = bwd_blocks(M, tile, tile_smem_bytes(geom, variant, tile),
-                        BWD_THREADS, sms)
-    return max(1, min(blocks, PARTIAL_BYTES // (4 * geom.n_params)))
+def bwd_grid(geom: DiscGeom, variant: str, tile: int, M: int, sms: int,
+             cluster: int = 1, device: int = 0) -> int:
+    """#7's persistent grid, one partial row each, at most
+    :data:`PARTIAL_BYTES` of them: in blocks (``steppers.bwd_blocks``), or
+    for the cluster variant in clusters, as many as ``device`` runs at once
+    (:func:`cluster_occupancy`) and at most one a tile."""
+    if variant == "cluster":
+        rows = min(-(-M // tile), cluster_occupancy(device, geom, tile,
+                                                    cluster))
+    else:
+        rows = bwd_blocks(M, tile, tile_smem_bytes(geom, variant, tile),
+                          BWD_THREADS, sms)
+    return max(1, min(rows, PARTIAL_BYTES // (4 * geom.n_params)))
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_occupancy(device: int, geom: DiscGeom, tile: int,
+                      cluster: int) -> int:
+    """Clusters of #7's cluster variant at ``tile`` points on clusters of
+    ``cluster`` blocks that the card runs at once
+    (``disc_cluster_occupancy``); raises where it runs none."""
+    lib, _ = BWD_CLUSTER_KERNEL.load()
+    fn = lib.disc_cluster_occupancy
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_int
+    n = fn(device, geom.F, geom.H, geom.L, tile, cluster)
+    if n <= 0:
+        error = f" (CUDA error {-n})" if n < 0 else ""
+        raise RuntimeError(f"#7's cluster variant at {tile} points on "
+                           f"clusters of {cluster} for the net {geom}: the "
+                           f"card runs no such cluster{error}")
+    return n
 
 
 def _checks(packed, feats, geom: DiscGeom):
@@ -427,6 +571,22 @@ def _bwd(kernel, packed, feats, vb, gb, geom: DiscGeom, tile: int,
     return grad
 
 
+def _bwd_cluster(packed, feats, vb, gb, geom: DiscGeom, tile: int,
+                 clusters: int, cluster: int, dev) -> torch.Tensor:
+    """Launch #7's cluster variant at ``tile`` points a tile on
+    ``clusters`` clusters of ``cluster`` blocks, and its fixed-order
+    reduce."""
+    partial = torch.empty((clusters, geom.n_params), dtype=torch.float32,
+                          device=dev)
+    grad = torch.empty((geom.n_params,), dtype=torch.float32, device=dev)
+    BWD_CLUSTER_KERNEL(dev, packed.data_ptr(), packed.numel(),
+                       feats.data_ptr(), vb.data_ptr(), gb.data_ptr(),
+                       partial.data_ptr(), grad.data_ptr(), feats.shape[0],
+                       geom.F, geom.H, geom.L, int(geom.tied), tile, clusters,
+                       cluster)
+    return grad
+
+
 def v_dv_bwd_cuda(packed, feats, vb, gb, geom: DiscGeom) -> torch.Tensor:
     """Launch kernel #7, in the variant :func:`disc_route` picks, and its
     fixed-order reduce on PyTorch's current stream; same result as
@@ -437,9 +597,13 @@ def v_dv_bwd_cuda(packed, feats, vb, gb, geom: DiscGeom) -> torch.Tensor:
     if vb.shape != (M,) or gb.shape != (M, geom.F):
         raise ValueError("shape mismatch: vb [M], gb [M, F]")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = bwd_grid(geom, route.bwd, route.bwd_tile, M, sms)
+    rows = bwd_grid(geom, route.bwd, route.bwd_tile, M, sms, route.cluster,
+                    dev.index)
+    if route.bwd == "cluster":
+        return _bwd_cluster(packed, feats, vb, gb, geom, route.bwd_tile,
+                            rows, route.cluster, dev)
     kernel = BWD_GLOBAL_KERNEL if route.bwd == "global" else BWD_KERNEL
-    return _bwd(kernel, packed, feats, vb, gb, geom, route.bwd_tile, blocks,
+    return _bwd(kernel, packed, feats, vb, gb, geom, route.bwd_tile, rows,
                 dev)
 
 

@@ -142,6 +142,27 @@ def _pad4(n: int) -> int:
     return (n + 3) // 4 * 4
 
 
+def _ld_mod32(n: int, res: int) -> int:
+    """The smallest multiple of 4 at least ``n`` that is ``res`` mod 32
+    (``xc_ld``: a staged weight slice's row stride)."""
+    ld = _pad4(n)
+    while ld % 32 != res:
+        ld += 4
+    return ld
+
+
+def unit_slices(width: int, cluster: int) -> List[range]:
+    """The units of a layer ``width`` wide that each block of a cluster of
+    #5 or #7 owns (``xc_lo``): block ``c`` takes ``[width c // C, width (c
+    + 1) // C)``."""
+    return [range(width * c // cluster, width * (c + 1) // cluster)
+            for c in range(cluster)]
+
+
+def _widest(width: int, cluster: int) -> int:
+    return max(len(s) for s in unit_slices(width, cluster))
+
+
 def staged_floats(H: int, Hh: int, n_lift: int, n_field: int) -> int:
     """Floats of the weights' staged copy in shared memory, twin of
     ``xn_staged_floats`` in ``csrc/steppers.cuh``: each layer ``W [out,

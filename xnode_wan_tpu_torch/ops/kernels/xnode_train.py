@@ -69,13 +69,14 @@ import torch
 from xnode_wan_tpu_torch.ops.kernels._build import CudaKernel, KernelVariants
 from xnode_wan_tpu_torch.ops.kernels.steppers import (MAX_SMEM_BYTES,
                                                       METHOD_IDS, RK_TABLES,
-                                                      FlatNet, bwd_blocks,
+                                                      FlatNet, _ld_mod32,
+                                                      _widest, bwd_blocks,
                                                       field_fwd_tan,
                                                       interval_tan,
                                                       mlp_relu_fwd_tan,
                                                       register_fits,
                                                       require_cuda_f32,
-                                                      rk_step)
+                                                      rk_step, unit_slices)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
@@ -537,32 +538,11 @@ def _round4(n: int) -> int:
     return -(-n // 4) * 4
 
 
-def _ld_mod32(n: int, res: int) -> int:
-    """The smallest multiple of 4 at least ``n`` that is ``res`` mod 32
-    (``xc_ld``: a staged weight slice's row stride)."""
-    ld = _round4(n)
-    while ld % 32 != res:
-        ld += 4
-    return ld
-
-
 def _row_stride(R: int) -> int:
     """``R`` rounded up to a multiple of 4 whose quarter is odd
     (``xg_stride``)."""
     q = -(-R // 4)
     return 4 * (q if q % 2 else q + 1)
-
-
-def unit_slices(width: int, cluster: int) -> List[range]:
-    """The units of a layer ``width`` wide that each block of a cluster of
-    #5 owns (``xc_lo``): block ``c`` takes ``[width c // C, width (c + 1)
-    // C)``."""
-    return [range(width * c // cluster, width * (c + 1) // cluster)
-            for c in range(cluster)]
-
-
-def _widest(width: int, cluster: int) -> int:
-    return max(len(s) for s in unit_slices(width, cluster))
 
 
 def cluster_acc_floats(dims, cluster: int) -> int:

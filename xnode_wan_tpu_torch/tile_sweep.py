@@ -3,7 +3,8 @@
 
     python -m xnode_wan_tpu_torch.tile_sweep [--configs cube_pde ...]
         [--set key=value ...] [--tiles 2 4 8 16] [--threads 64 128 256]
-        [--rule [--cluster C ...] | --same-tile | --adversary] [--f64]
+        [--rule [--cluster C ...] | --same-tile
+         | --adversary [--cluster C ... | --ablate]] [--f64]
         [--out example_run/tile_sweep.json]
 
 For each config (``configs/<name>.yaml``; random weights from a seed, one
@@ -48,11 +49,22 @@ global, global, shared, and checks that the two are bitwise equal.
 
 ``--adversary`` times the adversary kernels #6 and #7 instead, through
 their wrappers (``v_dv_fwd_cuda``, ``v_dv_bwd_cuda``: the variant and
-tile they choose), at each config's discriminator (random weights from
-seed 0, ``tied_v`` and ``v_fourier_features`` from the config) on
-``N_r * N_t`` random points, each held against its plain version; like
-``--rule``, a copy of this file in an older checkout times that
-checkout's kernels.
+tile they choose), at each config's discriminator with ``--set`` applied
+(random weights from seed 0, ``tied_v`` and ``v_fourier_features`` from
+the config) on ``N_r * N_t`` random points, each held against its plain
+version, #7 twice for bitwise equality; like ``--rule``, a copy of this
+file in an older checkout times that checkout's kernels (``--set
+v_hidden_dim=256`` is 2v's adversary, ``v_hidden_dim=558`` the widest the
+JAX package runs at the shipped depth). With ``--cluster C ...`` it
+times #7's rule once for each C, its cluster variant held to clusters of
+C blocks (``disc_train.CLUSTER``), and the cluster variant through its
+launcher at the largest tile that fits C blocks
+(``disc_train.cluster_tile``, a tied net) where the route does not take
+it. With ``--ablate`` it times #7's cluster variant at the route's shape
+in builds of ``disc_train.cu`` that each leave one part out (timing only:
+their gradients are wrong): the pushes into the peers, the FP32 forward,
+the products, the weight sums, all arithmetic, and all but the barriers
+and loops (:data:`ABLATIONS`), each built into ``_build/ablate/<part>``.
 """
 
 from __future__ import annotations
@@ -312,13 +324,15 @@ def sweep_config(name: str, tiles, threads, reps: int, card: str,
     return rows
 
 
-def adversary_config(name: str, reps: int, card: str) -> dict:
+def adversary_config(name: str, reps: int, card: str, sets=None,
+                     cluster=None) -> dict:
     from xnode_wan_tpu_torch import init_discriminator, load_params
     from xnode_wan_tpu_torch.models.discriminator import disc_features
     from xnode_wan_tpu_torch.ops.kernels import disc_train as dt
 
     dev = torch.device("cuda", 0)
     cfg = load_params(os.path.join(ROOT, "configs", f"{name}.yaml"))
+    cfg = cfg.replace(**sets) if sets else cfg
     gen = torch.Generator(device=dev).manual_seed(0)
     L, tied = cfg.v_layers, cfg.tied_v
     vp = init_discriminator(cfg.dim, cfg.v_hidden_dim, L, tied,
@@ -331,22 +345,145 @@ def adversary_config(name: str, reps: int, card: str) -> dict:
     feats = disc_features(pts, cfg.v_fourier_features).contiguous()
     vb = torch.randn((M,), generator=gen, device=dev)
     gb = torch.randn((M, geom.F), generator=gen, device=dev)
-    row = {"config": name, "geom": list(geom), "points": M, "card": card}
-    with torch.no_grad():
-        for kernel, run, plain in (
-                ("disc_fwd", lambda: dt.v_dv_fwd_cuda(packed, feats, geom),
-                 lambda: dt.v_dv_fwd_plain(packed, feats, geom)),
-                ("disc_bwd",
-                 lambda: dt.v_dv_bwd_cuda(packed, feats, vb, gb, geom),
-                 lambda: dt.v_dv_bwd_plain(packed, feats, vb, gb, geom))):
-            got, want = run(), plain()
-            if kernel == "disc_fwd":
-                err = max(_scaled_err(g, w) for g, w in zip(got, want))
-            else:
-                err = _scaled_err(got, want)
-            row[kernel] = {"ms": _time_ms(run, reps), "max_rel_err": err}
+    row = {"config": name, "set": sets, "geom": list(geom), "points": M,
+           "card": card, "route": repr(dt.disc_route(geom))}
+    cases = [("disc_fwd", lambda: dt.v_dv_fwd_cuda(packed, feats, geom),
+              lambda: dt.v_dv_fwd_plain(packed, feats, geom)),
+             ("disc_bwd",
+              lambda: dt.v_dv_bwd_cuda(packed, feats, vb, gb, geom),
+              lambda: dt.v_dv_bwd_plain(packed, feats, vb, gb, geom))]
+    if cluster:
+        # the rule held to clusters of C blocks, and the cluster variant
+        # through its launcher at the tile it gives them where the route
+        # does not take it (below CLUSTER_MIN_TILE points)
+        kept, dt.CLUSTER = dt.CLUSTER, cluster
+        dt.disc_route.cache_clear()
+        route = dt.disc_route(geom)
+        row.update(cluster=cluster, route=repr(route))
+        cases = cases[1:]
+        tile = dt.cluster_tile(geom, cluster) if geom.tied else 0
+        if route.bwd != "cluster" and tile and cluster <= geom.H:
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            rows = dt.bwd_grid(geom, "cluster", tile, M, sms, cluster,
+                               dev.index)
+            cases.append((
+                f"disc_bwd cluster tile={tile}",
+                lambda: dt._bwd_cluster(packed, feats, vb, gb, geom, tile,
+                                        rows, cluster, dev), cases[0][2]))
+    try:
+        with torch.no_grad():
+            for kernel, run, plain in cases:
+                got, want = run(), plain()
+                if kernel == "disc_fwd":
+                    err = max(_scaled_err(g, w) for g, w in zip(got, want))
+                    bitwise = None
+                else:
+                    err = _scaled_err(got, want)
+                    bitwise = bool(torch.equal(got, run()))
+                row[kernel] = {"ms": _time_ms(run, reps),
+                               "max_rel_err": err, "bitwise_repeat": bitwise}
+    finally:
+        if cluster:
+            dt.CLUSTER = kept
+            dt.disc_route.cache_clear()
     print(json.dumps(row), flush=True)
     return row
+
+
+# The parts of #7's cluster variant an ablation build leaves out: (text in
+# csrc/disc_train_cluster.cuh, its replacement) pairs
+_CUT = {
+    "pushes": [("t < items * C; t += blockDim.x)", "t < 0; t += blockDim.x)")],
+    "forward": [("for (int k = 0; k < K; ++k) {", "for (int k = 0; k < 0; ++k) {")],
+    "products": [("xk_tiles<NB>(d, nk,", "if (0) xk_tiles<NB>(d, nk,")],
+    "weight sums": [("      xk_outer<NB>(", "      if (0) xk_outer<NB>("),
+                    ("    xk_outer<NB>(", "    if (0) xk_outer<NB>(")],
+}
+ABLATIONS = dict(_CUT, **{
+    "arithmetic": _CUT["forward"] + _CUT["products"] + _CUT["weight sums"],
+    "all but barriers": (_CUT["forward"] + _CUT["products"]
+                         + _CUT["weight sums"] + _CUT["pushes"])})
+
+
+def cluster_ablations(name: str, sets: dict, reps: int, card: str) -> list:
+    """#7's cluster variant at the route's shape (``--set`` applied to the
+    config's discriminator, random weights seed 0, ``N_r * N_t`` points) in
+    the tree's build and in one build per entry of :data:`ABLATIONS`, all
+    built at once, each timed through its own library."""
+    import ctypes
+    import shutil
+
+    from xnode_wan_tpu_torch import init_discriminator, load_params
+    from xnode_wan_tpu_torch.models.discriminator import disc_features
+    from xnode_wan_tpu_torch.ops.kernels import _build
+    from xnode_wan_tpu_torch.ops.kernels import disc_train as dt
+
+    root = _build.BUILD_ROOT / "ablate"
+    procs = {}
+    for part, cuts in {"none": [], **ABLATIONS}.items():
+        d = root / part.replace(" ", "_")
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(_build.CSRC, d)
+        src = d / "disc_train_cluster.cuh"
+        text = src.read_text()
+        for old, new in cuts:
+            if old not in text:
+                raise ValueError(f"ablation {part}: {old!r} is not in the "
+                                 "source")
+            text = text.replace(old, new)
+        src.write_text(text)
+        procs[part] = (d, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"),
+             str(d / "disc_train.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    dev = torch.device("cuda", 0)
+    cfg = load_params(os.path.join(ROOT, "configs", f"{name}.yaml"))
+    cfg = cfg.replace(**sets) if sets else cfg
+    gen = torch.Generator(device=dev).manual_seed(0)
+    L = cfg.v_layers
+    vp = init_discriminator(cfg.dim, cfg.v_hidden_dim, L, True,
+                            cfg.v_fourier_features, generator=gen, device=dev)
+    geom = dt.geom_of(vp, L, True)
+    packed = dt.live_packed_disc(vp, L, True).detach()
+    route = dt.disc_route(geom)
+    if route.bwd != "cluster":
+        raise ValueError(f"{geom} routes #7 to {route.bwd}: no cluster "
+                         "variant to ablate")
+    M = cfg.N_r * cfg.N_t
+    pts = torch.rand((M, cfg.dim + 1), generator=gen, device=dev)
+    pts[:, 1:] = 2.0 * pts[:, 1:] - 1.0
+    feats = disc_features(pts, cfg.v_fourier_features).contiguous()
+    vb = torch.randn((M,), generator=gen, device=dev)
+    gb = torch.randn((M, geom.F), generator=gen, device=dev)
+    grad = torch.empty((geom.n_params,), device=dev)
+    row = {"config": name, "set": sets, "geom": list(geom), "points": M,
+           "card": card, "route": repr(route)}
+    for part, (d, proc) in procs.items():
+        out = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"ablation {part}: nvcc failed\n{out}")
+        lib = ctypes.CDLL(str(d / "lib.so"))
+        launch, occ = lib.disc_bwd_cluster_launch, lib.disc_cluster_occupancy
+        launch.argtypes = ([ctypes.c_int, ctypes.c_void_p]
+                           + dt.BWD_CLUSTER_KERNEL.argtypes)
+        occ.argtypes = [ctypes.c_int] * 6
+        clusters = min(-(-M // route.bwd_tile),
+                       occ(0, geom.F, geom.H, L, route.bwd_tile,
+                           route.cluster))
+        partial = torch.empty((clusters, geom.n_params), device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def run():
+            err = launch(0, stream, packed.data_ptr(), geom.n_params,
+                         feats.data_ptr(), vb.data_ptr(), gb.data_ptr(),
+                         partial.data_ptr(), grad.data_ptr(), M, geom.F,
+                         geom.H, L, 1, route.bwd_tile, clusters,
+                         route.cluster)
+            if err:
+                raise RuntimeError(f"ablation {part}: CUDA error {err}")
+        row[f"without {part}"] = {"ms": _time_ms(run, reps)}
+    print(json.dumps(row), flush=True)
+    return [row]
 
 
 def main(argv=None) -> int:
@@ -363,14 +500,18 @@ def main(argv=None) -> int:
     ap.add_argument("--rule", action="store_true",
                     help="time the wrappers' own tile choice only")
     ap.add_argument("--cluster", nargs="+", type=int, default=None,
-                    help="with --rule: time #5's cluster variant on "
-                         "clusters of each of these many blocks")
+                    help="with --rule (#5) or --adversary (#7): time the "
+                         "cluster variant on clusters of each of these "
+                         "many blocks")
     ap.add_argument("--same-tile", action="store_true",
                     help="time #5's shared accumulator against its "
                          "global one at the same tile and grid")
     ap.add_argument("--adversary", action="store_true",
                     help="time kernels #6 and #7 at each config's "
                          "discriminator instead")
+    ap.add_argument("--ablate", action="store_true",
+                    help="with --adversary: time #7's cluster variant in "
+                         "builds that each leave one part out")
     ap.add_argument("--f64", action="store_true",
                     help="also hold the plain f32 version and the kernels "
                          "against the plain version in f64")
@@ -389,9 +530,12 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(card)
-    if args.adversary:
-        rows = [adversary_config(name, args.reps, card)
-                for name in args.configs]
+    if args.adversary and args.ablate:
+        rows = [r for name in args.configs
+                for r in cluster_ablations(name, sets, args.reps, card)]
+    elif args.adversary:
+        rows = [adversary_config(name, args.reps, card, sets, c)
+                for name in args.configs for c in args.cluster or [None]]
     else:
         _build.build([("xnode_grad", None)])
         log = _build.build_dir() / "xnode_grad.log"
