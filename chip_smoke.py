@@ -17,7 +17,8 @@ which raises on failure:
    ask for, ``disc_train.staged_floats`` against the register #6's (the
    d=5 and the d=20 adversary, each tied and untied) and
    ``disc_train.tile_smem_bytes`` against the bytes #7's shared and global
-   variants and the tile #6 ask for at every tile, and
+   variants ask for at every tile and the tile #6 at each of its tiles
+   (at its weight slice), and
    ``disc_train.cluster_smem_bytes`` against #7's cluster variant's at
    clusters of 2, 4 and 8 blocks and every tile (the tied nets) (those
    adversaries, 2v's, 2w's and phase 3's; the route, shared bytes and
@@ -27,7 +28,11 @@ which raises on failure:
 2. the main paths at the d=5 width of ``configs/cube_pde.yaml``, then
    on the moving domains and at d = 20, each with every kernel launch
    counter zeroed just before and read just after (every solver writes
-   into a temporary directory):
+   into a temporary directory). Phases h, i and m's solver runs share a
+   process of their own, and r's ranks and ``nccl`` world theirs: all
+   start before h and run beside j-q (the host paces every training loop
+   here while the card idles; each process counts its own launches), and
+   their output is printed after r:
 
    a. serving and scoring the reference trainer's checkpoint: 65,536
       points through ``evaluate_points`` and 4,000 fresh interior paths
@@ -251,10 +256,12 @@ which raises on failure:
    2v's and 2w's trained adversaries, JAX's widest at the shipped depth
    (558 wide, tied), an untied 128-wide one and a 50-wide one 40 deep,
    untied and tied, and 2v's 256-wide tied shape (#7's cluster variant)
-   (random weights), #7 twice each, bitwise; the tile #6 at the cube's
-   trained
-   adversary; #7's global accumulator bitwise equal to the shared one at
-   the cube's trained adversary at the same tile and grid;
+   (random weights), #6 and #7 twice each, bitwise (the tile #6 at 2v's
+   trained net and at the 256-wide, 558-wide, 128 untied and 40-deep
+   untied random ones); the tile #6 through its launcher at the cube's
+   shape (random weights, 128 points a tile) at the same three sizes by
+   the same rule, twice, bitwise; #7's global accumulator bitwise equal to
+   the shared one at the cube's shape at the same tile and grid;
 4. CUDA-event times (the kernel's median of 20 after warm-up, the plain
    version's of 5) of each kernel and its plain version at the main
    path's shapes, beside the bound the card's published peaks put on the
@@ -268,8 +275,9 @@ which raises on failure:
    2v's and 2w's trained adversaries and at the 558-wide one, #7's global
    accumulator at 2v's through its launcher beside its cluster variant
    (whose bound takes the FP32 forward recompute at the FP32 rate and the
-   rest, in 3xTF32, at the TF32 rate over three), the tile #6 and #7's
-   global accumulator at the cube's trained one), with its bound and its
+   rest, in 3xTF32, at the TF32 rate over three; the tile #6's likewise
+   its FP32 forward and its 3xTF32 sweep and gin), the tile #6 and #7's
+   global accumulator at the cube's shape), with its bound and its
    launches there;
 5. CUDA-event times (median of 10; an outer step's, of ``STEP_REPS``)
    of the two serving entry points and
@@ -633,7 +641,10 @@ def disc_work(geom, M):
     bwd = fwd + sweep + 3 * F * H + 4 * L * H * H + 2 * H
     n_w = 4.0 * geom.n_params
     io = 4.0 * M * (2 * F + 1) + 2 * n_w
-    return {"disc_fwd": (2.0 * M * (fwd + sweep), 4.0 * M * (2 * F + 1) + n_w),
+    fwd_io = 4.0 * M * (2 * F + 1) + n_w
+    return {"disc_fwd": (2.0 * M * (fwd + sweep), fwd_io),
+            # the tile #6: its forward in FP32, its sweep and gin in 3xTF32
+            "disc_fwd tile": (2.0 * M * fwd, fwd_io, 2.0 * M * sweep),
             "disc_bwd": (2.0 * M * bwd, io),
             # #7's cluster variant: the forward recompute in FP32, the
             # sweep, both reverses and the weight sums in 3xTF32
@@ -1250,20 +1261,16 @@ def dopri5_cube(kernels, work_root: str, cli_main, pts, card: str) -> dict:
             "solver": solver, "wall_cli_s": t_cli, "serve_ms": 1e3 * t_serve}
 
 
-def other_solvers(kernels, work_root: str, dop, card: str) -> dict:
-    """Phase 2m. First, on the card, ``integrate_adaptive`` for each
+def adaptive_checks(dop) -> dict:
+    """Phase 2m's first part: on the card, ``integrate_adaptive`` for each
     adaptive method with 2l's trained field on a fresh interior batch of
     the cube (the 2l shapes): f32 against the same call in f64 within
     ``F64_SCALED_TOL`` of the tensor's largest value, and with ``remat``
     (gradients on, so each interval runs under its checkpoint) bitwise
-    equal to without. Then the JAX on-chip test's size (``SOLVER_CFG``):
-    ``adams`` for ``ADAMS_ITERS`` iterations with its final rel-L2 under
-    ``ADAMS_LIMIT``, and every other solver ``OTHER_ITERS`` iterations:
-    finite, no kernel launched."""
+    equal to without. Returns the gaps by method."""
     import copy
 
-    from xnode_wan_tpu_torch import (NODEWANSolver, SolverConfig,
-                                     integrate_adaptive, load_problem)
+    from xnode_wan_tpu_torch import integrate_adaptive
     from xnode_wan_tpu_torch.models.xnode import (field_apply, field_weights,
                                                   lift_apply, path_seed_fn,
                                                   spatial_features)
@@ -1312,6 +1319,17 @@ def other_solvers(kernels, work_root: str, dop, card: str) -> dict:
         if not torch.equal(got, got_remat):
             raise AssertionError(f"integrate_adaptive {method}: remat "
                                  "changed the forward")
+    return f64_gap
+
+
+def solver_runs(kernels, work_root: str, card: str) -> dict:
+    """Phase 2m's second part, at the JAX on-chip test's size
+    (``SOLVER_CFG``): ``adams`` for ``ADAMS_ITERS`` iterations with its
+    final rel-L2 under ``ADAMS_LIMIT``, and every other solver
+    ``OTHER_ITERS`` iterations: finite, no kernel launched. Returns each
+    run's figures and the adams step (the median of its last three
+    iterations, by the host clock its log keeps)."""
+    from xnode_wan_tpu_torch import NODEWANSolver, SolverConfig, load_problem
 
     base = SolverConfig(**SOLVER_CFG)
     sproblem = load_problem("Ex4_1_funcs", dim=base.dim)
@@ -1330,7 +1348,11 @@ def other_solvers(kernels, work_root: str, dop, card: str) -> dict:
         wall = time.perf_counter() - t
         launches = read_launches(kernels)
         runs[name] = {"iterations": s.state.step, "rel_err": m["rel_err"],
-                      "loss_u": m["loss_u"], "wall_s": wall, "solver": s}
+                      "loss_u": m["loss_u"], "wall_s": wall}
+        if name == "adams":
+            stamps = s.logger.times[-4:]
+            adams_step_ms = 1e3 * statistics.median(
+                b - a for a, b in zip(stamps, stamps[1:]))
         print(f"  {name} at d={base.dim}, N_r={base.N_r}: {s.state.step} "
               f"iterations in {wall:.3f} s ({card}), final rel-L2 "
               f"{m['rel_err']:.6f}, loss_u {m['loss_u']:.6g}; launches "
@@ -1342,7 +1364,7 @@ def other_solvers(kernels, work_root: str, dop, card: str) -> dict:
     if not runs["adams"]["rel_err"] < ADAMS_LIMIT:
         raise AssertionError(f"adams: final rel-L2 {runs['adams']['rel_err']}"
                              f" >= {ADAMS_LIMIT}")
-    return {"f64_gap": f64_gap, "runs": runs}
+    return {"runs": runs, "adams_step_ms": adams_step_ms}
 
 
 def adjoint_and_remat(dev, card: str) -> dict:
@@ -1435,8 +1457,8 @@ def integrator_steps(solver, dop, others, work_root: str, card: str):
     """Phase 5's integrator figures: one dopri5 outer step (2l's solver,
     one run) with its u side and boundary scan timed alone (one run
     each), times their calls a step; one adams step at d=2 (the median of
-    2m's last three iterations, by the host clock its log keeps);
-    the cube's midpoint step with ``remat_scan`` on (2b's ``solver``) and
+    2m's last three iterations, by the host clock its log keeps, taken by
+    :func:`solver_runs`); the cube's midpoint step with ``remat_scan`` on (2b's ``solver``) and
     off (a solver with the same weights), in turns on, off, off, on,
     medians of ``STEP_REPS``."""
     from xnode_wan_tpu_torch import NODEWANSolver, apply_xnode
@@ -1466,12 +1488,7 @@ def integrator_steps(solver, dop, others, work_root: str, card: str):
             warmup=0)
     dop_parts["boundary scan forward and backward"] = dcfg.n1 * time_ms(
         lambda: torch.autograd.grad(dop_bdry(), dleaves), reps=1, warmup=0)
-    # the adams step: the median of 2m's last three iterations, from the
-    # times its run logged after each iteration's metrics reached the host
-    asolver = others["runs"]["adams"]["solver"]
-    stamps = asolver.logger.times[-4:]
-    adams_step_ms = 1e3 * statistics.median(
-        b - a for a, b in zip(stamps, stamps[1:]))
+    adams_step_ms = others["adams_step_ms"]
     rsolver = NODEWANSolver(cfg.replace(remat_scan=False), problem,
                             work_dir=os.path.join(work_root, "5_remat"))
     rsolver.state.u_params.load_state_dict(solver.state.u_params.state_dict())
@@ -1486,8 +1503,9 @@ def integrator_steps(solver, dop, others, work_root: str, card: str):
           "parts timed alone times their calls a step:")
     for name, ms in dop_parts.items():
         print(f"  {name}: {ms:.4f} ms, {ms / dop_step_ms:.1%}")
-    print(f"adams outer step at d=2, N_r={asolver.cfg.N_r} ({card}), median "
-          f"of 2m's last 3 iterations: {adams_step_ms:.4f} ms")
+    print(f"adams outer step at d=2, N_r={SOLVER_CFG['N_r']} ({card}), "
+          f"median of 2m's last 3 iterations (beside phases 2j-2q, "
+          f"another process): {adams_step_ms:.4f} ms")
     print(f"cube midpoint outer step ({card}), remat_scan on, off, off, on, "
           f"medians of {STEP_REPS} {remat_runs}: on {remat_on_ms:.4f} ms, off "
           f"{remat_off_ms:.4f} ms")
@@ -1777,6 +1795,7 @@ def mg_rank(rank: int, world: int, port: int, out_dir: str) -> None:
                                      load_reference_state_dict)
     from xnode_wan_tpu_torch.parallel.mesh import init_distributed
 
+    t_rank = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = init_distributed("cuda:0", backend="gloo",
@@ -1839,8 +1858,62 @@ def mg_rank(rank: int, world: int, port: int, out_dir: str) -> None:
                                                fused_v=True)
         step("tangent", dcfg, load_problem("Ex4_3_consistent", dcfg.dim))
     finally:
+        res["wall_s"] = time.perf_counter() - t_rank
         torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
         dist.destroy_process_group()
+
+
+def side_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    """Phases 2h, 2i and 2m's solver runs (spawned, one process, started
+    before 2h): each trains from its own seed and nothing later reads its
+    weights, so they run beside 2j-2q, whose loops, like theirs, the host
+    paces while the card idles. Prints into ``side.log`` and saves the
+    figures into ``side.pt`` in ``out_dir`` (:func:`join_side`)."""
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = kernel_table()
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    res = {}
+
+    def keep(name, out, *launch_keys):
+        res[name] = {k: v for k, v in out.items()
+                     if k != "solver" and k not in launch_keys}
+        for k in launch_keys:
+            res[name][k] = (dict(out[k]), out[k].variants)
+
+    with open(os.path.join(out_dir, "side.log"), "w") as log, \
+            contextlib.redirect_stdout(log):
+        t = time.perf_counter()
+        keep("qmc", qmc_cube(kernels, os.path.join(out_dir, "2h"), dev,
+                             card), "launches")
+        t = phase_done("2h (beside 2j-2q)", t)
+        keep("ens", ensemble_d20(kernels, os.path.join(out_dir, "2i"), dev,
+                                 card), "launches", "serve_launches")
+        t = phase_done("2i (beside 2j-2q)", t)
+        print("  the other solvers (2m):")
+        res["solvers"] = solver_runs(kernels, out_dir, card)
+        phase_done("2m's solver runs (beside 2j-2q)", t)
+    torch.save(res, os.path.join(out_dir, "side.pt"))
+
+
+def join_side(ctx, out_dir: str) -> dict:
+    """Wait for :func:`side_rank`, print its log, and return its figures
+    with each phase's launches as :class:`Launches`."""
+    try:
+        join_spawn(ctx)
+    finally:
+        path = os.path.join(out_dir, "side.log")
+        if os.path.exists(path):
+            with open(path) as fh:
+                print(fh.read(), end="")
+    res = torch.load(os.path.join(out_dir, "side.pt"), weights_only=False)
+    for out in (res["qmc"], res["ens"]):
+        for k in ("launches", "serve_launches"):
+            if k in out:
+                out[k] = Launches(*out[k])
+    return res
 
 
 def nccl_rank(rank: int, world: int, port: int, out_dir: str) -> None:
@@ -1893,15 +1966,46 @@ def kernel_table() -> dict:
             "disc_bwd": disc_train.BWD_LAUNCHES}
 
 
-def spawn(fn, nprocs: int, out_dir: str) -> None:
-    """``fn(rank, nprocs, port, out_dir)`` in ``nprocs`` fresh processes;
-    raises if any rank fails."""
+# the process groups started by start_spawn and not yet joined; the script
+# ends them on its way out (stop_background)
+BACKGROUND = []
+
+
+def start_spawn(fn, nprocs: int, out_dir: str):
+    """``fn(rank, nprocs, port, out_dir)`` in ``nprocs`` fresh processes,
+    started and left running; :func:`join_spawn` waits for them."""
     import socket
     import torch.multiprocessing as mp
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
-    mp.spawn(fn, args=(nprocs, port, out_dir), nprocs=nprocs, join=True)
+    ctx = mp.spawn(fn, args=(nprocs, port, out_dir), nprocs=nprocs,
+                   join=False)
+    BACKGROUND.append(ctx)
+    return ctx
+
+
+def join_spawn(ctx) -> None:
+    """Wait for the processes of :func:`start_spawn`; raises if any
+    failed."""
+    while not ctx.join():
+        pass
+    BACKGROUND.remove(ctx)
+
+
+def stop_background() -> None:
+    """End every process of :func:`start_spawn` still running."""
+    for ctx in BACKGROUND:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+        for p in ctx.processes:
+            p.join(10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    BACKGROUND.clear()
+
 
 
 def close_f32(label: str, got, want, rtol: float) -> float:
@@ -1916,7 +2020,7 @@ def close_f32(label: str, got, want, rtol: float) -> float:
     return worst
 
 
-def multi_gpu(kernels, work_root: str, b_hist, card: str) -> dict:
+def multi_gpu(kernels, out: str, started, b_hist, card: str) -> dict:
     """Phase 2r: two ranks on the one card over ``gloo`` (passed
     explicitly: NCCL refuses two ranks on one device), the cube at full
     width, 2,000 interior and 2,000 boundary rows a rank: one outer step
@@ -1929,16 +2033,18 @@ def multi_gpu(kernels, work_root: str, b_hist, card: str) -> dict:
     a rank, through #2-#5) and a ``fused_v`` ``tangent_shards: 2`` step
     at d = 20 (the u side plain, #2 and #6/#7 kept), each with its exact
     launches a rank, against its fused single-process twin and that
-    twin's own exact launches; then ``nccl`` on a world of every card."""
+    twin's own exact launches; then ``nccl`` on a world of every card.
+    The ranks (:func:`mg_rank`) and the ``nccl`` world (:func:`nccl_rank`)
+    were started into ``out`` before phase 2h (``started``: their
+    :func:`start_spawn` groups) and ran beside 2h-2q; this waits for them
+    and holds what they saved."""
     from xnode_wan_tpu_torch import NODEWANSolver, load_params, load_problem
 
-    out = os.path.join(work_root, "2r")
-    os.makedirs(out, exist_ok=True)
-    t = time.perf_counter()
-    spawn(mg_rank, 2, out)
-    t_ranks = time.perf_counter() - t
+    ranks_ctx, nccl_ctx = started
+    join_spawn(ranks_ctx)
     ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
              for r in range(2)]
+    t_ranks = ranks[0]["wall_s"]
     cfg = load_params(CONFIG).replace(seed=SEED)
     problem = load_problem("Ex4_1_funcs", dim=cfg.dim)
 
@@ -2010,14 +2116,14 @@ def multi_gpu(kernels, work_root: str, b_hist, card: str) -> dict:
           f"launches a rank {ranks[0]['until']['launches']}; served "
           f"{SERVE_POINTS} points on the mesh in "
           f"{ranks[0]['serve']['ms']:.3f} ms (first call), bitwise equal to "
-          f"one process: {ranks[0]['serve']['bitwise']}; ranks took "
-          f"{t_ranks:.3f} s")
+          f"one process: {ranks[0]['serve']['bitwise']}; rank 0 took "
+          f"{t_ranks:.3f} s beside phases 2h-2q")
     if not until["rel_err_final"] < TRAIN_TOL:
         raise AssertionError(f"the two-rank cube stopped at rel-L2 "
                              f"{until['rel_err_final']}")
 
     n_cards = torch.cuda.device_count()
-    spawn(nccl_rank, n_cards, out)
+    join_spawn(nccl_ctx)
     nccl = torch.load(os.path.join(out, "nccl0.pt"), weights_only=False)
     m, s, _ = twin(cfg)
     bitwise = all(torch.equal(a, b) for a, b in
@@ -3061,8 +3167,8 @@ def check_adversary(label: str, geom, packed, feats, gen) -> dict:
     and each weight-gradient tensor of #7 (seeded random cotangents)
     within ``SCALED_RTOL`` of its largest value on the points at least
     ``KINK_MARGIN`` from a relu kink (every point where none comes
-    nearer), and where some do, every point at ``KINK_RTOL``; #7 twice on
-    every point, bitwise. Returns the largest errors."""
+    nearer), and where some do, every point at ``KINK_RTOL``; #6 and #7
+    twice on every point, bitwise. Returns the largest errors."""
     from xnode_wan_tpu_torch.ops.kernels import disc_train
 
     M = feats.shape[0]
@@ -3099,12 +3205,50 @@ def check_adversary(label: str, geom, packed, feats, gen) -> dict:
         against_plain(f"{label}, {int(keep.sum())} points", keep,
                       SCALED_RTOL)
         grad = against_plain(f"{label}, all points", None, KINK_RTOL)
+    fwd_twice = [disc_train.v_dv_fwd_cuda(packed, feats, geom)
+                 for _ in range(2)]
+    if not all(torch.equal(a, b) for a, b in zip(*fwd_twice)):
+        raise AssertionError(f"disc_fwd {route.fwd} {label}: two launches "
+                             "differ")
+    print(f"  disc_fwd {route.fwd} {label}: two launches bitwise equal")
     if not torch.equal(grad, disc_train.v_dv_bwd_cuda(packed, feats, vb, gb,
                                                       geom)):
         raise AssertionError(f"disc_bwd {variant} {label}: two launches "
                              "differ")
     print(f"  disc_bwd {variant} {label}: two launches bitwise equal")
     return errs
+
+
+def check_fwd_tile(label: str, geom, packed, feats, tile: int, dev) -> float:
+    """The tile #6 at ``tile`` points through its launcher against the
+    plain version on ``feats``, by :func:`check_adversary`'s rule for #6,
+    twice, bitwise. Returns the largest error."""
+    from xnode_wan_tpu_torch.ops.kernels import disc_train
+
+    keep = disc_margins(geom, packed, feats) >= KINK_MARGIN
+    runs = [disc_train._fwd_tile(packed, feats, geom, tile, dev)
+            for _ in range(2)]
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError(f"disc_fwd tile {label}: two launches differ")
+    (v_t, g_t), (v_p, g_p) = runs[0], disc_train.v_dv_fwd_plain(
+        packed, feats, geom)
+    if not float(g_p.abs().max()) > 0.0:
+        raise AssertionError(f"{label}: gin is 0, so the checks cannot see "
+                             "the features")
+    err = compare(f"disc_fwd tile v {label}", v_t, v_p)
+    if bool(keep.all()):
+        err = max(err, compare_scaled(f"disc_fwd tile gin {label}", g_t,
+                                      g_p))
+    else:
+        print(f"  {label}: {int((~keep).sum())} of {feats.shape[0]} points "
+              f"come within {KINK_MARGIN} of a relu kink")
+        err = max(err, compare_scaled(
+            f"disc_fwd tile gin {label}, {int(keep.sum())} points",
+            g_t[keep], g_p[keep]), compare_scaled(
+            f"disc_fwd tile gin {label}, all points", g_t, g_p,
+            limit=KINK_RTOL))
+    print(f"  disc_fwd tile {label}: two launches bitwise equal")
+    return err
 
 
 def adversary_checks(*, cube, dev, hv, hw, vpts) -> dict:
@@ -3137,7 +3281,7 @@ def adversary_checks(*, cube, dev, hv, hw, vpts) -> dict:
         nets.append((f"{name}, random", init_discriminator(
             d, width, layers, tied, n_freq, generator=gen, device=dev),
             layers, tied, n_freq, d))
-    errs, timed, launches = {}, {}, {}
+    errs, timed, launches, every = {}, {}, {}, {}
     with torch.no_grad():
         for name, vp, layers, tied, n_freq, d in nets:
             geom = disc_train.geom_of(vp, layers, tied)
@@ -3151,21 +3295,19 @@ def adversary_checks(*, cube, dev, hv, hw, vpts) -> dict:
                     errs[k] = max(errs.get(k, 0.0), v)
             launches[name] = read_launches(kernels)
             timed[name] = (geom, packed, feats[:M].contiguous())
-        # the cube's shape: the tile #6, and #7's two accumulators at the
-        # shared one's tile and grid
+            every[name] = feats
+        # the cube's shape: the tile #6 through its launcher, and #7's two
+        # accumulators at the shared one's tile and grid
         geom, packed, feats = timed["cube's shape, random"]
         route = disc_train.disc_route(geom)
         tile = disc_train._largest_tile(geom, "tile")
         zero_launches(kernels)
-        v_t, g_t = disc_train._fwd_tile(packed, feats, geom, tile, dev)
-        v_p, g_p = disc_train.v_dv_fwd_plain(packed, feats, geom)
-        errs["disc_fwd"] = max(errs.get("disc_fwd", 0.0), compare(
-            f"disc_fwd tile v at the cube's shape, {tile} points a "
-            f"block, M={M}", v_t, v_p), compare_scaled(
-            f"disc_fwd tile gin at the cube's shape, M={M}", g_t, g_p))
-        if not float(g_p.abs().max()) > 0.0:
-            raise AssertionError("the cube's shape, random: gin is 0, so "
-                                 "the checks cannot see the features")
+        for m in (M, M + 1, 37):
+            err = check_fwd_tile(
+                f"the cube's shape, random, {tile} points a tile, M={m}",
+                geom, packed, every["cube's shape, random"][:m].contiguous(),
+                tile, dev)
+            errs["disc_fwd"] = max(errs.get("disc_fwd", 0.0), err)
         vb = torch.randn((M,), generator=gen, device=dev)
         gb = torch.randn((M, geom.F), generator=gen, device=dev)
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -3222,7 +3364,10 @@ def adversary_times(*, card, checked, phase_launches) -> list:
                  disc_train.v_dv_fwd_cuda(p, f, g),
                  lambda p=packed, f=feats, g=geom:
                  disc_train.v_dv_fwd_plain(p, f, g),
-                 work["disc_fwd"], lv["disc_fwd"][route.fwd]),
+                 # the tile #6's bound splits its FP32 forward from its
+                 # 3xTF32 sweep and gin
+                 work["disc_fwd tile" if route.fwd == "tile"
+                      else "disc_fwd"], lv["disc_fwd"][route.fwd]),
                 ("disc_bwd", route.bwd, f"{phase}, {geom}, {route}",
                  lambda p=packed, f=feats, a=vb, b=gb, g=geom:
                  disc_train.v_dv_bwd_cuda(p, f, a, b, g),
@@ -3254,10 +3399,10 @@ def adversary_times(*, card, checked, phase_launches) -> list:
         tile_b = disc_train.disc_route(geom).bwd_tile
         cases += [
             ("disc_fwd", "tile", f"phase 3, the cube's shape {geom}, {tile} "
-             "points a block",
+             "points a tile",
              lambda: disc_train._fwd_tile(packed, feats, geom, tile, dev),
              lambda: disc_train.v_dv_fwd_plain(packed, feats, geom),
-             work["disc_fwd"], lv["disc_fwd"]["tile"]),
+             work["disc_fwd tile"], lv["disc_fwd"]["tile"]),
             ("disc_bwd", "global", f"phase 3, the cube's shape {geom}, the "
              f"shared one's {tile_b}-point tiles and {blocks} blocks",
              lambda: disc_train._bwd(disc_train.BWD_GLOBAL_KERNEL, packed,
@@ -3431,7 +3576,8 @@ def main(work_root: str) -> int:
                   for _, d, H, L, t, nf in ADV_NETS}
     for geom in sorted(adv_geoms):
         for variant, vid in disc_train.VARIANT_IDS.items():
-            for tile in disc_train.TILES:
+            for tile in (disc_train.FWD_TILES if variant == "tile"
+                         else disc_train.TILES):
                 got = smem_of(vid, geom.F, geom.H, geom.L, geom.tied, tile)
                 if got != disc_train.tile_smem_bytes(geom, variant, tile):
                     raise AssertionError(
@@ -3452,8 +3598,17 @@ def main(work_root: str) -> int:
             disc_train.tile_smem_bytes(geom, route.bwd, route.bwd_tile))
         threads = (disc_train.CLUSTER_THREADS if route.bwd == "cluster"
                    else disc_train.BWD_THREADS)
+        fwd = ""
+        if route.fwd == "tile":
+            t6 = route.fwd_tile
+            kf = disc_train.fwd_slice(geom, t6)
+            fwd = (f"; the tile #6 at {t6} points "
+                   f"{disc_train.tile_smem_bytes(geom, 'tile', t6)} bytes, "
+                   f"slices of {kf} and "
+                   f"{disc_train.sweep_slice(geom, t6, kf)} inputs, passes "
+                   f"of {disc_train.fwd_pass(geom, t6)}")
         print(f"  disc_train {geom}: {route}, #7 {smem} bytes of shared "
-              f"memory a block, {threads} threads")
+              f"memory a block, {threads} threads{fwd}")
     log = (_build.build_dir() / "disc_train.log").read_text()
     for c in log.split("Compiling entry function")[1:]:
         regs = re.search(r"Used (\d+) registers", c)
@@ -3852,16 +4007,18 @@ def main(work_root: str) -> int:
     phase_launches["2g"] = d20["launches"]
     t_phase = phase_done("2g", t_phase)
 
-    # 2h. the cube with qmc: halton ---------------------------------------
-    qmc = qmc_cube(kernels, os.path.join(work_root, "2h"), dev, card)
-    phase_launches["2h"] = qmc["launches"]
-    t_phase = phase_done("2h", t_phase)
-
-    # 2i. ensemble: 4 at d = 20 -------------------------------------------
-    ens = ensemble_d20(kernels, os.path.join(work_root, "2i"), dev, card)
-    phase_launches["2i"] = ens["launches"]
-    phase_launches["2i serve"] = ens["serve_launches"]
-    t_phase = phase_done("2i", t_phase)
+    # 2h, 2i and 2m's solver runs in a process of their own, and 2r's ranks
+    # and nccl world in theirs, all started now and run beside 2j-2q: every
+    # one of these loops is paced by its host thread while the card idles
+    # (PERF.md section 5), and each process counts its own launches. Their
+    # output is printed where 2r and 2m wait for them
+    side_dir, mg_dir = (os.path.join(work_root, d) for d in ("side", "2r"))
+    for d in (side_dir, mg_dir):
+        os.makedirs(d, exist_ok=True)
+    side_ctx = start_spawn(side_rank, 1, side_dir)
+    mg_started = (start_spawn(mg_rank, 2, mg_dir),
+                  start_spawn(nccl_rank, torch.cuda.device_count(), mg_dir))
+    t_phase = phase_done("2h, 2i and 2r's ranks started", t_phase)
 
     # 2j. the WAN primal, and through the command line with fused_v ---------
     wan = wan_runs(kernels, work_root, cli_main, card)
@@ -3879,9 +4036,10 @@ def main(work_root: str) -> int:
     phase_launches["2l resume"] = dop["res_launches"]
     t_phase = phase_done("2l", t_phase)
 
-    # 2m. the other solvers ---------------------------------------------------
-    others = other_solvers(kernels, work_root, dop, card)
-    t_phase = phase_done("2m", t_phase)
+    # 2m. the other solvers: the adaptive methods here, the solver runs in
+    # the process of 2h and 2i -------------------------------------------
+    f64_gap = adaptive_checks(dop)
+    t_phase = phase_done("2m (adaptive methods)", t_phase)
 
     # 2n. the continuous adjoint and remat on the card ------------------------
     adj = adjoint_and_remat(dev, card)
@@ -3903,7 +4061,7 @@ def main(work_root: str) -> int:
     t_phase = phase_done("2q", t_phase)
 
     # 2r. two ranks on the card, then nccl -------------------------------------
-    mg = multi_gpu(kernels, work_root, hist, card)
+    mg = multi_gpu(kernels, mg_dir, mg_started, hist, card)
     for r, res in enumerate(mg["ranks"]):
         for name in ("step", "until", "fused_v", "serve", "ensemble",
                      "tangent"):
@@ -3924,6 +4082,15 @@ def main(work_root: str) -> int:
                       "nccl_bitwise": mg["nccl_bitwise"]},
         "card": card}}))
     t_phase = phase_done("2r", t_phase)
+
+    # 2h, 2i and 2m's solver runs, from their process ------------------------
+    side = join_side(side_ctx, side_dir)
+    qmc, ens = side["qmc"], side["ens"]
+    others = dict(side["solvers"], f64_gap=f64_gap)
+    phase_launches["2h"] = qmc["launches"]
+    phase_launches["2i"] = ens["launches"]
+    phase_launches["2i serve"] = ens["serve_launches"]
+    t_phase = phase_done("2h, 2i and 2m's solver runs (waited for)", t_phase)
 
     # 2s. the wide cube, #5 on clusters of blocks ---------------------------
     wide_thread.join()
@@ -4789,11 +4956,15 @@ def main(work_root: str) -> int:
             "step_ms": d20_step_ms, "parts_ms": d20_parts},
         "card": card}}))
 
-    # one ensemble iteration (4 members at d = 20, 2i's solver) beside one
-    # member's step, one WAN outer step (plain adversary, and 2j's
-    # command-line solver with fused_v), one f64 parity step, and a Halton
-    # draw beside an i.i.d. one at the cube's N_r
-    esolver, wsolver = ens["solver"], wan["solver"]
+    # one ensemble iteration (4 members at d = 20, 2i's configuration on
+    # fresh weights: 2i trained in another process) beside one member's
+    # step, one WAN outer step (plain adversary, and 2j's command-line
+    # solver with fused_v), one f64 parity step, and a Halton draw beside
+    # an i.i.d. one at the cube's N_r
+    ecfg = load_params(CONFIG).replace(dim=20, ensemble=4, seed=SEED)
+    esolver = NODEWANSolver(ecfg, load_problem("Ex4_1_funcs", dim=ecfg.dim),
+                            work_dir=os.path.join(work_root, "5_ensemble"))
+    wsolver = wan["solver"]
     ens_ms = time_ms(lambda: esolver._outer_step(), reps=3, warmup=1)
     member_ms = time_ms(lambda: esolver._outer_step(esolver.members[0]),
                         reps=3, warmup=1)
@@ -4803,7 +4974,10 @@ def main(work_root: str) -> int:
     psolver = parity["solver"]
     parity_ms = time_ms(lambda: psolver._outer_step(), reps=3, warmup=1)
     qg = torch.Generator(device=dev).manual_seed(21)
-    hcube, icube = qmc["solver"].domain, solver.domain
+    # 2h's domain (its solver trained in another process)
+    hcube = NODEWANSolver(cfg.replace(qmc="halton", seed=SEED), problem,
+                          work_dir=os.path.join(work_root, "5_qmc")).domain
+    icube = solver.domain
     draws = {"halton interior": time_ms(lambda: hcube.interior(qg, cfg.N_r)),
              "iid interior": time_ms(lambda: icube.interior(qg, cfg.N_r)),
              "halton boundary": time_ms(lambda: hcube.boundary(qg, cfg.N_b)),
@@ -4873,5 +5047,8 @@ def main(work_root: str) -> int:
 
 if __name__ == "__main__":
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
-        code = main(root)
+        try:
+            code = main(root)
+        finally:
+            stop_background()
     sys.exit(code)

@@ -66,10 +66,24 @@ def test_port_routes_every_adversary_the_jax_package_runs(F, tied):
                 assert disc_train.fwd_smem_bytes(geom) <= MAX_SMEM_BYTES
                 assert route.fwd_tile == 0
             else:
+                # the tile variant at the largest of its tiles that fits
+                # (at least 8 points, so at least 4: no net keeps the
+                # earlier tile kernel), with weight slices of fwd_slice
+                # inputs, the largest of FWD_SLICES that fits there
                 assert route.fwd == "tile"
-                assert route.fwd_tile in disc_train.TILES
-                assert disc_train.tile_smem_bytes(
-                    geom, "tile", route.fwd_tile) <= MAX_SMEM_BYTES
+                tile = route.fwd_tile
+                assert tile in disc_train.FWD_TILES and tile >= 4
+                k = disc_train.fwd_slice(geom, tile)
+                assert k in disc_train.FWD_SLICES
+                assert disc_train.tile_smem_bytes(geom, "tile", tile) == \
+                    disc_train.fwd_tile_smem_bytes(geom, tile, k) \
+                    <= MAX_SMEM_BYTES
+                assert all(disc_train.fwd_tile_smem_bytes(geom, tile, j)
+                           > MAX_SMEM_BYTES
+                           for j in disc_train.FWD_SLICES if j > k)
+                assert all(disc_train.tile_smem_bytes(geom, "tile", t)
+                           > MAX_SMEM_BYTES
+                           for t in disc_train.FWD_TILES if t > tile)
                 assert (H > disc_train.REG_MAX_WIDTH
                         or disc_train.fwd_smem_bytes(geom) > MAX_SMEM_BYTES)
             # #7, in this order: the shared accumulator wherever it fits
@@ -104,12 +118,11 @@ def test_port_routes_every_adversary_the_jax_package_runs(F, tied):
                 larger = [t for t in disc_train.TILES if t > route.bwd_tile]
                 assert all(disc_train.tile_smem_bytes(geom, route.bwd, t)
                            > MAX_SMEM_BYTES for t in larger)
-            # the global variant and the tile #6 fit 4 points wherever the
-            # JAX package runs (at most its rows a point)
+            # the global variant fits 4 points wherever the JAX package
+            # runs (at most its rows a point), the tile #6 8 points
             assert disc_train.tile_rows(geom, "global") <= \
                 disc_train.jax_rows(geom) - F - 1
-            assert disc_train.tile_rows(geom, "tile") <= \
-                disc_train.jax_rows(geom)
+            assert disc_train.fwd_slice(geom, disc_train.FWD_TILES[-1])
             assert disc_train.v_fused_fits(_params(geom), L, tied)
     assert inside > 0
 
@@ -117,10 +130,10 @@ def test_port_routes_every_adversary_the_jax_package_runs(F, tied):
 @pytest.mark.parametrize("geom,route", [
     (DiscGeom(6, 50, 9, True), ("registers", 0, "shared", 32, 1)),
     (DiscGeom(141, 50, 9, True), ("registers", 0, "shared", 16, 1)),
-    (DiscGeom(6, 256, 9, True), ("tile", 16, "cluster", 16, 8)),
-    (DiscGeom(6, 558, 9, True), ("tile", 8, "global", 4, 1)),
-    (DiscGeom(6, 128, 9, False), ("tile", 32, "global", 16, 1)),
-    (DiscGeom(6, 50, 40, False), ("tile", 16, "global", 8, 1)),
+    (DiscGeom(6, 256, 9, True), ("tile", 64, "cluster", 16, 8)),
+    (DiscGeom(6, 558, 9, True), ("tile", 32, "global", 4, 1)),
+    (DiscGeom(6, 128, 9, False), ("tile", 128, "global", 16, 1)),
+    (DiscGeom(6, 50, 40, False), ("tile", 128, "global", 8, 1)),
     (DiscGeom(6, 50, 40, True), ("registers", 0, "shared", 8, 1)),
 ], ids=["cube", "d20-3freq", "256-tied", "558-tied", "128-untied",
         "deep-untied", "deep-tied"])
@@ -128,24 +141,20 @@ def test_routes_of_the_chip_checks(geom, route):
     # the nets that chip_smoke.py's phases 2v, 2w and 3 run: 2v's 256-wide
     # tied net on clusters of 8 blocks, 16 points a tile; the untied nets
     # and the 558-wide one keep the global accumulator (no cluster variant
-    # for untied nets; the 558-wide block's weights do not fit)
+    # for untied nets; the 558-wide block's weights do not fit). The tile
+    # #6 takes 64 points at 2v's net (16 before its redesign), 32 at the
+    # 558-wide one (8), 128 at the untied ones (32 and 16)
     assert disc_train.disc_route(geom) == route
 
 
 def test_tile_smem_hand_counts():
     # 2v's net (F = 6, H = 256, L = 9, tied): #7 global keeps 2 (L + 1) H
-    # + 2 H + 1 = 5120 + 512 + 1 rows, at 8 points (rows of 8 floats);
-    # the tile #6 keeps (L + 2) H + F = 2816 + 6 rows, at 16 points (rows
-    # of 20 floats)
+    # + 2 H + 1 = 5120 + 512 + 1 rows, at 8 points (rows of 8 floats)
     g = DiscGeom(6, 256, 9, True)
     assert disc_train.tile_rows(g, "global") == 5633
     assert disc_train.tile_smem_bytes(g, "global", 8) == 4 * 8 * 5633 \
         == 180256
     assert disc_train.tile_smem_bytes(g, "global", 16) > MAX_SMEM_BYTES
-    assert disc_train.tile_rows(g, "tile") == 2822
-    assert disc_train.tile_smem_bytes(g, "tile", 16) == 4 * 20 * 2822 \
-        == 225760
-    assert disc_train.tile_smem_bytes(g, "tile", 32) > MAX_SMEM_BYTES
     # the shared #7 adds the features, gb and the 67,841-float accumulator
     assert g.n_params == 6 * 256 + 256 + 256 * 257 + 257 == 67841
     assert disc_train.tile_smem_bytes(g, "shared", 4) == 4 * (
@@ -156,11 +165,47 @@ def test_tile_smem_hand_counts():
     assert disc_train.jax_rows(w) == 12284
     assert disc_train.tile_smem_bytes(w, "global", 4) == 16 * 12277 \
         == 196432
-    assert disc_train.tile_smem_bytes(w, "tile", 8) == 32 * (11 * 558 + 6) \
-        == 196608
     # the largest block the global #7 can ask for inside JAX's domain: 4
     # points of 12,287 rows at most
     assert 16 * (disc_train.JAX_MAX_ROWS - 1) <= MAX_SMEM_BYTES
+
+
+def test_fwd_tile_smem_hand_counts():
+    # The tile #6 at 2v's net and 64 points: two activation buffers of 256
+    # rows of 72 floats (64 rounded up to an odd multiple of 8); the relu
+    # bits of a_0 .. a_8, two words a unit and layer; a pass of all 256
+    # outputs, so two weight slices, each the larger of the forward's, 256
+    # rows of 32 inputs, and the sweep's, 24 rows of 264 floats (the most
+    # multiple of 8 rows no larger); 256 partial sums of v: the cap exactly
+    g = DiscGeom(6, 256, 9, True)
+    assert disc_train.fwd_tile_stride(64) == 72
+    assert disc_train.fwd_pass(g, 64) == 256
+    assert disc_train.fwd_slice(g, 64) == 32
+    assert disc_train.sweep_slice(g, 64, 32) == 24
+    assert disc_train.fwd_tile_smem_bytes(g, 64, 32) == 4 * (
+        2 * 256 * 72 + 9 * 256 * 2 + 2 * max(256 * 32, 24 * 264) + 256) \
+        == 232448 == MAX_SMEM_BYTES
+    assert disc_train.tile_smem_bytes(g, "tile", 64) == 232448
+    assert disc_train.tile_smem_bytes(g, "tile", 128) > MAX_SMEM_BYTES
+    # the 558-wide net at 32 points (rows of 40 floats): its 558 outputs
+    # (560 rounded up to 16) in two passes of 288 (a pass's micro-tiles
+    # cover 256 x 64 / 32 = 512), one relu word a unit and layer (5,022
+    # rounded up to four), 8-input slices both, the sweep's the larger
+    w = DiscGeom(6, 558, 9, True)
+    assert disc_train.fwd_pass(w, 32) == 288
+    assert disc_train.fwd_slice(w, 32) == 8
+    assert disc_train.sweep_slice(w, 32, 8) == 8
+    assert disc_train.tile_smem_bytes(w, "tile", 32) == 4 * (
+        2 * 558 * 40 + 5024 + 2 * 8 * 296 + 256) == 218624
+    assert disc_train.fwd_tile_smem_bytes(w, 32, 16) > MAX_SMEM_BYTES
+    assert disc_train.tile_smem_bytes(w, "tile", 64) > MAX_SMEM_BYTES
+    # the widest net of JAX's domain (H = 2047 at L = 1): passes of at
+    # most FWD_PASS_MAX = 512 outputs leave room for 8 points
+    x = DiscGeom(1, 2047, 1, True)
+    assert disc_train.fwd_pass(x, 8) == 512
+    assert disc_train.disc_route(x).fwd_tile == 8
+    assert disc_train.tile_smem_bytes(x, "tile", 8) == 4 * (
+        2 * 2047 * 8 + 2048 + 2 * 512 * 16 + 256) <= MAX_SMEM_BYTES
 
 
 def test_cluster_smem_hand_counts():

@@ -33,6 +33,7 @@ from xnode_wan_tpu_torch import (Hypercube, SolverConfig, disc_params_from_jax,
                                  init_discriminator, load_params)
 from xnode_wan_tpu_torch.ops import weak_form
 from xnode_wan_tpu_torch.ops.kernels import _build, disc_train
+from xnode_wan_tpu_torch.ops.kernels.disc_train import FWD_TILE_THREADS
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DIM, H, L, M = 3, 10, 3, 200
@@ -276,16 +277,19 @@ def cuda_signature(source, symbol):
 def test_disc_ctypes_argtypes_match_c_signature(kernel):
     # the register #6 has a source of its own, built once per width; #7's
     # three variants and the tile #6 are in disc_train.cu (the cluster
-    # variant's kernel in disc_train_cluster.cuh), built once. Each block
-    # size is a compile-time constant of its source, mirrored in the
-    # wrapper for the grid rule.
-    bwd = ("disc_train", "XD_BWD_THREADS", disc_train.BWD_THREADS)
-    source, define, threads = {
+    # variant's kernel in disc_train_cluster.cuh, the tile #6's in
+    # disc_tile_fwd.cuh), built once. Each block size is a compile-time
+    # constant of its source, mirrored in the wrapper.
+    bwd = ("disc_train", "XD_BWD_THREADS", disc_train.BWD_THREADS,
+           "disc_train.cu")
+    source, define, threads, where = {
         "disc_fwd_launch": ("disc_fwd", "XD_FWD_THREADS",
-                            disc_train.FWD_THREADS),
+                            disc_train.FWD_THREADS, "disc_fwd.cu"),
         "disc_bwd_launch": bwd, "disc_bwd_global_launch": bwd,
         "disc_bwd_cluster_launch": bwd,
-        "disc_tile_fwd_launch": bwd}[kernel.symbol]
+        "disc_tile_fwd_launch": ("disc_train", "XF_THREADS",
+                                 disc_train.FWD_TILE_THREADS,
+                                 "disc_tile_fwd.cuh")}[kernel.symbol]
     assert kernel.source == source
     assert source in _build.KERNEL_SOURCES
     params = cuda_signature(source, kernel.symbol)
@@ -293,7 +297,7 @@ def test_disc_ctypes_argtypes_match_c_signature(kernel):
     assert len(params) == len(declared)
     for p, ct in zip(params, declared):
         assert ct is (ctypes.c_void_p if "*" in p else ctypes.c_int), p
-    text = (_build.CSRC / f"{source}.cu").read_text()
+    text = (_build.CSRC / where).read_text()
     assert re.findall(r"#define " + define + r" (\d+)", text) == [str(threads)]
 
 
@@ -396,10 +400,10 @@ def test_fits_gate_and_tiles():
         disc_train.disc_route(disc_train.geom_of(big, 40, False))
     # past the old caps (F = 128, L = 32): its 141,441 weights fit no
     # shared accumulator and its staged copy no register #6 block, so the
-    # tile #6 at 16 points and, untied, #7's global accumulator at 8
+    # tile #6 at 128 points and, untied, #7's global accumulator at 8
     wide = disc_train.DiscGeom(F=128, H=64, L=32, tied=False)
     assert smem(wide, "shared", 4) > 232448
-    assert disc_train.disc_route(wide) == ("tile", 16, "global", 8, 1)
+    assert disc_train.disc_route(wide) == ("tile", 128, "global", 8, 1)
 
 
 @pytest.mark.parametrize("source", ["disc_fwd", "disc_train"])
@@ -518,6 +522,106 @@ def test_bwd_tile_walk_matches_plain_f64(tied, n_freq, n_points, tile,
         tile_walk(packed, feats, vb, gb, geom, tile, blocks),
         disc_train.v_dv_bwd_plain(packed, feats, vb, gb, geom),
         rtol=1e-10, atol=1e-10)
+
+
+def fwd_tile_walk(packed, feats, geom, tile, k_slice, width, blocks):
+    """The tile #6's algorithm in torch: block ``b`` walks tiles ``b, b +
+    blocks, ...`` of ``tile`` points, zero past ``M``; each product runs
+    its outputs in passes of ``width`` and its inputs in slices of
+    ``k_slice``, the forward keeps the relu signs of ``a_0 .. a_{L-1}`` as
+    booleans (the bits) and only two activation buffers, ``v`` sums
+    ``FWD_TILE_THREADS / tile`` ranges of units in order and adds the
+    ranges in order, ``G_L`` replaces ``y``, the sweep masks each product
+    at its output, and ``gin`` is written for the live points only.
+
+    A copy of the algorithm, not of the ``.cuh``: it shows that the walk
+    gives the plain version's outputs, and nothing ties it to the
+    kernel's code. The kernel is held on the card by ``chip_smoke.py``'s
+    phase 3."""
+    pairs = geom.unpack(packed)
+    (w0, b0), (wo, bo) = pairs[0], pairs[-1]
+    M, F, H, L = feats.shape[0], geom.F, geom.H, geom.L
+    n_tiles = -(-M // tile)
+    z_all = torch.cat([feats, feats.new_zeros(n_tiles * tile - M, F)])
+    v = torch.full((M,), float("nan"), dtype=feats.dtype)
+    gin = torch.full((M, F), float("nan"), dtype=feats.dtype)
+
+    def product(w, x):
+        # W(o, k) = w[o, k]: passes of outputs, slices of inputs in order
+        O, K = w.shape
+        out = x.new_zeros(O, x.shape[1])
+        for ob0 in range(0, O, width):
+            acc = x.new_zeros(min(width, O - ob0), x.shape[1])
+            for k0 in range(0, K, k_slice):
+                acc += w[ob0:ob0 + width, k0:k0 + k_slice] @ \
+                    x[k0:k0 + k_slice]
+            out[ob0:ob0 + width] = acc
+        return out
+
+    ranges = FWD_TILE_THREADS // tile
+    for b in range(blocks):
+        for t in range(b, n_tiles, blocks):
+            m0, n = t * tile, min(tile, M - t * tile)
+            a = z_all[m0:m0 + tile].T                       # [F, tile]
+            signs = []
+            for q in range(L + 1):
+                w, bias = pairs[0] if q == 0 else geom.hidden(pairs, q - 1)
+                a = product(w, a) + bias[:, None]
+                if q < L:
+                    signs.append(a > 0)
+                    a = torch.relu(a)
+            y = torch.tanh(a)
+            parts = [(wo[0, H * r // ranges:H * (r + 1) // ranges, None]
+                      * y[H * r // ranges:H * (r + 1) // ranges]).sum(0)
+                     for r in range(ranges)]
+            total = parts[0]
+            for part in parts[1:]:
+                total = total + part
+            v[m0:m0 + n] = (total + bo)[:n]
+            g = wo[0, :, None] * (1.0 - y * y)              # G_L
+            for i in range(L - 1, -1, -1):
+                g = torch.where(signs[i], product(geom.hidden(pairs, i)[0].T,
+                                                  g), torch.zeros_like(g))
+            gin[m0:m0 + n] = product(w0.T, g).T[:n]
+    return v, gin
+
+
+@pytest.mark.parametrize(
+    "tied,n_freq,n_points,tile,k_slice,width,blocks",
+    [(True, 0, 77, 32, 8, 16, 2), (False, 0, 37, 8, 16, 8, 3),
+     (True, 1, 40, 16, 24, 16, 5)])
+def test_fwd_tile_walk_matches_plain_f64(tied, n_freq, n_points, tile,
+                                         k_slice, width, blocks):
+    # ragged last tiles, blocks with several tiles and with none (40
+    # points, 3 tiles, 5 blocks), a last pass of fewer outputs (40 units
+    # in passes of 16; 10 in passes of 8; gin's F = 10 at 16), a last
+    # slice of fewer inputs (40 in slices of 8 or 24, 10 in slices of 16)
+    _, tparams = shared_disc(tied, n_freq, seed=19, width=40 if tied else H)
+    geom = disc_train.geom_of(tparams, L, tied)
+    packed = torch.cat([a.reshape(-1) for a in disc_train.flat_disc(
+        tparams, L, tied)]).double()
+    feats = disc_train.disc_features(torch.as_tensor(
+        sample_points(n_points, seed=20)).double(), n_freq)
+    v, gin = fwd_tile_walk(packed, feats, geom, tile, k_slice, width,
+                           blocks)
+    v_p, gin_p = disc_train.v_dv_fwd_plain(packed, feats, geom)
+    torch.testing.assert_close(v, v_p, rtol=1e-10, atol=1e-10)
+    torch.testing.assert_close(gin, gin_p, rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("source,table", [
+    ("disc_tile_fwd.cuh", "FWD_ABLATIONS"),
+    ("disc_train_cluster.cuh", "ABLATIONS")])
+def test_tile_sweep_ablations_cut_the_sources(source, table):
+    # tile_sweep.py --adversary --ablate builds copies of the kernels with
+    # text cut out (every occurrence): every cut must still name text of
+    # its source
+    from xnode_wan_tpu_torch import tile_sweep
+
+    text = (_build.CSRC / source).read_text()
+    for part, cuts in getattr(tile_sweep, table).items():
+        for old, _ in cuts:
+            assert old in text, (part, old)
 
 
 def test_disc_fwd_staged_copy_hand_count():

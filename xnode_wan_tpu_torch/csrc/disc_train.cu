@@ -11,9 +11,10 @@
 //                                                disc_train_cluster.cuh)
 //                       disc_bwd_global_launch  (accumulator in its block's
 //                                                row of `partial`)
-//   #6 _v_fwd_kernel -> disc_tile_fwd_launch    (v [M], gin [M, F]; the
-//                       register kernel of disc_fwd.cu takes the nets up to
-//                       64 wide whose staged weights fit a block)
+//   #6 _v_fwd_kernel -> disc_tile_fwd_launch    (v [M], gin [M, F]:
+//                       disc_tile_fwd.cuh; the register kernel of
+//                       disc_fwd.cu takes the nets up to 64 wide whose
+//                       staged weights fit a block)
 //
 // The network and its packing are in disc_net.cuh. Built ONCE, with the
 // width H, the feature width F, the depth L and `tied` all runtime values:
@@ -24,28 +25,28 @@
 // Bound on an H100 SXM (67 TFLOP/s FP32 without tensor cores, 3.35 TB/s)
 // at the d=5 main path (F = 6, H = 50, L = 9, tied, M = 80,000): #7 about
 // 136,650 multiply-adds a point (21.9 GFLOP, 0.33 ms) against 4.2 MB: bound
-// by operations. The shared and global variants and the tile #6 use no
-// tensor cores: TF32 alone would break the f32 parity with the plain
-// version at about 1e-3. The cluster variant runs its sweep, both reverses
-// and its weight sums on them in 3xTF32 (a TF32 value and a rest for each
-// operand, three products: about FP32 accuracy), and its forward recompute
-// in FP32 FMAs (disc_train_cluster.cuh).
+// by operations. The shared and global variants use no tensor cores: TF32
+// alone would break the f32 parity with the plain version at about 1e-3.
+// The cluster variant runs its sweep, both reverses and its weight sums on
+// them in 3xTF32 (a TF32 value and a rest for each operand, three
+// products: about FP32 accuracy), and its forward recompute in FP32 FMAs
+// (disc_train_cluster.cuh); the tile #6 its sweep and gin, the forward in
+// FP32 (disc_tile_fwd.cuh).
 //
-// Design: an MLP over a batch. A block takes a TILE of P points (32, 16, 8
-// or 4: the largest whose buffers fit) and works layer by layer on the tile
-// with all of its vectors in shared memory, feature-major [width][S], S =
-// P + 4 floats (P below 16 points, where the pad would not fit): rows start
-// on 16 bytes and 8 rows spaced by an odd count fall on distinct banks.
+// Design of #7's shared and global variants: an MLP over a batch. A block
+// takes a TILE of P points (32, 16, 8 or 4: the largest whose buffers fit)
+// and works layer by layer on the tile with all of its vectors in shared
+// memory, feature-major [width][S], S = P + 4 floats (P below 16 points,
+// where the pad would not fit): rows start on 16 bytes and 8 rows spaced
+// by an odd count fall on distinct banks.
 // Stages:
 //   1. the forward, keeping relu(a_0) .. relu(a_{L-1}) and a_L (a relu
 //      output is > 0 exactly where its input is, so it serves as the mask);
-//   2. the sweep: y = tanh(a_L) in place of a_L, and G_L .. G_0 (#7 keeps
-//      every G_i; #6 takes v from y, keeps two G buffers and ends with gin =
-//      W0^T G_0);
-//   3. (#7) the sweep's reverse (it ran last), i = 0..L-1, each product
-//      masked at its output by the next layer's sign, then the output layer
-//      (the second-order tanh term);
-//   4. (#7) the forward's reverse, i = L-1..0.
+//   2. the sweep: y = tanh(a_L) in place of a_L, and G_L .. G_0;
+//   3. the sweep's reverse (it ran last), i = 0..L-1, each product masked
+//      at its output by the next layer's sign, then the output layer (the
+//      second-order tanh term);
+//   4. the forward's reverse, i = L-1..0.
 // Every matrix product of a step goes through REGISTER MICRO-TILES:
 //   - xd_dense: a thread computes 2 outputs x 4 consecutive points. Per
 //     input it loads the 2 weights (__ldg: the packed buffer stays in
@@ -73,8 +74,7 @@
 // result does not depend on scheduling, and two launches are bitwise equal.
 // The global variant keeps 2 (L + 1) H + 2 H + 1 floats a point, at most
 // the JAX package's VMEM rows (F + H (2L + 4) + 2 <= 12,288), so 4 points
-// fit a block (196,608 bytes) wherever the Pallas kernels run; the tile #6
-// keeps (L + 2) H + F, at most 12,283 at 4 points.
+// fit a block (196,608 bytes) wherever the Pallas kernels run.
 #include <type_traits>
 
 #include "disc_net.cuh"
@@ -90,7 +90,8 @@ constexpr int XD_KU = 8;
 constexpr int XD_OC = 5;
 
 // The variants, as disc_tile_smem_bytes numbers them
-// (ops/kernels/disc_train.py :: VARIANT_IDS)
+// (ops/kernels/disc_train.py :: VARIANT_IDS; the tile #6's layout is in
+// disc_tile_fwd.cuh)
 enum XdVariant { XD_BWD_SHARED = 0, XD_BWD_GLOBAL = 1, XD_FWD_TILE = 2 };
 
 // Row stride of the tile's buffers for P points (P a multiple of 4).
@@ -100,10 +101,8 @@ __host__ __device__ constexpr int xd_bwd_stride(int P) {
 
 // Rows of a block's tile buffers: #7's A_0..A_L, G_0..G_L, two cotangent
 // buffers and vb, plus the features and gb where they are staged (the
-// shared variant); the tile #6's A_0..A_L, a second sweep buffer and the
-// features (then gin).
+// shared variant).
 __host__ inline size_t xd_tile_rows(int variant, int F, int H, int L) {
-  if (variant == XD_FWD_TILE) return (size_t)(L + 2) * H + F;
   const size_t rows = 2 * (size_t)(L + 1) * H + 2 * (size_t)H + 1;
   return variant == XD_BWD_SHARED ? rows + 2 * (size_t)F : rows;
 }
@@ -355,17 +354,18 @@ __device__ __forceinline__ void xd_tile_forward(float* A,
   }
 }
 
-// 2. the sweep from G_L at G(L): G(i) = [a_i > 0] (W_h^T G(i + 1)) for i =
-// L-1 .. 0, masked by A_i.
-template <class Where>
-__device__ __forceinline__ void xd_tile_sweep(Where G, const float* params,
+// 2. the sweep from G_L at G + L H S: G_i = [a_i > 0] (W_h^T G_{i+1}) for
+// i = L-1 .. 0, masked by A_i.
+__device__ __forceinline__ void xd_tile_sweep(float* G, const float* params,
                                               const float* A, int F, int H,
                                               int L, int tied, int P,
                                               int S) {
+  const int HS = H * S;
   for (int i = L - 1; i >= 0; --i) {
-    xd_dense<XD_MASK, XD_COLS>(G(i), params + xd_hidden_off(F, H, i, tied),
-                               nullptr, XdStaged{G(i + 1), S},
-                               A + i * H * S, H, H, P, S);
+    xd_dense<XD_MASK, XD_COLS>(G + i * HS,
+                               params + xd_hidden_off(F, H, i, tied), nullptr,
+                               XdStaged{G + (i + 1) * HS, S}, A + i * HS, H,
+                               H, P, S);
     __syncthreads();
   }
 }
@@ -430,8 +430,7 @@ disc_bwd_kernel(const float* __restrict__ params, int n_params,
       G[L * HS + j * S + p] = __ldg(wo + j) * (1.f - y * y);
     }
     __syncthreads();
-    xd_tile_sweep([=](int i) { return G + i * HS; }, params, A, F, H, L,
-                  tied, P, S);
+    xd_tile_sweep(G, params, A, F, H, L, tied, P, S);
     // 3. the sweep's reverse: tbar_0 = [a_0 > 0] (W0 gb), dW0 += g_0 gb^T;
     // then per layer dW_h += g_{i+1} tbar_i^T and tbar_{i+1} = [a_{i+1} >
     // 0] (W_h tbar_i), unmasked at the last layer: gbar_L
@@ -495,59 +494,6 @@ disc_bwd_kernel(const float* __restrict__ params, int n_params,
     partial[(size_t)blockIdx.x * n_params + i] = acc[i];
 }
 
-// The tile variant of kernel #6: one tile of P points a block, stages 1-2
-// of #7, then v = w_o . y + b_o and gin = W0^T G_0.
-__global__ void __launch_bounds__(XD_BWD_THREADS, 1)
-disc_tile_fwd_kernel(const float* __restrict__ params,
-                     const float* __restrict__ feats,  // [M, F]
-                     float* __restrict__ v,            // [M]
-                     float* __restrict__ gin,          // [M, F]
-                     int M, int F, int H, int L, int tied, int P) {
-  extern __shared__ float4 sw4[];
-  const int S = xd_bwd_stride(P);
-  const int HS = H * S;
-  float* const A = reinterpret_cast<float*>(sw4);  // A_0..A_L, each [H][S]
-  float* const E = A + (L + 1) * HS;               // the sweep's other buffer
-  float* const Z = E + HS;                         // [F][S]: z, then gin
-  float* const Y = A + L * HS;                     // a_L, y, then G_L
-  const float* wo = params + xd_out_off(F, H, L, tied);
-  const int m0 = blockIdx.x * P, n = min(P, M - m0);
-  for (int idx = threadIdx.x; idx < F * P; idx += blockDim.x) {
-    const int p = idx / F, f = idx - p * F;  // consecutive threads: a row
-    Z[f * S + p] = p < n ? feats[(size_t)(m0 + p) * F + f] : 0.f;
-  }
-  __syncthreads();
-  xd_tile_forward(A, params, XdStaged{Z, S}, F, H, L, tied, P, S);
-  for (int idx = threadIdx.x; idx < H * P; idx += blockDim.x) {
-    const int j = idx / P, p = idx - j * P;
-    Y[j * S + p] = tanhf(Y[j * S + p]);
-  }
-  __syncthreads();
-  // v: the output unit's inputs in order, then its bias
-  for (int p = threadIdx.x; p < n; p += blockDim.x) {
-    float val = 0.f;
-    for (int j = 0; j < H; ++j) val = fmaf(__ldg(wo + j), Y[j * S + p], val);
-    v[m0 + p] = val + __ldg(wo + H);
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < H * P; idx += blockDim.x) {
-    const int j = idx / P, p = idx - j * P;
-    const float y = Y[j * S + p];
-    Y[j * S + p] = __ldg(wo + j) * (1.f - y * y);
-  }
-  __syncthreads();
-  // G_i alternates between E (L - i odd) and Y (L - i even)
-  xd_tile_sweep([=](int i) { return (L - i) % 2 ? E : Y; }, params, A, F, H,
-                L, tied, P, S);
-  xd_dense<XD_NONE, XD_COLS>(Z, params, nullptr, XdStaged{L % 2 ? E : Y, S},
-                             nullptr, F, H, P, S);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < F * n; idx += blockDim.x) {
-    const int p = idx / F, f = idx - p * F;
-    gin[(size_t)(m0 + p) * F + f] = Z[f * S + p];
-  }
-}
-
 // grad[i] = sum over blocks b, in order, of partial[b, i].
 __global__ void disc_reduce_kernel(const float* __restrict__ partial,
                                    float* __restrict__ grad, int n_blocks,
@@ -560,13 +506,21 @@ __global__ void disc_reduce_kernel(const float* __restrict__ partial,
 }
 
 #include "disc_train_cluster.cuh"
+#include "disc_tile_fwd.cuh"
 
 // Host side
 
 // Bytes of shared memory a block of `variant` asks for (disc_train.py's
 // tile_smem_bytes is its twin; chip_smoke.py holds the two together).
+// The tile #6's (XD_FWD_TILE) at its slice, or at 8-input slices where
+// none fits.
 extern "C" long long disc_tile_smem_bytes(int variant, int F, int H, int L,
                                           int tied, int tile) {
+  if (variant == XD_FWD_TILE) {
+    const int ks = xf_slice(F, H, L, tile);
+    return (long long)sizeof(float) *
+           xf_layout(F, H, L, tile, ks ? ks : 8).total;
+  }
   return (long long)xd_tile_smem(variant, F, H, L, xd_n_params(F, H, L, tied),
                                  tile);
 }
@@ -639,25 +593,51 @@ extern "C" int disc_bwd_global_launch(int device, void* stream,
                              partial, grad, M, F, H, L, tied, tile, blocks);
 }
 
-// The tile #6: ceil(M / tile) blocks of XD_BWD_THREADS threads. params must
-// sit on 8 bytes.
+using XfKernel = void (*)(const float*, const float*, float*, float*, int,
+                          int, int, int, int, int);
+
+static XfKernel xf_kernel(int tile) {
+  switch (tile) {
+    case 8: return disc_tile_fwd_kernel<8>;
+    case 16: return disc_tile_fwd_kernel<16>;
+    case 32: return disc_tile_fwd_kernel<32>;
+    case 64: return disc_tile_fwd_kernel<64>;
+    case 128: return disc_tile_fwd_kernel<128>;
+    default: return nullptr;
+  }
+}
+
+// The tile #6 at `tile` points a tile (8, 16, 32, 64 or 128), its inputs
+// in slices of xf_slice: a persistent grid of as many XF_THREADS-thread
+// blocks as the card runs at once, at most one a tile.
 extern "C" int disc_tile_fwd_launch(int device, void* stream,
                                     const float* params, int n_params,
                                     const float* feats, float* v, float* gin,
                                     int M, int F, int H, int L, int tied,
                                     int tile) {
-  if (M < 0 || !xd_caps_ok(F, H, L, tied, n_params) ||
-      reinterpret_cast<size_t>(params) % 8 != 0 || !xd_tile_ok(tile))
+  const XfKernel kernel = xf_kernel(tile);
+  if (M < 0 || !xd_caps_ok(F, H, L, tied, n_params) || !kernel)
     return (int)cudaErrorInvalidValue;
+  const int KF = xf_slice(F, H, L, tile);
+  if (!KF) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = xd_tile_smem(XD_FWD_TILE, F, H, L, n_params, tile);
-  e = xd_allow_smem((const void*)disc_tile_fwd_kernel, smem);
+  const size_t smem = sizeof(float) * (size_t)xf_layout(F, H, L, tile,
+                                                        KF).total;
+  e = xd_allow_smem((const void*)kernel, smem);
   if (e != cudaSuccess) return (int)e;
   if (M == 0) return 0;
-  disc_tile_fwd_kernel<<<(M + tile - 1) / tile, XD_BWD_THREADS, smem,
-                         (cudaStream_t)stream>>>(params, feats, v, gin, M, F,
-                                                 H, L, tied, tile);
+  int sms = 0, per_sm = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, (const void*)kernel, XF_THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int n_tiles = (M + tile - 1) / tile;
+  const int blocks = n_tiles < sms * per_sm ? n_tiles : sms * per_sm;
+  if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<blocks, XF_THREADS, smem, (cudaStream_t)stream>>>(
+      params, feats, v, gin, M, F, H, L, tied, KF);
   return (int)cudaGetLastError();
 }
 

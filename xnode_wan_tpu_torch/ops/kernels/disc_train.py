@@ -11,9 +11,13 @@ Two variants: ``registers`` (``csrc/disc_fwd.cu::disc_fwd_kernel``), built
 once per adversary width ``H`` (``libdisc_fwd_H<H>.so``), one thread per
 point over a block's copy of the weights staged by columns
 (:func:`staged_floats`), for nets up to :data:`REG_MAX_WIDTH` wide whose
-copy fits; and ``tile`` (``csrc/disc_train.cu::disc_tile_fwd_kernel``),
-#7's forward and sweep on a tile of points with the weights read through
-the read-only cache, for every other net.
+copy fits; and ``tile`` (``csrc/disc_tile_fwd.cuh::disc_tile_fwd_kernel``)
+for every other net: a persistent grid walks tiles of up to 128 points
+(:data:`FWD_TILES`), the relu signs kept as bits, each product's weights
+streamed through shared memory by ``cp.async`` in slices of
+:func:`fwd_slice` (the forward) or :func:`sweep_slice` inputs (the sweep),
+the forward in FP32 FMAs and the sweep with ``gin`` on the tensor cores in
+3xTF32 (:func:`fwd_tile_smem_bytes`).
 
 **Kernel #7** (:func:`v_dv_bwd_cuda`, ``csrc/disc_train.cu::
 disc_bwd_kernel``) replaces ``_v_bwd_kernel``: the gradient of ``sum(v
@@ -109,9 +113,16 @@ BWD_LAUNCHES = KernelVariants({"shared": BWD_KERNEL,
 
 # Constants of csrc/disc_fwd.cu and disc_train.cu
 FWD_THREADS = 128     # XD_FWD_THREADS: a register #6 block, one point each
-BWD_THREADS = 256     # XD_BWD_THREADS: a block of #7 or of the tile #6
+BWD_THREADS = 256     # XD_BWD_THREADS: a block of #7
+FWD_TILE_THREADS = 256  # XF_THREADS: a block of the tile #6
 CLUSTER_THREADS = 512  # XK_THREADS: a block of #7's cluster variant
-TILES = (32, 16, 8, 4)  # points a tile of #7 and the tile #6, largest first
+TILES = (32, 16, 8, 4)  # points a tile of #7, largest first
+# The tile #6: points a tile and inputs a slice of the forward's weights
+# (multiples of 8), largest first; the outputs a pass covers at most
+# (XF_OB_MAX: 8-input slices of the widest net fit beside its activations)
+FWD_TILES = (128, 64, 32, 16, 8)
+FWD_SLICES = (32, 24, 16, 8)
+FWD_PASS_MAX = 512
 # #7's cluster variant: blocks a cluster (a block's share of every buffer
 # shrinks with it, so 8 fits wherever 4 or 2 do), and its smallest tile (at
 # 8 points it was about as slow as the global variant at 2v's net)
@@ -299,33 +310,91 @@ def fwd_smem_bytes(geom: DiscGeom) -> int:
 
 
 def bwd_stride(tile: int) -> int:
-    """Floats a row of the tile buffers (#7, the tile #6) takes for
-    ``tile`` points (``xd_bwd_stride``): ``tile + 4``, so that rows start
-    on 16 bytes and eight rows an odd count apart fall on distinct banks;
-    ``tile`` itself below 16 points, where the pad would not fit the
-    untied d=20 net."""
+    """Floats a row of #7's tile buffers takes for ``tile`` points
+    (``xd_bwd_stride``): ``tile + 4``, so that rows start on 16 bytes and
+    eight rows an odd count apart fall on distinct banks; ``tile`` itself
+    below 16 points, where the pad would not fit the untied d=20 net."""
     return tile + 4 if tile >= 16 else tile
 
 
 def tile_rows(geom: DiscGeom, variant: str) -> int:
-    """Rows of a block's tile buffers (``xd_tile_rows``): #7's
+    """Rows of a block's tile buffers of #7 (``xd_tile_rows``): the
     activations and sweep vectors of each layer, two cotangent buffers and
-    ``vb``, plus the features and ``gb`` where the ``shared`` variant stages
-    them; the ``tile`` #6's activations, a second sweep buffer and the
-    features (then ``gin``)."""
+    ``vb``, plus the features and ``gb`` where the ``shared`` variant
+    stages them."""
     F, H, L = geom.F, geom.H, geom.L
-    if variant == "tile":
-        return (L + 2) * H + F
     rows = 2 * (L + 1) * H + 2 * H + 1
     return rows + 2 * F if variant == "shared" else rows
 
 
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def fwd_tile_stride(tile: int) -> int:
+    """Floats a row of the tile #6's activation buffers takes
+    (``xf_stride``): the smallest odd multiple of 8 at least ``tile``, so
+    that the eight row groups of a tensor-core fragment fall on distinct
+    banks and rows start on 16 bytes."""
+    return tile if tile % 16 == 8 else tile + 8
+
+
+def fwd_pass(geom: DiscGeom, tile: int) -> int:
+    """Outputs a pass of the tile #6's products covers (``XfLayout::OB``):
+    at most its block's 8 x 8 micro-tiles at ``tile`` points and
+    :data:`FWD_PASS_MAX`; the widest product's outputs (rounded up to 16)
+    in as few passes of equal width, a multiple of 16, as that allows."""
+    widest = _pad16(max(geom.H, geom.F))
+    most = min(FWD_TILE_THREADS * 64 // tile, FWD_PASS_MAX)
+    passes = -(-widest // most)
+    return _pad16(-(-widest // passes))
+
+
+def sweep_slice(geom: DiscGeom, tile: int, k_slice: int) -> int:
+    """Inputs a slice of the tile #6's sweep and ``gin`` takes beside
+    forward slices of ``k_slice`` (``XfLayout::KB``): the most multiple of
+    8 (at least 8) whose slice, rows of :func:`fwd_pass` + 8 floats, is no
+    larger than the forward's ``fwd_pass x k_slice``."""
+    ob = fwd_pass(geom, tile)
+    return max(8, k_slice * ob // (8 * (ob + 8)) * 8)
+
+
+def fwd_tile_smem_bytes(geom: DiscGeom, tile: int, k_slice: int) -> int:
+    """Shared memory of one block of the tile #6 at ``tile`` points and
+    forward weight slices of ``k_slice`` inputs, twin of ``xf_layout`` in
+    ``csrc/disc_tile_fwd.cuh``: two activation buffers of ``H`` rows of
+    :func:`fwd_tile_stride` floats; the relu bits of ``a_0 .. a_{L-1}``,
+    ``ceil(tile / 32)`` words a unit and layer (rounded up to four); two
+    weight slices, each the larger of the forward's, :func:`fwd_pass` rows
+    of ``k_slice`` floats, and the sweep's, :func:`sweep_slice` rows of
+    :func:`fwd_pass` + 8; and the ``v`` reduction's
+    :data:`FWD_TILE_THREADS` partial sums."""
+    H, L, ob = geom.H, geom.L, fwd_pass(geom, tile)
+    words = L * H * -(-tile // 32)
+    kb = sweep_slice(geom, tile, k_slice)
+    floats = (2 * H * fwd_tile_stride(tile) + _pad4(words)
+              + 2 * max(kb * (ob + 8), ob * k_slice) + FWD_TILE_THREADS)
+    return 4 * floats
+
+
+def fwd_slice(geom: DiscGeom, tile: int) -> int:
+    """Inputs a forward weight slice of the tile #6 at ``tile`` points
+    (``xf_slice``): the largest of :data:`FWD_SLICES` whose block fits, 0
+    where none does."""
+    return next((k for k in FWD_SLICES
+                 if fwd_tile_smem_bytes(geom, tile, k) <= MAX_SMEM_BYTES), 0)
+
+
 def tile_smem_bytes(geom: DiscGeom, variant: str, tile: int) -> int:
-    """Shared memory of one block of ``variant`` (``"shared"`` or
-    ``"global"`` #7, ``"tile"`` #6) at ``tile`` points, twin of
-    ``xd_tile_smem`` in ``csrc/disc_train.cu``: the tile's rows of
-    :func:`bwd_stride` floats, then the ``shared`` variant's gradient
-    accumulator."""
+    """Shared memory of one block of ``variant`` at ``tile`` points, twin
+    of ``disc_tile_smem_bytes`` in ``csrc/disc_train.cu``: for ``"shared"``
+    or ``"global"`` #7 the tile's rows of :func:`bwd_stride` floats, then
+    the ``shared`` variant's gradient accumulator; for the ``"tile"`` #6
+    :func:`fwd_tile_smem_bytes` at its :func:`fwd_slice` (at the smallest
+    slice where none fits)."""
+    if variant == "tile":
+        return fwd_tile_smem_bytes(geom, tile,
+                                   fwd_slice(geom, tile) or FWD_SLICES[-1])
     acc = geom.n_params if variant == "shared" else 0
     return 4 * (acc + bwd_stride(tile) * tile_rows(geom, variant))
 
@@ -409,14 +478,15 @@ class DiscRoute(NamedTuple):
     """What the wrappers launch for one discriminator on the card
     (:func:`disc_route`)."""
     fwd: str        # #6: "registers" or "tile"
-    fwd_tile: int   # points a block of the tile #6 (0 with registers)
+    fwd_tile: int   # points a tile of the tile #6 (0 with registers)
     bwd: str        # #7's accumulator: "shared", "cluster" or "global"
     bwd_tile: int   # points a tile of #7 (a cluster's in "cluster")
     cluster: int = 1  # blocks a thread-block cluster of #7 ("cluster")
 
 
 def _largest_tile(geom: DiscGeom, variant: str) -> int:
-    return next((t for t in TILES
+    tiles = FWD_TILES if variant == "tile" else TILES
+    return next((t for t in tiles
                  if tile_smem_bytes(geom, variant, t) <= MAX_SMEM_BYTES), 0)
 
 
@@ -445,8 +515,8 @@ def disc_route(geom: DiscGeom) -> DiscRoute:
     """The variants and tiles of #6 and #7 for ``geom``: the one place
     where the wrappers choose them, from the shapes, before any launch.
     #6 in registers up to :data:`REG_MAX_WIDTH` wide where its staged
-    weights fit a block, else on tiles, at the largest of :data:`TILES`
-    that fits. #7, in this order: with its accumulator in shared memory
+    weights fit a block, else on tiles, at the largest of
+    :data:`FWD_TILES` that fits (every net of the domain fits 8 points). #7, in this order: with its accumulator in shared memory
     where it fits beside a tile (at the largest tile that fits); else on
     thread-block clusters (:func:`cluster_choice`); else in ``partial``,
     at the largest tile that fits. Raises, naming the bound, past the JAX
@@ -472,7 +542,8 @@ def disc_route(geom: DiscGeom) -> DiscRoute:
         bwd = ("global", _largest_tile(geom, "global"))
     if not (fwd[0] == "registers" or fwd[1]) or not bwd[1]:
         raise ValueError(f"the discriminator {geom} does not fit kernels "
-                         f"#6/#7 at {TILES[-1]} points a tile")
+                         f"#6/#7 at {FWD_TILES[-1]} / {TILES[-1]} points a "
+                         "tile")
     return DiscRoute(*fwd, *bwd)
 
 
@@ -532,7 +603,8 @@ def _checks(packed, feats, geom: DiscGeom):
 
 
 def _fwd_tile(packed, feats, geom: DiscGeom, tile: int, dev):
-    """Launch the tile #6 at ``tile`` points a block."""
+    """Launch the tile #6 at ``tile`` points a tile (its persistent grid
+    and its slice are the launcher's)."""
     M = feats.shape[0]
     v = torch.empty((M,), dtype=torch.float32, device=dev)
     gin = torch.empty((M, geom.F), dtype=torch.float32, device=dev)

@@ -4,7 +4,7 @@
     python -m xnode_wan_tpu_torch.tile_sweep [--configs cube_pde ...]
         [--set key=value ...] [--tiles 2 4 8 16] [--threads 64 128 256]
         [--rule [--cluster C ...] | --same-tile
-         | --adversary [--cluster C ... | --ablate]] [--f64]
+         | --adversary [--cluster C ... | --ablate | --fwd-only]] [--f64]
         [--out example_run/tile_sweep.json]
 
 For each config (``configs/<name>.yaml``; random weights from a seed, one
@@ -52,8 +52,9 @@ their wrappers (``v_dv_fwd_cuda``, ``v_dv_bwd_cuda``: the variant and
 tile they choose), at each config's discriminator with ``--set`` applied
 (random weights from seed 0, ``tied_v`` and ``v_fourier_features`` from
 the config) on ``N_r * N_t`` random points, each held against its plain
-version, #7 twice for bitwise equality; like ``--rule``, a copy of this
-file in an older checkout times that checkout's kernels (``--set
+version (#6's plain version timed too), each twice for bitwise
+equality; like ``--rule``, a copy of this file in an older checkout
+times that checkout's kernels (``--set
 v_hidden_dim=256`` is 2v's adversary, ``v_hidden_dim=558`` the widest the
 JAX package runs at the shipped depth). With ``--cluster C ...`` it
 times #7's rule once for each C, its cluster variant held to clusters of
@@ -65,6 +66,13 @@ in builds of ``disc_train.cu`` that each leave one part out (timing only:
 their gradients are wrong): the pushes into the peers, the FP32 forward,
 the products, the weight sums, all arithmetic, and all but the barriers
 and loops (:data:`ABLATIONS`), each built into ``_build/ablate/<part>``.
+With ``--fwd-only`` it times #6 alone (the 558-wide net's global #7 takes
+over a second a launch): ``--set v_hidden_dim=256`` is 2v's tile #6,
+``v_hidden_dim=558`` the widest, ``v_hidden_dim=128 tied_v=false`` and
+``v_layers=40 tied_v=false`` the untied nets of ``chip_smoke.py``'s phase
+3; with ``--ablate`` too, the tile #6 at the route's shape in builds that
+each leave out its weight copies, its FP32 forward, its tensor-core sweep
+and ``gin``, both products, or all three (:data:`FWD_ABLATIONS`).
 """
 
 from __future__ import annotations
@@ -325,7 +333,7 @@ def sweep_config(name: str, tiles, threads, reps: int, card: str,
 
 
 def adversary_config(name: str, reps: int, card: str, sets=None,
-                     cluster=None) -> dict:
+                     cluster=None, fwd_only: bool = False) -> dict:
     from xnode_wan_tpu_torch import init_discriminator, load_params
     from xnode_wan_tpu_torch.models.discriminator import disc_features
     from xnode_wan_tpu_torch.ops.kernels import disc_train as dt
@@ -352,6 +360,8 @@ def adversary_config(name: str, reps: int, card: str, sets=None,
              ("disc_bwd",
               lambda: dt.v_dv_bwd_cuda(packed, feats, vb, gb, geom),
               lambda: dt.v_dv_bwd_plain(packed, feats, vb, gb, geom))]
+    if fwd_only:
+        cases = cases[:1]
     if cluster:
         # the rule held to clusters of C blocks, and the cluster variant
         # through its launcher at the tile it gives them where the route
@@ -376,12 +386,15 @@ def adversary_config(name: str, reps: int, card: str, sets=None,
                 got, want = run(), plain()
                 if kernel == "disc_fwd":
                     err = max(_scaled_err(g, w) for g, w in zip(got, want))
-                    bitwise = None
+                    bitwise = all(torch.equal(g, h)
+                                  for g, h in zip(got, run()))
                 else:
                     err = _scaled_err(got, want)
                     bitwise = bool(torch.equal(got, run()))
                 row[kernel] = {"ms": _time_ms(run, reps),
                                "max_rel_err": err, "bitwise_repeat": bitwise}
+                if kernel == "disc_fwd":
+                    row[kernel]["plain_ms"] = _time_ms(plain, 5)
     finally:
         if cluster:
             dt.CLUSTER = kept
@@ -405,26 +418,37 @@ ABLATIONS = dict(_CUT, **{
                          + _CUT["weight sums"] + _CUT["pushes"])})
 
 
-def cluster_ablations(name: str, sets: dict, reps: int, card: str) -> list:
-    """#7's cluster variant at the route's shape (``--set`` applied to the
-    config's discriminator, random weights seed 0, ``N_r * N_t`` points) in
-    the tree's build and in one build per entry of :data:`ABLATIONS`, all
-    built at once, each timed through its own library."""
-    import ctypes
+# The parts of the tile #6 an ablation build leaves out (text in
+# csrc/disc_tile_fwd.cuh, its replacement)
+_FWD_CUT = {
+    "copies": [("    xf_issue(wbuf + b * y.slice, w, npass * OB,\n"
+                "             nslice * (w.cols ? KB : KF), y);", "")],
+    "forward": [("          if (!mine) continue;\n          const int kn",
+                 "          continue;\n          const int kn")],
+    "sweep": [("          xf_mma_slice<U, NB>(d,",
+               "          if (0) xf_mma_slice<U, NB>(d,")],
+}
+FWD_ABLATIONS = dict(_FWD_CUT, **{
+    "arithmetic": _FWD_CUT["forward"] + _FWD_CUT["sweep"],
+    "all but barriers": (_FWD_CUT["forward"] + _FWD_CUT["sweep"]
+                         + _FWD_CUT["copies"])})
+
+
+def _ablation_builds(source: str, ablations: dict) -> dict:
+    """Copies of the kernel sources, one per entry of ``ablations`` and
+    one untouched (``"none"``), each with its cuts made in ``source``, all
+    built at once: ``{part: (directory, nvcc process)}``."""
     import shutil
 
-    from xnode_wan_tpu_torch import init_discriminator, load_params
-    from xnode_wan_tpu_torch.models.discriminator import disc_features
     from xnode_wan_tpu_torch.ops.kernels import _build
-    from xnode_wan_tpu_torch.ops.kernels import disc_train as dt
 
     root = _build.BUILD_ROOT / "ablate"
     procs = {}
-    for part, cuts in {"none": [], **ABLATIONS}.items():
+    for part, cuts in {"none": [], **ablations}.items():
         d = root / part.replace(" ", "_")
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(_build.CSRC, d)
-        src = d / "disc_train_cluster.cuh"
+        src = d / source
         text = src.read_text()
         for old, new in cuts:
             if old not in text:
@@ -436,6 +460,74 @@ def cluster_ablations(name: str, sets: dict, reps: int, card: str) -> list:
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"),
              str(d / "disc_train.cu")], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def fwd_ablations(name: str, sets: dict, reps: int, card: str) -> list:
+    """The tile #6 at the route's shape (``--set`` applied to the config's
+    discriminator, random weights seed 0, ``N_r * N_t`` points) in the
+    tree's build and in one build per entry of :data:`FWD_ABLATIONS`,
+    each timed through its own library."""
+    import ctypes
+
+    from xnode_wan_tpu_torch import init_discriminator, load_params
+    from xnode_wan_tpu_torch.models.discriminator import disc_features
+    from xnode_wan_tpu_torch.ops.kernels import disc_train as dt
+
+    procs = _ablation_builds("disc_tile_fwd.cuh", FWD_ABLATIONS)
+    dev = torch.device("cuda", 0)
+    cfg = load_params(os.path.join(ROOT, "configs", f"{name}.yaml"))
+    cfg = cfg.replace(**sets) if sets else cfg
+    gen = torch.Generator(device=dev).manual_seed(0)
+    L, tied = cfg.v_layers, cfg.tied_v
+    vp = init_discriminator(cfg.dim, cfg.v_hidden_dim, L, tied,
+                            cfg.v_fourier_features, generator=gen, device=dev)
+    geom = dt.geom_of(vp, L, tied)
+    packed = dt.live_packed_disc(vp, L, tied).detach()
+    route = dt.disc_route(geom)
+    if route.fwd != "tile":
+        raise ValueError(f"{geom} routes #6 to {route.fwd}: no tile #6 to "
+                         "ablate")
+    M = cfg.N_r * cfg.N_t
+    pts = torch.rand((M, cfg.dim + 1), generator=gen, device=dev)
+    pts[:, 1:] = 2.0 * pts[:, 1:] - 1.0
+    feats = disc_features(pts, cfg.v_fourier_features).contiguous()
+    v = torch.empty((M,), device=dev)
+    gin = torch.empty((M, geom.F), device=dev)
+    row = {"config": name, "set": sets, "geom": list(geom), "points": M,
+           "card": card, "route": repr(route)}
+    for part, (d, proc) in procs.items():
+        out = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"ablation {part}: nvcc failed\n{out}")
+        launch = ctypes.CDLL(str(d / "lib.so")).disc_tile_fwd_launch
+        launch.argtypes = ([ctypes.c_int, ctypes.c_void_p]
+                           + dt.FWD_TILE_KERNEL.argtypes)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def run():
+            err = launch(0, stream, packed.data_ptr(), geom.n_params,
+                         feats.data_ptr(), v.data_ptr(), gin.data_ptr(), M,
+                         geom.F, geom.H, L, int(tied), route.fwd_tile)
+            if err:
+                raise RuntimeError(f"ablation {part}: CUDA error {err}")
+        row[f"without {part}"] = {"ms": _time_ms(run, reps)}
+    print(json.dumps(row), flush=True)
+    return [row]
+
+
+def cluster_ablations(name: str, sets: dict, reps: int, card: str) -> list:
+    """#7's cluster variant at the route's shape (``--set`` applied to the
+    config's discriminator, random weights seed 0, ``N_r * N_t`` points) in
+    the tree's build and in one build per entry of :data:`ABLATIONS`, all
+    built at once, each timed through its own library."""
+    import ctypes
+
+    from xnode_wan_tpu_torch import init_discriminator, load_params
+    from xnode_wan_tpu_torch.models.discriminator import disc_features
+    from xnode_wan_tpu_torch.ops.kernels import disc_train as dt
+
+    procs = _ablation_builds("disc_train_cluster.cuh", ABLATIONS)
     dev = torch.device("cuda", 0)
     cfg = load_params(os.path.join(ROOT, "configs", f"{name}.yaml"))
     cfg = cfg.replace(**sets) if sets else cfg
@@ -510,8 +602,11 @@ def main(argv=None) -> int:
                     help="time kernels #6 and #7 at each config's "
                          "discriminator instead")
     ap.add_argument("--ablate", action="store_true",
-                    help="with --adversary: time #7's cluster variant in "
-                         "builds that each leave one part out")
+                    help="with --adversary: time #7's cluster variant (with "
+                         "--fwd-only: the tile #6) in builds that each "
+                         "leave one part out")
+    ap.add_argument("--fwd-only", action="store_true",
+                    help="with --adversary: time kernel #6 alone")
     ap.add_argument("--f64", action="store_true",
                     help="also hold the plain f32 version and the kernels "
                          "against the plain version in f64")
@@ -531,10 +626,12 @@ def main(argv=None) -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(card)
     if args.adversary and args.ablate:
+        ablate = fwd_ablations if args.fwd_only else cluster_ablations
         rows = [r for name in args.configs
-                for r in cluster_ablations(name, sets, args.reps, card)]
+                for r in ablate(name, sets, args.reps, card)]
     elif args.adversary:
-        rows = [adversary_config(name, args.reps, card, sets, c)
+        rows = [adversary_config(name, args.reps, card, sets, c,
+                                 args.fwd_only)
                 for name in args.configs for c in args.cluster or [None]]
     else:
         _build.build([("xnode_grad", None)])
