@@ -175,17 +175,18 @@ which raises on failure:
    t. the cube at d = 100 with ``fourier_features: 1`` (F = 300), seed
       0, ``N_r = N_b = 4,000``, 20 iterations of ``train_until``: #2 once
       an iteration in its path-tile variant, #3 once and #4 and #5 twice
-      a tangent chunk an iteration, every rel-L2 and weight finite
+      an iteration at the full d (one tangent chunk: the features stay
+      out of the tiles), every rel-L2 and weight finite
       (``loss_u`` overflows f32 at this volume, as in the JAX package),
       the least rel-L2 under the first; 65,536 points served through #1's
       path-tile variant, finite (the interior term's gradient is zero
       here, as ``log`` of an inf; 2u trains through it);
    u. the cube at d = 30 with ``u_hidden_dim = u_hidden_hidden_dim = 48``
       and ``fourier_features: 1`` (F = 90), seed 0, 20 iterations of
-      ``train_until``: #2 in its path-tile variant, #3-#5 in tangent
-      chunks with #5's cluster variant, exact launches by variant,
-      every ``loss_u`` finite (the chunked interior term drives the
-      training), the least rel-L2 under the first;
+      ``train_until``: #2 in its path-tile variant, #3-#5 at the full d
+      with #5's cluster variant, exact
+      launches by variant, every ``loss_u`` finite (#3-#5's interior term
+      drives the training), the least rel-L2 under the first;
    v. the cube with a 256-wide adversary (``v_hidden_dim: 256``, tied,
       ``fused_v: true``), seed 0: one outer step through #6/#7 against the
       same step with the plain adversary from the same weights and batch
@@ -210,8 +211,10 @@ which raises on failure:
    with n_sub 2, Fourier features, ragged path counts (4,001 and 37) and
    the ``highdim_d20`` geometry (H = 24, Hh = 32, d = 20, its Fourier
    bank; paths within ``KINK_MARGIN`` of a relu kink left out, then all
-   paths at ``KINK_RTOL``), two launches of #5 compared bitwise, and the
-   autograd function's weight gradients against ``torch.autograd.grad``
+   paths at ``KINK_RTOL``), two launches of #4 and of #5 compared
+   bitwise there and at the cube's trained net at N_r, N_r + 1 and 37
+   paths, and the autograd function's weight gradients against
+   ``torch.autograd.grad``
    through the plain forward;
    #6 (v within ``rtol=2e-4, atol=2e-5``, the input gradient) and #7
    (each weight-gradient tensor) at 80,000 points for the trained tied
@@ -234,7 +237,7 @@ which raises on failure:
    kernel variants: #1 and #2's path-tile variant at 2t's net and
    at d = 5 with H = 96, Hh = 64 (and both variants at the cube's net),
    #5's cluster variant at 2s's trained net and, at random weights (live
-   relus), at its shape and at 2u's chunk (15 of d = 30, F = 90), each
+   relus), at its shape and at 2u's (d = 30, F = 90), each
    at N_r, N_r + 1 and 37 paths, twice, bitwise, by the kink rule of the
    d=20 check (the paths at least ``KINK_MARGIN`` from a kink against the
    plain version, all of them at ``KINK_RTOL``); at the random ones #5's
@@ -248,9 +251,11 @@ which raises on failure:
    tangent chunks of 10 at the ``highdim_d20`` geometry against the
    full-d kernels (u and du bitwise, the weight gradient within the
    scaled limit), and #3-#5 against their plain versions, with the kink
-   rule of the d=20 check, at a chunk of 2t's (50 of d = 100, F = 300)
-   and of 2u's trained net (15 of d = 30, #5's cluster variant twice,
-   bitwise); #6's and #7's variants, by the kink rule of the d=20 check
+   rule of the d=20 check, at the full d of 2t's net (d = 100, F = 300),
+   of 2u's trained net (d = 30, #5's cluster variant), of 2i's net (the
+   cube's widths at d = 20, random weights) and of the cube's widths at
+   d = 50 (random weights), #4 and #5 twice each, bitwise; #6's and #7's
+   variants, by the kink rule of the d=20 check
    (points within ``KINK_MARGIN`` of a relu kink of the adversary left
    out, then all at ``KINK_RTOL``) at 80,000 points and at 80,001 and 37:
    2v's and 2w's trained adversaries, JAX's widest at the shipped depth
@@ -270,8 +275,9 @@ which raises on failure:
    TF32 rate over three); and each kernel variant
    at its phase's shapes (the path-tile #1/#2 at 2t's, and both variants
    of #2 at the cube's net, #5's cluster variant at 2s's and its global
-   accumulator there through its launcher, #3-#5 a chunk at 2t's, #5's
-   cluster variant and its global accumulator a chunk at 2u's; #6 and #7 at
+   accumulator there through its launcher, #3-#5 at 2t's, #5's cluster
+   variant and its global accumulator at 2u's, #3-#5 at the d=20 nets of
+   2g (``highdim_d20``) and 2i (random weights); #6 and #7 at
    2v's and 2w's trained adversaries and at the 558-wide one, #7's global
    accumulator at 2v's through its launcher beside its cluster variant
    (whose bound takes the FP32 forward recompute at the FP32 rate and the
@@ -451,9 +457,10 @@ WIDE_SERVE_FACTOR = 2.0
 D100 = dict(dim=100, fourier_features=1)
 D100_ITERS = 20
 # 2u: the cube at d = 30 with H = Hh = 48 and its Fourier bank (F = 90):
-# 2t's route (the path-tile #2, #3-#5 in tangent chunks) with #5's
-# cluster variant, at a volume (2^30) where loss_u stays finite, so
-# that the chunked interior term drives the training; 20 iterations
+# 2t's route (the path-tile #2, #3-#5 at the full d) with #5's cluster
+# variant, at a volume (2^30)
+# where loss_u stays finite, so that #3-#5's interior term drives the
+# training; 20 iterations
 D30 = dict(dim=30, u_hidden_dim=48, u_hidden_hidden_dim=48,
            fourier_features=1)
 D30_ITERS = 20
@@ -2227,7 +2234,8 @@ def d100_fourier(kernels, work: str, card: str) -> dict:
     """Phase 2t: ``configs/cube_pde.yaml`` at :data:`D100` (d = 100, F =
     300), seed 0, ``N_r = N_b = 4,000``, ``D100_ITERS`` iterations of
     ``train_until``: #1/#2 in their path-tile variant (F + 1 + H is past
-    their register kernels' cap), #3-#5 in tangent chunks; every rel-L2
+    their register kernels' cap), #3-#5 at the full d (one chunk; the
+    features stay out of their tiles); every rel-L2
     and weight finite (``loss_u`` is not, as in the JAX package: the
     square of the interior term's integral, which carries the cube's
     volume 2^100, overflows f32), the least rel-L2 under the first, exact
@@ -2246,7 +2254,7 @@ def d100_fourier(kernels, work: str, card: str) -> dict:
     chunks = cfg.dim // route.d_chunk
     print(f"d={cfg.dim} cube with fourier_features 1 (F={net.F}): kernels "
           f"{route}, {chunks} chunks")
-    if route.path != "tile" or chunks < 2:
+    if route.path != "tile" or chunks != 1:
         raise AssertionError(f"the d=100 cube routes {route}")
     cube = Hypercube(cfg.shape_param, cfg.dim, cfg.T0, cfg.T, cfg.N_t)
     zero_launches(kernels)
@@ -2338,14 +2346,14 @@ def variants_run(before: dict, counter) -> list:
     return [v for v in after for _ in range(after[v] - before[v])]
 
 
-def d30_chunked(kernels, work: str, card: str) -> dict:
+def d30_cube(kernels, work: str, card: str) -> dict:
     """Phase 2u: ``configs/cube_pde.yaml`` at :data:`D30` (d = 30, H = Hh
     = 48, F = 90), seed 0, ``D30_ITERS`` iterations of ``train_until``:
-    #2 in its path-tile variant, #3-#5 in tangent chunks with #5's
-    cluster variant, exact launches by variant; every ``loss_u`` finite (the
-    interior term, which only the chunked #3-#5 compute, gives a
-    gradient at every iteration, unlike at 2t's volume), every rel-L2
-    finite and the least under the first."""
+    #2 in its path-tile variant, #3-#5 at the full d with #5's cluster
+    variant, exact launches by variant; every ``loss_u`` finite (the
+    interior term, which only #3-#5 compute, gives a gradient at every
+    iteration, unlike at 2t's volume), every rel-L2 finite and the least
+    under the first."""
     from xnode_wan_tpu_torch import NODEWANSolver, load_params, load_problem
     from xnode_wan_tpu_torch.ops.kernels import xnode_train
 
@@ -2357,7 +2365,7 @@ def d30_chunked(kernels, work: str, card: str) -> dict:
     chunks = cfg.dim // route.d_chunk
     print(f"d={cfg.dim} cube at H=Hh=48 with fourier_features 1 (F={net.F}):"
           f" kernels {route}, {chunks} chunks")
-    if (route.path != "tile" or chunks < 2
+    if (route.path != "tile" or chunks != 1
             or route.bwd.variant != "cluster"):
         raise AssertionError(f"the d=30 cube routes {route}")
     zero_launches(kernels)
@@ -2583,11 +2591,12 @@ def variant_checks(*, L, N, batch, batch20, cfg, cfg20, check_udu,
     twice, bitwise, by the kink rule; #5's global variant at 2s's trained
     net by the kink rule; #5's global
     accumulator bitwise equal to the shared one at the same tile and
-    grid; #3-#5 a tangent chunk at 2t's and 2u's
-    nets against their plain versions; #3-#5 in tangent chunks against
+    grid; #3-#5 at the full d of 2t's, 2u's and 2i's nets and of the
+    cube's widths at d = 50 against their plain versions, #4 and #5 twice,
+    bitwise; #3-#5 in tangent chunks against
     the full d. Takes the names of ``main`` these read; returns what
     phase 4 times."""
-    from xnode_wan_tpu_torch import Hypercube, init_xnode
+    from xnode_wan_tpu_torch import Hypercube, init_xnode, load_problem
     from xnode_wan_tpu_torch.models.xnode import spatial_features
     from xnode_wan_tpu_torch.ops.kernels import (steppers, xnode_eval,
                                                  xnode_train)
@@ -2768,7 +2777,7 @@ def variant_checks(*, L, N, batch, batch20, cfg, cfg20, check_udu,
             (f"H=Hh=64 d=5 {wcfg.solver} (random weights)",
              xnode_train.flat_net(init_xnode(wcfg, gv)), wcfg, cube, problem,
              wcfg.dim, True),
-            (f"H=Hh=48 F=90, a chunk of {dc_u} of d={u_cfg.dim} (random "
+            (f"H=Hh=48 F=90, {dc_u} of d={u_cfg.dim} a launch (random "
              "weights)", xnode_train.flat_net(init_xnode(u_cfg, gv)), u_cfg,
              u_dom, usolver.problem, dc_u, True)]
         for label, cnet, c, dom, prob, dc, random in cluster_nets:
@@ -2790,9 +2799,9 @@ def variant_checks(*, L, N, batch, batch20, cfg, cfg20, check_udu,
                 if ran != ({"cluster", "global"} if random else {"cluster"}):
                     raise AssertionError(f"#5 at {label}, N={n_p} ran {ran}"
                                          ", expected its cluster variant")
-        # #3-#5 a tangent chunk at the shapes 2t launches them (F = 300, a
-        # chunk of 50 of d = 100) and at 2u's trained net (F = 90, a chunk
-        # of 15 of d = 30, #5's cluster variant, twice, bitwise)
+        # #3-#5 at the shapes 2t launches them (F = 300, the full d = 100)
+        # and at 2u's trained net (F = 90, d = 30; #5's cluster variant),
+        # #4 and #5 twice each, bitwise
         dc_t = hd["route"].d_chunk
         h_tan = [a.contiguous() for a in xnode_train.path_tangent_inputs(
             hb, hsolver.problem, t_cfg)]
@@ -2807,10 +2816,10 @@ def variant_checks(*, L, N, batch, batch20, cfg, cfg20, check_udu,
         u_chunk_args = (u_t0, u_dt, u_tan[0], u_tan[1][:, :dc_u].contiguous(),
                         u_tan[2], u_tan[3][:, :dc_u].contiguous())
         chunk_runs = [
-            (f"2t's net (F={t_net.F}), a chunk of {dc_t} of d={t_cfg.dim}",
-             t_net, h_chunk, t_cfg, False),
-            (f"2u's trained net (H=Hh=48, F=90), a chunk of {dc_u} of "
-             f"d={u_cfg.dim}", xnode_train.flat_net(usolver.state.u_params),
+            (f"2t's net (F={t_net.F}), {dc_t} of d={t_cfg.dim} a launch",
+             t_net, h_chunk, t_cfg, True),
+            (f"2u's trained net (H=Hh=48, F=90), {dc_u} of d={u_cfg.dim} a "
+             "launch", xnode_train.flat_net(usolver.state.u_params),
              u_chunk_args, u_cfg, True)]
         for label, cnet, cargs, c, bitwise in chunk_runs:
             before = xnode_train.BWD_LAUNCHES.by_variant()
@@ -2822,6 +2831,24 @@ def variant_checks(*, L, N, batch, batch20, cfg, cfg20, check_udu,
             if ran != {want_v}:
                 raise AssertionError(f"#5 at {label} ran {ran}, expected "
                                      f"its {want_v} variant")
+        # #3-#5 at the full d of 2i's net (the cube's widths at d = 20) and
+        # at d = 50, random weights (live relus), by the kink rule, #4 and
+        # #5 twice each, bitwise
+        wide_d = {}
+        for dim_r in (20, 50):
+            c_r = cfg.replace(dim=dim_r)
+            net_r = xnode_train.flat_net(init_xnode(c_r, gv))
+            args_r = udu_args(
+                Hypercube(c_r.shape_param, dim_r, c_r.T0, c_r.T, c_r.N_t),
+                load_problem("Ex4_1_funcs", dim=dim_r), c_r, c_r.N_r, dim_r)
+            if xnode_train.kernel_route(net_r.dims(), dim_r,
+                                        c_r.solver).d_chunk != dim_r:
+                raise AssertionError(f"#3-#5 at the cube's widths, d={dim_r},"
+                                     " do not take the full d")
+            check_udu_near_kinks(f"the cube's widths at d={dim_r} (random "
+                                 "weights)", net_r, args_r, c_r.n_sub,
+                                 c_r.solver, bitwise=True)
+            wide_d[dim_r] = (net_r, args_r, c_r)
 
         # #5's global variant at 2s's trained net, launched directly, by
         # the kink rule: the paths at least KINK_MARGIN from a kink against
@@ -2954,17 +2981,20 @@ def variant_checks(*, L, N, batch, batch20, cfg, cfg20, check_udu,
         f"the full d={cfg20.dim}", gc, gf,
         [p.numel() for p in m20.parameters()]))
     print(f"  u in chunks of {D20_CHUNK} bitwise equal to the full d")
+    t0_20, dt_20 = [a.contiguous() for a in xnode_train._prep_intervals(
+        batch20.times, batch20.mask, batch20.t_start, cfg20.n_sub)]
+    d20_case = (xnode_train.flat_net(m20), (t0_20, dt_20, *in20), cfg20)
     return dict(h_path=h_path, h_serve=h_serve, hk=hk, t_cfg=t_cfg,
                 t_net=t_net, h_chunk=h_chunk, u_cfg=u_cfg,
                 u_net=chunk_runs[1][1], u_chunk_args=u_chunk_args,
                 wcfg=wcfg, wnet=wnet, w_args=w_args, main_path=main_path,
-                var_errs=var_errs)
+                var_errs=var_errs, d20_case=d20_case, d20_net=wide_d[20])
 
 
 def variant_times(*, card, cfg, cg, dev, hd, hu, method, net,
                    phase_launches, work, h_path, h_serve, hk, t_cfg, t_net,
                    h_chunk, u_cfg, u_net, u_chunk_args, wcfg, wnet, w_args,
-                   main_path) -> list:
+                   main_path, d20_case, d20_net) -> list:
     """Phase 4's times of the kernel variants at their phases'
     shapes, each with its bound and its launches there. Takes the names
     of ``main`` and of :func:`variant_checks` these read."""
@@ -2973,7 +3003,7 @@ def variant_times(*, card, cfg, cg, dev, hd, hu, method, net,
     with torch.no_grad():
         # the kernel variants at their phases' shapes: the path-tile #1/#2
         # (and #2's two variants at the cube's net), #5's cluster variant
-        # and its global one, #3-#5 a tangent chunk
+        # and its global one, #3-#5 at 2t's and 2u's nets
         def serve_work(tnet, m, k, method_):
             once_, per_ = steppers.field_macs(tnet)
             evals_ = steppers.EVALS_PER_STEP[method_]
@@ -3018,7 +3048,7 @@ def variant_times(*, card, cfg, cg, dev, hd, hu, method, net,
         u_glob = global_tile(u_net.dims(), dc_u, um)
         lv = {p: phase_launches[p].variants for p in ("2b", "2s", "2t",
                                                       "2t serve")}
-        chunk_label = f"a chunk of {dc_t} of d={t_cfg.dim}"
+        chunk_label = f"{dc_t} of d={t_cfg.dim} a launch"
         variant_cases = [
             ("xnode_train", "tile", "2t",
              lambda: xnode_train.path_forward_cuda(t_net, *h_path,
@@ -3083,8 +3113,8 @@ def variant_times(*, card, cfg, cg, dev, hd, hu, method, net,
                  hm),
              h_work["xnode_udu_bwd"], hd["launches"]["xnode_udu_bwd"], 3),
             ("xnode_udu_bwd", f"{u_bwd.variant}, {u_bwd.cluster} blocks a "
-             f"cluster, {u_bwd.paths} paths a tile, a chunk of {dc_u} of "
-             f"d={u_cfg.dim}", "2u",
+             f"cluster, {u_bwd.paths} paths a tile, {dc_u} of "
+             f"d={u_cfg.dim} a launch", "2u",
              lambda: xnode_train.u_du_bwd_cuda(
                  u_net, u_packed, *u_chunk_args, *u_states, u_ub, u_dub,
                  u_cfg.n_sub, um),
@@ -3093,8 +3123,8 @@ def variant_times(*, card, cfg, cg, dev, hd, hu, method, net,
                  um),
              u_work[bwd_key(u_bwd)],
              hu["launches"].variants["xnode_udu_bwd"][u_bwd.variant], 3),
-            ("xnode_udu_bwd", f"global, {u_glob.paths} paths a tile, a chunk "
-             f"of {dc_u} of d={u_cfg.dim}, launched directly", "2u's shapes",
+            ("xnode_udu_bwd", f"global, {u_glob.paths} paths a tile, {dc_u} "
+             f"of d={u_cfg.dim} a launch, launched directly", "2u's shapes",
              lambda: bwd_direct(u_glob, u_net, u_packed, u_chunk_args,
                                 u_states, u_ub, u_dub, u_cfg.n_sub, um),
              lambda: xnode_train.u_du_bwd_plain(
@@ -3102,6 +3132,48 @@ def variant_times(*, card, cfg, cg, dev, hd, hu, method, net,
                  um),
              u_work["xnode_udu_bwd"],
              hu["launches"].variants["xnode_udu_bwd"]["global"], 1)]
+        # #3, #4 and #5 at the d=20 nets of 2g (highdim_d20) and 2i (the
+        # cube's widths at d = 20), random weights, their launches there
+        for label, phase, (xnet, xargs, xc) in (
+                ("highdim_d20", "2g", d20_case), ("2i's net", "2i", d20_net)):
+            xp = xnet.packed()
+            xN, xL = xargs[0].shape
+            xd = xargs[-1].shape[1]
+            xs = xnode_train.u_du_fwd_cuda(xnet, xp, *xargs, xc.n_sub,
+                                           xc.solver, True)[2:]
+            x_ub = torch.randn((xN, xL), generator=cg, device=dev)
+            x_dub = torch.randn((xN, xL, xd), generator=cg, device=dev)
+            x_work = path_work(xnet, steppers, xN, xL, xd, xc.n_sub,
+                               xc.solver)
+            x_bwd = xnode_train.kernel_route(xnet.dims(), xd, xc.solver).bwd
+            x_launch = phase_launches[phase]
+            shape = f"{label}, d={xd}, {xnet.dims()}"
+
+            def fwd(store, a=(xnet, xp, xargs, xc)):
+                return lambda: xnode_train.u_du_fwd_cuda(
+                    a[0], a[1], *a[2], a[3].n_sub, a[3].solver, store)
+
+            def fwd_plain(store, a=(xnet, xargs, xc)):
+                return lambda: xnode_train.u_du_fwd_plain(
+                    a[0], *a[1], a[2].n_sub, a[2].solver, store)
+
+            b_args = (xnet, xp, xargs, xs, x_ub, x_dub, xc)
+            variant_cases += [
+                ("xnode_udu_fwd", shape, f"{phase}'s shapes", fwd(False),
+                 fwd_plain(False), x_work["xnode_udu_fwd"],
+                 x_launch["xnode_udu_fwd"], 3),
+                ("xnode_udu_fwd_store", shape, f"{phase}'s shapes", fwd(True),
+                 fwd_plain(True), x_work["xnode_udu_fwd_store"],
+                 x_launch["xnode_udu_fwd_store"], 3),
+                ("xnode_udu_bwd", f"{x_bwd.variant}, {x_bwd.paths} paths a "
+                 f"tile, {shape}", f"{phase}'s shapes",
+                 lambda a=b_args: xnode_train.u_du_bwd_cuda(
+                     a[0], a[1], *a[2], *a[3], a[4], a[5], a[6].n_sub,
+                     a[6].solver),
+                 lambda a=b_args: xnode_train.u_du_bwd_plain(
+                     a[0], *a[2], *a[3], a[4], a[5], a[6].n_sub,
+                     a[6].solver),
+                 x_work[bwd_key(x_bwd)], x_launch["xnode_udu_bwd"], 3)]
         var_rows = []
         print(f"kernel variants ({card}), kernel the median of 20 "
               "CUDA-event runs, plain of the reps given:")
@@ -3615,7 +3687,8 @@ def main(work_root: str) -> int:
         print(f"  disc_train {c.splitlines()[0].strip()}: "
               f"{regs.group(1) if regs else '?'} registers a thread")
     # the wrapper's shared-memory rule against the bytes the launchers of
-    # #3-#5 ask for, at every shipped config and the nets of 2s, 2t and 2u,
+    # #3-#5 ask for, at every shipped config, the nets of 2s, 2t, 2u and 2i
+    # and the cube's widths at d = 50,
     # method and listed tile: #3/#4 (and at d = 0 #1/#2's path-tile
     # variant), #5, #5's global-accumulator variant and its cluster
     # variant at each cluster size
@@ -3627,7 +3700,8 @@ def main(work_root: str) -> int:
     cluster_smem_of.restype = ctypes.c_longlong
     cluster_smem_of.argtypes = [ctypes.c_int] * 9
     geoms = dict(shipped)
-    for name, kw in (("2s", WIDE), ("2t", D100), ("2u", D30)):
+    for name, kw in (("2s", WIDE), ("2t", D100), ("2u", D30),
+                     ("2i", dict(dim=20)), ("d=50", dict(dim=50))):
         gcfg = load_params(CONFIG).replace(**kw)
         geoms[name] = (gcfg, xnode_train.flat_net(
             init_xnode(gcfg, device="cpu")).dims())
@@ -4113,7 +4187,7 @@ def main(work_root: str) -> int:
     t_phase = phase_done("2t", t_phase)
 
     # 2u. d = 30 at H = Hh = 48: chunked #3-#5 drive the training ----------
-    hu = d30_chunked(kernels, os.path.join(work_root, "2u"), card)
+    hu = d30_cube(kernels, os.path.join(work_root, "2u"), card)
     phase_launches["2u"] = hu["launches"]
     print(json.dumps({"wide_nets": {
         "wide_cube": {"iterations": wide["hist"]["iterations_run"],
@@ -4130,7 +4204,7 @@ def main(work_root: str) -> int:
                          "wall_train_s": hd["hist"]["wall_train_s"],
                          "chunks": hd["chunks"],
                          "route": hd["route"]._asdict()},
-        "d30_chunked": {"iterations": hu["hist"]["iterations_run"],
+        "d30_cube": {"iterations": hu["hist"]["iterations_run"],
                         "rel_err": [float(r) for r in hu["hist"]["rel_err"]],
                         "loss_u": [float(v) for v in hu["hist"]["loss_u"]],
                         "wall_train_s": hu["hist"]["wall_train_s"],
@@ -4247,6 +4321,12 @@ def main(work_root: str) -> int:
                 compare_scaled(f"xnode_udu_fwd du {label}", got[1], want[1]))
             got = xnode_train.u_du_fwd_cuda(gnet, gpacked, *args, n_sub,
                                             method, store=True)
+            if bitwise and not all(torch.equal(a, b) for a, b in zip(
+                    got, xnode_train.u_du_fwd_cuda(gnet, gpacked, *args,
+                                                   n_sub, method,
+                                                   store=True))):
+                raise AssertionError(f"xnode_udu_fwd_store {label}: two "
+                                     "launches differ")
             errs["xnode_udu_fwd_store"] = max(
                 errs["xnode_udu_fwd_store"],
                 compare(f"xnode_udu_fwd_store u {label}", got[0], want[0]),
@@ -4269,7 +4349,8 @@ def main(work_root: str) -> int:
                 if not torch.equal(grad, again):
                     raise AssertionError(f"xnode_udu_bwd {label}: two "
                                          "launches differ")
-                print(f"  xnode_udu_bwd {label}: two launches bitwise equal")
+                print(f"  xnode_udu_fwd_store and xnode_udu_bwd {label}: two "
+                      "launches each bitwise equal")
 
         def check_udu_near_kinks(label, gnet, args, n_sub, method,
                                  bitwise=False):
@@ -4296,6 +4377,12 @@ def main(work_root: str) -> int:
                                               store=True)
             got = xnode_train.u_du_fwd_cuda(gnet, gnet.packed(), *args,
                                             n_sub, method, store=True)
+            if bitwise and not all(torch.equal(a, b) for a, b in zip(
+                    got, xnode_train.u_du_fwd_cuda(gnet, gnet.packed(), *args,
+                                                   n_sub, method,
+                                                   store=True))):
+                raise AssertionError(f"xnode_udu_fwd_store {label}: two "
+                                     "launches differ")
             cg = torch.Generator(device=dev).manual_seed(7)
             ub = torch.randn(args[0].shape, generator=cg, device=dev)
             dub = torch.randn((*args[0].shape, args[-1].shape[1]),
@@ -4316,8 +4403,8 @@ def main(work_root: str) -> int:
                         n_sub, method)):
                     raise AssertionError(f"xnode_udu_bwd {label}: two "
                                          "launches differ")
-                print(f"  xnode_udu_bwd {label}, all {n_p} paths: two "
-                      "launches bitwise equal")
+                print(f"  xnode_udu_fwd_store and xnode_udu_bwd {label}, all "
+                      f"{n_p} paths: two launches each bitwise equal")
 
         for method, gnet, inputs, msk, n_sub in gcases:
             t0, dt = [a.contiguous() for a in xnode_train._prep_intervals(
@@ -4338,7 +4425,7 @@ def main(work_root: str) -> int:
             rin = [a.contiguous() for a in xnode_train.path_tangent_inputs(
                 rbatch, problem, cfg)]
             check_udu(f"{cfg.solver} N={n_rag}", net_tr, (t0, dt, *rin),
-                      cfg.n_sub, cfg.solver)
+                      cfg.n_sub, cfg.solver, bitwise=True)
             fwd_args = (t0, dt, rin[0], rin[2], cfg.n_sub, cfg.solver)
             errs["xnode_train"] = max(errs["xnode_train"], compare(
                 f"xnode_train {cfg.solver} N={n_rag}",
@@ -4378,7 +4465,7 @@ def main(work_root: str) -> int:
             xnode_eval.evaluate_plain(net20, *ev20, k20, cfg20.solver)))
         check_udu_near_kinks(f"highdim_d20 {cfg20.solver} F={net20.F}",
                              net20, (t0, dt, *in20), cfg20.n_sub,
-                             cfg20.solver)
+                             cfg20.solver, bitwise=True)
 
     # the autograd function's weight gradients against autograd through
     # the plain forward, on the main path's batch with the trained weights

@@ -471,12 +471,14 @@ def test_grad_tile_rule_fits_shipped_configs(name, method):
         assert 0 < smem <= 232448
         assert threads % 32 == 0 and 32 <= threads <= 1024
         assert threads <= xnode_train.MAX_THREADS
-        # the largest listed tile that fits
+        # the largest listed tile whose block fits an SM twice (233,472
+        # bytes, 1,024 a block reserved), else the smallest that fits
         tiles = xnode_train.BWD_TILES if backward else xnode_train.FWD_TILES
-        larger = [t for t in tiles if t > tile]
-        assert all(xnode_train.tile_smem_bytes(dims, cfg.dim, method, t,
-                                               backward) > 232448
-                   for t in larger)
+        size = {t: xnode_train.tile_smem_bytes(dims, cfg.dim, method, t,
+                                               backward) for t in tiles}
+        twice = [t for t in tiles if 2 * (size[t] + 1024) <= 233472]
+        assert tile == (max(twice) if twice
+                        else min(t for t in tiles if size[t] <= 232448))
 
 
 def bwd_tile_walk(n_paths, tile, blocks):
@@ -490,11 +492,14 @@ def bwd_tile_walk(n_paths, tile, blocks):
 
 @pytest.mark.parametrize("name, fwd, bwd", [
     ("cube_pde", (4, 64), (8, 128)),
-    ("ex4_1_d10", (4, 64), (8, 256)),
+    ("ex4_1_d10", (4, 64), (4, 128)),
     ("highdim_d20", (4, 256), (1, 256))])
 def test_grad_tile_rule_picks_the_swept_shapes(name, fwd, bwd):
     # the (paths per tile, threads) the rule gives at each shipped config's
-    # own solver, as timed by the tile sweep on the card
+    # own solver, as timed by the tile sweep on the card: the largest tile
+    # whose block fits an SM twice (ex4_1_d10's #5: 4 paths, 85 KiB, where
+    # 8 paths take 167 KiB), else one path (highdim_d20's #5: two paths fit
+    # once and measured slower), #5 at 128 threads where two blocks fit
     cfg, net = shipped_dims(name)
     assert xnode_train.grad_tile(net.dims(), cfg.dim, cfg.solver,
                                  False) == xnode_train.GradTile(*fwd)
@@ -563,3 +568,161 @@ def test_relu_margins_find_a_kink():
     w[1], b[1] = 0.0, 0.0
     m2 = xnode_train.relu_margins(net, t0, dt, feats, seed, 1, "midpoint")
     assert not bool(m2.isnan().any()) and float(m2[0]) == 0.0
+
+
+def feature_sum_walk(net, t0, dt, feats, dfeats, seed, dseed, hs, hts, ub,
+                     dub, n_sub, method):
+    """Kernel #5's walk with the feature columns taken out of it, in torch:
+    each stage's field VJP leaves field layer 0's feature columns alone and
+    adds its layer-0 cotangents (``abar [N, Hh]`` on the primal rows,
+    ``atbar [N, d, Hh]`` on the tangent rows) into one running sum over
+    every stage, substep and interval; after the walk one product of that
+    sum with the features (``feats``, ``dfeats``) gives those columns'
+    gradient. The rest follows the plain version's order: intervals from
+    the last, each re-run from its start state, the readout's cotangents
+    injected, the substeps walked back, the lift last.
+
+    A copy of the algorithm, not of the ``.cu``: it shows that summing the
+    cotangents before the feature product gives the plain version's
+    gradient, and nothing ties it to the kernel's code. The kernel is held
+    on the card by ``chip_smoke.py``'s phase 3."""
+    F = net.F
+    g = [torch.zeros_like(a) for a in net.flat]
+    pairs = [(g[2 * i], g[2 * i + 1]) for i in range(len(g) // 2)]
+    gl, gf = pairs[:net.n_lift], pairs[net.n_lift:net.n_lift + net.n_field]
+    ws = net.field_layers
+    gs = feats.new_zeros(feats.shape[0], net.Hh)
+    gst = feats.new_zeros(dfeats.shape[0], dfeats.shape[1], net.Hh)
+
+    def zero_off(on, x):
+        return torch.where(on, x, torch.zeros_like(x))
+
+    def field_vjp(t, h, ht, obar, otbar):
+        z = torch.cat([feats, t, h], -1)
+        zt = torch.cat([dfeats, torch.zeros_like(ht[..., :1]), ht], -1)
+        acts = [(z @ ws[0][0].T + ws[0][1], zt @ ws[0][0].T)]
+        for w, b in ws[1:-1]:
+            a, at = acts[-1]
+            acts.append((torch.relu(a) @ w.T + b,
+                         zero_off(a[:, None] > 0, at) @ w.T))
+        a, at = acts[-1]
+        y = torch.tanh(a)
+        s = 1.0 - y * y
+        gf[-1][0].add_(obar.T @ y + torch.einsum("bdj,bdi->ji", otbar,
+                                                 s[:, None] * at))
+        gf[-1][1].add_(obar.sum(0))
+        ybar, ytbar = obar @ ws[-1][0], otbar @ ws[-1][0]
+        abar = s * ybar - 2.0 * y * s * (at * ytbar).sum(1)
+        atbar = s[:, None] * ytbar
+        for li in range(len(ws) - 2, 0, -1):
+            a_in, at_in = acts[li - 1]
+            on = a_in > 0
+            gf[li][0].add_(abar.T @ torch.relu(a_in) + torch.einsum(
+                "bdj,bdi->ji", atbar, zero_off(on[:, None], at_in)))
+            gf[li][1].add_(abar.sum(0))
+            abar = zero_off(on, abar @ ws[li][0])
+            atbar = zero_off(on[:, None], atbar @ ws[li][0])
+        # layer 0: the time and state columns now, the features later
+        gf[0][0][:, F:].add_(abar.T @ z[:, F:] + torch.einsum(
+            "bdj,bdi->ji", atbar, zt[..., F:]))
+        gf[0][1].add_(abar.sum(0))
+        gs.add_(abar)
+        gst.add_(atbar)
+        w0h = ws[0][0][:, F + 1:]
+        return abar @ w0h, atbar @ w0h
+
+    C, A, B = steppers.RK_TABLES[method]
+    wr = net.readout_layer[0]
+    hbar, htbar = torch.zeros_like(hs[0]), torch.zeros_like(hts[0])
+    for l in range(t0.shape[1] - 1, -1, -1):
+        t0l, dtl = t0[:, l:l + 1], dt[:, l:l + 1]
+        dtd = dtl[:, :, None]
+        h_end, ht_end = steppers.interval_tan(ws, feats, dfeats, hs[l],
+                                              hts[l], t0l, dtl, n_sub, method)
+        ubl, dubl = ub[:, l:l + 1], dub[:, l]
+        g[-2].add_(ubl.T @ h_end + torch.einsum("bd,bdh->h", dubl,
+                                                 ht_end)[None])
+        g[-1].add_(ubl.sum(0))
+        hbar, htbar = hbar + ubl * wr, htbar + dubl[:, :, None] * wr
+        starts = [(hs[l], hts[l])]
+        for k in range(n_sub - 1):
+            starts.append(steppers.interval_tan(ws, feats, dfeats,
+                                                *starts[-1], t0l + k * dtl,
+                                                dtl, 1, method))
+        for k in range(n_sub - 1, -1, -1):
+            t, (h, ht) = t0l + k * dtl, starts[k]
+            ys, yts = [h], [ht]
+            for s in range(1, len(C)):
+                kv, kt = steppers.field_fwd_tan(ws, feats, dfeats,
+                                                t + C[s - 1] * dtl, ys[-1],
+                                                yts[-1])
+                ys.append(h + (A[s] * dtl) * kv)
+                yts.append(ht + (A[s] * dtd) * kt)
+            hb_in, htb_in = hbar, htbar
+            kb, ktb = dtl * B[-1] * hbar, dtd * B[-1] * htbar
+            for s in range(len(C) - 1, -1, -1):
+                yb, ytb = field_vjp(t + C[s] * dtl, ys[s], yts[s], kb, ktb)
+                hb_in, htb_in = hb_in + yb, htb_in + ytb
+                if s > 0:
+                    kb = dtl * B[s - 1] * hbar + (A[s] * dtl) * yb
+                    ktb = dtd * B[s - 1] * htbar + (A[s] * dtd) * ytb
+            hbar, htbar = hb_in, htb_in
+    gf[0][0][:, :F].add_(gs.T @ feats + torch.einsum("bdj,bdi->ji", gst,
+                                                      dfeats))
+    xnode_train._lift_vjp(net.lift, gl, seed[:, None], dseed[:, :, None],
+                          hbar, htbar)
+    return torch.cat([a.reshape(-1) for a in g])
+
+
+@pytest.mark.parametrize("method", ["midpoint", "rk4"])
+@pytest.mark.parametrize("n_sub", [1, 2])
+@pytest.mark.parametrize("ff", [0, 1])
+def test_feature_sum_walk_matches_plain_f64(method, n_sub, ff):
+    # the layer-0 cotangent summed over the whole walk, one feature
+    # product after it: the plain version's gradient in f64, masked
+    # samples (dt = 0 intervals) included
+    _, _, _, tparams = shared_params(21, solver=method, fourier_features=ff)
+    net32 = xnode_train.flat_net(tparams)
+    net = FlatNet([a.double() for a in net32.flat], net32.n_lift,
+                  net32.n_field)
+    n, L, d = BASE["N_r"], BASE["N_t"], BASE["dim"]
+    args = [torch.as_tensor(a).double() for a in kernel_inputs(
+        n, L, d, net.F, True, n_sub, seed=22)]
+    rng = np.random.default_rng(23)
+    ub = torch.as_tensor(rng.normal(size=(n, L)))
+    dub = torch.as_tensor(rng.normal(size=(n, L, d)))
+    states = xnode_train.u_du_fwd_plain(net, *args, n_sub, method,
+                                        store=True)[2:]
+    torch.testing.assert_close(
+        feature_sum_walk(net, *args, *states, ub, dub, n_sub, method),
+        xnode_train.u_du_bwd_plain(net, *args, *states, ub, dub, n_sub,
+                                   method), rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("name,dims,d,tile,backward,floats", [
+    # 2t's net (H = 20, Hh = 10, F = 300), the full d = 100, one path a
+    # tile of #5 (R = 101, S = 108): the accumulator (5,112 = round4 of
+    # 5,111 weights), GS and CF (10 x 108 each), seeds and readout
+    # cotangents (108 each), times (4 + 4), the start state and four
+    # cotangent buffers (5 x 20 x 108), the walk (midpoint: a stage input,
+    # a stage, sum, end and substep start, 5 x 20 x 108, and 2 x 9 + 2
+    # field buffers of 10 x 108), the staging (101 x 20 + 101 + 2)
+    ("2t #5", (20, 10, 300, 3, 9), 100, 1, True,
+     5112 + 2 * 1080 + 2 * 108 + 8 + 10800 + 10800 + 21600 + 2123),
+    # #3/#4 there at 4 paths (R = 404, S = 404): CF, seeds, times, the
+    # state, a stage input, a stage and the stage sum, two field buffers
+    ("2t #3/#4", (20, 10, 300, 3, 9), 100, 4, False,
+     (10 + 1 + 4 * 20 + 2 * 10) * 404 + 8),
+    # highdim_d20 (H = 24, Hh = 32, F = 60), two paths of #5 (R = 42, S =
+    # 44): 12,212 = round4 of 12,209 weights, GS and CF (32 x 44 each),
+    # 44 + 44 + 4 + 4, 5 x 24 x 44, the walk 5 x 24 x 44 + 20 x 32 x 44,
+    # the staging 42 x 24 + 42 + 4
+    ("highdim_d20 #5", (24, 32, 60, 3, 9), 20, 2, True,
+     12212 + 2 * 1408 + 96 + 5280 + 5280 + 28160 + 1054),
+])
+def test_tile_smem_hand_counts(name, dims, d, tile, backward, floats):
+    # the bytes of tile_smem_bytes, counted by hand: the floats above and
+    # one int a row; the features stay in global memory
+    R = tile * (1 + d)
+    assert xnode_train.tile_smem_bytes(dims, d, "midpoint", tile,
+                                       backward) == 4 * floats + 4 * R

@@ -148,18 +148,23 @@ def test_wide_cube_takes_kernel_5_on_a_cluster_of_blocks():
 
 
 def test_d30_fourier_chunk_takes_kernel_5_on_a_cluster_of_blocks():
-    # 2u's net: d = 30, H = Hh = 48, F = 90; the chunk stays 15 (one path
-    # of 15 directions fits one block of #3/#4 and of #5's global
-    # variant, 30 does not), and #5 takes the cluster variant there
+    # 2u's net: d = 30, H = Hh = 48, F = 90; with the features out of the
+    # tiles one path of the full d fits one block of #3/#4 and of #5's
+    # global variant (227,712 bytes; 233,760 with its 90 feature rows, when
+    # the chunk was 15), and #5 stays on clusters of two blocks, one path
+    # a tile
     cfg, net = net_of(dim=30, u_hidden_dim=48, u_hidden_hidden_dim=48,
                       fourier_features=1)
     dims = net.dims()
     assert net.F == 90
     route = xnode_train.kernel_route(dims, 30, cfg.solver)
-    assert route.d_chunk == 15
+    assert route.d_chunk == 30
+    assert xnode_train.tile_smem_bytes(dims, 30, cfg.solver, 1, True,
+                                       "global") == 227712
     assert route.bwd.variant == "cluster" and route.bwd.cluster == 2
-    assert fits(dims, 15, cfg.solver, route.bwd, True)
-    assert not fits(dims, 15, cfg.solver, route.bwd._replace(
+    assert route.bwd.paths == 1
+    assert fits(dims, 30, cfg.solver, route.bwd, True)
+    assert not fits(dims, 30, cfg.solver, route.bwd._replace(
         paths=2 * route.bwd.paths), True)
 
 
@@ -197,11 +202,14 @@ def test_cluster_unit_slices_cover_every_unit_once(cluster):
 
 def test_d100_fourier_cube_runs_in_tangent_chunks_and_tile_variant():
     # d = 100 with fourier_features 1: F = 300, so #1/#2 take the tile
-    # variant, and #3-#5 run in two chunks of 50 directions
+    # variant; with the features out of the tiles #3-#5 take the full d
+    # in one chunk (two chunks of 50 while each tile kept its 300 feature
+    # rows), #5 with its accumulator in shared memory, one path a tile
     cfg, net = net_of(dim=100, fourier_features=1)
     assert net.F == 300 and not register_fits(net.dims())
     route = xnode_train.kernel_route(net.dims(), 100, cfg.solver)
-    assert route.path == "tile" and route.d_chunk == 50
+    assert route.path == "tile" and route.d_chunk == 100
+    assert route.bwd.variant == "shared" and route.bwd.paths == 1
 
 
 def test_wide_nets_reach_the_wrappers_past_the_caps():
@@ -257,19 +265,20 @@ def test_wrappers_take_their_route_from_kernel_route(monkeypatch):
         return (torch.zeros((n, d, net.F), **f32), torch.zeros(n, **f32),
                 torch.zeros((n, d), **f32))
 
+    # 2t's widths take the full d = 100 a launch, and 100 of d = 200
     with pytest.raises(ValueError, match="CUDA device"):
-        xnode_train.u_du_fwd_cuda(net, packed, *path, *tangents(50), 1,
+        xnode_train.u_du_fwd_cuda(net, packed, *path, *tangents(100), 1,
                                   "midpoint")
     with pytest.raises(ValueError, match="CUDA device"):
         xnode_train.u_du_bwd_cuda(
-            net, packed, *path, *tangents(50), torch.zeros((L, n, net.H)),
-            torch.zeros((L, n, 50, net.H)), torch.zeros((n, L)),
-            torch.zeros((n, L, 50)), 1, "midpoint")
-    with pytest.raises(ValueError, match="at most 50 of d=100 directions"):
-        xnode_train.u_du_fwd_cuda(net, packed, *path, *tangents(100), 1,
+            net, packed, *path, *tangents(100), torch.zeros((L, n, net.H)),
+            torch.zeros((L, n, 100, net.H)), torch.zeros((n, L)),
+            torch.zeros((n, L, 100)), 1, "midpoint")
+    with pytest.raises(ValueError, match="at most 100 of d=200 directions"):
+        xnode_train.u_du_fwd_cuda(net, packed, *path, *tangents(200), 1,
                                   "midpoint")
-    assert asked[2:] == [(dims, 50, "midpoint")] * 2 + [
-        (dims, 100, "midpoint")]
+    assert asked[2:] == [(dims, 100, "midpoint")] * 2 + [
+        (dims, 200, "midpoint")]
 
 
 @pytest.mark.parametrize("method", FUSED_KERNEL_METHODS)

@@ -18,12 +18,21 @@
 // weights read from global memory, so no width has a cap. Serving maps a
 // point to a path of one interval from t_start with n_sub = k_steps.
 //
-// Bounds on an H100 SXM (67 TFLOP/s FP32 without tensor cores, 3.35 TB/s)
-// at the d=5 main path (N = 4,000, L = 20, midpoint, n_sub = 1, H = 20,
-// Hh = 10, 9 field layers): #3 does about 2.1 GFLOP (~32 us) against ~1 MB;
-// #4 adds ~38 MB of state writes (~12 us); #5 recomputes each interval and
-// walks it back, about 3x #3's operations plus the ~38 MB of states read
-// (~0.1 ms). All three are bound by operations.
+// Work (chip_smoke.py :: path_work counts it). A path carries 1 + d rows,
+// its primal and its d tangents; a field evaluation costs a row H Hh +
+// (nh - 1) Hh^2 + Hh H multiply-adds (nh = n_field - 1 hidden layers), the
+// feature columns of field layer 0 F Hh once a path. #3/#4 do (1 + d) L
+// n_sub stages field evaluations a path, #4 also writes the interval
+// start states (L (1 + d) H floats a path); #5 recomputes each interval
+// and walks it back, about 3x #3's operations, and reads those states. At
+// the d=5 cube (N = 4,000, L = 20, midpoint, H = 20, Hh = 10, 9 field
+// layers) #3 does about 2.2 GFLOP (~32 us at 67 TFLOP/s FP32) and #5 ~6.5
+// GFLOP. All three are bound by operations. At these small tiles the
+// instructions of the blocks an SM holds at once set their time, far
+// above either bound: the tile sweep (tile_sweep.py) found the same tile
+// slower with more threads a block, and a tile that leaves an SM room for
+// two blocks (and its L1 cache room for the weights) faster than a larger
+// one that fills it (xnode_train.py :: grad_tile takes that rule).
 //
 // What held the first design back (one thread per (path, direction)):
 // every thread walked the whole chain serially (L intervals x stages field
@@ -49,11 +58,31 @@
 // names one block a minimum, so ptxas reports no stack for these kernels
 // (with the bound alone it held them at 64 and 128 registers and spilled).
 //
+// Field layer 0 takes [feats, t, h]. The features are fixed along a path,
+// so their columns are applied once a tile, into CF [Hh][S], straight from
+// global memory (feats, dfeats), and no tile of #3/#4 or of #5's shared
+// and global variants keeps a copy of them. #5 sums the layer-0 cotangent
+// of every stage, substep and interval of the walk into one buffer GS
+// [Hh][S] and adds (that sum) fe^T into the feature columns' gradient
+// once, after the walk, reading fe from global memory again: at d = 100
+// with F = 300 those columns were half of #5's multiply-adds, and the
+// features' copy kept even one path of the full d out of a block.
+// The cluster variant keeps its copy and a product a stage: its blocks own
+// the feature columns by feature, so the sum would take all Hh units (more
+// than 2s's 4-path tile leaves), and reading the features from global
+// memory in every stage's product measured 13% slower at 2u.
+//
 // #3/#4: one tile per block; the lift, then L intervals of n_sub RK
 // substeps through the RK table (stage inputs h + A_s dt k_{s-1}, end h +
 // dt sum_s B_s k_s), u and du from each interval's end state. #4 writes each
 // interval's start state: a tile's rows are contiguous in hs [L, N, H] and
-// hts [L, N, d, H], so the stores coalesce.
+// hts [L, N, d, H], so the stores coalesce. A schedule with the primal
+// one layer ahead of the tangents (phase k: the primal rows of layer k and
+// the tangent rows of layer k - 1, each activation and the RK update in a
+// product's epilogue: 10 __syncthreads a stage at the cube's net for this
+// body's 18) was measured and removed: its sums run in the same order and
+// give these outputs bitwise, but it was as fast or slower at every d
+// measured (5 to 100), in #5's recompute too.
 //
 // #5: a persistent grid: block b walks tiles b, b + G, ... in that order,
 // from interval L-1 down to 0. Per interval it recomputes the stage inputs
@@ -81,11 +110,15 @@
 // also order these writes, so the result is bitwise that of the shared
 // variant at the same tile, threads and grid.
 //
-// The shared and global variants use FP32 FMAs throughout: TF32 tensor
-// cores keep about three digits, which the kernel-against-plain limit (2e-4
-// of each tensor's largest value) does not allow. The cluster variant runs
-// its VJP on the tensor cores with a 3xTF32 split, which stays within that
-// limit, and its forward recompute in FP32 FMAs.
+// The shared and global variants use FP32 FMAs throughout. The cluster
+// variant runs its VJP on the tensor cores with a 3xTF32 split, which stays
+// within the kernel-against-plain limit (2e-4 of each tensor's largest
+// value), and its forward recompute in FP32 FMAs. The tangent rows'
+// products of #3/#4 (the primal rows kept in FP32, whose signs set the
+// relu masks) and #5's VJP, run on the tensor cores the same way, were
+// measured and dropped: neither was faster at any shape measured (the cube, d = 20, 50 and 100; level
+// only at highdim_d20's #5), whose widths of 10 to 64 leave most of a 16
+// x 8 x 8 tile padding.
 //
 // The tile helpers (xg_dense, xg_dense_t, xg_outer, xg_rowsum) do the jobs
 // of #7's xd_tile_* in disc_train.cu, which could not serve here as they
@@ -136,7 +169,7 @@ __host__ __device__ inline int xg_stages(int method) {
 // [width][S]; the primal row index of every row (R ints) follows `total`.
 struct XgLayout {
   int S, R;
-  int acc, fe, cf, sd, ub, t0, dt;    // acc: #5's shared accumulator (-1: GACC)
+  int acc, gs, cf, sd, ub, t0, dt;    // acc: #5's shared accumulator (-1: GACC)
   int hs, hb, hb0, kb, yb;            // [H][S]: #5's start state, cotangents
   int st, ys, k, accu, he, hcur, fld;  // state, stage inputs, stage, sum, end
   int stage;                          // #5's cp.async staging (16-byte aligned)
@@ -154,7 +187,8 @@ __host__ __device__ inline XgLayout xg_layout(bool bwd, bool gacc, int P,
   const bool shared_acc = bwd && !gacc;
   y.acc = shared_acc ? o : -1;
   o += shared_acc ? xg_round4(n_params) : 0;
-  y.fe = o;   o += F * S;
+  y.gs = bwd && F > 0 ? o : -1;
+  o += bwd && F > 0 ? Hh * S : 0;
   y.cf = o;   o += Hh * S;
   y.sd = o;   o += S;
   y.ub = o;   o += bwd ? S : 0;
@@ -235,6 +269,20 @@ struct XgTime {
   __device__ __forceinline__ float at(int p) const {
     const float t = t0[p] + sub * dt[p];
     return t + c * dt[p];
+  }
+};
+
+// The tile's features in global memory: row r's are feats[n0 + r] on a
+// primal row, dfeats[n0 d + r - P] on a tangent row; none past N.
+struct XgFeats {
+  const float* __restrict__ feats;   // [N, F]
+  const float* __restrict__ dfeats;  // [N, d, F]
+  int F, n0, live;
+  __device__ __forceinline__ const float* row(int r, const XgTile& g) const {
+    if (r < g.P) return r < live ? feats + (size_t)(n0 + r) * F : nullptr;
+    return r - g.P < live * g.d
+               ? dfeats + ((size_t)n0 * g.d + (r - g.P)) * F
+               : nullptr;
   }
 };
 
@@ -425,6 +473,53 @@ __device__ __forceinline__ void xg_time(float* acc, int lda, const float* X,
   }
 }
 
+// CF[j][r] = sum_{i < F} w0[j fin + i] fe(r, i) for j < n: field layer 0's
+// feature columns (rows of w0 fin floats apart) applied to every row's
+// features, read from global memory, the sum in index order; 0 on the rows
+// of paths past N.
+__device__ __forceinline__ void xg_feat_cf(float* CF,
+                                           const float* __restrict__ w0,
+                                           int fin, int n, const XgFeats& fe,
+                                           const XgTile& g) {
+  xg_each(n, g.R, [&](int j, int r) {
+    const float* x = fe.row(r, g);
+    const float* w = w0 + (size_t)j * fin;
+    float s = 0.f;
+    if (x != nullptr)
+      for (int i = 0; i < fe.F; ++i) s = fmaf(__ldg(w + i), __ldg(x + i), s);
+    CF[j * g.S + r] = s;
+  });
+}
+
+// acc[j lda + i] += sum over the tile's rows r of GS[j][r] fe(r, i) for
+// j < n, i < F: the feature columns' gradient from the walk's summed
+// layer-0 cotangent. One owner thread an entry, consecutive threads
+// consecutive features (coalesced reads), four partial sums over the rows
+// in a fixed order.
+__device__ __forceinline__ void xg_feat_grad(float* acc, int lda,
+                                             const float* GS, int n,
+                                             const XgFeats& fe,
+                                             const XgTile& g) {
+  const int P = g.P, F = fe.F, nt = fe.live * g.d;
+  xg_each(n, F, [&](int j, int i) {
+    const float* gs = GS + j * g.S;
+    const float* xp = fe.feats + (size_t)fe.n0 * F + i;
+    const float* xt = fe.dfeats + (size_t)fe.n0 * g.d * F + i;
+    float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+    for (int p = 0; p < fe.live; ++p)
+      s0 = fmaf(gs[p], __ldg(xp + (size_t)p * F), s0);
+    int k = 0;
+    for (; k + 4 <= nt; k += 4) {
+      s0 = fmaf(gs[P + k], __ldg(xt + (size_t)k * F), s0);
+      s1 = fmaf(gs[P + k + 1], __ldg(xt + (size_t)(k + 1) * F), s1);
+      s2 = fmaf(gs[P + k + 2], __ldg(xt + (size_t)(k + 2) * F), s2);
+      s3 = fmaf(gs[P + k + 3], __ldg(xt + (size_t)(k + 3) * F), s3);
+    }
+    for (; k < nt; ++k) s0 = fmaf(gs[P + k], __ldg(xt + (size_t)k * F), s0);
+    acc[j * lda + i] += (s0 + s1) + (s2 + s3);
+  });
+}
+
 // ---------------------------------------------------------------------------
 // The network on a tile
 // ---------------------------------------------------------------------------
@@ -435,10 +530,11 @@ __device__ __forceinline__ void xg_time(float* acc, int lda, const float* X,
 // the VJP's first cotangent buffer), AL the tanh layer's pre-activation, YT
 // its output, AB1 the VJP's second cotangent buffer. R, AL and YT of RK
 // stage s sit kstride floats after those of stage s - 1 (0: shared). CF
-// holds W0[:, :F] applied to each row's features, FE the features.
+// holds W0[:, :F] applied to each row's features; GS sums #5's layer-0
+// cotangents over the walk (null without features).
 struct XgField {
-  float *R, *AS, *AL, *YT, *AB1;
-  const float *CF, *FE;
+  float *R, *AS, *AL, *YT, *AB1, *GS;
+  const float* CF;
   int rstride, kstride;
   __device__ __forceinline__ XgField stage(int s) const {
     XgField f = *this;
@@ -539,8 +635,8 @@ __device__ __forceinline__ void xg_lift_fwd(const XgNet& n, const float* SD,
 // states hs [L, N, H] and hts [L, N, d, H]. One tile of P paths per block.
 // ---------------------------------------------------------------------------
 
-// The tile's rows, features and seeds: prim, FE [F][S], SD [S]; rows of
-// paths past N get zeros.
+// The tile's rows, seeds and, where FE is given, features: prim, SD [S],
+// FE [F][S] (the cluster variant's copy); rows of paths past N get zeros.
 __device__ __forceinline__ void xg_load_rows(
     int* prim, float* FE, float* SD, const float* __restrict__ feats,
     const float* __restrict__ dfeats, const float* __restrict__ seed,
@@ -554,7 +650,7 @@ __device__ __forceinline__ void xg_load_rows(
             : r < P   ? seed[n0 + r]
                       : dseed[(size_t)n0 * d + (r - P)];
   }
-  if (F > 0)
+  if (FE != nullptr && F > 0)
     xg_each(g.R, F, [&](int r, int i) {
       const int p = r < P ? r : (r - P) / d;
       FE[i * g.S + r] = p >= live ? 0.f
@@ -590,22 +686,23 @@ xnode_udu_fwd_kernel(const float* __restrict__ params, int n_params,
   int* prim = reinterpret_cast<int*>(smem + y.total);
   g.prim = prim;
   const int S = g.S, R = g.R;
-  float *FE = smem + y.fe, *CF = smem + y.cf, *SD = smem + y.sd;
+  float *CF = smem + y.cf, *SD = smem + y.sd;
   float *T0 = smem + y.t0, *DT = smem + y.dt;
   float *HST = smem + y.st, *Y = smem + y.ys, *K = smem + y.k,
         *ACC = smem + y.accu;
   XgField f;
   f.AS = f.AL = smem + y.fld;
   f.R = f.YT = smem + y.fld + Hh * S;
-  f.AB1 = nullptr;
+  f.AB1 = f.GS = nullptr;
   f.CF = CF;
-  f.FE = FE;
   f.rstride = f.kstride = 0;
 
   const int n0 = blockIdx.x * P, live = min(P, N - n0);
-  xg_load_rows(prim, FE, SD, feats, dfeats, seed, dseed, n0, live, F, g);
+  xg_load_rows(prim, nullptr, SD, feats, dfeats, seed, dseed, n0, live, F,
+               g);
   __syncthreads();
-  xg_dense<false>(CF, n.w + n.field_off, n.fin, Hh, F, FE, g);
+  xg_feat_cf(CF, n.w + n.field_off, n.fin, Hh,
+             XgFeats{feats, dfeats, F, n0, live}, g);
   xg_lift_fwd(n, SD, Y, 0, K, HST, g);  // its first pass syncs CF too
   const float* wr = n.w + n.readout_off;
 
@@ -673,9 +770,11 @@ __device__ __forceinline__ void xg_field_vjp(const XgNet& n, const XgField& f,
     cur = nxt;
     nxt = t;
   }
-  // layer 0: input [feats, t, h], tangent [xt, 0, ht]
+  // layer 0: input [feats, t, h], tangent [xt, 0, ht]; the feature
+  // columns' cotangent joins the walk's sum GS
   const int o0 = n.field_off, fin = n.fin;
-  xg_outer(acc + o0, fin, cur, Hh, f.FE, n.F, R, S);
+  if (f.GS)
+    xg_each(Hh, R, [&](int j, int r) { f.GS[j * S + r] += cur[j * S + r]; });
   xg_time(acc + o0 + n.F, fin, cur, Hh, tm, g);
   xg_outer(acc + o0 + n.F + 1, fin, cur, Hh, X, H, R, S);
   xg_rowsum(acc + o0 + Hh * fin, cur, Hh, g);
@@ -801,9 +900,8 @@ xnode_udu_bwd_kernel(const float* __restrict__ params, int n_params,
   g.prim = prim;
   const int S = g.S, R = g.R, HS_ = H * S;
   float* acc = GACC ? partial + (size_t)blockIdx.x * n_params : smem + y.acc;
-  float *FE = smem + y.fe, *CF = smem + y.cf, *SD = smem + y.sd,
-        *UB = smem + y.ub, *T0 = smem + y.t0, *DT = smem + y.dt,
-        *ST = smem + y.stage;
+  float *CF = smem + y.cf, *SD = smem + y.sd, *UB = smem + y.ub,
+        *T0 = smem + y.t0, *DT = smem + y.dt, *ST = smem + y.stage;
   XgWalk w;
   w.HS = smem + y.hs;
   w.HB = smem + y.hb;
@@ -823,8 +921,8 @@ xnode_udu_bwd_kernel(const float* __restrict__ params, int n_params,
   f.YT = f.AL + Hh * S;
   f.AS = f.R + (size_t)XG_STAGES[method] * f.kstride;
   f.AB1 = f.AS + Hh * S;
+  f.GS = y.gs >= 0 ? smem + y.gs : nullptr;
   f.CF = CF;
-  f.FE = FE;
   const float* wr = n.w + n.readout_off;
   const int ro = n.readout_off;
 
@@ -832,13 +930,18 @@ xnode_udu_bwd_kernel(const float* __restrict__ params, int n_params,
   const int n_tiles = (N + P - 1) / P;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int n0 = tile * P, live = min(P, N - n0);
+    const XgFeats fe{feats, dfeats, F, n0, live};
     __syncthreads();  // the previous tile's last reads are done
-    xg_load_rows(prim, FE, SD, feats, dfeats, seed, dseed, n0, live, F, g);
+    xg_load_rows(prim, nullptr, SD, feats, dfeats, seed, dseed, n0, live, F,
+                 g);
     for (int idx = threadIdx.x; idx < HS_; idx += blockDim.x) w.HB[idx] = 0.f;
+    if (f.GS)
+      for (int idx = threadIdx.x; idx < Hh * S; idx += blockDim.x)
+        f.GS[idx] = 0.f;
     xg_prefetch(ST, hs, hts, ub, dub, t0, dt, L - 1, N, L, H, n0, live, vec,
                 g);
     __syncthreads();
-    xg_dense<false>(CF, n.w + n.field_off, n.fin, Hh, F, FE, g);
+    xg_feat_cf(CF, n.w + n.field_off, n.fin, Hh, fe, g);
 
     for (int l = L - 1; l >= 0; --l) {
       __pipeline_wait_prior(0);
@@ -883,6 +986,9 @@ xnode_udu_bwd_kernel(const float* __restrict__ params, int n_params,
         xg_step_vjp(n, f, method, acc, X0, w, tm, g);
       }
     }
+    // the feature columns' gradient from the walk's summed cotangent (the
+    // last VJP's barrier has ordered GS)
+    if (f.GS) xg_feat_grad(acc + n.field_off, n.fin, f.GS, Hh, fe, g);
     // the lift's VJP on the rows' seeds; its buffers reuse the walk's
     float* LR = w.ys;
     float* LS = LR + (size_t)(n_lift - 1) * HS_;

@@ -69,6 +69,7 @@ import torch
 from xnode_wan_tpu_torch.ops.kernels._build import CudaKernel, KernelVariants
 from xnode_wan_tpu_torch.ops.kernels.steppers import (MAX_SMEM_BYTES,
                                                       METHOD_IDS, RK_TABLES,
+                                                      SM_SMEM_BYTES,
                                                       FlatNet, _ld_mod32,
                                                       _widest, bwd_blocks,
                                                       field_fwd_tan,
@@ -117,11 +118,17 @@ BWD_LAUNCHES = KernelVariants({"shared": BWD_KERNEL,
 MAX_THREADS = 256             # XG_MAX_THREADS
 # Paths per tile, largest first; the threads of a block follow from the
 # tile (block_threads). From the tile sweep (tile_sweep.py) on an H100:
-# the rule picks the fastest shape swept for cube_pde (#3/#4 4 paths and
-# 64 threads, #5 8 and 128) and highdim_d20 (#3/#4 4 and 256, #5 1 and
-# 256), and shapes within 8% of the fastest for ex4_1_d10
+# the rule (grad_tile) picks the fastest #5 swept at cube_pde (8
+# paths, 128 threads), ex4_1_d10 (4, 128), highdim_d20 (1, 256), the
+# cube's widths at d = 20 (2, 128) and d = 50 (1, 128) and d = 100 with
+# its Fourier bank (1, 256), and #3/#4 at the first three, d = 20 and d =
+# 50 within 7% of the fastest
 FWD_TILES = (4, 2, 1)
-BWD_TILES = (8, 4, 1)
+BWD_TILES = (8, 4, 2, 1)
+# #5's shared and global variants take about 220 registers a thread
+# (ptxas; chip_smoke.py's phase 1 prints them), so two of their blocks
+# fit an SM's 65,536 registers at up to this many threads each
+TWO_BLOCK_BWD_THREADS = 128
 # #5's cluster variant: blocks a cluster, smallest first, and paths a tile
 # (a cluster's), largest first
 CLUSTERS = (2, 4, 8)
@@ -501,19 +508,20 @@ def tile_smem_bytes(dims, d: int, method: str, tile: int,
     #5 for ``tile`` paths (``xg_layout`` in ``csrc/xnode_grad.cu``). Rows:
     ``R = tile (1 + d)``, each buffer ``[width][S]`` with ``S`` the rows
     rounded up to a multiple of 4 whose quarter is odd. With d = 0 it is
-    the path-tile variant of #1/#2.
+    the path-tile variant of #1/#2. The features stay in global memory.
 
-    Forward: features, their field-layer-0 product, seeds, times, the
-    state, a stage input, a stage, the stage sum and two field buffers.
+    Forward: field layer 0's feature product, seeds, times, the state, a
+    stage input, a stage, the stage sum and two field buffers.
     Backward: the gradient accumulator (not in the ``"global"``
-    ``variant`` of #5, which keeps it in global memory), the same inputs
-    plus the
-    readout cotangents, the start state and four cotangent buffers, the
-    stage inputs, stage, sum, end and substep start, every field layer's
+    ``variant`` of #5, which keeps it in global memory), the walk's summed
+    layer-0 cotangent (with features), the same inputs plus the readout
+    cotangents, the start state and four cotangent buffers, the stage
+    inputs, stage, sum, end and substep start, every field layer's
     activation for every RK stage (or the lift's, after the walk), and the
     ``cp.async`` staging of one interval. The rows' primal indices (ints)
     come last. In the ``"cluster"`` variant, a block of #5 on clusters of
-    ``cluster`` blocks (:func:`cluster_smem_bytes`)."""
+    ``cluster`` blocks (:func:`cluster_smem_bytes`), which keeps a copy of
+    the features."""
     if variant not in BWD_LAUNCHES.variants:
         raise ValueError(f"#5 has no variant {variant!r}")
     if variant == "cluster":
@@ -522,12 +530,14 @@ def tile_smem_bytes(dims, d: int, method: str, tile: int,
     R = tile * (1 + d)
     S = _row_stride(R)
     ns = len(RK_TABLES[method][0])
-    floats = (F + Hh + 1) * S + 2 * _round4(tile)
+    floats = (Hh + 1) * S + 2 * _round4(tile)
     if not backward:
         floats += 4 * H * S + 2 * Hh * S
     else:
         if variant == "shared":
             floats += _round4(n_params_of(dims))
+        if F:
+            floats += Hh * S
         floats += S + 5 * H * S
         walk = (ns + 3) * H * S + (ns * n_field + 2) * Hh * S
         floats += max(walk, (n_lift + 1) * H * S) + R * H + R + 2 * tile
@@ -590,18 +600,29 @@ def cluster_smem_bytes(dims, d: int, method: str, tile: int,
     return 4 * floats + 4 * R
 
 
-def block_threads(tile: int, d: int, Hh: int, backward: bool) -> int:
+def block_threads(tile: int, d: int, Hh: int, backward: bool,
+                  two_blocks: bool = False) -> int:
     """Threads a block of kernel #3/#4 or #5 for ``tile`` paths: the
     largest power of two in [64, :data:`MAX_THREADS`] not above ``k
     ceil(R / 4) Hh``, the (4-row chunk, unit) items of a field layer's
     product over the tile's ``R = tile (1 + d)`` rows, with ``k`` 1 for
     the forward and 2 for the backward, whose owner sums and transposed
-    products add as much work again."""
+    products add as much work again; for #5 at most
+    :data:`TWO_BLOCK_BWD_THREADS` where two of its blocks fit an SM's
+    shared memory (``two_blocks``), so that its registers let them."""
     items = (2 if backward else 1) * -(-tile * (1 + d) // 4) * Hh
     threads = 64
     while 2 * threads <= min(items, MAX_THREADS):
         threads *= 2
+    if backward and two_blocks:
+        threads = min(threads, TWO_BLOCK_BWD_THREADS)
     return threads
+
+
+def fits_twice(smem: int) -> bool:
+    """Two blocks of ``smem`` shared bytes fit one SM (as
+    :func:`steppers.bwd_blocks` counts them)."""
+    return 2 * (smem + 1024) <= SM_SMEM_BYTES
 
 
 class GradTile(NamedTuple):
@@ -618,10 +639,12 @@ class GradTile(NamedTuple):
 
 def grad_tile(dims, d: int, method: str, backward: bool) -> GradTile:
     """The block of kernel #3/#4 (``backward`` false; with d = 0 the
-    path-tile variant of #1/#2) or #5: the first tile of
-    :data:`FWD_TILES` / :data:`BWD_TILES` (largest first) whose block fits
-    one block's shared memory, with its :func:`block_threads`. #5 takes,
-    in this order: its shared accumulator at the first tile where that
+    path-tile variant of #1/#2) or #5: the largest tile of
+    :data:`FWD_TILES` / :data:`BWD_TILES` whose block fits an SM twice
+    (:func:`fits_twice`: two blocks to interleave, and room in the L1 cache
+    for the weights they read through it), else the smallest whose block
+    fits at all, with its :func:`block_threads`. #5 takes,
+    in this order: its shared accumulator at that tile where it
     fits; else its cluster variant at the smallest of :data:`CLUSTERS` and
     then the largest of :data:`CLUSTER_TILES` whose block fits, with the
     threads of a block's slice of the field; else its global-accumulator
@@ -629,10 +652,13 @@ def grad_tile(dims, d: int, method: str, backward: bool) -> GradTile:
     where nothing fits at one path a tile."""
     H, Hh = dims[0], dims[1]
     tiles = BWD_TILES if backward else FWD_TILES
-    for tile in tiles:
-        if (tile_smem_bytes(dims, d, method, tile, backward)
-                <= MAX_SMEM_BYTES):
-            return GradTile(tile, block_threads(tile, d, Hh, backward))
+    smem = {t: tile_smem_bytes(dims, d, method, t, backward) for t in tiles}
+    fit = [t for t in tiles if smem[t] <= MAX_SMEM_BYTES]
+    if fit:
+        twice = [t for t in fit if fits_twice(smem[t])]
+        tile = twice[0] if twice else fit[-1]
+        return GradTile(tile, block_threads(tile, d, Hh, backward,
+                                            bool(twice)))
     if backward:
         for cluster in CLUSTERS:
             if min(H, Hh) < cluster:

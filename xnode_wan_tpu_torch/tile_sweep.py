@@ -24,7 +24,11 @@ fourier_features=1`` the d=30 Fourier cube).
 
 ``--rule`` times each kernel once, at the wrappers' own tile choice, in
 place of the sweep, on the first tangent chunk the route takes
-(``kernel_route(...).d_chunk`` directions; the full d where it fits). It
+(``kernel_route(...).d_chunk`` directions; the full d where it fits),
+and gives each kernel's launches an iteration (``d / d_chunk`` times its
+launches a step: #3 once, #4 and #5 ``n1`` times) and its time an
+iteration beside the time a launch, so that a change of chunk compares
+per iteration. It
 needs nothing of the package but the wrappers and the sampling, so a
 copy of this file in an older checkout's package times that checkout's
 kernels on the same card and configs:
@@ -292,7 +296,7 @@ def sweep_config(name: str, tiles, threads, reps: int, card: str,
             xt.kernel_route.cache_clear()
             if rule:
                 route = xt.kernel_route(net.dims(), cfg.dim, method)
-                row.update(d_chunk=d, route=repr(route))
+                row.update(d_chunk=d, chunks=cfg.dim // d, route=repr(route))
             for kernel, backward in (("xnode_udu_fwd", False),
                                      ("xnode_udu_fwd_store", False),
                                      ("xnode_udu_bwd", True)):
@@ -323,6 +327,11 @@ def sweep_config(name: str, tiles, threads, reps: int, card: str,
                     ms = _time_ms(run, reps)
                 row[kernel] = {"ms": ms, "smem": smem, "max_rel_err": err,
                                "bitwise_repeat": bitwise}
+                if rule:  # a launch x d / d_chunk x its launches a step
+                    per_it = cfg.dim // d * (
+                        1 if kernel == "xnode_udu_fwd" else cfg.n1)
+                    row[kernel].update(launches_per_iteration=per_it,
+                                       ms_per_iteration=ms * per_it)
             if any(k.startswith("xnode_") for k in row):
                 rows.append(row)
                 print(json.dumps(row), flush=True)
