@@ -9,12 +9,15 @@ which raises on failure:
 
 1. build every CUDA kernel from ``xnode_wan_tpu_torch/csrc`` (one ``nvcc``
    per library, all in parallel; #1/#2's ``xnode_fwd.cu`` once per (H, Hh)
-   pair of the shipped configs, the register #6's ``disc_fwd.cu`` once per
-   shipped adversary width H, ``xnode_grad.cu`` and ``disc_train.cu`` (#7
-   and the tile #6, every width at run time) once) and print the build
-   time and ptxas usage; #1/#2, #6 and #7 must show no stack and no
-   spills; hold ``steppers.staged_floats`` against the staged copy #1/#2
-   ask for, ``disc_train.staged_floats`` against the register #6's (the
+   pair of the shipped configs, and for 2s's (64/64) and 2u's (48/48)
+   nets in a thread beside phases 2a-2r, the register #6's
+   ``disc_fwd.cu`` once per shipped adversary width H,
+   ``xnode_grad.cu``, ``xnode_path_tile.cu`` (#1/#2's path-tile kernel)
+   and ``disc_train.cu`` (#7 and the tile #6, every width at run time)
+   once) and print the build time and ptxas usage; #1/#2 (both kernels),
+   #6 and #7 must show no stack and no spills at the shipped widths; hold
+   ``steppers.staged_floats`` against the staged copy #1/#2 ask for,
+   ``disc_train.staged_floats`` against the register #6's (the
    d=5 and the d=20 adversary, each tied and untied) and
    ``disc_train.tile_smem_bytes`` against the bytes #7's shared and global
    variants ask for at every tile and the tile #6 at each of its tiles
@@ -24,7 +27,10 @@ which raises on failure:
    adversaries, 2v's, 2w's and phase 3's; the route, shared bytes and
    registers printed), and the
    wrapper's shared-memory rule for #3-#5 against the bytes their
-   launchers ask for;
+   launchers ask for, and ``xnode_train.path_tile_smem_bytes`` and
+   ``path_tile_staged_floats`` against the path-tile launchers' at every
+   method, tile and slice (at those nets, 2x's, 96/64, 72/80 and
+   256/256);
 2. the main paths at the d=5 width of ``configs/cube_pde.yaml``, then
    on the moving domains and at d = 20, each with every kernel launch
    counter zeroed just before and read just after (every solver writes
@@ -174,19 +180,26 @@ which raises on failure:
       points, finite and within 2x the least training rel-L2;
    t. the cube at d = 100 with ``fourier_features: 1`` (F = 300), seed
       0, ``N_r = N_b = 4,000``, 20 iterations of ``train_until``: #2 once
-      an iteration in its path-tile variant, #3 once and #4 and #5 twice
+      an iteration in its register kernel, #3 once and #4 and #5 twice
       an iteration at the full d (one tangent chunk: the features stay
       out of the tiles), every rel-L2 and weight finite
       (``loss_u`` overflows f32 at this volume, as in the JAX package),
       the least rel-L2 under the first; 65,536 points served through #1's
-      path-tile variant, finite (the interior term's gradient is zero
+      register kernel, finite (the interior term's gradient is zero
       here, as ``log`` of an inf; 2u trains through it);
    u. the cube at d = 30 with ``u_hidden_dim = u_hidden_hidden_dim = 48``
       and ``fourier_features: 1`` (F = 90), seed 0, 20 iterations of
-      ``train_until``: #2 in its path-tile variant, #3-#5 at the full d
-      with #5's cluster variant, exact
+      ``train_until``: #2 in its register kernel (the 48/48 library),
+      #3-#5 at the full d with #5's cluster variant, exact
       launches by variant, every ``loss_u`` finite (#3-#5's interior term
       drives the training), the least rel-L2 under the first;
+   x. the cube at ``u_hidden_dim = u_hidden_hidden_dim = 128``, seed 0,
+      10 iterations of ``train_until``: #2 once an iteration in the
+      path-tile kernel (``csrc/xnode_path_tile.cu``), #3-#5 on their
+      route (#5 on clusters), exact launches by variant, every loss and
+      rel-L2 finite, the least rel-L2 under the first; 65,536 points
+      served through ``evaluate_points`` (#1's path-tile kernel, once)
+      against ``evaluate_plain`` on the card within ``rtol, atol`` below;
    v. the cube with a 256-wide adversary (``v_hidden_dim: 256``, tied,
       ``fused_v: true``), seed 0: one outer step through #6/#7 against the
       same step with the plain adversary from the same weights and batch
@@ -234,8 +247,11 @@ which raises on failure:
    hourglass's time-dependent cutoff against autograd through the plain
    path; and the per-exit-group objective with its input gradients
    computed twice on the same card inputs, compared bitwise; the
-   kernel variants: #1 and #2's path-tile variant at 2t's net and
-   at d = 5 with H = 96, Hh = 64 (and both variants at the cube's net),
+   kernel variants: #1 and #2's path-tile kernel at 2x's trained net
+   and at d = 5 with H = 96, Hh = 64 (their route) and, through its
+   launch helper, at 2t's net (#2 at N_r, N_r + 1 and 37 paths, #1 at
+   65,536 points) and at the cube's net, and their register kernel at
+   2t's, 2u's and the cube's nets, each twice, bitwise,
    #5's cluster variant at 2s's trained net and, at random weights (live
    relus), at its shape and at 2u's (d = 30, F = 90), each
    at N_r, N_r + 1 and 37 paths, twice, bitwise, by the kink rule of the
@@ -273,8 +289,9 @@ which raises on failure:
    same work (FP32 outside the tensor cores; where #5's cluster variant
    runs its VJP on the tensor cores in 3xTF32, those operations at the
    TF32 rate over three); and each kernel variant
-   at its phase's shapes (the path-tile #1/#2 at 2t's, and both variants
-   of #2 at the cube's net, #5's cluster variant at 2s's and its global
+   at its phase's shapes (the path-tile #1/#2 at 2x's, phase 3's 96/64
+   and, launched directly, 2t's shapes, the register #1/#2 at 2t's and
+   2u's, and both variants of #2 at the cube's net, #5's cluster variant at 2s's and its global
    accumulator there through its launcher, #3-#5 at 2t's, #5's cluster
    variant and its global accumulator at 2u's, #3-#5 at the d=20 nets of
    2g (``highdim_d20``) and 2i (random weights); #6 and #7 at
@@ -457,13 +474,21 @@ WIDE_SERVE_FACTOR = 2.0
 D100 = dict(dim=100, fourier_features=1)
 D100_ITERS = 20
 # 2u: the cube at d = 30 with H = Hh = 48 and its Fourier bank (F = 90):
-# 2t's route (the path-tile #2, #3-#5 at the full d) with #5's cluster
+# 2t's route (the register #2, #3-#5 at the full d) with #5's cluster
 # variant, at a volume (2^30)
 # where loss_u stays finite, so that #3-#5's interior term drives the
 # training; 20 iterations
 D30 = dict(dim=30, u_hidden_dim=48, u_hidden_hidden_dim=48,
            fourier_features=1)
 D30_ITERS = 20
+# phase 3: the path-tile #1/#2 at the cube with a 96/64 primal, random
+# weights (its staged copy, 243,344 bytes, is past one block)
+NET96 = dict(u_hidden_dim=96, u_hidden_hidden_dim=64)
+# 2x: the cube at u_hidden_dim = u_hidden_hidden_dim = 128, the next step
+# of 2s's width sweep: #1/#2 past the register kernel's widths (the
+# path-tile kernel), #3/#4 on 4-path tiles, #5 on clusters; 10 iterations
+WIDE128 = dict(u_hidden_dim=128, u_hidden_hidden_dim=128)
+WIDE128_ITERS = 10
 # 2v: the cube with a 256-wide adversary through fused_v (the tile #6,
 # #7's cluster variant); 2w: the cube at d = 20 with the adversary's
 # Fourier bank at three frequencies (F = 1 + 20 * 7 = 141, past the 128
@@ -2233,14 +2258,14 @@ def wide_cube(kernels, work: str, pts, card: str) -> dict:
 def d100_fourier(kernels, work: str, card: str) -> dict:
     """Phase 2t: ``configs/cube_pde.yaml`` at :data:`D100` (d = 100, F =
     300), seed 0, ``N_r = N_b = 4,000``, ``D100_ITERS`` iterations of
-    ``train_until``: #1/#2 in their path-tile variant (F + 1 + H is past
-    their register kernels' cap), #3-#5 at the full d (one chunk; the
-    features stay out of their tiles); every rel-L2
+    ``train_until``: #1/#2 in their register kernel (its feature columns
+    are applied once a path, so F = 300 fits it), #3-#5 at the full d (one
+    chunk; the features stay out of their tiles); every rel-L2
     and weight finite (``loss_u`` is not, as in the JAX package: the
     square of the interior term's integral, which carries the cube's
     volume 2^100, overflows f32), the least rel-L2 under the first, exact
     launches by variant;
-    then 65,536 points served through #1's path-tile variant, finite."""
+    then 65,536 points served through #1's register kernel, finite."""
     from xnode_wan_tpu_torch import (Hypercube, NODEWANSolver,
                                      evaluate_points, load_params,
                                      load_problem, rel_err)
@@ -2254,7 +2279,7 @@ def d100_fourier(kernels, work: str, card: str) -> dict:
     chunks = cfg.dim // route.d_chunk
     print(f"d={cfg.dim} cube with fourier_features 1 (F={net.F}): kernels "
           f"{route}, {chunks} chunks")
-    if route.path != "tile" or chunks != 1:
+    if route.path != "registers" or chunks != 1:
         raise AssertionError(f"the d=100 cube routes {route}")
     cube = Hypercube(cfg.shape_param, cfg.dim, cfg.T0, cfg.T, cfg.N_t)
     zero_launches(kernels)
@@ -2287,7 +2312,7 @@ def d100_fourier(kernels, work: str, card: str) -> dict:
         raise AssertionError(f"the d=100 cube: launches {launches}, "
                              f"expected {want}")
     check_variants("the d=100 cube (2t)", launches, {
-        "xnode_train": {"registers": 0, "tile": n},
+        "xnode_train": {"registers": n, "tile": 0},
         "xnode_udu_bwd": {"shared": 0, "cluster": 0, "global": 0,
                           bwd: want["xnode_udu_bwd"]}})
     if not min(rel) < rel[0]:
@@ -2309,11 +2334,9 @@ def d100_fourier(kernels, work: str, card: str) -> dict:
                            torch.ones_like(u, dtype=torch.bool), cube.V(),
                            cfg.p))
     print(f"d={cfg.dim} cube served at {SERVE_POINTS} points through #1's "
-          f"path-tile variant in {1e3 * t_serve:.3f} ms (first call): "
+          f"register kernel in {1e3 * t_serve:.3f} ms (first call): "
           f"rel-L2 {served:.6f}; {serve.variants['xnode_eval']}")
-    if serve.variants["xnode_eval"] != {"registers": 0, "tile": 1}:
-        raise AssertionError("serving the d=100 cube did not launch #1's "
-                             "path-tile variant once")
+    check_served("the d=100 cube (2t)", serve)
     if u.shape != (SERVE_POINTS,) or not bool(torch.isfinite(u).all()):
         raise AssertionError("the d=100 cube serves non-finite values")
     return {"hist": hist, "launches": launches, "serve_launches": serve,
@@ -2322,20 +2345,21 @@ def d100_fourier(kernels, work: str, card: str) -> dict:
 
 
 def path_tile_direct(tnet, targs, c):
-    """#2's path-tile variant at any net, through its launch helper (the
-    wrapper takes it only past the register kernel's caps)."""
+    """#2's path-tile kernel at any net, at its rule's tile, through its
+    launch helper (the wrapper takes it only past the register kernel's
+    caps)."""
     from xnode_wan_tpu_torch.ops.kernels import xnode_train
     return xnode_train._path_tile_forward(
-        xnode_train.PATH_TILE_KERNEL, tnet, tnet.packed(), *targs, c.n_sub,
-        c.solver, xnode_train.grad_tile(tnet.dims(), 0, c.solver, False))
+        tnet, tnet.packed(), *targs, c.n_sub, c.solver,
+        xnode_train.path_tile(tnet.dims(), c.solver))
 
 
 def serve_tile_direct(tnet, targs, k_steps, c):
-    """#1's path-tile variant at any net, through its launch helper."""
+    """#1's path-tile kernel at any net, through its launch helper."""
     from xnode_wan_tpu_torch.ops.kernels import xnode_eval, xnode_train
     return xnode_eval._serve_tile(
         tnet, tnet.packed(), *targs, k_steps, c.solver,
-        xnode_train.grad_tile(tnet.dims(), 0, c.solver, False))
+        xnode_train.path_tile(tnet.dims(), c.solver))
 
 
 def variants_run(before: dict, counter) -> list:
@@ -2349,8 +2373,8 @@ def variants_run(before: dict, counter) -> list:
 def d30_cube(kernels, work: str, card: str) -> dict:
     """Phase 2u: ``configs/cube_pde.yaml`` at :data:`D30` (d = 30, H = Hh
     = 48, F = 90), seed 0, ``D30_ITERS`` iterations of ``train_until``:
-    #2 in its path-tile variant, #3-#5 at the full d with #5's cluster
-    variant, exact launches by variant; every ``loss_u`` finite (the
+    #2 in its register kernel (the 48/48 library), #3-#5 at the full d
+    with #5's cluster variant, exact launches by variant; every ``loss_u`` finite (the
     interior term, which only #3-#5 compute, gives a gradient at every
     iteration, unlike at 2t's volume), every rel-L2 finite and the least
     under the first."""
@@ -2365,7 +2389,7 @@ def d30_cube(kernels, work: str, card: str) -> dict:
     chunks = cfg.dim // route.d_chunk
     print(f"d={cfg.dim} cube at H=Hh=48 with fourier_features 1 (F={net.F}):"
           f" kernels {route}, {chunks} chunks")
-    if (route.path != "tile" or chunks != 1
+    if (route.path != "registers" or chunks != 1
             or route.bwd.variant != "cluster"):
         raise AssertionError(f"the d=30 cube routes {route}")
     zero_launches(kernels)
@@ -2389,7 +2413,7 @@ def d30_cube(kernels, work: str, card: str) -> dict:
         raise AssertionError(f"the d=30 cube: launches {launches}, "
                              f"expected {want}")
     check_variants("the d=30 cube (2u)", launches, {
-        "xnode_train": {"registers": 0, "tile": n},
+        "xnode_train": {"registers": n, "tile": 0},
         "xnode_udu_bwd": {"shared": 0, "cluster": want["xnode_udu_bwd"],
                           "global": 0}})
     if not min(rel) < rel[0]:
@@ -2397,6 +2421,94 @@ def d30_cube(kernels, work: str, card: str) -> dict:
                              f"not under its first {rel[0]}")
     return {"hist": hist, "launches": launches, "solver": solver,
             "route": route, "chunks": chunks}
+
+
+def wide128_cube(kernels, work: str, card: str) -> dict:
+    """Phase 2x: ``configs/cube_pde.yaml`` at :data:`WIDE128` (H = Hh =
+    128, d = 5), seed 0, ``WIDE128_ITERS`` iterations of ``train_until``:
+    #2 once an iteration in the path-tile kernel, #3-#5 on the route's
+    tiles (#5 on clusters), exact launches by variant; every loss and
+    rel-L2 finite, the least rel-L2 under the first. Then 65,536 points
+    served through ``evaluate_points`` (#1's path-tile kernel, once) and
+    held against ``evaluate_plain`` on the same card inputs at ``RTOL,
+    ATOL``."""
+    from xnode_wan_tpu_torch import (Hypercube, NODEWANSolver,
+                                     evaluate_points, load_params,
+                                     load_problem)
+    from xnode_wan_tpu_torch.ops.kernels import xnode_eval, xnode_train
+
+    cfg = load_params(CONFIG).replace(seed=SEED, **WIDE128)
+    problem = load_problem("Ex4_1_funcs", dim=cfg.dim)
+    solver = NODEWANSolver(cfg, problem, work_dir=work)
+    net = xnode_train.flat_net(solver.state.u_params)
+    route = xnode_train.kernel_route(net.dims(), cfg.dim, cfg.solver)
+    chunks = cfg.dim // route.d_chunk
+    print(f"the 128/128 cube: {net.packed().numel()} weights, kernels "
+          f"{route}, {chunks} chunks")
+    if route.path != "tile" or chunks != 1:
+        raise AssertionError(f"the 128/128 cube routes {route}")
+    zero_launches(kernels)
+    hist = solver.train_until(TRAIN_TOL, WIDE128_ITERS)
+    torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    n = hist["iterations_run"]
+    rel = [float(r) for r in hist["rel_err"]]
+    losses = {k: [float(v) for v in hist[k]] for k in ("loss_u", "L2")}
+    want = chunk_launches_want(n, cfg, chunks)
+    bwd = route.bwd.variant
+    print(f"the 128/128 cube: {n} outer iterations, rel-L2 {rel[0]:.6f} -> "
+          f"least {min(rel):.6f}, last {rel[-1]:.6f}, loss_u "
+          f"{losses['loss_u'][0]:.6g} -> {losses['loss_u'][-1]:.6g}, in "
+          f"{hist['wall_train_s']:.3f} s (train_until wall clock, {card}); "
+          f"launches {launches}, by variant {launches.variants}")
+    if not (len(rel) == n == WIDE128_ITERS and all(map(math.isfinite, rel))
+            and all(math.isfinite(v) for vs in losses.values()
+                    for v in vs)):
+        raise AssertionError(f"the 128/128 cube: {n} iterations, or a "
+                             "non-finite rel-L2 or loss")
+    if launches != want:
+        raise AssertionError(f"the 128/128 cube: launches {launches}, "
+                             f"expected {want}")
+    check_variants("the 128/128 cube (2x)", launches, {
+        "xnode_train": {"registers": 0, "tile": n},
+        "xnode_udu_bwd": {"shared": 0, "cluster": 0, "global": 0,
+                          bwd: want["xnode_udu_bwd"]}})
+    if not min(rel) < rel[0]:
+        raise AssertionError(f"the 128/128 cube's least rel-L2 {min(rel)} is "
+                             f"not under its first {rel[0]}")
+    cube = Hypercube(cfg.shape_param, cfg.dim, cfg.T0, cfg.T, cfg.N_t)
+    g = torch.Generator(device=solver.device).manual_seed(SEED)
+    pts = torch.rand((SERVE_POINTS, cfg.dim + 1), generator=g,
+                     device=solver.device)
+    pts[:, 1:] = cube.bot + pts[:, 1:] * (cube.top - cube.bot)
+    pts[:, 0] = cfg.T0 + pts[:, 0] * (cfg.T - cfg.T0)
+    k_steps = max(cfg.min_steps, cfg.N_t) * cfg.n_sub
+    x_pts = pts[:, 1:].contiguous()
+    t_s = torch.full_like(pts[:, 0], cfg.T0)
+    serve_args = (x_pts, pts[:, 0].contiguous(), t_s,
+                  (problem.h(torch.cat([t_s[:, None], x_pts], dim=-1))
+                   / cfg.u_scale_eff).contiguous())
+    zero_launches(kernels)
+    with torch.no_grad():
+        t = time.perf_counter()
+        u = evaluate_points(solver.state.u_params, pts, problem, cfg)
+        torch.cuda.synchronize()
+        t_serve = time.perf_counter() - t
+    serve = read_launches(kernels)
+    with torch.no_grad():
+        plain = xnode_eval.evaluate_plain(net, *serve_args, k_steps,
+                                          cfg.solver) * cfg.u_scale_eff
+    print(f"the 128/128 cube served at {SERVE_POINTS} points through #1's "
+          f"path-tile kernel in {1e3 * t_serve:.3f} ms (first call); "
+          f"{serve.variants['xnode_eval']}")
+    if serve.variants["xnode_eval"] != {"registers": 0, "tile": 1}:
+        raise AssertionError("serving the 128/128 cube did not launch #1's "
+                             "path-tile kernel once")
+    err = compare(f"the 128/128 cube served through #1's path-tile kernel, "
+                  f"M={SERVE_POINTS}", u, plain)
+    return {"hist": hist, "launches": launches, "serve_launches": serve,
+            "solver": solver, "route": route, "chunks": chunks,
+            "serve_err": err, "serve_args": serve_args, "k_steps": k_steps}
 
 
 def adv_launches_want(n: int, c, chunks: int, route) -> tuple:
@@ -2580,12 +2692,16 @@ def bwd_direct(tile, net, packed, args, states, ub, dub, n_sub, method):
 
 def variant_checks(*, L, N, batch, batch20, cfg, cfg20, check_udu,
                     check_udu_near_kinks,
-                    cube, d, dev, errs, eval_args, hd, hu, in20, k_steps, net,
+                    cube, d, dev, errs, eval_args, hd, hu, hx, in20, k_steps,
+                    net,
                     net_tr, path_seed, problem, pts, tan_inputs, wide,
                     xs) -> dict:
     """Phase 3's checks of the kernel variants: #1/#2's path-tile
-    variant at 2t's net, at d = 5 with H = 96, Hh = 64 and (through its
-    launch helper, beside the register kernel) at the cube's; #5's cluster
+    kernel at 2x's trained net and at d = 5 with H = 96, Hh = 64 (their
+    route), and through its launch helper at 2t's net and at the cube's,
+    #2 at N_r, N_r + 1 and 37 paths (the cube's at N_r), #1 at 65,536
+    points; #1/#2's register kernel at 2t's, 2u's and the cube's nets;
+    each twice, bitwise; #5's cluster
     variant at 2s's trained net, and at random weights at its shape and
     at 2u's chunk (the global variant too), each at three path counts,
     twice, bitwise, by the kink rule; #5's global variant at 2s's trained
@@ -2639,63 +2755,117 @@ def variant_checks(*, L, N, batch, batch20, cfg, cfg20, check_udu,
     hcube = Hypercube(t_cfg.shape_param, t_cfg.dim, t_cfg.T0, t_cfg.T,
                       t_cfg.N_t)
     gv = torch.Generator(device=dev).manual_seed(15)
-    cfg96 = cfg.replace(u_hidden_dim=96, u_hidden_hidden_dim=64)
+    cfg96 = cfg.replace(**NET96)
     net96 = xnode_train.flat_net(init_xnode(cfg96, gv))
+    xsolver, rsolver = hx["solver"], hu["solver"]
+    x_cfg, r_cfg = xsolver.cfg, rsolver.cfg
+    x_net = xnode_train.flat_net(xsolver.state.u_params)
+    r_net = xnode_train.flat_net(rsolver.state.u_params)
+    r_dom = Hypercube(r_cfg.shape_param, r_cfg.dim, r_cfg.T0, r_cfg.T,
+                      r_cfg.N_t)
     hk = max(t_cfg.min_steps, t_cfg.N_t) * t_cfg.n_sub
+    rk = max(r_cfg.min_steps, r_cfg.N_t) * r_cfg.n_sub
     with torch.no_grad():
         hb = hcube.interior(gv, t_cfg.N_r)
         h_path = path_inputs(hb, hsolver.problem, t_cfg)
         h_serve = serve_inputs(hd["pts"], hsolver.problem, t_cfg)
         b96 = cube.interior(gv, cfg.N_r)
-        # the wrappers route 2t's net and H = 96 to the tile variant and
-        # the cube's net to the register kernel; the tile variant at the
-        # cube's net is launched through its helper
-        tiles = [
-            (f"2t's net (F={t_net.F}) N={t_cfg.N_r} L={t_cfg.N_t}",
-             t_net, h_path, t_cfg, "tile", False),
-            (f"d=5 H=96 Hh=64 (random weights) N={cfg.N_r}", net96,
-             path_inputs(b96, problem, cfg96), cfg96, "tile", False),
+        # the other paths and points of these checks come from a generator
+        # of their own, so that every later check draws from gv what it
+        # drew before they were added
+        gt = torch.Generator(device=dev).manual_seed(16)
+
+        def three_counts(dom, prob, c, first=None):
+            """#2's inputs on N_r (``first`` if given), N_r + 1 and 37
+            fresh interior paths."""
+            return [first or path_inputs(dom.interior(gt, c.N_r), prob, c)] + [
+                path_inputs(dom.interior(gt, n), prob, c)
+                for n in (c.N_r + 1, 37)]
+
+        x_paths = three_counts(cube, xsolver.problem, x_cfg)
+        p96 = three_counts(cube, problem, cfg96,
+                           path_inputs(b96, problem, cfg96))
+        t_paths = three_counts(hcube, hsolver.problem, t_cfg, h_path)
+        r_path = path_inputs(r_dom.interior(gt, r_cfg.N_r), rsolver.problem,
+                             r_cfg)
+        r_pts = torch.rand((SERVE_POINTS, r_cfg.dim + 1), generator=gt,
+                           device=dev)
+        r_pts[:, 1:] = r_dom.bot + r_pts[:, 1:] * (r_dom.top - r_dom.bot)
+        r_pts[:, 0] = r_cfg.T0 + r_pts[:, 0] * (r_cfg.T - r_cfg.T0)
+        r_serve = serve_inputs(r_pts, rsolver.problem, r_cfg)
+        s96 = serve_inputs(pts, problem, cfg96)
+        # the wrappers route 2x's net and 96/64 to the path-tile kernel and
+        # 2t's, 2u's and the cube's nets to the register kernel; the
+        # path-tile kernel at 2t's and the cube's nets is launched through
+        # its helper; each launched twice, bitwise
+        tiles = []
+        for name, tnet, runs, c in (("2x's net (128/128)", x_net, x_paths,
+                                     x_cfg),
+                                    ("d=5 H=96 Hh=64 (random weights)", net96,
+                                     p96, cfg96)):
+            tiles += [(f"{name} N={a[0].shape[0]}", tnet, a, c, "tile", False)
+                      for a in runs]
+        tiles += [(f"2t's net (F={t_net.F}) N={a[0].shape[0]}, launched "
+                   "directly", t_net, a, t_cfg, "tile", True)
+                  for a in t_paths]
+        tiles += [
             (f"the cube's net N={cfg.N_r}, launched directly", net,
              main_path, cfg, "tile", True),
+            (f"2t's net (F={t_net.F}) N={t_cfg.N_r} L={t_cfg.N_t}", t_net,
+             h_path, t_cfg, "registers", False),
+            (f"2u's net (48/48, F={r_net.F}) N={r_cfg.N_r}", r_net, r_path,
+             r_cfg, "registers", False),
             (f"the cube's net N={cfg.N_r}", net, main_path, cfg,
              "registers", False)]
         for label, tnet, targs, c, want_v, direct in tiles:
             before = xnode_train.PATH_LAUNCHES.by_variant()
-            if direct:
-                got = path_tile_direct(tnet, targs, c)
-            else:
-                got = xnode_train.path_forward_cuda(tnet, *targs, c.n_sub,
-                                                    c.solver)
+            got, again = [
+                path_tile_direct(tnet, targs, c) if direct else
+                xnode_train.path_forward_cuda(tnet, *targs, c.n_sub, c.solver)
+                for _ in range(2)]
             ran = variants_run(before, xnode_train.PATH_LAUNCHES)
-            if ran != [want_v]:
+            if ran != [want_v, want_v]:
                 raise AssertionError(f"xnode_train {label}: ran {ran}, "
-                                     f"expected one {want_v} launch")
+                                     f"expected two {want_v} launches")
+            if not torch.equal(got, again):
+                raise AssertionError(f"xnode_train {want_v} {label}: two "
+                                     "launches differ")
             errs["xnode_train"] = max(errs["xnode_train"], note(
                 f"xnode_train {want_v}", compare(
-                    f"xnode_train {want_v} variant, {label}", got,
-                    xnode_train.path_forward_plain(tnet, *targs, c.n_sub,
-                                                   c.solver))))
+                    f"xnode_train {want_v} variant, {label}, twice bitwise",
+                    got, xnode_train.path_forward_plain(tnet, *targs, c.n_sub,
+                                                        c.solver))))
         serves = [
-            (f"2t's net M={SERVE_POINTS} k_steps={hk}", t_net, h_serve,
-             t_cfg, hk, False),
-            (f"d=5 H=96 Hh=64 M={SERVE_POINTS}", net96,
-             serve_inputs(pts, problem, cfg96), cfg96, k_steps, False),
+            (f"2x's net (128/128) M={SERVE_POINTS}", x_net, hx["serve_args"],
+             x_cfg, hx["k_steps"], "tile", False),
+            (f"d=5 H=96 Hh=64 M={SERVE_POINTS}", net96, s96, cfg96, k_steps,
+             "tile", False),
+            (f"2t's net M={SERVE_POINTS} k_steps={hk}, launched directly",
+             t_net, h_serve, t_cfg, hk, "tile", True),
             (f"the cube's net M={SERVE_POINTS}, launched directly", net,
-             eval_args, cfg, k_steps, True)]
-        for label, tnet, targs, c, k, direct in serves:
+             eval_args, cfg, k_steps, "tile", True),
+            (f"2t's net M={SERVE_POINTS} k_steps={hk}", t_net, h_serve,
+             t_cfg, hk, "registers", False),
+            (f"2u's net M={SERVE_POINTS} k_steps={rk}", r_net, r_serve,
+             r_cfg, rk, "registers", False)]
+        for label, tnet, targs, c, k, want_v, direct in serves:
             before = xnode_eval.LAUNCHES.by_variant()
-            if direct:
-                got = serve_tile_direct(tnet, targs, k, c)
-            else:
-                got = xnode_eval.evaluate_cuda(tnet, *targs, k, c.solver)
+            got, again = [
+                serve_tile_direct(tnet, targs, k, c) if direct else
+                xnode_eval.evaluate_cuda(tnet, *targs, k, c.solver)
+                for _ in range(2)]
             ran = variants_run(before, xnode_eval.LAUNCHES)
-            if ran != ["tile"]:
+            if ran != [want_v, want_v]:
                 raise AssertionError(f"xnode_eval {label}: ran {ran}, "
-                                     "expected one tile launch")
+                                     f"expected two {want_v} launches")
+            if not torch.equal(got, again):
+                raise AssertionError(f"xnode_eval {want_v} {label}: two "
+                                     "launches differ")
             errs["xnode_eval"] = max(errs["xnode_eval"], note(
-                "xnode_eval tile", compare(
-                    f"xnode_eval tile variant, {label}", got,
-                    xnode_eval.evaluate_plain(tnet, *targs, k, c.solver))))
+                f"xnode_eval {want_v}", compare(
+                    f"xnode_eval {want_v} variant, {label}, twice bitwise",
+                    got, xnode_eval.evaluate_plain(tnet, *targs, k,
+                                                   c.solver))))
 
         # #5's cluster variant (and #3/#4) at 2s's trained net, and at
         # random weights (live relus) at its shape and at 2u's chunk (15 of
@@ -2986,15 +3156,19 @@ def variant_checks(*, L, N, batch, batch20, cfg, cfg20, check_udu,
     d20_case = (xnode_train.flat_net(m20), (t0_20, dt_20, *in20), cfg20)
     return dict(h_path=h_path, h_serve=h_serve, hk=hk, t_cfg=t_cfg,
                 t_net=t_net, h_chunk=h_chunk, u_cfg=u_cfg,
+                x_net=x_net, x_path=x_paths[0], net96=net96, cfg96=cfg96,
+                p96=p96[0], s96=s96, r_net=r_net, r_path=r_path,
+                r_serve=r_serve, rk=rk,
                 u_net=chunk_runs[1][1], u_chunk_args=u_chunk_args,
                 wcfg=wcfg, wnet=wnet, w_args=w_args, main_path=main_path,
                 var_errs=var_errs, d20_case=d20_case, d20_net=wide_d[20])
 
 
-def variant_times(*, card, cfg, cg, dev, hd, hu, method, net,
+def variant_times(*, card, cfg, cg, dev, hd, hu, hx, method, net,
                    phase_launches, work, h_path, h_serve, hk, t_cfg, t_net,
                    h_chunk, u_cfg, u_net, u_chunk_args, wcfg, wnet, w_args,
-                   main_path, d20_case, d20_net) -> list:
+                   main_path, d20_case, d20_net, x_net, x_path, net96, cfg96,
+                   p96, s96, r_net, r_path, r_serve, rk) -> list:
     """Phase 4's times of the kernel variants at their phases'
     shapes, each with its bound and its launches there. Takes the names
     of ``main`` and of :func:`variant_checks` these read."""
@@ -3002,7 +3176,8 @@ def variant_times(*, card, cfg, cg, dev, hd, hu, method, net,
                                                  xnode_train)
     with torch.no_grad():
         # the kernel variants at their phases' shapes: the path-tile #1/#2
-        # (and #2's two variants at the cube's net), #5's cluster variant
+        # at 2x's, 96/64's and 2t's shapes, the register #1/#2 at 2t's and
+        # 2u's, #2's two variants at the cube's net, #5's cluster variant
         # and its global one, #3-#5 at 2t's and 2u's nets
         def serve_work(tnet, m, k, method_):
             once_, per_ = steppers.field_macs(tnet)
@@ -3046,16 +3221,75 @@ def variant_times(*, card, cfg, cg, dev, hd, hu, method, net,
         # its launcher at its own tile and grid
         w_glob = global_tile(wnet.dims(), wcfg.dim, wcfg.solver)
         u_glob = global_tile(u_net.dims(), dc_u, um)
-        lv = {p: phase_launches[p].variants for p in ("2b", "2s", "2t",
-                                                      "2t serve")}
+        lv = {p: phase_launches[p].variants
+              for p in ("2b", "2s", "2t", "2t serve", "2u", "2x",
+                        "2x serve")}
         chunk_label = f"{dc_t} of d={t_cfg.dim} a launch"
+        x_cfg, r_cfg = hx["solver"].cfg, hu["solver"].cfg
+        xm, xk = x_cfg.solver, hx["k_steps"]
+        x_tile = xnode_train.kernel_route(x_net.dims(), 0, xm).path_tile
+        t_tile = xnode_train.path_tile(t_net.dims(), hm)
+        tile96 = xnode_train.kernel_route(net96.dims(), 0,
+                                          cfg96.solver).path_tile
+        x_serve = hx["serve_args"]
         variant_cases = [
-            ("xnode_train", "tile", "2t",
+            ("xnode_train", f"tile {tuple(x_tile)}", "2x",
+             lambda: xnode_train.path_forward_cuda(x_net, *x_path,
+                                                   x_cfg.n_sub, xm),
+             lambda: xnode_train.path_forward_plain(x_net, *x_path,
+                                                    x_cfg.n_sub, xm),
+             path_work(x_net, steppers, x_cfg.N_r, x_cfg.N_t, 0, x_cfg.n_sub,
+                       xm)["xnode_train"],
+             lv["2x"]["xnode_train"]["tile"], 5),
+            ("xnode_eval", f"tile {tuple(x_tile)}", "2x serve",
+             lambda: xnode_eval.evaluate_cuda(x_net, *x_serve, xk, xm),
+             lambda: xnode_eval.evaluate_plain(x_net, *x_serve, xk, xm),
+             serve_work(x_net, SERVE_POINTS, xk, xm),
+             lv["2x serve"]["xnode_eval"]["tile"], 3),
+            ("xnode_train", f"tile {tuple(tile96)}", "phase 3's 96/64",
+             lambda: xnode_train.path_forward_cuda(net96, *p96, cfg96.n_sub,
+                                                   cfg96.solver),
+             lambda: xnode_train.path_forward_plain(net96, *p96, cfg96.n_sub,
+                                                    cfg96.solver),
+             path_work(net96, steppers, cfg96.N_r, cfg96.N_t, 0, cfg96.n_sub,
+                       cfg96.solver)["xnode_train"], 0, 5),
+            ("xnode_eval", f"tile {tuple(tile96)}", "phase 3's 96/64 serve",
+             lambda: xnode_eval.evaluate_cuda(net96, *s96, xk, cfg96.solver),
+             lambda: xnode_eval.evaluate_plain(net96, *s96, xk,
+                                               cfg96.solver),
+             serve_work(net96, SERVE_POINTS, xk, cfg96.solver), 0, 3),
+            ("xnode_train", f"tile {tuple(t_tile)}, launched directly",
+             "2t's shapes",
+             lambda: path_tile_direct(t_net, h_path, t_cfg),
+             lambda: xnode_train.path_forward_plain(t_net, *h_path,
+                                                    t_cfg.n_sub, hm),
+             h_work["xnode_train"], 0, 5),
+            ("xnode_eval", f"tile {tuple(t_tile)}, launched directly",
+             "2t serve's shapes",
+             lambda: serve_tile_direct(t_net, h_serve, hk, t_cfg),
+             lambda: xnode_eval.evaluate_plain(t_net, *h_serve, hk, hm),
+             serve_work(t_net, SERVE_POINTS, hk, hm), 0, 5),
+            ("xnode_train", "registers", "2t",
              lambda: xnode_train.path_forward_cuda(t_net, *h_path,
                                                    t_cfg.n_sub, hm),
              lambda: xnode_train.path_forward_plain(t_net, *h_path,
                                                     t_cfg.n_sub, hm),
-             h_work["xnode_train"], lv["2t"]["xnode_train"]["tile"], 20),
+             h_work["xnode_train"], lv["2t"]["xnode_train"]["registers"], 20),
+            ("xnode_train", "registers", "2u",
+             lambda: xnode_train.path_forward_cuda(r_net, *r_path,
+                                                   r_cfg.n_sub, r_cfg.solver),
+             lambda: xnode_train.path_forward_plain(r_net, *r_path,
+                                                    r_cfg.n_sub,
+                                                    r_cfg.solver),
+             path_work(r_net, steppers, r_cfg.N_r, r_cfg.N_t, 0, r_cfg.n_sub,
+                       r_cfg.solver)["xnode_train"],
+             lv["2u"]["xnode_train"]["registers"], 20),
+            ("xnode_eval", "registers", "phase 3's 2u serve",
+             lambda: xnode_eval.evaluate_cuda(r_net, *r_serve, rk,
+                                              r_cfg.solver),
+             lambda: xnode_eval.evaluate_plain(r_net, *r_serve, rk,
+                                               r_cfg.solver),
+             serve_work(r_net, SERVE_POINTS, rk, r_cfg.solver), 0, 5),
             ("xnode_train", "tile", "2b's shapes",
              lambda: path_tile_direct(net, main_path, cfg),
              lambda: xnode_train.path_forward_plain(net, *main_path,
@@ -3067,11 +3301,11 @@ def variant_times(*, card, cfg, cg, dev, hd, hu, method, net,
              lambda: xnode_train.path_forward_plain(net, *main_path,
                                                     cfg.n_sub, method),
              work["xnode_train"], lv["2b"]["xnode_train"]["registers"], 20),
-            ("xnode_eval", "tile", "2t serve",
+            ("xnode_eval", "registers", "2t serve",
              lambda: xnode_eval.evaluate_cuda(t_net, *h_serve, hk, hm),
              lambda: xnode_eval.evaluate_plain(t_net, *h_serve, hk, hm),
              serve_work(t_net, SERVE_POINTS, hk, hm),
-             lv["2t serve"]["xnode_eval"]["tile"], 5),
+             lv["2t serve"]["xnode_eval"]["registers"], 5),
             ("xnode_udu_bwd", f"{w_bwd.variant}, {w_bwd.cluster} blocks a "
              f"cluster, {w_bwd.paths} paths a tile", "2s",
              lambda: xnode_train.u_du_bwd_cuda(
@@ -3564,17 +3798,20 @@ def main(work_root: str) -> int:
         shipped[name] = (gcfg, xnode_train.flat_net(
             init_xnode(gcfg, device="cpu")).dims())
     shipped_fwd = {dims[:2] for _, dims in shipped.values()}
-    # 2s's net (64, 64) is within #1/#2's caps: a library of its own
-    wide_fwd = (WIDE["u_hidden_dim"], WIDE["u_hidden_hidden_dim"])
+    # 2s's net (64, 64) and 2u's (48, 48) are within #1/#2's caps: a
+    # library each
+    wide_fwds = [(WIDE["u_hidden_dim"], WIDE["u_hidden_hidden_dim"]),
+                 (D30["u_hidden_dim"], D30["u_hidden_hidden_dim"])]
     disc_widths = sorted({(g.v_hidden_dim,) for g, _ in shipped.values()})
-    # 2s's library spills and takes ptxas about 100 s: it builds in a
-    # thread of its own while phases 2a-2r run, and 2s waits for it
+    # these libraries spill and take ptxas about 100 s: they build, side by
+    # side, in a thread of their own while phases 2a-2r run, and 2s waits
+    # for them
     wide_build = {}
 
     def build_wide():
         t_w = time.perf_counter()
         try:
-            _build.build([("xnode_fwd", wide_fwd)])
+            _build.build([("xnode_fwd", w) for w in wide_fwds])
         except Exception as exc:   # re-raised by 2s
             wide_build["error"] = exc
         wide_build["s"] = time.perf_counter() - t_w
@@ -3582,7 +3819,8 @@ def main(work_root: str) -> int:
     wide_thread = threading.Thread(target=build_wide, daemon=True)
     wide_thread.start()
     t = time.perf_counter()
-    libs = _build.build([("xnode_grad", None), ("disc_train", None)]
+    libs = _build.build([("xnode_grad", None), ("xnode_path_tile", None),
+                         ("disc_train", None)]
                         + [("xnode_fwd", w) for w in sorted(shipped_fwd)]
                         + [("disc_fwd", w) for w in disc_widths])
     print(f"build: {time.perf_counter() - t:.2f} s -> {_build.build_dir()}")
@@ -3594,10 +3832,12 @@ def main(work_root: str) -> int:
                 print(f"  {name}: {line.strip()}")
         # the width-specialized kernels keep every per-thread array in
         # registers at the shipped widths, and the adversary's tile
-        # kernels theirs at any width: no stack, no spills
+        # kernels and #1/#2's path-tile kernel theirs at any width: no
+        # stack, no spills
         frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill "
                             r"stores, (\d+) bytes spill loads", log)
-        if name.startswith(("xnode_fwd", "disc_fwd", "disc_train")) and (
+        if name.startswith(("xnode_fwd", "disc_fwd", "disc_train",
+                            "xnode_path_tile")) and (
                 not frames or any(v != "0" for f in frames for v in f)):
             raise AssertionError(f"{name}: stack or spills {frames}")
     # the staged copy's size in Python against the library's, at the
@@ -3689,9 +3929,9 @@ def main(work_root: str) -> int:
     # the wrapper's shared-memory rule against the bytes the launchers of
     # #3-#5 ask for, at every shipped config, the nets of 2s, 2t, 2u and 2i
     # and the cube's widths at d = 50,
-    # method and listed tile: #3/#4 (and at d = 0 #1/#2's path-tile
-    # variant), #5, #5's global-accumulator variant and its cluster
-    # variant at each cluster size
+    # method and listed tile: #3/#4 (also at d = 0), #5, #5's
+    # global-accumulator variant and its cluster variant at each cluster
+    # size
     grad_lib = ctypes.CDLL(str(libs["xnode_grad"]))
     smem_of = grad_lib.xnode_udu_smem_bytes
     smem_of.restype = ctypes.c_longlong
@@ -3735,6 +3975,48 @@ def main(work_root: str) -> int:
                     n_geom += 1
     print(f"  xnode_grad: tile_smem_bytes equals the launchers' shared "
           f"bytes at {n_geom} geometries")
+    # the path-tile #1/#2: its shared bytes and staged copy in Python
+    # against the launchers', at those nets, 2x's, phase 3's 96/64 and two
+    # more widths past the register kernel, every method, tile and slice
+    tile_lib = ctypes.CDLL(str(libs["xnode_path_tile"]))
+    tile_smem_of = tile_lib.xnode_path_tile_smem_bytes
+    tile_smem_of.restype = ctypes.c_longlong
+    tile_smem_of.argtypes = [ctypes.c_int] * 6
+    staged_of = tile_lib.xnode_path_tile_staged_floats
+    staged_of.argtypes = [ctypes.c_int] * 3
+    for name, kw in (("2x", WIDE128), ("96/64", NET96), ("72/80", dict(
+            u_hidden_dim=72, u_hidden_hidden_dim=80)), ("256/256", dict(
+                u_hidden_dim=256, u_hidden_hidden_dim=256))):
+        gcfg = load_params(CONFIG).replace(**kw)
+        geoms[name] = (gcfg, xnode_train.flat_net(
+            init_xnode(gcfg, device="cpu")).dims())
+    n_geom = 0
+    for geom_name, (gcfg, dims) in geoms.items():
+        H, Hh, _, _, n_field = dims
+        if staged_of(H, Hh, n_field) != xnode_train.path_tile_staged_floats(
+                dims):
+            raise AssertionError(f"path_tile_staged_floats {geom_name}: the "
+                                 f"launcher stages {staged_of(H, Hh, n_field)}")
+        for method, mid in steppers.METHOD_IDS.items():
+            for rows in (16, 32, 64, 128):
+                for slice_ in (0,) + xnode_train.PATH_SLICES:
+                    want = tile_smem_of(rows, slice_, H, Hh, n_field, mid)
+                    got = xnode_train.path_tile_smem_bytes(dims, method, rows,
+                                                           slice_)
+                    if got != want:
+                        raise AssertionError(
+                            f"path_tile_smem_bytes {geom_name} {method} "
+                            f"rows={rows} slice={slice_}: {got} bytes, the "
+                            f"launcher asks for {want}")
+                    n_geom += 1
+        route = xnode_train.kernel_route(dims, 0, gcfg.solver)
+        if route.path == "tile":
+            print(f"  xnode_path_tile {geom_name} {dims}: {route.path_tile}, "
+                  f"{xnode_train.path_tile_smem_bytes(dims, gcfg.solver, *route.path_tile)}"
+                  f" bytes of shared memory a block, "
+                  f"{xnode_train.PATH_TILE_THREADS} threads")
+    print(f"  xnode_path_tile: path_tile_smem_bytes equals the launchers' "
+          f"shared bytes at {n_geom} geometries")
     t_phase = phase_done("1", t_phase)
 
     cfg = load_params(CONFIG)
@@ -4170,17 +4452,20 @@ def main(work_root: str) -> int:
     wide_thread.join()
     if "error" in wide_build:
         raise wide_build["error"]
-    wide_name = _build.lib_name("xnode_fwd", wide_fwd)
-    log = (_build.build_dir() / f"{wide_name}.log").read_text()
-    print(f"{wide_name} built in {wide_build['s']:.2f} s beside phases "
-          "2a-2r: " + "; ".join(line.strip() for line in log.splitlines()
-                                if "registers" in line or "spill" in line))
+    print(f"{', '.join(_build.lib_name('xnode_fwd', w) for w in wide_fwds)} "
+          f"built in {wide_build['s']:.2f} s beside phases 2a-2r")
+    for w in wide_fwds:
+        wide_name = _build.lib_name("xnode_fwd", w)
+        log = (_build.build_dir() / f"{wide_name}.log").read_text()
+        print(f"  {wide_name}: " + "; ".join(
+            line.strip() for line in log.splitlines()
+            if "registers" in line or "spill" in line))
     wide = wide_cube(kernels, os.path.join(work_root, "2s"), pts, card)
     phase_launches["2s"] = wide["launches"]
     phase_launches["2s serve"] = wide["serve_launches"]
     t_phase = phase_done("2s", t_phase)
 
-    # 2t. d = 100 with its Fourier bank: the path-tile #1/#2, chunked #3-#5 --
+    # 2t. d = 100 with its Fourier bank: the register #1/#2, #3-#5 ---------
     hd = d100_fourier(kernels, os.path.join(work_root, "2t"), card)
     phase_launches["2t"] = hd["launches"]
     phase_launches["2t serve"] = hd["serve_launches"]
@@ -4189,6 +4474,12 @@ def main(work_root: str) -> int:
     # 2u. d = 30 at H = Hh = 48: chunked #3-#5 drive the training ----------
     hu = d30_cube(kernels, os.path.join(work_root, "2u"), card)
     phase_launches["2u"] = hu["launches"]
+    t_phase = phase_done("2u", t_phase)
+
+    # 2x. the cube at 128/128: the path-tile #1/#2 ---------------------------
+    hwx = wide128_cube(kernels, os.path.join(work_root, "2x"), card)
+    phase_launches["2x"] = hwx["launches"]
+    phase_launches["2x serve"] = hwx["serve_launches"]
     print(json.dumps({"wide_nets": {
         "wide_cube": {"iterations": wide["hist"]["iterations_run"],
                       "least_rel_err": wide["best"],
@@ -4210,8 +4501,15 @@ def main(work_root: str) -> int:
                         "wall_train_s": hu["hist"]["wall_train_s"],
                         "chunks": hu["chunks"],
                         "route": hu["route"]._asdict()},
+        "wide128_cube": {"iterations": hwx["hist"]["iterations_run"],
+                         "rel_err": [float(r)
+                                     for r in hwx["hist"]["rel_err"]],
+                         "loss_u": [float(v) for v in hwx["hist"]["loss_u"]],
+                         "wall_train_s": hwx["hist"]["wall_train_s"],
+                         "serve_err": hwx["serve_err"],
+                         "route": hwx["route"]._asdict()},
         "card": card}}))
-    t_phase = phase_done("2u", t_phase)
+    t_phase = phase_done("2x", t_phase)
 
     # 2v. a 256-wide adversary: the tile #6 and #7's cluster variant -----
     hv = fused_adversary(kernels, os.path.join(work_root, "2v"),
@@ -4695,7 +4993,7 @@ def main(work_root: str) -> int:
         L=L, N=N, batch=batch, batch20=batch20, cfg=cfg, cfg20=cfg20,
         cube=cube, check_udu=check_udu,
         check_udu_near_kinks=check_udu_near_kinks, d=d, dev=dev,
-        errs=errs, eval_args=eval_args, hd=hd, hu=hu, in20=in20,
+        errs=errs, eval_args=eval_args, hd=hd, hu=hu, hx=hwx, in20=in20,
         k_steps=k_steps,
         net=net, net_tr=net_tr, path_seed=path_seed, problem=problem,
         pts=pts, tan_inputs=tan_inputs, wide=wide, xs=xs)
@@ -4817,7 +5115,7 @@ def main(work_root: str) -> int:
                         **{f"{k} variants": v
                            for k, v in adv_checked["errs"].items()})
         var_rows = variant_times(card=card, cfg=cfg, cg=cg, dev=dev, hd=hd,
-                                 hu=hu,
+                                 hu=hu, hx=hwx,
                                  method=method, net=net,
                                  phase_launches=phase_launches, work=work,
                                  **checked)
@@ -4831,6 +5129,23 @@ def main(work_root: str) -> int:
             row["variant_times"] = [
                 {k: v for k, v in vr.items() if k != "kernel"}
                 for vr in var_rows if vr["kernel"] == row["name"]]
+        # #1/#2's path-tile kernel (csrc/xnode_path_tile.cu) as kernels of
+        # their own: launched on 2x's path, timed at its shapes
+        for name, phase in (("xnode_eval", "2x serve"), ("xnode_train", "2x")):
+            n_tile = phase_launches[phase].variants[name]["tile"]
+            if n_tile < 1:
+                raise AssertionError(f"{name}'s path-tile kernel was not "
+                                     f"launched in {phase}")
+            vr = next(r for r in var_rows
+                      if r["kernel"] == name and r["phase"] == phase)
+            rows.append({
+                "name": f"{name} tile", "route": "cuda",
+                "source": "xnode_wan_tpu_torch/csrc/xnode_path_tile.cu",
+                "replaces": meta[name][1], "launches": n_tile,
+                "max_abs_err": var_errs[f"{name} tile"], "ms": vr["ms"],
+                "plain_ms": vr["plain_ms"], "bound_ms": vr["bound_ms"],
+                "bound_by": vr["bound_by"], "library_ms": None,
+                "phases": {phase: n_tile}, "variant": vr["variant"]})
         print(json.dumps({"kernel_variants": {
             "errs": var_errs, "times": var_rows, "card": card}}))
     kernel_ms = {row["name"]: row["ms"] for row in rows}

@@ -390,10 +390,10 @@ def test_rk_tables_reproduce_rk_step(method, table):
                                rtol=1e-12, atol=1e-12)
 
 
-def cuda_signature(symbol):
-    text = (_build.CSRC / "xnode_grad.cu").read_text()
+def cuda_signature(source, symbol):
+    text = (_build.CSRC / f"{source}.cu").read_text()
     m = re.search(r'extern "C" int ' + symbol + r"\((.*?)\)", text, re.S)
-    assert m, f"{symbol} not found in xnode_grad.cu"
+    assert m, f"{symbol} not found in {source}.cu"
     return [p.strip() for p in m.group(1).split(",")]
 
 
@@ -405,8 +405,12 @@ def cuda_signature(symbol):
                                     xnode_train.PATH_TILE_KERNEL],
                          ids=lambda k: k.symbol)
 def test_grad_ctypes_argtypes_match_c_signature(kernel):
-    assert kernel.source == "xnode_grad"
-    params = cuda_signature(kernel.symbol)
+    # #2's path-tile variant has a source of its own since it stopped
+    # running #3's body with d = 0
+    assert kernel.source == ("xnode_path_tile"
+                             if kernel is xnode_train.PATH_TILE_KERNEL
+                             else "xnode_grad")
+    params = cuda_signature(kernel.source, kernel.symbol)
     declared = [ctypes.c_int, ctypes.c_void_p] + kernel.argtypes
     assert len(params) == len(declared)
     for p, ct in zip(params, declared):

@@ -86,14 +86,15 @@ def test_port_routes_every_net_the_jax_package_trains(d, H, Hh, ff):
                 xnode_train.kernel_route(dims, d, method)
             continue
         route = xnode_train.kernel_route(dims, d, method)
-        # #1/#2: the register kernels within their caps, else the tile
-        # variant (d = 0), whose block fits; the same without tangents
+        # #1/#2: the register kernels within their caps, else the path-tile
+        # kernel, whose block fits; the same without tangents
         assert route.path == ("registers" if register_fits(dims) else "tile")
         assert xnode_train.kernel_route(dims, 0, method)[:2] == route[:2]
         if route.path == "registers":
             net.check_caps()
         else:
-            assert fits(dims, 0, method, route.path_tile, False)
+            assert xnode_train.path_tile_smem_bytes(
+                dims, method, *route.path_tile) <= MAX_SMEM_BYTES
         # #3-#5: a divisor of d, the full d wherever its tiles fit
         dc = route.d_chunk
         assert d % dc == 0
@@ -201,14 +202,16 @@ def test_cluster_unit_slices_cover_every_unit_once(cluster):
 
 
 def test_d100_fourier_cube_runs_in_tangent_chunks_and_tile_variant():
-    # d = 100 with fourier_features 1: F = 300, so #1/#2 take the tile
-    # variant; with the features out of the tiles #3-#5 take the full d
-    # in one chunk (two chunks of 50 while each tile kept its 300 feature
-    # rows), #5 with its accumulator in shared memory, one path a tile
+    # d = 100 with fourier_features 1: F = 300, which #1/#2's register
+    # kernel takes (its feature columns are staged nowhere; before, F + 1
+    # + H above 128 sent it to the path-tile variant); with the features
+    # out of the tiles #3-#5 take the full d in one chunk (two chunks of 50
+    # while each tile kept its 300 feature rows), #5 with its accumulator
+    # in shared memory, one path a tile
     cfg, net = net_of(dim=100, fourier_features=1)
-    assert net.F == 300 and not register_fits(net.dims())
+    assert net.F == 300 and register_fits(net.dims())
     route = xnode_train.kernel_route(net.dims(), 100, cfg.solver)
-    assert route.path == "tile" and route.d_chunk == 100
+    assert route.path == "registers" and route.d_chunk == 100
     assert route.bwd.variant == "shared" and route.bwd.paths == 1
 
 
@@ -231,6 +234,55 @@ def test_wide_nets_reach_the_wrappers_past_the_caps():
     # the register kernels themselves still refuse it
     with pytest.raises(ValueError, match="cap"):
         net.check_caps()
+
+
+TILE_NETS = [(72, 80), (96, 64), (128, 128), (256, 256)]
+
+
+@pytest.mark.parametrize("H,Hh", TILE_NETS,
+                         ids=[f"{H}x{Hh}" for H, Hh in TILE_NETS])
+def test_path_tile_rule_fits_shared_memory(H, Hh):
+    # past the register kernel's widths #1/#2 take the path-tile kernel at
+    # every fixed method: its block (rows, weight slice) fits one block's
+    # shared memory, and no block before it in the rule's order does
+    order = xnode_train.PATH_ORDER
+    for method in FUSED_KERNEL_METHODS:
+        _, net = net_of(dim=5, u_hidden_dim=H, u_hidden_hidden_dim=Hh,
+                        solver=method)
+        dims = net.dims()
+        route = xnode_train.kernel_route(dims, 0, method)
+        tile = route.path_tile
+        assert route.path == "tile" and tile == xnode_train.path_tile(
+            dims, method)
+        assert tuple(tile) in order and tile.rows in (16, 32)
+        assert tile.slice == 0 or tile.slice in xnode_train.PATH_SLICES
+        smem = xnode_train.path_tile_smem_bytes(dims, method, *tile)
+        assert smem <= MAX_SMEM_BYTES
+        assert all(xnode_train.path_tile_smem_bytes(dims, method, *t)
+                   > MAX_SMEM_BYTES for t in order[:order.index(tuple(tile))])
+        # the weights resident only where the whole staged copy fits
+        assert (4 * xnode_train.path_tile_staged_floats(dims)
+                > MAX_SMEM_BYTES) <= (tile.slice > 0)
+
+
+def test_path_tile_bytes_count_each_buffer():
+    # 128/128 at the cube's depth, 32 rows (a stride of 36), 64-input
+    # slices, midpoint: two slots of 64 x 128 floats, two [129][36]
+    # buffers, three [128][36] ones and two of 32 times; heun and rk4 keep
+    # the stage sum [128][36] too; resident, the staged copy of
+    # 129 x 128 + 7 x 128 x 128 + 128 x 128 floats
+    dims = (128, 128, 5, 3, 9)
+    base = 2 * 64 * 128 + 2 * 129 * 36 + 3 * 128 * 36 + 2 * 32
+    assert xnode_train.path_tile_smem_bytes(dims, "midpoint", 32,
+                                            64) == 4 * base
+    assert xnode_train.path_tile_smem_bytes(dims, "rk4", 32, 64) == 4 * (
+        base + 128 * 36)
+    assert xnode_train.path_tile_staged_floats(dims) == (
+        129 * 128 + 7 * 128 * 128 + 128 * 128)
+    assert xnode_train.path_tile_smem_bytes(dims, "euler", 32, 0) == 4 * (
+        base - 2 * 64 * 128 + xnode_train.path_tile_staged_floats(dims))
+    with pytest.raises(ValueError, match="path-tile"):
+        xnode_train.path_tile((64, 4096, 5, 3, 9), "rk4")
 
 
 def test_wrappers_take_their_route_from_kernel_route(monkeypatch):

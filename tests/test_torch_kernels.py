@@ -157,6 +157,64 @@ def test_u_forward_fused_plain_variants_match_pallas(extra):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+WIDE_NETS = [dict(dim=2, u_hidden_dim=72, u_hidden_hidden_dim=72),
+             dict(dim=50, fourier_features=1)]
+WIDE_IDS = ["72wide_d2", "d50_fourier_F150"]
+
+
+def batch_pair_d(n, L, d, seed):
+    """:func:`batch_pair`, masked, at ``d`` coordinates."""
+    rng = np.random.default_rng(seed)
+    t_start = rng.uniform(0, 0.2, n)
+    times = np.maximum(np.sort(rng.uniform(0, 1, (n, L)), axis=1),
+                       t_start[:, None])
+    xs = rng.uniform(-1, 1, (n, d))
+    x = np.concatenate([times[:, :, None],
+                        np.broadcast_to(xs[:, None], (n, L, d))], axis=-1)
+    arrays = [x.astype(np.float32), rng.uniform(size=(n, L)) < 0.7,
+              t_start.astype(np.float32), rng.uniform(size=n) < 0.5]
+    return (JPathBatch(*map(jnp.asarray, arrays)),
+            PathBatch(*map(torch.as_tensor, arrays)))
+
+
+@pytest.mark.parametrize("extra", WIDE_NETS, ids=WIDE_IDS)
+def test_fused_evaluate_plain_matches_pallas_past_register_caps(extra):
+    # the nets the path-tile kernel (a width past 64) and the register
+    # kernel past its old field-input cap (F + 1 + H = 171) serve: the
+    # plain version the card is held against, against JAX's Pallas #1
+    jcfg, tcfg, jparams, tparams = shared(seed=7, **extra)
+    rng = np.random.default_rng(7)
+    m, d = 11, extra["dim"]
+    pts = np.concatenate([rng.uniform(0.3, 1, (m, 1)),
+                          rng.uniform(-1, 1, (m, d))], axis=-1).astype(
+                              np.float32)
+    seed = rng.normal(size=m).astype(np.float32)
+    t_start = rng.uniform(0, 0.3, m).astype(np.float32)
+    feats = np.array(jfeatures(jnp.asarray(pts[:, 1:]),
+                               jcfg.fourier_features))
+    want = jeval.fused_evaluate(jparams, jnp.asarray(pts), jnp.asarray(seed),
+                                2, t_start=jnp.asarray(t_start),
+                                feats=jnp.asarray(feats), interpret=True)
+    got = xnode_eval.fused_evaluate(tparams, torch.as_tensor(pts),
+                                    torch.as_tensor(seed), 2,
+                                    t_start=torch.as_tensor(t_start),
+                                    feats=torch.as_tensor(feats))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("extra", WIDE_NETS, ids=WIDE_IDS)
+def test_u_forward_fused_plain_matches_pallas_past_register_caps(extra):
+    jcfg, tcfg, jparams, tparams = shared(seed=8, **extra)
+    net = xnode_train.flat_net(tparams)
+    assert net.H > 64 or net.F + 1 + net.H > 128
+    jb, tb = batch_pair_d(7, 3, extra["dim"], seed=8)
+    jp, tp = jload_problem("Ex4_1_funcs"), load_problem("Ex4_1_funcs")
+    want = jtrain.u_forward_fused(jparams, jb, jp, jcfg, interpret=True)
+    got = xnode_train.u_forward_fused(tparams, tb, tp, tcfg)
+    assert got.shape == (7, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 def no_tangents(n, F):
     return torch.zeros((n, 0, F)), torch.zeros((n, 0))
 
@@ -309,7 +367,9 @@ def cuda_signature(source, symbol):
     return [p.strip() for p in m.group(1).split(",")]
 
 
-@pytest.mark.parametrize("kernel", [xnode_eval.KERNEL, xnode_train.KERNEL],
+@pytest.mark.parametrize("kernel", [xnode_eval.KERNEL, xnode_train.KERNEL,
+                                    xnode_eval.TILE_KERNEL,
+                                    xnode_train.PATH_TILE_KERNEL],
                          ids=lambda k: k.symbol)
 def test_ctypes_argtypes_match_c_signature(kernel):
     params = cuda_signature(kernel.source, kernel.symbol)
@@ -344,14 +404,35 @@ def test_cuda_wrappers_reject_before_launch():
 
 
 @pytest.mark.parametrize("widths", [dict(u_hidden_dim=65),
-                                    dict(u_hidden_hidden_dim=65),
-                                    dict(u_hidden_dim=60, dim=70)])
+                                    dict(u_hidden_hidden_dim=65)])
 def test_caps_enforced(widths):
     from xnode_wan_tpu_torch import init_xnode
     net = xnode_train.flat_net(init_xnode(SolverConfig(**{**BASE, **widths}),
                                           device="cpu"))
     with pytest.raises(ValueError, match="cap"):
         net.check_caps()
+
+
+@pytest.mark.parametrize("widths", [
+    dict(u_hidden_dim=60, dim=70),
+    dict(dim=100, fourier_features=1, u_hidden_dim=20,
+         u_hidden_hidden_dim=10, u_layers=8),
+    dict(dim=30, fourier_features=1, u_hidden_dim=48,
+         u_hidden_hidden_dim=48, u_layers=8)],
+    ids=["F70_H60", "2t", "2u"])
+def test_register_kernel_takes_any_feature_width(widths):
+    # the feature columns are applied once a path and staged nowhere, so
+    # F + 1 + H past 128 (131, 321, 139) keeps #1/#2 in the register kernel
+    from xnode_wan_tpu_torch import init_xnode
+    net = xnode_train.flat_net(init_xnode(SolverConfig(**{**BASE, **widths}),
+                                          device="cpu"))
+    H, Hh, F, n_lift, n_field = net.dims()
+    assert F + 1 + H > 128
+    net.check_caps()
+    assert steppers.register_fits(net.dims())
+    for method in METHODS:
+        route = xnode_train.kernel_route(net.dims(), 0, method)
+        assert route.path == "registers" and route.path_tile is None
 
 
 def test_caps_cover_shipped_configs():

@@ -18,14 +18,15 @@
 // at a stride rounded up to four floats, so a thread reads four weights
 // with one 16-byte load; every thread of a warp reads the same address at
 // the same time, a broadcast. The feature columns of field layer 0 are
-// applied once per path, straight from global memory, and are not staged.
+// applied once per path (xn_field_const) and are not staged, so the
+// feature width F has no cap: no array and no staged byte depends on it.
 #pragma once
 
 #include <cuda_runtime.h>
 
 #define XN_MAX_WIDTH 64      // cap on H (hidden state) and Hh (field width)
-#define XN_MAX_FIELD_IN 128  // cap on F + 1 + H (field input width)
 #define XN_MAX_SMEM 232448   // shared memory one block may use on Hopper
+#define XN_FEAT_CHUNK 32     // features a chunk of xn_field_const's pass
 
 // Order matches FUSED_KERNEL_METHODS in ops/kernels/steppers.py.
 enum XnMethod { XN_EULER = 0, XN_MIDPOINT = 1, XN_HEUN = 2, XN_RK4 = 3 };
@@ -42,8 +43,7 @@ __host__ __device__ inline int xn_n_params(int H, int Hh, int F, int n_lift,
 __host__ inline bool xn_caps_ok(int H, int Hh, int F, int n_lift,
                                 int n_field) {
   return H >= 1 && Hh >= 1 && F >= 0 && n_lift >= 1 && n_field >= 2 &&
-         H <= XN_MAX_WIDTH && Hh <= XN_MAX_WIDTH &&
-         F + 1 + H <= XN_MAX_FIELD_IN;
+         H <= XN_MAX_WIDTH && Hh <= XN_MAX_WIDTH;
 }
 
 // ---------------------------------------------------------------------------
@@ -198,21 +198,57 @@ __device__ __forceinline__ void xn_lift(const float* lw, int n_lift,
 }
 
 // Field layer 0 splits its input [feats, t, h]: the feats part is fixed
-// along a path, so each thread computes c0 = W0[:, :F] feats once, from
-// the packed weights in global memory (W0 at `w0`, rows of F + 1 + H).
-template <int H, int Hh>
-__device__ __forceinline__ void xn_field_const(const float* __restrict__ w0,
+// along a path, so each thread computes c0 = W0[:, :F] feats once (W0 at
+// `w0`, rows of F + 1 + H, in global memory). The block's T threads pass
+// over the features in chunks of XN_FEAT_CHUNK through `scratch` in shared
+// memory (before the weights are staged there): their T feature rows by
+// coalesced reads into [T][stride] (stride odd, so a thread reading its
+// own row hits its own bank), and W0's feature columns by columns at
+// pad4(Hh) (a broadcast float4 feeds four accumulators). Each thread sums
+// its features in order, as one thread reading its row did. Whole block
+// (rows past N read as 0); ends in a barrier.
+__host__ __device__ inline int xn_feat_stride(int F) {
+  return (F < XN_FEAT_CHUNK ? F : XN_FEAT_CHUNK) | 1;
+}
+
+// Floats of the scratch of xn_field_const for T threads a block.
+__host__ __device__ inline int xn_feat_floats(int T, int F, int Hh) {
+  if (F == 0) return 0;
+  const int fc = F < XN_FEAT_CHUNK ? F : XN_FEAT_CHUNK;
+  return T * xn_feat_stride(F) + fc * xn_pad4(Hh);
+}
+
+template <int H, int Hh, int T>
+__device__ __forceinline__ void xn_field_const(float* scratch,
+                                               const float* __restrict__ w0,
                                                int F,
                                                const float* __restrict__ feats,
+                                               int n_first, int N,
                                                float (&c0)[Hh]) {
-  const int fin = F + 1 + H;
+  constexpr int SHh = xn_pad4(Hh);
+  const int fin = F + 1 + H, ld = xn_feat_stride(F);
+  float* sf = scratch;           // [T][ld]: the block's feature rows
+  float* sw = scratch + T * ld;  // [chunk][SHh]: W0's feature columns
 #pragma unroll
   for (int j = 0; j < Hh; ++j) c0[j] = 0.f;
-  for (int i = 0; i < F; ++i) {
-    const float x = feats[i];
-#pragma unroll
-    for (int j = 0; j < Hh; ++j) c0[j] = fmaf(__ldg(w0 + j * fin + i), x, c0[j]);
+  for (int i0 = 0; i0 < F; i0 += XN_FEAT_CHUNK) {
+    const int fc = F - i0 < XN_FEAT_CHUNK ? F - i0 : XN_FEAT_CHUNK;
+    if (i0 > 0) __syncthreads();
+    for (int e = threadIdx.x; e < T * fc; e += T) {
+      const int r = e / fc, i = e - r * fc;
+      sf[r * ld + i] = n_first + r < N
+                           ? __ldg(feats + (size_t)(n_first + r) * F + i0 + i)
+                           : 0.f;
+    }
+    for (int e = threadIdx.x; e < Hh * fc; e += T) {
+      const int j = e / fc, i = e - j * fc;
+      sw[i * SHh + j] = __ldg(w0 + j * fin + i0 + i);
+    }
+    __syncthreads();
+    const float* row = sf + threadIdx.x * ld;
+    for (int i = 0; i < fc; ++i) xn_axpy<Hh>(sw + i * SHh, row[i], c0);
   }
+  __syncthreads();
 }
 
 // ODE field F(x, t, h) -> dh/dt [H] from field layer 0's staged copy `fw`:

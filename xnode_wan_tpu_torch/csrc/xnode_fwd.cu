@@ -14,7 +14,13 @@
 // Built once per width pair: nvcc -DXN_H=<H> -DXN_HH=<Hh> (ops/kernels/
 // _build.py), so the per-thread state, RK stages and activations of
 // steppers.cuh live in registers. One thread integrates one path over the
-// block's staged copy of the weights in shared memory.
+// block's staged copy of the weights in shared memory. The feature width F
+// is a run-time value without a cap: field layer 0's feature columns are
+// applied once a path (steppers.cuh :: xn_field_const, the block's feature
+// rows read coalesced through shared memory before the weights are staged
+// there), and no array or staged byte depends on F. Nets with H or Hh above
+// 64, or a staged copy above one block's shared memory, take the path-tile
+// kernel (xnode_path_tile.cu).
 //
 // Bound on an H100 SXM (67 TFLOP/s FP32 without tensor cores, 3.35 TB/s):
 // both are FP32-compute-bound in principle (#1 at the d=5 width: 5.9 GFLOP
@@ -50,10 +56,14 @@ xnode_fwd_kernel(const float* __restrict__ params,
                  int N, int L, int F, int n_lift, int n_field, int n_steps,
                  int method) {
   constexpr int H = XN_H, Hh = XN_HH;
+  constexpr int T = kServe ? XN_SERVE_THREADS : XN_PATH_THREADS;
   extern __shared__ float4 sw4[];
   float* sw = reinterpret_cast<float*>(sw4);
+  float h[H], c0[Hh];
+  xn_field_const<H, Hh, T>(sw, params + (H + H) + (n_lift - 1) * (H * H + H),
+                           F, feats, blockIdx.x * T, N, c0);
   xn_stage<H, Hh>(sw, params, F, n_lift, n_field);
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n = blockIdx.x * T + threadIdx.x;
   if (n >= N) return;
 
   const int n_hidden = n_field - 2;
@@ -62,10 +72,7 @@ xnode_fwd_kernel(const float* __restrict__ params,
   const float* rw = fw + xn_staged_layer(Hh, 1 + H) +
                     n_hidden * xn_staged_layer(Hh, Hh) +
                     xn_staged_layer(H, Hh);
-  float h[H], c0[Hh];
   xn_lift<H>(sw, n_lift, seed[n], h);
-  xn_field_const<H, Hh>(params + (H + H) + (n_lift - 1) * (H * H + H), F,
-                        feats + (size_t)n * F, c0);
 
   const size_t row = (size_t)n * L;
 #pragma unroll 1
@@ -87,16 +94,19 @@ xnode_fwd_kernel(const float* __restrict__ params,
 
 // Checks shared by both launchers: the widths this library was built for,
 // the caps, the method and the packed count; selects the caller's device
-// and allows the dynamic shared memory of the staged weights.
+// and allows the dynamic shared memory of the staged weights (or of the
+// feature pass's scratch, where that is larger, for T threads a block).
 template <typename Kernel>
-static cudaError_t xn_prepare(Kernel kernel, int device, int n_params, int H,
-                              int Hh, int F, int n_lift, int n_field,
+static cudaError_t xn_prepare(Kernel kernel, int T, int device, int n_params,
+                              int H, int Hh, int F, int n_lift, int n_field,
                               int method, size_t* smem) {
   if (H != XN_H || Hh != XN_HH || !xn_caps_ok(H, Hh, F, n_lift, n_field) ||
       method < XN_EULER || method > XN_RK4 ||
       n_params != xn_n_params(H, Hh, F, n_lift, n_field))
     return cudaErrorInvalidValue;
-  *smem = sizeof(float) * (size_t)xn_staged_floats(H, Hh, n_lift, n_field);
+  const int staged = xn_staged_floats(H, Hh, n_lift, n_field);
+  const int scratch = xn_feat_floats(T, F, Hh);
+  *smem = sizeof(float) * (size_t)(staged > scratch ? staged : scratch);
   if (*smem > XN_MAX_SMEM) return cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
@@ -123,8 +133,9 @@ extern "C" int xnode_eval_launch(int device, void* stream,
                                  int method) {
   size_t smem = 0;
   if (M < 0 || k_steps < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t e = xn_prepare(xnode_fwd_kernel<true>, device, n_params, H, Hh,
-                             F, n_lift, n_field, method, &smem);
+  cudaError_t e = xn_prepare(xnode_fwd_kernel<true>, XN_SERVE_THREADS, device,
+                             n_params, H, Hh, F, n_lift, n_field, method,
+                             &smem);
   if (e != cudaSuccess) return (int)e;
   if (M == 0) return 0;
   const int blocks = (M + XN_SERVE_THREADS - 1) / XN_SERVE_THREADS;
@@ -144,8 +155,9 @@ extern "C" int xnode_path_fwd_launch(int device, void* stream,
                                      int n_sub, int method) {
   size_t smem = 0;
   if (N < 0 || L < 0 || n_sub < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t e = xn_prepare(xnode_fwd_kernel<false>, device, n_params, H,
-                             Hh, F, n_lift, n_field, method, &smem);
+  cudaError_t e = xn_prepare(xnode_fwd_kernel<false>, XN_PATH_THREADS, device,
+                             n_params, H, Hh, F, n_lift, n_field, method,
+                             &smem);
   if (e != cudaSuccess) return (int)e;
   if (N == 0 || L == 0) return 0;
   const int blocks = (N + XN_PATH_THREADS - 1) / XN_PATH_THREADS;

@@ -11,12 +11,8 @@
 //                            thread-block clusters, the accumulator split
 //                            over their blocks: xnode_grad_cluster.cuh)
 //
-// and, for nets past the register kernels' caps (xnode_fwd.cu: a width
-// above 64 or a field input above 128), the tangentless path forward of
-// #2 (_fwd_only_kernel) and of serving #1 (xnode_eval.py::_kernel):
-// xnode_path_tile_launch, #3's body with d = 0 (no tangent rows), its
-// weights read from global memory, so no width has a cap. Serving maps a
-// point to a path of one interval from t_start with n_sub = k_steps.
+// #1/#2 past the register kernel's caps run xnode_path_tile.cu. xg_checks
+// takes d = 0, a tangentless launch of these kernels.
 //
 // Work (chip_smoke.py :: path_work counts it). A path carries 1 + d rows,
 // its primal and its d tangents; a field evaluation costs a row H Hh +
@@ -1121,23 +1117,6 @@ extern "C" int xnode_udu_fwd_store_launch(
                           dfeats, seed, dseed, u, du, hs, hts, N, L, d, H,
                           Hh, F, n_lift, n_field, n_sub, method, tile,
                           threads);
-}
-
-// The tangentless path forward (#2, and #1 with one interval a point) for
-// nets past xnode_fwd.cu's caps: #3's kernel with d = 0, u [N, L] only.
-// tile, threads: xnode_train.py :: grad_tile at d = 0.
-extern "C" int xnode_path_tile_launch(int device, void* stream,
-                                      const float* params, int n_params,
-                                      const float* t0, const float* dt,
-                                      const float* feats, const float* seed,
-                                      float* u, int N, int L, int H, int Hh,
-                                      int F, int n_lift, int n_field,
-                                      int n_sub, int method, int tile,
-                                      int threads) {
-  return xg_udu_fwd<false>(device, stream, params, n_params, t0, dt, feats,
-                           nullptr, seed, nullptr, u, nullptr, nullptr,
-                           nullptr, N, L, 0, H, Hh, F, n_lift, n_field,
-                           n_sub, method, tile, threads);
 }
 
 template <bool GACC>

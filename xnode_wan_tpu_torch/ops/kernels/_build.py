@@ -8,8 +8,8 @@ PyTorch headers are involved, so a build takes seconds. A source listed in
 -DXN_HH=<Hh>``, into ``libxnode_fwd_H<H>_Hh<Hh>.so``, and ``disc_fwd`` per
 adversary width H, with ``-DXD_H=<H>``, into ``libdisc_fwd_H<H>.so``: their
 register kernels size their per-thread arrays by those widths. Every other
-source (``xnode_grad``, ``disc_train``) takes its widths at run time and is
-built once. Libraries go into
+source (``xnode_grad``, ``xnode_path_tile``, ``disc_train``) takes its
+widths at run time and is built once. Libraries go into
 ``xnode_wan_tpu_torch/_build/<hash of the sources and flags>/`` (listed in
 ``.gitignore``), so an edited source is rebuilt and an unchanged one is
 reused. :func:`build` starts one ``nvcc`` per missing library, all at
@@ -37,7 +37,8 @@ CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNEL_SOURCES = ("xnode_fwd", "xnode_grad", "disc_fwd", "disc_train")
+KERNEL_SOURCES = ("xnode_fwd", "xnode_grad", "xnode_path_tile", "disc_fwd",
+                  "disc_train")
 # Width-specialized sources: (define, tag in the library name) per width
 WIDTH_SOURCES = {"xnode_fwd": (("XN_H", "H"), ("XN_HH", "Hh")),
                  "disc_fwd": (("XD_H", "H"),)}

@@ -20,11 +20,11 @@ import torch
 FUSED_KERNEL_METHODS = ("euler", "midpoint", "heun", "rk4")
 METHOD_IDS = {m: i for i, m in enumerate(FUSED_KERNEL_METHODS)}
 
-# Compile-time caps of csrc/steppers.cuh (#1/#2's register kernels; past
-# them the path-tile variant serves), the shared memory one block may use
-# on Hopper (232,448 bytes), and that of one SM.
+# Compile-time cap of csrc/steppers.cuh on H and Hh (#1/#2's register
+# kernels, which take any feature width; past the cap the path-tile
+# kernel serves), the shared memory one block may use on Hopper (232,448
+# bytes), and that of one SM.
 MAX_WIDTH = 64
-MAX_FIELD_IN = 128
 MAX_SMEM_BYTES = 232448
 SM_SMEM_BYTES = 233472
 
@@ -113,15 +113,13 @@ def check_caps(dims) -> None:
     """Raise when the register kernels of ``csrc/xnode_fwd.cu`` (#1/#2)
     do not take a net ``(H, Hh, F, n_lift, n_field)``: a width above their
     compile-time cap, or a staged weight copy (:func:`staged_floats`)
-    above one block's shared memory. The wrappers take the path-tile
-    variant there (:func:`register_fits` selects)."""
+    above one block's shared memory. Any feature width F fits: its columns
+    are applied once a path and staged nowhere. The wrappers take the
+    path-tile kernel past these caps (:func:`register_fits` selects)."""
     H, Hh, F, n_lift, n_field = dims
     if H > MAX_WIDTH or Hh > MAX_WIDTH:
         raise ValueError(f"hidden widths H={H}, Hh={Hh} exceed the CUDA "
                          f"kernels' cap of {MAX_WIDTH}")
-    if F + 1 + H > MAX_FIELD_IN:
-        raise ValueError(f"field input width {F + 1 + H} exceeds the CUDA "
-                         f"kernels' cap of {MAX_FIELD_IN}")
     n_bytes = 4 * staged_floats(H, Hh, n_lift, n_field)
     if n_bytes > MAX_SMEM_BYTES:
         raise ValueError(f"{n_bytes} bytes of staged weights do not fit "
@@ -130,7 +128,7 @@ def check_caps(dims) -> None:
 
 def register_fits(dims) -> bool:
     """Whether #1/#2 take their register kernels (:func:`check_caps`
-    passes) rather than the path-tile variant."""
+    passes) rather than the path-tile kernel."""
     try:
         check_caps(dims)
     except ValueError:

@@ -10,19 +10,21 @@ built once per width pair (H, Hh) so that each thread's state, RK stages
 and activations live in registers. One thread per point, 128 a block.
 Each block stages the weights in shared memory once, by columns padded
 to four floats (``steppers.staged_floats``), so that one broadcast load
-feeds four independent accumulators; each thread lifts its seed, applies the feature
-columns of field layer 0 once, runs ``k_steps`` RK steps of ``dt = (t -
-t_start) / k_steps`` and writes one value. The TPU kernel's
+feeds four independent accumulators; before that, the block's feature
+rows pass through the same shared memory once, read coalesced, and each
+thread applies the feature columns of field layer 0 to its point (any
+feature width); each thread then lifts its seed, runs ``k_steps`` RK steps
+of ``dt = (t - t_start) / k_steps`` and writes one value. The TPU kernel's
 feature-major 128-lane layout and its VMEM block picker are not carried
 over: here the point axis is the thread axis.
 
-Past the register kernel's caps (a width above 64, a field input above
-128, or staged weights above one block's shared memory; the choice is
-``xnode_train.kernel_route``'s) serving takes the path-tile variant
-(``xnode_path_tile_launch`` in ``csrc/xnode_grad.cu``, the body of #2's
-variant) with the serving mapping of ``kServe``: each point is a path of
-one interval from ``t_start``, with ``dt = (t - t_start) / k_steps`` and
-``n_sub = k_steps``. :data:`LAUNCHES` counts both variants.
+Past the register kernel's caps (a width above 64, or staged weights
+above one block's shared memory; the choice is
+``xnode_train.kernel_route``'s) serving takes the path-tile kernel
+(``xnode_serve_tile_launch`` in ``csrc/xnode_path_tile.cu``, the body of
+#2's variant) with the serving mapping of ``kServe``: each point is a path
+of one interval from ``t_start`` with ``k_steps`` steps of ``dt = (t -
+t_start) / k_steps``. :data:`LAUNCHES` counts both variants.
 
 Bound on an H100 SXM (67 TFLOP/s FP32 without tensor cores, 3.35 TB/s):
 at M = 65,536 points, 20 midpoint steps and the d=5 width, the field
@@ -46,10 +48,8 @@ from xnode_wan_tpu_torch.ops.kernels._build import CudaKernel, KernelVariants
 from xnode_wan_tpu_torch.ops.kernels.steppers import (METHOD_IDS, FlatNet,
                                                       require_cuda_f32,
                                                       rk_step)
-from xnode_wan_tpu_torch.ops.kernels.xnode_train import (TILE_ARGS,
-                                                         _path_tile_forward,
-                                                         flat_net,
-                                                         kernel_route)
+from xnode_wan_tpu_torch.ops.kernels.xnode_train import (
+    PathTile, flat_net, kernel_route, path_tile_staged_floats)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
@@ -57,8 +57,11 @@ KERNEL = CudaKernel(
     [_P, _I,                  # packed weights, count
      _P, _P, _P, _P, _P,      # feats, t, t_start, seed, out
      _I, _I, _I, _I, _I, _I, _I, _I])  # M H Hh F n_lift n_field k_steps method
-# #1 past the caps: the path-tile body, counted apart from #2's launches
-TILE_KERNEL = CudaKernel("xnode_grad", "xnode_path_tile_launch", TILE_ARGS)
+# #1 past the caps (csrc/xnode_path_tile.cu): weights, count, the staged
+# copy (scratch), feats, t, t_start, seed, out; M H Hh F n_lift n_field
+# k_steps method; paths a tile, inputs a weight slice
+TILE_KERNEL = CudaKernel("xnode_path_tile", "xnode_serve_tile_launch",
+                         [_P, _I, _P, _P, _P, _P, _P, _P] + [_I] * 10)
 LAUNCHES = KernelVariants({"registers": KERNEL, "tile": TILE_KERNEL})
 
 
@@ -81,7 +84,7 @@ def evaluate_cuda(net: FlatNet, feats, t, t_start, seed, k_steps: int,
                   method: str, packed=None) -> torch.Tensor:
     """Launch serving on PyTorch's current stream, in the variant
     ``xnode_train.kernel_route`` picks: ``csrc/xnode_fwd.cu`` from the
-    library built for the net's widths, else the path-tile variant
+    library built for the net's widths, else the path-tile kernel
     (:func:`_serve_tile`)."""
     if method not in METHOD_IDS:
         rk_step(method, None, None, None, None)  # raises the shared error
@@ -112,16 +115,22 @@ def _serve_shapes(net: FlatNet, feats, t, t_start, seed) -> None:
 
 
 def _serve_tile(net: FlatNet, packed, feats, t, t_start, seed, k_steps: int,
-                method: str, tile) -> torch.Tensor:
-    """Serving on the path-tile body at ``tile``, counted on
-    :data:`TILE_KERNEL`, with the mapping of ``kServe``: each point is a
-    path of one interval from ``t_start``, ``k_steps`` substeps of ``dt =
-    (t - t_start) / k_steps``."""
+                method: str, tile: PathTile) -> torch.Tensor:
+    """Serving on the path-tile kernel at ``tile`` (any tile that fits,
+    ``xnode_train.path_tile_smem_bytes``), counted on :data:`TILE_KERNEL`:
+    each point is a path of one interval from ``t_start``, ``k_steps``
+    steps of ``dt = (t - t_start) / k_steps``."""
+    dev = require_cuda_f32([packed, feats, t, t_start, seed])
     _serve_shapes(net, feats, t, t_start, seed)
-    t0 = t_start[:, None].contiguous()
-    dt = ((t - t_start) / k_steps)[:, None].contiguous()
-    return _path_tile_forward(TILE_KERNEL, net, packed, t0, dt, feats, seed,
-                              k_steps, method, tile)[:, 0]
+    M = t.shape[0]
+    out = torch.empty((M,), dtype=torch.float32, device=dev)
+    staged = torch.empty((path_tile_staged_floats(net.dims()),),
+                         dtype=torch.float32, device=dev)
+    TILE_KERNEL(dev, packed.data_ptr(), packed.numel(), staged.data_ptr(),
+                feats.data_ptr(), t.data_ptr(), t_start.data_ptr(),
+                seed.data_ptr(), out.data_ptr(), M, *net.dims(), k_steps,
+                METHOD_IDS[method], tile.rows, tile.slice)
+    return out
 
 
 def fused_evaluate(params, pts: torch.Tensor, seed: torch.Tensor,

@@ -19,21 +19,25 @@ hand-derived adjoint. Replaces ``_fwd_kernel`` (#3), ``_fwd_store_kernel``
 Kernel #2 comes in two variants, chosen from the net's shapes before
 any launch (:func:`kernel_route`, the one place where every variant,
 block and tangent chunk of #1-#5 is chosen). Within the caps of
-``csrc/steppers.cuh`` (H, Hh <= 64, F + 1 + H <= 128, the staged weights
-in one block's shared memory): ``csrc/xnode_fwd.cu::xnode_fwd_kernel<false>``
-through ``xnode_path_fwd_launch``, the body it shares with serving (#1), built
+``csrc/steppers.cuh`` (H, Hh <= 64 and the staged weights in one block's
+shared memory; any feature width):
+``csrc/xnode_fwd.cu::xnode_fwd_kernel<false>`` through
+``xnode_path_fwd_launch``, the body it shares with serving (#1), built
 once per width pair (H, Hh) so that each thread's state, RK stages and
 activations live in registers. One thread per path, one warp a block. A
 block stages the weights in shared memory (2,372 floats at the d=5
-width, by columns padded to four floats); the thread lifts its seed, applies
-the feature columns of field layer 0 once, then walks the L intervals
-with n_sub RK substeps each and writes ``u`` after every interval.
-Masked samples come with ``dt = 0`` from :func:`_prep_intervals`, so
-their interval is the identity and the kernel needs no branch on the
-mask. Past the caps: the path-tile body of #3 with d = 0 (no tangent
-rows), ``xnode_path_tile_launch`` in ``csrc/xnode_grad.cu``, which reads
-its weights from global memory and so takes any width
-(:data:`PATH_LAUNCHES` counts both variants).
+width, by columns padded to four floats); the block's feature rows pass
+through shared memory once, coalesced, for field layer 0's feature
+columns; the thread lifts its seed, then walks the L intervals with n_sub
+RK substeps each and writes ``u`` after every interval. Masked samples
+come with ``dt = 0`` from :func:`_prep_intervals`, so their interval is
+the identity and the kernel needs no branch on the mask. Past the caps:
+the path-tile kernel (``csrc/xnode_path_tile.cu``, launcher
+``xnode_path_tile_launch``): a block walks a tile of 16 to 128 paths,
+each layer one product of the tile's rows in FP32 register micro-tiles,
+the field's weights resident in shared memory where they fit beside the
+tile and streamed a slice at a time by ``cp.async`` otherwise
+(:func:`path_tile`; :data:`PATH_LAUNCHES` counts both variants).
 
 Kernel #5 has three variants (:func:`grad_tile`): its gradient
 accumulator in shared memory; where that does not fit beside the rest of
@@ -103,12 +107,11 @@ BWD_GLOBAL_KERNEL = CudaKernel("xnode_grad", "xnode_udu_bwd_global_launch",
 # clusters, then the blocks a cluster
 BWD_CLUSTER_KERNEL = CudaKernel("xnode_grad", "xnode_udu_bwd_cluster_launch",
                                 BWD_KERNEL.argtypes + [_I])
-# the tangentless path forward on the path-tile body (#2 past the caps):
-# weights, count, t0, dt, feats, seed, u; N L H Hh F n_lift n_field n_sub
-# method; paths per tile, threads
-TILE_ARGS = [_P, _I, _P, _P, _P, _P, _P] + [_I] * 11
-PATH_TILE_KERNEL = CudaKernel("xnode_grad", "xnode_path_tile_launch",
-                              TILE_ARGS)
+# #2 past the register kernel's caps (csrc/xnode_path_tile.cu): weights,
+# count, the staged copy (scratch), t0, dt, feats, seed, u; N L H Hh F
+# n_lift n_field n_sub method; paths a tile, inputs a weight slice
+PATH_TILE_KERNEL = CudaKernel("xnode_path_tile", "xnode_path_tile_launch",
+                              [_P, _I, _P, _P, _P, _P, _P, _P] + [_I] * 11)
 # launches of #2 and of #5, each over its variants
 PATH_LAUNCHES = KernelVariants({"registers": KERNEL,
                                 "tile": PATH_TILE_KERNEL})
@@ -125,6 +128,20 @@ MAX_THREADS = 256             # XG_MAX_THREADS
 # 50 within 7% of the fastest
 FWD_TILES = (4, 2, 1)
 BWD_TILES = (8, 4, 2, 1)
+# The path-tile #1/#2 (csrc/xnode_path_tile.cu): XP_THREADS threads a
+# block; path_tile takes the first (paths a tile, inputs a weight slice;
+# 0: the field's weights resident) of PATH_ORDER that fits. From the sweep
+# on an H100 (tile_sweep.py --path at 128/128, 96/64, 72/80 and 256/256,
+# #2 at 4,000 paths): 32 rows beat 16 at the same slice (and 64, which
+# leave half the SMs idle), resident weights beat any streamed slice, a
+# larger slice beats a smaller one (fewer waits and barriers); 32 rows
+# at 32-input slices beat 16 rows with the weights resident (96/64), but
+# 16 rows at 32 inputs beat 32 rows at 16 (256/256)
+PATH_TILE_THREADS = 256
+PATH_SLICES = (128, 64, 32, 16, 8)
+PATH_ORDER = tuple([(32, k) for k in (0, 128, 64, 32)]
+                   + [(16, k) for k in (0,) + PATH_SLICES]
+                   + [(32, k) for k in (16, 8)])
 # #5's shared and global variants take about 220 registers a thread
 # (ptxas; chip_smoke.py's phase 1 prints them), so two of their blocks
 # fit an SM's 65,536 registers at up to this many threads each
@@ -190,15 +207,15 @@ def path_forward_cuda(net: FlatNet, t0, dt, feats, seed, n_sub: int,
     """Launch the path forward on PyTorch's current stream, in the variant
     :func:`kernel_route` picks: the register kernel of
     ``csrc/xnode_fwd.cu`` (from the library built for the net's widths),
-    else the path-tile body of ``csrc/xnode_grad.cu``."""
+    else the path-tile kernel of ``csrc/xnode_path_tile.cu``."""
     if method not in METHOD_IDS:
         rk_step(method, None, None, None, None)  # raises the shared error
     route = kernel_route(net.dims(), 0, method)
     if packed is None:
         packed = net.packed()
     if route.path == "tile":
-        return _path_tile_forward(PATH_TILE_KERNEL, net, packed, t0, dt,
-                                  feats, seed, n_sub, method, route.path_tile)
+        return _path_tile_forward(net, packed, t0, dt, feats, seed, n_sub,
+                                  method, route.path_tile)
     dev = require_cuda_f32([packed, t0, dt, feats, seed])
     N, L = t0.shape
     H, Hh, F, n_lift, n_field = net.dims()
@@ -217,21 +234,24 @@ def _path_shapes(net: FlatNet, t0, dt, feats, seed) -> None:
         raise ValueError("shape mismatch: t0/dt [N, L], feats [N, F], seed [N]")
 
 
-def _path_tile_forward(kernel: CudaKernel, net: FlatNet, packed, t0, dt,
-                       feats, seed, n_sub: int, method: str,
-                       tile: GradTile) -> torch.Tensor:
-    """``u [N, L]`` from the path-tile body (#3's forward with d = 0) at
-    ``tile``, launched through ``kernel``, the counter of the kernel it
-    serves as: :data:`PATH_TILE_KERNEL` for #2, ``xnode_eval.TILE_KERNEL``
-    for #1."""
+def _path_tile_forward(net: FlatNet, packed, t0, dt, feats, seed,
+                       n_sub: int, method: str, tile: PathTile
+                       ) -> torch.Tensor:
+    """``u [N, L]`` from the path-tile kernel at ``tile`` (any tile that
+    fits, :func:`path_tile_smem_bytes`), counted on
+    :data:`PATH_TILE_KERNEL`; the launcher stages the field's weights into
+    a scratch copy first (:func:`path_tile_staged_floats`)."""
     dev = require_cuda_f32([packed, t0, dt, feats, seed])
     _path_shapes(net, t0, dt, feats, seed)
     N, L = t0.shape
     u = torch.empty((N, L), dtype=torch.float32, device=dev)
-    kernel(dev, packed.data_ptr(), packed.numel(), t0.data_ptr(),
-           dt.data_ptr(), feats.data_ptr(), seed.data_ptr(), u.data_ptr(), N,
-           L, *net.dims(), n_sub, METHOD_IDS[method], tile.paths,
-           tile.threads)
+    staged = torch.empty((path_tile_staged_floats(net.dims()),),
+                         dtype=torch.float32, device=dev)
+    PATH_TILE_KERNEL(dev, packed.data_ptr(), packed.numel(),
+                     staged.data_ptr(), t0.data_ptr(), dt.data_ptr(),
+                     feats.data_ptr(), seed.data_ptr(), u.data_ptr(), N, L,
+                     *net.dims(), n_sub, METHOD_IDS[method], tile.rows,
+                     tile.slice)
     return u
 
 
@@ -507,8 +527,8 @@ def tile_smem_bytes(dims, d: int, method: str, tile: int,
     """Shared memory of one block of kernel #3/#4 (``backward`` false) or
     #5 for ``tile`` paths (``xg_layout`` in ``csrc/xnode_grad.cu``). Rows:
     ``R = tile (1 + d)``, each buffer ``[width][S]`` with ``S`` the rows
-    rounded up to a multiple of 4 whose quarter is odd. With d = 0 it is
-    the path-tile variant of #1/#2. The features stay in global memory.
+    rounded up to a multiple of 4 whose quarter is odd. The features stay
+    in global memory.
 
     Forward: field layer 0's feature product, seeds, times, the state, a
     stage input, a stage, the stage sum and two field buffers.
@@ -638,9 +658,8 @@ class GradTile(NamedTuple):
 
 
 def grad_tile(dims, d: int, method: str, backward: bool) -> GradTile:
-    """The block of kernel #3/#4 (``backward`` false; with d = 0 the
-    path-tile variant of #1/#2) or #5: the largest tile of
-    :data:`FWD_TILES` / :data:`BWD_TILES` whose block fits an SM twice
+    """The block of kernel #3/#4 (``backward`` false) or #5: the largest
+    tile of :data:`FWD_TILES` / :data:`BWD_TILES` whose block fits an SM twice
     (:func:`fits_twice`: two blocks to interleave, and room in the L1 cache
     for the weights they read through it), else the smallest whose block
     fits at all, with its :func:`block_threads`. #5 takes,
@@ -674,7 +693,7 @@ def grad_tile(dims, d: int, method: str, backward: bool) -> GradTile:
                     <= MAX_SMEM_BYTES):
                 return GradTile(tile, block_threads(tile, d, Hh, True),
                                 "global")
-    kernel = "#5" if backward else "#3/#4" if d else "#1/#2"
+    kernel = "#5" if backward else "#3/#4"
     raise ValueError(f"the net {dims} with d={d}, {method}, does not fit "
                      f"kernel {kernel}'s shared memory ({MAX_SMEM_BYTES} "
                      "bytes) at one path a tile")
@@ -706,11 +725,63 @@ def u_chunk(dims, d: int, method: str) -> int:
                      f"{bwd} bytes)")
 
 
+class PathTile(NamedTuple):
+    """The block of the path-tile #1/#2 (:func:`path_tile`): ``rows``
+    paths a tile, and the inputs of a streamed weight slice (``slice``;
+    0: the field's weights resident in shared memory)."""
+    rows: int
+    slice: int
+
+
+def path_tile_staged_floats(dims) -> int:
+    """Floats of the path-tile kernel's staged weight copy
+    (``xp_staged_floats``): each field layer's ``W^T [in][pad4(out)]``,
+    field layer 0 with its time and ``h`` columns only."""
+    H, Hh, _, _, n_field = dims
+    return ((1 + H) * _round4(Hh) + (n_field - 2) * Hh * _round4(Hh)
+            + Hh * _round4(H))
+
+
+def path_tile_smem_bytes(dims, method: str, rows: int, slice_: int) -> int:
+    """Shared memory of one block of the path-tile #1/#2 (``xp_layout`` in
+    ``csrc/xnode_path_tile.cu``): the weights (two slots of ``slice_``
+    inputs at the wider layer's padded width, or the whole staged copy
+    with ``slice_`` 0), the time-and-state and stage-input buffers ``[1 +
+    H][S]`` (the output layer's partial sums between its slices in the
+    latter's state rows), the stage sum ``[H][S]`` for heun and rk4, two
+    activation buffers and field layer 0's feature columns ``[Hh][S]``,
+    and the interval's times, ``S`` the rows rounded up to a multiple of 4
+    whose quarter is odd."""
+    H, Hh, _, _, n_field = dims
+    S = _row_stride(rows)
+    if slice_:
+        floats = 2 * slice_ * max(_round4(H), _round4(Hh))
+    else:
+        floats = path_tile_staged_floats(dims)
+    floats += 2 * (1 + H) * S + 3 * Hh * S + 2 * _round4(rows)
+    if method in ("heun", "rk4"):
+        floats += H * S
+    return 4 * floats
+
+
+def path_tile(dims, method: str) -> PathTile:
+    """The block of the path-tile #1/#2 for a net: the first of
+    :data:`PATH_ORDER` whose block fits one block's shared memory; raises
+    where none fits."""
+    for rows, slice_ in PATH_ORDER:
+        if path_tile_smem_bytes(dims, method, rows, slice_) <= MAX_SMEM_BYTES:
+            return PathTile(rows, slice_)
+    raise ValueError(f"the net {dims}, {method}, does not fit the "
+                     f"path-tile #1/#2's shared memory ({MAX_SMEM_BYTES} "
+                     f"bytes a block) at 16 paths a tile and "
+                     f"{min(PATH_SLICES)}-input weight slices")
+
+
 class KernelRoute(NamedTuple):
     """What the wrappers launch for one net on the card
     (:func:`kernel_route`)."""
     path: str                      # #1/#2: "registers" or "tile"
-    path_tile: Optional[GradTile]  # the tile variant's block, else None
+    path_tile: Optional[PathTile]  # the tile kernel's block, else None
     d_chunk: int                   # tangent directions a launch of #3-#5
     fwd: Optional[GradTile]        # #3/#4 at d_chunk (None with d = 0)
     bwd: Optional[GradTile]        # #5 at d_chunk, with its variant
@@ -725,7 +796,7 @@ def kernel_route(dims, d: int, method: str) -> KernelRoute:
     (:func:`u_chunk`)."""
     registers = register_fits(dims)
     path = ("registers" if registers else "tile",
-            None if registers else grad_tile(dims, 0, method, False))
+            None if registers else path_tile(dims, method))
     if d == 0:
         return KernelRoute(*path, 0, None, None)
     dc = u_chunk(dims, d, method)

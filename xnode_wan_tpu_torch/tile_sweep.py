@@ -4,6 +4,8 @@
     python -m xnode_wan_tpu_torch.tile_sweep [--configs cube_pde ...]
         [--set key=value ...] [--tiles 2 4 8 16] [--threads 64 128 256]
         [--rule [--cluster C ...] | --same-tile
+         | --path [--direct] [--rows R ... [--slices K ...]] [--ragged]
+                  [--serve M] [--ablate]
          | --adversary [--cluster C ... | --ablate | --fwd-only]] [--f64]
         [--out example_run/tile_sweep.json]
 
@@ -50,6 +52,26 @@ against its variant with the accumulator in its block's row of
 launchers at the same tile, threads and grid (the shared variant's: the
 wrappers' tile, or each of ``--tiles`` that fits), alternated shared,
 global, global, shared, and checks that the two are bitwise equal.
+
+``--path`` times the path forwards #1 (serving, ``--serve`` points, 65,536
+by default) and #2 (the metric, on the config's ``N_r`` interior paths,
+and at 4,001 and 37 with ``--ragged``) instead, at each config's net with
+``--set`` applied (random weights from seed 0): through their wrappers, in
+the variant ``kernel_route`` picks; with ``--direct`` also the path-tile
+kernel through its launch helpers at its own rule's tile, where the route
+takes the register kernel (2t's and 2u's nets); and with ``--rows R ...
+--slices K ...`` the path-tile kernel at each (paths a tile, weight
+slice) that fits (``--slices 0`` the weights resident), each held against
+its plain version (``rtol=2e-4, atol=2e-5``) and run twice, bitwise.
+``--ablate`` times the
+path-tile kernel at the route's tile in builds that each leave out its
+waits and barriers before a slice, its weight copies too, its products'
+multiply-adds, or copies and products (:data:`PATH_ABLATIONS`; timing
+only). Like ``--rule``, a copy of this
+file in an older checkout times that checkout's #1/#2 (its path-tile
+variant at ``grad_tile``'s tile at d = 0): ``--set u_hidden_dim=128
+u_hidden_hidden_dim=128`` is the 128/128 cube, ``--set dim=100
+fourier_features=1 --direct`` 2t's net.
 
 ``--adversary`` times the adversary kernels #6 and #7 instead, through
 their wrappers (``v_dv_fwd_cuda``, ``v_dv_bwd_cuda``: the variant and
@@ -206,6 +228,138 @@ def config_batch(name: str, sets: dict, chunk: bool):
         gwant = xt.u_du_bwd_plain(net, *args, *want[2:], ub, dub, cfg.n_sub,
                                   cfg.solver)
     return cfg, net, args, want, ub, dub, gwant
+
+
+def _path_tile_helpers(xt, xe):
+    """The path-tile #2 and #1 through their launch helpers at the rule's
+    tile, or at ``tile`` (``(rows, slice)``); an older checkout's helpers
+    (#3's body at d = 0) take ``grad_tile``'s tile and no ``tile``."""
+    if hasattr(xt, "path_tile"):
+        def rule(dims, method, tile=None):
+            return xt.PathTile(*tile) if tile else xt.path_tile(dims, method)
+
+        def path(net, packed, args, n_sub, method, tile=None):
+            return xt._path_tile_forward(net, packed, *args, n_sub, method,
+                                         rule(net.dims(), method, tile))
+    else:
+        def rule(dims, method, tile=None):
+            if tile:
+                raise ValueError("an older checkout's path tile takes no "
+                                 "(rows, slice)")
+            return xt.grad_tile(dims, 0, method, False)
+
+        def path(net, packed, args, n_sub, method, tile=None):
+            return xt._path_tile_forward(xt.PATH_TILE_KERNEL, net, packed,
+                                         *args, n_sub, method,
+                                         rule(net.dims(), method, tile))
+
+    def serve(net, packed, args, k_steps, method, tile=None):
+        return xe._serve_tile(net, packed, *args, k_steps, method,
+                              rule(net.dims(), method, tile))
+    return rule, path, serve
+
+
+def path_config(name: str, sets: dict, reps: int, card: str, serve_m: int,
+                direct: bool, rows, slices, ragged: bool) -> list:
+    """#1 and #2 at one config's net (random weights, seed 0): the route,
+    the path-tile kernel at its rule's tile with ``direct``, and at each
+    fitting (rows, slice) of ``rows`` x ``slices``; each against its plain
+    version, twice, bitwise, and timed."""
+    from xnode_wan_tpu_torch import (Hypercube, init_xnode, load_params,
+                                     load_problem)
+    from xnode_wan_tpu_torch.models.xnode import (path_seed_fn,
+                                                  spatial_features)
+    from xnode_wan_tpu_torch.ops.kernels import xnode_eval as xe
+    from xnode_wan_tpu_torch.ops.kernels import xnode_train as xt
+
+    dev = torch.device("cuda", 0)
+    cfg = load_params(os.path.join(ROOT, "configs", f"{name}.yaml"))
+    cfg = cfg.replace(**sets) if sets else cfg
+    gen = torch.Generator(device=dev).manual_seed(0)
+    net = xt.flat_net(init_xnode(cfg, gen, device=dev))
+    packed = net.packed()
+    dims, method = net.dims(), cfg.solver
+    problem = load_problem("Ex4_1_funcs", dim=cfg.dim)
+    cube = Hypercube(cfg.shape_param, cfg.dim, cfg.T0, cfg.T, cfg.N_t)
+    k_steps = max(cfg.min_steps, cfg.N_t) * cfg.n_sub
+    rule, path_tile, serve_tile = _path_tile_helpers(xt, xe)
+    route = xt.kernel_route(dims, 0, method)
+    label = f"{name} {sets or ''} {dims} {method}"
+    print(f"{label}: route {route.path} {route.path_tile}; "
+          f"{len(packed)} weights ({card})")
+
+    def path_args(n):
+        b = cube.interior(gen, n)
+        xs = b.space[:, 0, :].contiguous()
+        t0, dt = xt._prep_intervals(b.times, b.mask, b.t_start, cfg.n_sub)
+        return (t0.contiguous(), dt.contiguous(),
+                spatial_features(xs, cfg.fourier_features).contiguous(),
+                path_seed_fn(b, problem, cfg)(xs).contiguous())
+
+    with torch.no_grad():
+        pts = torch.rand((serve_m, cfg.dim + 1), generator=gen, device=dev)
+        pts[:, 1:] = cube.bot + pts[:, 1:] * (cube.top - cube.bot)
+        pts[:, 0] = cfg.T0 + pts[:, 0] * (cfg.T - cfg.T0)
+        x_p = pts[:, 1:].contiguous()
+        t_s = torch.full_like(pts[:, 0], cfg.T0)
+        serve_args = (spatial_features(x_p, cfg.fourier_features).contiguous(),
+                      pts[:, 0].contiguous(), t_s,
+                      (problem.h(torch.cat([t_s[:, None], x_p], -1))
+                       / cfg.u_scale_eff).contiguous())
+        counts = [cfg.N_r] + ([cfg.N_r + 1, 37] if ragged else [])
+        paths = {n: path_args(n) for n in counts}
+
+    cases = []   # (kernel, how, launch, plain, work items)
+    for n, args in paths.items():
+        cases.append(("#2", f"route ({route.path}) N={n}",
+                      lambda a=args: xt.path_forward_cuda(
+                          net, *a, cfg.n_sub, method),
+                      lambda a=args: xt.path_forward_plain(
+                          net, *a, cfg.n_sub, method), n))
+    cases.append(("#1", f"route ({route.path}) M={serve_m}",
+                  lambda: xe.evaluate_cuda(net, *serve_args, k_steps, method),
+                  lambda: xe.evaluate_plain(net, *serve_args, k_steps,
+                                            method), serve_m))
+    tiles = []
+    if direct and route.path == "registers":
+        tiles.append(None)
+    tiles += [(r, k) for r in rows or () for k in slices or (0,)
+              if xt.path_tile_smem_bytes(dims, method, r, k)
+              <= xt.MAX_SMEM_BYTES] if hasattr(xt, "path_tile") else []
+    for tile in tiles:
+        how = f"tile {rule(dims, method, tile)}"
+        for n, args in paths.items():
+            cases.append(("#2", f"{how} N={n}",
+                          lambda a=args, t=tile: path_tile(
+                              net, packed, a, cfg.n_sub, method, t),
+                          lambda a=args: xt.path_forward_plain(
+                              net, *a, cfg.n_sub, method), n))
+        cases.append(("#1", f"{how} M={serve_m}",
+                      lambda t=tile: serve_tile(net, packed, serve_args,
+                                                k_steps, method, t),
+                      lambda: xe.evaluate_plain(net, *serve_args, k_steps,
+                                                method), serve_m))
+    rows_out = []
+    for kernel, how, launch, plain_fn, items in cases:
+        with torch.no_grad():
+            got, again = launch(), launch()
+            want = plain_fn()
+            torch.cuda.synchronize()
+            bitwise = bool(torch.equal(got, again))
+            err = float((got - want).abs().max())
+            ok = bool(torch.allclose(got, want, rtol=2e-4, atol=2e-5))
+            ms = _time_ms(launch, reps)
+        print(f"  {kernel} {how}: {ms:.4f} ms, max |kernel - plain| "
+              f"{err:.3e} ({'ok' if ok else 'FAIL'}), twice bitwise: "
+              f"{bitwise}")
+        if not (ok and bitwise):
+            raise AssertionError(f"{label} {kernel} {how}: against plain "
+                                 f"{err:.3e}, bitwise {bitwise}")
+        rows_out.append({"config": name, "sets": sets, "dims": dims,
+                         "method": method, "kernel": kernel, "how": how,
+                         "items": items, "ms": ms, "err": err,
+                         "card": card})
+    return rows_out
 
 
 def same_tile(name: str, sets: dict, tiles, reps: int, card: str) -> list:
@@ -443,10 +597,29 @@ FWD_ABLATIONS = dict(_FWD_CUT, **{
                          + _FWD_CUT["copies"])})
 
 
-def _ablation_builds(source: str, ablations: dict) -> dict:
+# The parts of the path-tile #1/#2 an ablation build leaves out (text in
+# csrc/xnode_path_tile.cu, its replacement; timing only, the outputs are
+# wrong): the wait for a slice's copy and the barrier before it, the
+# copies of the streamed slices too, the products' multiply-adds
+_PATH_WAIT = ("    __pipeline_wait_prior(0);\n    __syncthreads();\n"
+              "    const float* W;", "    const float* W;")
+_PATH_CUT = {
+    "waits": [_PATH_WAIT],
+    "copies": [_PATH_WAIT, (
+        "      xp_fetch(r, last ? (p + 1) % r.n_field : p, last ? 0 : c + 1,\n"
+        "               r.slot ^ 1);\n", "")],
+    "products": [("      xp_slice_fma(a, X + k0 * S, S, W, ld, k1 - k0, t.r0,\n"
+                  "                   t.u0 < ld ? t.u0 : ld - 4);\n", "")]}
+PATH_ABLATIONS = dict(_PATH_CUT, **{
+    "copies and products": _PATH_CUT["copies"] + _PATH_CUT["products"]})
+
+
+def _ablation_builds(source: str, ablations: dict,
+                     target: str = "disc_train.cu") -> dict:
     """Copies of the kernel sources, one per entry of ``ablations`` and
     one untouched (``"none"``), each with its cuts made in ``source``, all
-    built at once: ``{part: (directory, nvcc process)}``."""
+    built at once (``target``, the file nvcc compiles): ``{part:
+    (directory, nvcc process)}``."""
     import shutil
 
     from xnode_wan_tpu_torch.ops.kernels import _build
@@ -467,9 +640,87 @@ def _ablation_builds(source: str, ablations: dict) -> dict:
         src.write_text(text)
         procs[part] = (d, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"),
-             str(d / "disc_train.cu")], stdout=subprocess.PIPE,
+             str(d / target)], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     return procs
+
+
+def path_ablations(name: str, sets: dict, reps: int, card: str,
+                   serve_m: int) -> list:
+    """The path-tile #2 (the config's ``N_r`` interior paths) and #1
+    (``serve_m`` points) at the route's tile of the config's net (``--set``
+    applied, random weights seed 0), in the tree's build and in one build
+    per entry of :data:`PATH_ABLATIONS`, each through its own library."""
+    import ctypes
+
+    from xnode_wan_tpu_torch import Hypercube, init_xnode, load_params
+    from xnode_wan_tpu_torch.models.xnode import spatial_features
+    from xnode_wan_tpu_torch.ops.kernels import xnode_eval as xe
+    from xnode_wan_tpu_torch.ops.kernels import xnode_train as xt
+
+    procs = _ablation_builds("xnode_path_tile.cu", PATH_ABLATIONS,
+                             "xnode_path_tile.cu")
+    dev = torch.device("cuda", 0)
+    cfg = load_params(os.path.join(ROOT, "configs", f"{name}.yaml"))
+    cfg = cfg.replace(**sets) if sets else cfg
+    gen = torch.Generator(device=dev).manual_seed(0)
+    net = xt.flat_net(init_xnode(cfg, gen, device=dev))
+    packed, dims = net.packed(), net.dims()
+    route = xt.kernel_route(dims, 0, cfg.solver)
+    if route.path != "tile":
+        raise ValueError(f"{dims} routes #1/#2 to {route.path}: no path-tile "
+                         "kernel to ablate")
+    tile, mid = route.path_tile, xt.METHOD_IDS[cfg.solver]
+    cube = Hypercube(cfg.shape_param, cfg.dim, cfg.T0, cfg.T, cfg.N_t)
+    b = cube.interior(gen, cfg.N_r)
+    t0, dt = [a.contiguous() for a in xt._prep_intervals(
+        b.times, b.mask, b.t_start, cfg.n_sub)]
+    feats = spatial_features(b.space[:, 0, :],
+                             cfg.fourier_features).contiguous()
+    seed = torch.rand((cfg.N_r,), generator=gen, device=dev)
+    pts = torch.rand((serve_m, cfg.dim + 1), generator=gen, device=dev)
+    s_feats = spatial_features(2.0 * pts[:, 1:] - 1.0,
+                               cfg.fourier_features).contiguous()
+    s_t, s_t0 = pts[:, 0].contiguous(), torch.zeros_like(pts[:, 0])
+    s_seed = pts[:, 1].contiguous()
+    k_steps = max(cfg.min_steps, cfg.N_t) * cfg.n_sub
+    staged = torch.empty((xt.path_tile_staged_floats(dims),), device=dev)
+    u = torch.empty((cfg.N_r, cfg.N_t), device=dev)
+    out = torch.empty((serve_m,), device=dev)
+    row = {"config": name, "set": sets, "dims": list(dims),
+           "method": cfg.solver, "tile": list(tile), "paths": cfg.N_r,
+           "points": serve_m, "card": card}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for part, (d, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"ablation {part}: nvcc failed\n{log}")
+        lib = ctypes.CDLL(str(d / "lib.so"))
+        path, serve = lib.xnode_path_tile_launch, lib.xnode_serve_tile_launch
+        path.argtypes = ([ctypes.c_int, ctypes.c_void_p]
+                         + xt.PATH_TILE_KERNEL.argtypes)
+        serve.argtypes = ([ctypes.c_int, ctypes.c_void_p]
+                          + xe.TILE_KERNEL.argtypes)
+
+        def run_path():
+            err = path(0, stream, packed.data_ptr(), packed.numel(),
+                       staged.data_ptr(), t0.data_ptr(), dt.data_ptr(),
+                       feats.data_ptr(), seed.data_ptr(), u.data_ptr(),
+                       cfg.N_r, cfg.N_t, *dims, cfg.n_sub, mid, *tile)
+            if err:
+                raise RuntimeError(f"ablation {part}: CUDA error {err}")
+
+        def run_serve():
+            err = serve(0, stream, packed.data_ptr(), packed.numel(),
+                        staged.data_ptr(), s_feats.data_ptr(), s_t.data_ptr(),
+                        s_t0.data_ptr(), s_seed.data_ptr(), out.data_ptr(),
+                        serve_m, *dims, k_steps, mid, *tile)
+            if err:
+                raise RuntimeError(f"ablation {part}: CUDA error {err}")
+        row[f"without {part}"] = {"#2 ms": _time_ms(run_path, reps),
+                                  "#1 ms": _time_ms(run_serve, reps)}
+    print(json.dumps(row), flush=True)
+    return [row]
 
 
 def fwd_ablations(name: str, sets: dict, reps: int, card: str) -> list:
@@ -607,13 +858,29 @@ def main(argv=None) -> int:
     ap.add_argument("--same-tile", action="store_true",
                     help="time #5's shared accumulator against its "
                          "global one at the same tile and grid")
+    ap.add_argument("--path", action="store_true",
+                    help="time #1 and #2 at each config's net instead")
+    ap.add_argument("--serve", type=int, default=65536,
+                    help="with --path: points served by #1")
+    ap.add_argument("--direct", action="store_true",
+                    help="with --path: also the path-tile kernel at its "
+                         "rule's tile where the route takes the register "
+                         "kernel")
+    ap.add_argument("--rows", nargs="+", type=int, default=None,
+                    help="with --path: paths a tile of the path-tile kernel")
+    ap.add_argument("--slices", nargs="+", type=int, default=None,
+                    help="with --path and --rows: inputs a weight slice (0: "
+                         "the weights resident)")
+    ap.add_argument("--ragged", action="store_true",
+                    help="with --path: #2 also at N_r + 1 and 37 paths")
     ap.add_argument("--adversary", action="store_true",
                     help="time kernels #6 and #7 at each config's "
                          "discriminator instead")
     ap.add_argument("--ablate", action="store_true",
                     help="with --adversary: time #7's cluster variant (with "
-                         "--fwd-only: the tile #6) in builds that each "
-                         "leave one part out")
+                         "--fwd-only: the tile #6), with --path the "
+                         "path-tile #1/#2, in builds that each leave one "
+                         "part out")
     ap.add_argument("--fwd-only", action="store_true",
                     help="with --adversary: time kernel #6 alone")
     ap.add_argument("--f64", action="store_true",
@@ -634,7 +901,29 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(card)
-    if args.adversary and args.ablate:
+    if args.path and args.ablate:
+        rows = [r for name in args.configs
+                for r in path_ablations(name, sets, args.reps, card,
+                                        args.serve)]
+    elif args.path:
+        sources = [s_ for s_ in ("xnode_path_tile", "xnode_grad")
+                   if (_build.CSRC / f"{s_}.cu").exists()][:1]
+        _build.build([(s_, None) for s_ in sources])
+        for s_ in sources:
+            log = (_build.build_dir() / f"{s_}.log").read_text()
+            for line in log.splitlines():
+                if ("Compiling" in line or "registers" in line
+                        or "stack" in line):
+                    print(f"  ptxas {s_}: {line.strip()}")
+        rows = [r for name in args.configs
+                for r in path_config(name, sets, args.reps, card, args.serve,
+                                     args.direct, args.rows, args.slices,
+                                     args.ragged)]
+        for log in sorted(_build.build_dir().glob("xnode_fwd_*.log")):
+            for line in log.read_text().splitlines():
+                if "registers" in line or "stack" in line:
+                    print(f"  ptxas {log.stem}: {line.strip()}")
+    elif args.adversary and args.ablate:
         ablate = fwd_ablations if args.fwd_only else cluster_ablations
         rows = [r for name in args.configs
                 for r in ablate(name, sets, args.reps, card)]
